@@ -1,0 +1,205 @@
+"""Task division + scheduling (paper §5.1) and FCFS admission.
+
+The port's copy of the parts of ``repro.core.scheduler`` that the
+single-GPU decode path runs.  The optimisation problem — choose per-node
+division counts ``b_k[i]`` and an assignment of subtasks to ``m`` parallel
+lanes minimising the makespan — is NP-hard.  The paper's solver:
+
+1. set ``b_q = 1`` (dividing the query dimension forfeits the shared KV
+   read, the whole point of CoDec);
+2. binary-search a lower bound ``cost_l`` on the makespan using the
+   monotone feasibility test derived from Eq. 4;
+3. cap ``b_k[i] <= ceil(C_est(n_q_i, n_i) / cost_l)`` (Eq. 5);
+4. greedy (LPT) assignment of the divided subtasks to lanes.
+
+On the H100 a lane is one group of thread blocks of the PAC kernel (one
+block per KV head), so ``num_lanes`` is sized to fill the SMs.
+``max_kv_per_task`` bounds the per-task page run and ``max_q_per_task``
+the query tile (the kernel's shared-memory Q block).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .cost_model import CostModel
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskSpec:
+    """Undivided PAC task: one KV-forest node and its query set."""
+    node_id: int
+    n_q: int
+    n: int            # KV tokens in the node
+
+
+@dataclasses.dataclass(frozen=True)
+class SubTask:
+    """A divided slice: queries [q_lo,q_hi) of the node × KV [kv_lo,kv_hi)."""
+    node_id: int
+    q_lo: int
+    q_hi: int
+    kv_lo: int
+    kv_hi: int
+    cost: float
+
+    @property
+    def n_q(self) -> int:
+        return self.q_hi - self.q_lo
+
+    @property
+    def n(self) -> int:
+        return self.kv_hi - self.kv_lo
+
+
+@dataclasses.dataclass
+class Schedule:
+    subtasks: List[SubTask]
+    lane_of: List[int]                # subtask -> lane
+    lane_costs: List[float]
+    cost_lower_bound: float
+
+    @property
+    def makespan(self) -> float:
+        return max(self.lane_costs) if self.lane_costs else 0.0
+
+
+# --------------------------------------------------------------------- #
+# admission control: FCFS admission of whole prompts
+# --------------------------------------------------------------------- #
+def min_working_pages(seq_len: int, page_size: int) -> int:
+    """Pages a sequence needs resident to make progress: whole-prompt
+    prefill (chunked prefill is a later slice) needs every page at once,
+    so a prompt above the pool can never be admitted."""
+    ps = max(int(page_size), 1)
+    return -(-max(seq_len, 1) // ps)
+
+
+class AdmissionController:
+    """FCFS wait queue (deadline ordering is a later slice)."""
+
+    def __init__(self):
+        self.queue: Deque[int] = deque()
+
+    def __len__(self) -> int:
+        return len(self.queue)
+
+    def push(self, rid: int) -> None:
+        self.queue.append(rid)
+
+    def peek(self) -> Optional[int]:
+        return self.queue[0] if self.queue else None
+
+    def pop(self) -> int:
+        return self.queue.popleft()
+
+    def remove(self, rid: int) -> None:
+        try:
+            self.queue.remove(rid)
+        except ValueError:
+            pass
+
+
+# --------------------------------------------------------------------- #
+# division
+# --------------------------------------------------------------------- #
+def _even_splits(total: int, parts: int,
+                 quantum: int) -> List[Tuple[int, int]]:
+    """Split [0,total) into <=parts contiguous quantum-aligned slices."""
+    nquanta = -(-total // quantum)
+    parts = max(1, min(parts, nquanta))
+    base, extra = divmod(nquanta, parts)
+    out, lo = [], 0
+    for p in range(parts):
+        take = (base + (1 if p < extra else 0)) * quantum
+        hi = min(total, lo + take)
+        out.append((lo, hi))
+        lo = hi
+    return [s for s in out if s[1] > s[0]]
+
+
+def divide_task(task: TaskSpec, b_k: int, cost: CostModel,
+                page_size: int, max_q: Optional[int] = None) -> List[SubTask]:
+    q_slices = ([(0, task.n_q)] if not max_q or task.n_q <= max_q
+                else _even_splits(task.n_q, -(-task.n_q // max_q), 1))
+    kv_slices = _even_splits(task.n, b_k, page_size)
+    out = []
+    for (qlo, qhi) in q_slices:
+        for (klo, khi) in kv_slices:
+            out.append(SubTask(task.node_id, qlo, qhi, klo, khi,
+                               cost(qhi - qlo, khi - klo)))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# LPT scheduling
+# --------------------------------------------------------------------- #
+def lpt(subtasks: Sequence[SubTask],
+        num_lanes: int) -> Tuple[List[int], List[float]]:
+    order = sorted(range(len(subtasks)), key=lambda i: -subtasks[i].cost)
+    lane_cost = [0.0] * num_lanes
+    lane_of = [0] * len(subtasks)
+    for i in order:
+        lane = int(np.argmin(lane_cost))
+        lane_of[i] = lane
+        lane_cost[lane] += subtasks[i].cost
+    return lane_of, lane_cost
+
+
+# --------------------------------------------------------------------- #
+# full solver
+# --------------------------------------------------------------------- #
+def divide_and_schedule(tasks: Sequence[TaskSpec], cost: CostModel,
+                        num_lanes: int, page_size: int,
+                        max_kv_per_task: Optional[int] = None,
+                        max_q_per_task: Optional[int] = None,
+                        refine_steps: int = 5) -> Schedule:
+    """Paper §5.1 solver: bound, cap, divide, LPT; small grid refine."""
+    tasks = [t for t in tasks if t.n > 0 and t.n_q > 0]
+    if not tasks:
+        return Schedule([], [], [0.0] * num_lanes, 0.0)
+
+    full_costs = [cost(t.n_q, t.n) for t in tasks]
+
+    def build(cost_l: float) -> List[SubTask]:
+        subs: List[SubTask] = []
+        for t, c in zip(tasks, full_costs):
+            b_k = max(1, int(np.ceil(c / max(cost_l, 1e-12))))
+            max_pages = -(-t.n // page_size)
+            b_k = min(b_k, max_pages)
+            if max_kv_per_task is not None:
+                b_k = max(b_k, -(-t.n // max_kv_per_task))
+            subs.extend(divide_task(t, b_k, cost, page_size, max_q_per_task))
+        return subs
+
+    # Eq. 4 lower bound: makespan >= max(avg work / lanes, single-page task)
+    lo = max(max(cost(t.n_q, min(t.n, page_size)) for t in tasks),
+             sum(full_costs) / num_lanes / 4)
+    hi = max(full_costs)
+    # binary search the smallest cost_l whose division could meet it
+    for _ in range(24):
+        mid = 0.5 * (lo + hi)
+        subs = build(mid)
+        total = sum(s.cost for s in subs)
+        feasible = (total / num_lanes <= mid
+                    and max(s.cost for s in subs) <= mid)
+        if feasible:
+            hi = mid
+        else:
+            lo = mid
+    cost_l = hi
+
+    # grid refine around the bound (paper: "grid search the division
+    # number ... choose the optimal division")
+    best: Optional[Schedule] = None
+    for mult in np.geomspace(0.5, 4.0, refine_steps):
+        subs = build(cost_l * float(mult))
+        lane_of, lane_cost = lpt(subs, num_lanes)
+        sched = Schedule(subs, lane_of, lane_cost, cost_l)
+        if best is None or sched.makespan < best.makespan:
+            best = sched
+    return best
