@@ -9,18 +9,28 @@ Phases (any failure raises and the script exits non-zero):
 
 1. identify the card (``nvidia-smi``) and build the CUDA kernels with
    ``nvcc`` from ``src/repro_torch/kernels/csrc``;
-2. hold PAC and POR against their plain torch versions at the full
-   qwen3-4b attention width (h_q=32, n_kv=8, d=128, page 16, max_q 32)
-   over three plan forests, in float32 and bfloat16 KV;
+2. hold PAC, POR and ``flash_decode`` against their plain torch versions at
+   the full qwen3-4b attention width (h_q=32, n_kv=8, d=128): PAC/POR at
+   page 16, max_q 32 over three plan forests, ``flash_decode`` over uneven
+   ``kv_lens`` with NaN past every one, with and without a window; in
+   float32 and bfloat16 KV;
 3. serve qwen3-4b at full width and depth (36 layers, bf16 random weights)
    through the engine's default ``codec-cuda`` backend: 8 requests over a
    shared 4096-token document + 64-token questions, 32 greedy tokens each;
    the kernels' launch counts must equal attention layers x decode steps.
    Then PAC and POR are checked and timed at the plan and pool shapes that
    run left behind;
-4. at 4 layers, full width, f32 weights: greedy streams through
-   ``codec-cuda`` and ``codec-torch`` must be equal;
-5. print the ``kernels`` JSON line and the closing device line.
+4. CoDec against FlashDecoding on that run's last decode state (layer 0's
+   pool and plan): the engine's attention, the ``flash`` backend over a
+   per-request plan and ``flash_decode`` over a dense copy of every
+   request's context must agree; PAC under both plans, ``flash_decode``
+   and one SDPA call are timed against their bounds;
+5. serve the same workload again through the ``flash`` backend (36
+   layers) and print its TPOT beside ``codec-cuda``'s;
+6. at 4 layers, full width, f32 weights: greedy streams through
+   ``codec-cuda``, ``codec-torch``, ``flash`` and ``hydragen`` must be
+   equal;
+7. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -46,6 +56,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 POR_TOL = 1e-6
 H_Q, N_KV, D, PAGE, MAX_Q, LANES = 32, 8, 128, 16, 32, 16
+BACKENDS = ("codec-cuda", "codec-torch", "flash", "hydragen")
 
 
 def log(msg: str) -> None:
@@ -133,6 +144,23 @@ def por_bound(o):
     return 1e3 * nbytes / HBM_BW, "bytes"
 
 
+def fd_bound(q, k, kv_lens):
+    """Least time for ``flash_decode`` (no window) on these inputs: the
+    visible K and V (kv_len positions of each row, read once), q, kv_lens
+    and the output over HBM; 4 FLOPs per query head, column and visible
+    position over the peak for the KV type."""
+    tokens = int(kv_lens.long().clamp(0, k.shape[1]).sum())
+    _, _, n_kv, d = k.shape
+    h_q = q.shape[1]
+    nbytes = (2 * tokens * n_kv * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + kv_lens.numel() * 4)
+    flops = 4.0 * tokens * h_q * d
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / PEAK_FLOPS[k.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions at full width
 # --------------------------------------------------------------------- #
@@ -192,6 +220,36 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         for name, make, window in forests:
             check_kernels(name, make(), window, dtype, gen)
+    check_flash_decode(gen)
+
+
+def check_flash_decode(gen):
+    """flash_decode against flash_decode_torch: rows at L, at 1, mid-page
+    and at 3000, NaN written past every kv_len."""
+    from repro_torch.kernels import flash_decode as fd
+    L = 4192
+    lens = torch.tensor([L, 1, 2007, 3000], dtype=torch.int32,
+                        device="cuda")
+    B = lens.numel()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, H_Q, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, L, N_KV, D, generator=gen, device="cuda"
+                        ).to(dtype)
+        v = torch.randn(B, L, N_KV, D, generator=gen, device="cuda"
+                        ).to(dtype)
+        for b, n in enumerate(lens.tolist()):
+            k[b, n:] = float("nan")
+            v[b, n:] = float("nan")
+        for window in (0, 512):
+            got = fd.flash_decode(q, k, v, lens, window=window)
+            want = fd.flash_decode_torch(q, k, v, lens, window=window)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all()), "flash_decode: non-finite"
+            err = assert_close(f"flash_decode {dtype} window={window}",
+                               [got], [want], TOL[dtype])
+            log(f"  flash_decode kv_lens={lens.tolist()} window={window:<4} "
+                f"{str(dtype):<15} max|err|={err:.3e} (tol {TOL[dtype]:g})")
+        del q, k, v
 
 
 # --------------------------------------------------------------------- #
@@ -297,13 +355,202 @@ def phase_serve(timer):
          "ms": por_ms, "plain_ms": por_plain_ms, "bound_ms": por_b,
          "bound_by": por_by, "library_ms": None},
     ]
-    del engine, model, got, want, o_f, o_t, merged, plain
-    torch.cuda.empty_cache()
-    return kernels
+    del got, want, o_f, o_t, merged, plain
+    return engine, model, res, kernels
 
 
 # --------------------------------------------------------------------- #
-# phase 4: backends agree on the card
+# phase 4: CoDec against FlashDecoding on one decode state
+# --------------------------------------------------------------------- #
+def sdpa_backend(fn) -> str:
+    """Which SDPA implementation ``fn`` ran, from its device kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:   # the name is reported, not checked
+        return f"unknown (profiler: {e})"
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    joined = " ".join(names).lower()
+    for tag, kind in (("cudnn", "cudnn"), ("flash", "flash"),
+                      ("fmha", "efficient"), ("efficient", "efficient")):
+        if tag in joined:
+            return kind
+    return "math (" + ", ".join(n[:40] for n in names[:3]) + ")"
+
+
+def phase_compare(engine, timer):
+    """The last decode state of phase 3 attended three ways: the engine's
+    codec-cuda attention (frozen plan + tail page + POR), the same through
+    the ``flash`` backend over a per-request plan, and ``flash_decode``
+    over a dense copy of each request's context."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import (flash_decode as fd, ops,
+                                     pac as pac_mod, por as por_mod,
+                                     registry)
+    cfg, forest, ps = engine.cfg, engine.forest, engine.page_size
+    # every request ran to the last step, so the last plan's rows are all
+    # of them, in id order, and the forest is as that step left it
+    rows = sorted(engine.requests)
+    B = len(rows)
+    plan_c, pa_c = engine._plans[0]
+    assert plan_c.num_queries == B, (plan_c.num_queries, B)
+    k_pool, v_pool = engine.pool.layer_pools(0)
+
+    # the flash plan over the same forest, rows and truncation as
+    # DecodeEngine._rebuild_plans builds the codec plan
+    req_rows = {r: i for i, r in enumerate(rows)}
+    truncate = {}
+    tail = np.zeros((4, B), np.int64)
+    for i, r in enumerate(rows):
+        leaf = forest.nodes[forest.leaf_of[r]]
+        truncate[leaf.id] = max(0, ((leaf.length - 1) // ps) * ps)
+        tp = (leaf.length - 1) // ps
+        tail[:, i] = (leaf.page_ids[tp], leaf.start_pos + tp * ps,
+                      (leaf.length - 1) % ps, forest.context_len(r) - 1)
+    tail_pages, tail_base, _, q_pos = \
+        torch.as_tensor(tail, device="cuda").unbind(0)
+    flash = registry.get("flash")
+    plan_f = plan_mod.pad_plan(plan_mod.flash_plan(
+        forest, engine.cost_model, engine.num_lanes, engine.max_q,
+        engine.max_kv_per_task, req_rows=req_rows, window=0,
+        truncate=truncate))
+    pa_f = flash.prepare(plan_f, "cuda")
+
+    # dense (B, L, n_kv, d) copy of each request's context, from the pool
+    ctx = [forest.context_len(r) for r in rows]
+    L = max(ctx)
+    kd = k_pool.new_zeros((B, L) + tuple(k_pool.shape[2:]))
+    vd = torch.zeros_like(kd)
+    for i, r in enumerate(rows):
+        kr, vr = engine._gather_prefix_upto(0, forest.path(r), ctx[i])
+        kd[i, :ctx[i]], vd[i, :ctx[i]] = kr, vr
+    kv_lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q_bf = torch.randn(B, cfg.num_heads, cfg.head_dim, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    # the same bf16 values held in f32, so all three outputs stay f32
+    q32 = q_bf.float()
+
+    def attend(backend, plan, prepared, q):
+        o_f = backend.partials(q, k_pool, v_pool, plan, prepared)
+        o_t = ops.single_page_attention(q, k_pool[tail_pages],
+                                        v_pool[tail_pages], tail_base, q_pos)
+        return por_mod.por(*o_f, *o_t)[0]
+
+    o_a = engine._attend(q32, k_pool, v_pool, 0, tail_pages, tail_base,
+                         q_pos)
+    o_b = attend(flash, plan_f, pa_f, q32)
+    fd.launches = 0
+    o_c = fd.flash_decode(q32, kd, vd, kv_lens)
+    fd_launches = fd.launches
+    torch.cuda.synchronize()
+    tol = TOL[torch.float32]
+    err_b = assert_close("flash backend vs engine", [o_b], [o_a], tol)
+    err_c = assert_close("flash_decode vs engine", [o_c], [o_a], tol)
+    o_plain = fd.flash_decode_torch(q32, kd, vd, kv_lens)
+    fd_err = assert_close("flash_decode vs plain", [o_c], [o_plain], tol)
+    log(f"  {B} rows, contexts {sorted(set(ctx))}, KV {kd.dtype}: engine "
+        f"(codec plan, {plan_c.num_tasks} tasks) vs flash backend "
+        f"({plan_f.num_tasks} tasks) max|err| {err_b:.3e}, vs flash_decode "
+        f"{err_c:.3e}, flash_decode vs plain {fd_err:.3e} (tol {tol:g})")
+
+    # the SDPA yardstick: q cast to the KV type outside the timed region
+    q_s = q_bf.to(kd.dtype)[:, :, None]
+    k_s, v_s = kd.transpose(1, 2), vd.transpose(1, 2)
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < kv_lens[:, None])[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_s, k_s, v_s, attn_mask=mask, enable_gqa=True)
+
+    sdpa_err = max_err([sdpa()[:, :, 0]], [o_c])
+    backend = sdpa_backend(sdpa)
+
+    esize = k_pool.element_size()
+    io_c = forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
+    io_f = forest.flash_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
+    log(f"  decode KV IO per layer: codec {io_c / 1e6:.2f} MB, flash "
+        f"{io_f / 1e6:.2f} MB ({io_f / io_c:.2f}x)")
+
+    t = {
+        "pac_codec": timer(lambda: pac_mod.pac(q_bf, pa_c, k_pool, v_pool)),
+        "pac_flash": timer(lambda: pac_mod.pac(q_bf, pa_f, k_pool, v_pool)),
+        "fd": timer(lambda: fd.flash_decode(q_bf, kd, vd, kv_lens)),
+        "sdpa": timer(sdpa),
+        "pac_flash_plain": timer(lambda: pac_mod.pac_torch(
+            q_bf[pa_f.q_gather.long()], pa_f.q_pos, k_pool, v_pool,
+            pa_f.task_pages, pa_f.task_kvlen, pa_f.task_pos)),
+        "fd_plain": timer(lambda: fd.flash_decode_torch(q_bf, kd, vd,
+                                                        kv_lens)),
+    }
+    b_c, by_c = pac_bound(plan_c, pa_c, q_bf, k_pool)
+    b_f, by_f = pac_bound(plan_f, pa_f, q_bf, k_pool)
+    b_fd, by_fd = fd_bound(q_bf, kd, kv_lens)
+    log(f"  PAC, codec plan  {t['pac_codec']:.4f} ms/launch (bound "
+        f"{b_c:.4f} by {by_c}; {int(plan_c.step_valid.sum())} page steps)")
+    log(f"  PAC, flash plan  {t['pac_flash']:.4f} ms/launch (bound "
+        f"{b_f:.4f} by {by_f}; plain {t['pac_flash_plain']:.4f}; "
+        f"{int(plan_f.step_valid.sum())} page steps)")
+    log(f"  flash_decode     {t['fd']:.4f} ms/launch (bound {b_fd:.4f} by "
+        f"{by_fd}; plain {t['fd_plain']:.4f}); launches {fd_launches}")
+    log(f"  SDPA ({backend}) {t['sdpa']:.4f} ms/call, max|err| vs "
+        f"flash_decode {sdpa_err:.3e}")
+    log(f"  flash plan / codec plan PAC time "
+        f"{t['pac_flash'] / t['pac_codec']:.2f}x; flash_decode / "
+        f"codec-plan PAC {t['fd'] / t['pac_codec']:.2f}x; KV bytes "
+        f"{io_f / io_c:.2f}x")
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:91",
+            "launches": fd_launches, "max_abs_err": fd_err,
+            "ms": t["fd"], "plain_ms": t["fd_plain"], "bound_ms": b_fd,
+            "bound_by": by_fd, "library_ms": t["sdpa"]}
+
+
+# --------------------------------------------------------------------- #
+# phase 5: the same workload through the flash backend
+# --------------------------------------------------------------------- #
+def phase_serve_flash(cfg, model, codec_res):
+    from repro_torch.kernels import pac as pac_mod, por as por_mod
+    from repro_torch.launch.serve import doc_prompts, serve
+    from repro_torch.serving.engine import DecodeEngine
+
+    engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                          num_lanes=LANES, max_q=MAX_Q, backend="flash",
+                          device="cuda")
+    prompts = doc_prompts(8, 4096, 64, cfg.vocab_size, seed=0)
+    finite = []
+
+    def on_step(eng):
+        finite.append(bool(torch.isfinite(eng.last_logits).all()))
+
+    pac_mod.launches = por_mod.launches = 0
+    res = serve(engine, prompts, max_new=32, on_step=on_step)
+    launches = {"pac": pac_mod.launches, "por": por_mod.launches}
+    expect = len(engine.attn_layer_idx) * res["steps"]
+    assert finite and all(finite), "non-finite logits"
+    assert launches == {"pac": expect, "por": expect}, (launches, expect)
+    plan, _ = engine._plans[0]
+    assert int(plan.task_qnum.max()) == 1, "flash plan shares a task"
+    same = sum(res["streams"][r] == codec_res["streams"][r]
+               for r in codec_res["streams"])
+    log(f"  flash: PAC {launches['pac']}, POR {launches['por']} launches "
+        f"over {res['steps']} steps; last plan {plan.num_tasks} tasks")
+    log(f"  TPOT flash {res['tpot_ms']:.3f} ms vs codec-cuda "
+        f"{codec_res['tpot_ms']:.3f} ms per step of 8 tokens; "
+        f"{same} of {len(codec_res['streams'])} streams equal codec-cuda's "
+        f"(bf16 weights: near-ties may flip a token)")
+    del engine
+
+
+# --------------------------------------------------------------------- #
+# phase 6: backends agree on the card
 # --------------------------------------------------------------------- #
 def phase_backends():
     from repro_torch.configs import PAPER_ARCH, get_config
@@ -315,7 +562,7 @@ def phase_backends():
     model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
     prompts = doc_prompts(8, 4096, 64, cfg.vocab_size, seed=1)
     streams, top2 = {}, {}
-    for backend in ("codec-cuda", "codec-torch"):
+    for backend in BACKENDS:
         engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
                               num_lanes=LANES, max_q=MAX_Q, backend=backend,
                               device="cuda")
@@ -325,18 +572,21 @@ def phase_backends():
         streams[backend], top2[backend] = res["streams"], gaps
         del engine
         torch.cuda.empty_cache()
-    a, b = streams["codec-cuda"], streams["codec-torch"]
-    if a != b:
+    a = streams["codec-cuda"]
+    for other in BACKENDS[1:]:
+        b = streams[other]
+        if a == b:
+            continue
         for r in sorted(a):
             diff = [i for i, (x, y) in enumerate(zip(a[r], b[r])) if x != y]
             if diff:
                 i = diff[0]
                 g = top2["codec-cuda"][i - 1][r] if i > 0 else None
-                log(f"  request {r} first differs at token {i}: "
+                log(f"  {other}: request {r} first differs at token {i}: "
                     f"{a[r][i]} vs {b[r][i]}; codec-cuda top-2 logits there "
                     f"{None if g is None else g.tolist()}")
-        raise AssertionError("codec-cuda and codec-torch streams differ")
-    log(f"  {cfg.num_layers} layers f32: codec-cuda == codec-torch on "
+        raise AssertionError(f"codec-cuda and {other} streams differ")
+    log(f"  {cfg.num_layers} layers f32: {' == '.join(BACKENDS)} on "
         f"{len(a)} streams x 32 tokens")
 
 
@@ -373,9 +623,20 @@ def main() -> int:
     timer = Timer()
 
     log("== 3. serve qwen3-4b, full width and depth")
-    kernels = phase_serve(timer)
+    engine, model, codec_res, kernels = phase_serve(timer)
 
-    log("== 4. codec-cuda vs codec-torch streams")
+    log("== 4. CoDec against FlashDecoding on one decode state")
+    kernels.append(phase_compare(engine, timer))
+    cfg = engine.cfg
+    del engine
+    torch.cuda.empty_cache()
+
+    log("== 5. serve qwen3-4b again through the flash backend")
+    phase_serve_flash(cfg, model, codec_res)
+    del model
+    torch.cuda.empty_cache()
+
+    log("== 6. backend streams agree")
     phase_backends()
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -30,7 +30,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .cost_model import CostModel
-from .scheduler import Schedule, SubTask, TaskSpec, divide_and_schedule
+from .scheduler import (Schedule, SubTask, TaskSpec, _even_splits,
+                        divide_and_schedule, lpt)
 from .tree import PrefixForest
 
 
@@ -350,5 +351,51 @@ def pad_plan(plan: DecodePlan, steps: Optional[int] = None,
 
 def _relane(subs: Sequence[SubTask], schedule: Schedule, num_lanes: int):
     """Re-run LPT after window pruning changed the subtask list."""
-    from .scheduler import lpt
     return lpt(subs, num_lanes)
+
+
+def flash_plan(forest: PrefixForest, cost_model: CostModel,
+               num_lanes: int = 2, max_q: int = 64,
+               max_kv_per_task: Optional[int] = 4096,
+               **kw) -> DecodePlan:
+    """FlashDecoding-equivalent plan: NO prefix combining.
+
+    Every request is planned as its own chain of per-node slices (each task
+    has n_q = 1), i.e. the shared prefix KV is read once per request — the
+    baseline CoDec is compared against.  Division/scheduling still applies
+    (FlashDecoding also splits the KV dimension).  Takes ``build_plan``'s
+    keywords (``req_rows``, ``window``, ``truncate``).
+    """
+    fake_subs: List[SubTask] = []
+    truncate = kw.get("truncate")
+    req_rows = kw.get("req_rows")
+    active = set(req_rows) if req_rows is not None else None
+    # per-(request, node) single-query tasks, one query slice each
+    for node in forest.real_nodes():
+        ln = node.length if truncate is None else truncate.get(node.id,
+                                                               node.length)
+        if ln <= 0:
+            continue
+        for qi in range(len(_node_queries(node, active))):
+            fake_subs.append(SubTask(node.id, qi, qi + 1, 0, ln,
+                                     cost_model(1, ln)))
+    sched = _schedule_fixed_qslices(fake_subs, cost_model, num_lanes,
+                                    forest.block_size, max_kv_per_task)
+    return build_plan(forest, cost_model, num_lanes, max_q,
+                      max_kv_per_task, schedule=sched, **kw)
+
+
+def _schedule_fixed_qslices(subs: List[SubTask], cost: CostModel,
+                            num_lanes: int, page_size: int,
+                            max_kv: Optional[int]) -> Schedule:
+    """Split over-long KV slices page-aligned, keep the query slices, LPT."""
+    out: List[SubTask] = []
+    for s in subs:
+        if max_kv is not None and s.n > max_kv:
+            for (lo, hi) in _even_splits(s.n, -(-s.n // max_kv), page_size):
+                out.append(SubTask(s.node_id, s.q_lo, s.q_hi, lo, hi,
+                                   cost(s.n_q, hi - lo)))
+        else:
+            out.append(s)
+    lane_of, lane_cost = lpt(out, num_lanes)
+    return Schedule(out, lane_of, lane_cost, 0.0)

@@ -244,6 +244,23 @@ class PrefixForest:
     def context_len(self, request_id: int) -> int:
         return sum(n.length for n in self.path(request_id))
 
+    def total_tokens(self) -> int:
+        return sum(n.length for n in self.real_nodes())
+
+    def total_context(self) -> int:
+        return sum(self.context_len(r) for r in self.request_ids)
+
+    # Analytic global-memory-access counts (paper Fig. 6 metric): bytes of
+    # KV read from HBM by decode attention, ignoring Q/O traffic.  Callers
+    # on the card pass the pool's element size as ``bytes_per``.
+    def codec_io_bytes(self, n_kv: int, head_dim: int,
+                       bytes_per: int = 2) -> int:
+        return 2 * self.total_tokens() * n_kv * head_dim * bytes_per
+
+    def flash_io_bytes(self, n_kv: int, head_dim: int,
+                       bytes_per: int = 2) -> int:
+        return 2 * self.total_context() * n_kv * head_dim * bytes_per
+
     def validate(self) -> None:
         """Structural invariants (used by tests)."""
         for nid, node in self.nodes.items():

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pac.cu", "por.cu")
+SOURCES = ("pac.cu", "por.cu", "flash_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -108,6 +108,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.codec_pac_smem_bytes.restype = ctypes.c_size_t
     lib.codec_por.argtypes = [P] * 9 + [ctypes.c_longlong, I, P]
     lib.codec_por.restype = I
+    lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 7
+                                       + [F, P])
+    lib.codec_flash_decode.restype = I
 
 
 def load() -> ctypes.CDLL:

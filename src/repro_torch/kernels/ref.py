@@ -124,6 +124,25 @@ def combine_partials_stats_ref(o_parts, m_parts, l_parts, seg_ids,
     return out[:num_queries], m_max[:num_queries], denom[:num_queries]
 
 
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_lens, window: int = 0) -> torch.Tensor:
+    """Dense-batch decode attention oracle (the FlashDecoding semantics).
+
+    q: (B, h_q, d); k, v: (B, L, n_kv, d); kv_lens: (B,).  Request ``b``'s
+    query sits at position ``kv_lens[b] - 1`` and attends to all cached
+    positions ``[0, kv_lens[b])`` (its own KV is already appended).
+    Returns the normalised output (B, h_q, d) in float32.
+    """
+    lens = [int(x) for x in torch.as_tensor(kv_lens).reshape(-1).tolist()]
+    outs = []
+    for b, ln in enumerate(lens):
+        o, _, _ = pac_ref(q[b:b + 1], k[b], v[b], kv_len=ln,
+                          q_pos=torch.full((1,), ln - 1, dtype=torch.int64),
+                          window=window)
+        outs.append(o[0])
+    return torch.stack(outs)
+
+
 def codec_ref_stats(q, k_pool, v_pool, plan, window: int = 0):
     """Shared-prefix decode attention oracle driven by a DecodePlan.
 

@@ -13,9 +13,17 @@ per-step tail-page attention.  ``prepare(plan, device)`` uploads the host
 ``DecodePlan`` into the device arrays the backend consumes; the engine
 caches the result across decode steps.
 
-Registered backends: ``codec-cuda`` (the CUDA PAC kernel; the engine's
-default), ``codec-torch`` (the plan as dense torch ops) and the python
-oracle ``ref``.
+Registered backends (five):
+
+* ``codec-cuda`` — the CUDA PAC kernel over the CoDec plan (the engine's
+  default);
+* ``codec-torch`` — the same plan as dense torch ops;
+* ``flash`` — the FlashDecoding baseline at the plan level: the same CUDA
+  PAC kernel over ``core.plan.flash_plan`` (every request its own task
+  chain, shared prefix KV re-read once per request), so on the card it
+  differs from ``codec-cuda`` only in prefix sharing;
+* ``hydragen`` — Hydragen's shared-prefix decomposition as torch ops;
+* ``ref`` — the python-loop oracle.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from . import hydragen as hydragen_mod
 from . import ops
 from . import ref as ref_mod
 
@@ -139,6 +148,12 @@ def _codec_partials_arrays(impl: str):
     return fn
 
 
+def _hydragen_partials_arrays(q, k_pool, v_pool, ha, *, num_queries,
+                              window):
+    return hydragen_mod.hydragen_partials_arrays(q, k_pool, v_pool, ha,
+                                                 num_queries, window=window)
+
+
 def _ref_partials(q, k_pool, v_pool, plan, prepared, window):
     return ref_mod.codec_ref_stats(q, k_pool, v_pool, plan, window=window)
 
@@ -157,6 +172,26 @@ register(AttentionBackend(
     partials_arrays_fn=_codec_partials_arrays("torch"),
     advance_fn=ops.advance_plan_arrays,
     description="CoDec plan semantics as dense torch ops"))
+
+register(AttentionBackend(
+    name="flash",
+    partials_fn=_codec_partials("cuda"),
+    partials_arrays_fn=_codec_partials_arrays("cuda"),
+    advance_fn=ops.advance_plan_arrays,
+    plan_kind="flash",
+    description="FlashDecoding baseline: the CUDA PAC kernel over the "
+                "per-request plan, shared prefix KV re-read once per "
+                "request"))
+
+register(AttentionBackend(
+    name="hydragen",
+    partials_fn=hydragen_mod.hydragen_partials,
+    prepare=hydragen_mod.prepare,
+    partials_arrays_fn=_hydragen_partials_arrays,
+    advance_fn=hydragen_mod.advance,
+    description="Hydragen-style batched shared-prefix decomposition: "
+                "one dense matmul per shared node for all sharing "
+                "queries, per-request suffix attention, LSE merge"))
 
 register(AttentionBackend(
     name="ref",

@@ -9,7 +9,11 @@ seed on the device.  Prints prefill time, TPOT (decode seconds per engine
 step; each step emits one token for every running request) and the CUDA
 kernel launch counts.  ``--profile N`` traces decode steps 2..N+1 with
 ``torch.profiler`` and prints the device-busy share and the kernels by
-device time (those steps are left out of TPOT).  Runs on the card unless
+device time (those steps are left out of TPOT).  Every run prints the
+decode KV bytes CoDec reads per step against FlashDecoding's.
+``--compare`` serves the same prompts through ``codec-cuda`` and then the
+``flash`` baseline, prints both TPOTs and whether the greedy streams are
+equal, and exits 1 when they differ.  Runs on the card unless
 ``--device cpu``.
 """
 
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -115,7 +120,53 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
             "replans": engine.stats["replans"], "profile": profile}
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def run(args, cfg, model, backend: str) -> Dict[str, object]:
+    """Serve the prompts of ``args`` through ``backend``; print TPOT, the
+    decode KV IO, the profile and the launch counts."""
+    device = torch.device(args.device)
+    engine = DecodeEngine(cfg, model, page_size=args.page_size,
+                          num_pages=args.max_pages, backend=backend,
+                          num_lanes=args.num_lanes, device=device)
+    prompts = doc_prompts(args.requests, args.doc_len, args.q_len,
+                          cfg.vocab_size, args.seed)
+    pac_mod.launches = por_mod.launches = 0
+    res = serve(engine, prompts, args.max_new, profile_steps=args.profile)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device {name}: {cfg.name} x{cfg.num_layers} layers, "
+          f"{args.requests} requests, doc {args.doc_len} + q {args.q_len}, "
+          f"{args.max_new} new tokens, backend {backend}, "
+          f"{args.num_lanes} lanes")
+    print(f"prefill {res['prefill_s']:.3f} s, TPOT {res['tpot_ms']:.3f} ms "
+          f"over {res['steps']} steps (plan builds {res['replans']}, "
+          f"{res['plan_s']:.3f} s; per-step plan advance "
+          f"{res['advance_s']:.3f} s)")
+    esize = engine.pool.k.element_size()
+    io_c = engine.forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim,
+                                        esize)
+    io_f = engine.forest.flash_io_bytes(cfg.num_kv_heads, cfg.head_dim,
+                                        esize)
+    print(f"decode KV IO per layer and step: codec {io_c / 1e6:.1f} MB vs "
+          f"flash {io_f / 1e6:.1f} MB per-request ({io_f / io_c:.2f}x "
+          f"saved)")
+    prof = res["profile"]
+    if prof is not None:
+        print(f"profile over {args.profile} decode steps: wall "
+              f"{prof['wall_ms']:.3f} ms/step, device busy "
+              f"{prof['device_busy_ms']:.3f} ms/step, idle share "
+              f"{prof['idle_share']:.3f}, {prof['kernels_per_step']:.0f} "
+              f"kernels/step")
+        for kname, ms, count in prof["top"]:
+            print(f"  {ms:9.4f} ms/step  {count:7.1f}/step  {kname}")
+    print(json.dumps({"backend": backend,
+                      "pac_launches": pac_mod.launches,
+                      "por_launches": por_mod.launches,
+                      "tokens": {str(r): len(t)
+                                 for r, t in res["streams"].items()}}))
+    return res
+
+
+def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--device", default="cuda")
@@ -127,46 +178,28 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-pages", type=int, default=1024)
     ap.add_argument("--num-lanes", type=int, default=16)
     ap.add_argument("--backend", default="codec-cuda")
+    ap.add_argument("--compare", action="store_true",
+                    help="serve through codec-cuda, then flash; exit 1 "
+                         "when the streams differ")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N decode steps with torch.profiler")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    device = torch.device(args.device)
-    model = build_model(cfg, seed=args.seed, device=device,
+    model = build_model(cfg, seed=args.seed, device=torch.device(args.device),
                         dtype=torch.bfloat16)
-    engine = DecodeEngine(cfg, model, page_size=args.page_size,
-                          num_pages=args.max_pages, backend=args.backend,
-                          num_lanes=args.num_lanes, device=device)
-    prompts = doc_prompts(args.requests, args.doc_len, args.q_len,
-                          cfg.vocab_size, args.seed)
-    pac_mod.launches = por_mod.launches = 0
-    res = serve(engine, prompts, args.max_new, profile_steps=args.profile)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    print(f"device {name}: {cfg.name} x{cfg.num_layers} layers, "
-          f"{args.requests} requests, doc {args.doc_len} + q {args.q_len}, "
-          f"{args.max_new} new tokens, backend {args.backend}, "
-          f"{args.num_lanes} lanes")
-    print(f"prefill {res['prefill_s']:.3f} s, TPOT {res['tpot_ms']:.3f} ms "
-          f"over {res['steps']} steps (plan builds {res['replans']}, "
-          f"{res['plan_s']:.3f} s; per-step plan advance "
-          f"{res['advance_s']:.3f} s)")
-    prof = res["profile"]
-    if prof is not None:
-        print(f"profile over {args.profile} decode steps: wall "
-              f"{prof['wall_ms']:.3f} ms/step, device busy "
-              f"{prof['device_busy_ms']:.3f} ms/step, idle share "
-              f"{prof['idle_share']:.3f}, {prof['kernels_per_step']:.0f} "
-              f"kernels/step")
-        for name, ms, count in prof["top"]:
-            print(f"  {ms:9.4f} ms/step  {count:7.1f}/step  {name}")
-    print(json.dumps({"pac_launches": pac_mod.launches,
-                      "por_launches": por_mod.launches,
-                      "tokens": {str(r): len(t)
-                                 for r, t in res["streams"].items()}}))
+    if args.compare:
+        codec = run(args, cfg, model, "codec-cuda")
+        flash = run(args, cfg, model, "flash")
+        match = codec["streams"] == flash["streams"]
+        print(f"TPOT codec-cuda {codec['tpot_ms']:.3f} ms, flash "
+              f"{flash['tpot_ms']:.3f} ms")
+        print(f"outputs codec == flash: {match}")
+        return 0 if match else 1
+    run(args, cfg, model, args.backend)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -411,9 +411,11 @@ class DecodeEngine:
         for r in rows:
             leaf = self.forest.nodes[self.forest.leaf_of[r]]
             truncate[leaf.id] = max(0, ((leaf.length - 1) // ps) * ps)
+        build = (plan_mod.flash_plan if self._backend.plan_kind == "flash"
+                 else plan_mod.build_plan)
         self._plans = {}
         for w in self._windows():
-            p = plan_mod.build_plan(
+            p = build(
                 self.forest, self.cost_model, self.num_lanes, self.max_q,
                 self.max_kv_per_task, req_rows=req_rows, window=w,
                 truncate=truncate)

@@ -1,5 +1,6 @@
 """The port's DecodeEngine against ``repro``'s on the same weights: greedy
-token streams must be byte-identical."""
+token streams must be byte-identical, through every port backend (the
+``flash`` and ``hydragen`` baselines against ``repro``'s as well)."""
 
 import jax
 import numpy as np
@@ -45,6 +46,20 @@ def jax_streams(shared):
                   PROMPTS, LATE)
 
 
+@pytest.fixture(scope="module")
+def repro_streams(shared):
+    """``repro``'s streams by backend, each JAX engine run at most once."""
+    cfg, params, _ = shared
+    runs = {}
+
+    def get(backend):
+        if backend not in runs:
+            runs[backend] = _drive(JaxEngine(cfg, params, backend=backend,
+                                             **KW), PROMPTS, LATE)
+        return runs[backend]
+    return get
+
+
 def _drive(engine, prompts, late=(), max_new=6, steps=12):
     """Add ``prompts``, step twice, add ``late`` mid-run, run out."""
     for p in prompts:
@@ -56,7 +71,8 @@ def _drive(engine, prompts, late=(), max_new=6, steps=12):
     return engine.run(steps)
 
 
-@pytest.mark.parametrize("backend", ["codec-cuda", "codec-torch", "ref"])
+@pytest.mark.parametrize("backend", ["codec-cuda", "codec-torch", "ref",
+                                     "flash", "hydragen"])
 def test_streams_match_repro(shared, jax_streams, backend):
     cfg, _, model = shared
     eng = DecodeEngine(cfg, model, backend=backend, device="cpu", **KW)
@@ -69,6 +85,21 @@ def test_streams_match_repro(shared, jax_streams, backend):
         eng.release(rid)
     eng.pool.allocator.check()
     assert eng.pool.num_free == eng.pool.num_pages
+
+
+@pytest.mark.parametrize("backend", ["flash", "hydragen"])
+def test_baseline_streams_match_repro_baseline(shared, jax_streams,
+                                               repro_streams, backend):
+    """The port's baseline engine against ``repro``'s same baseline (and
+    both against ``repro``'s codec-xla); ``flash`` runs on per-request
+    plans."""
+    cfg, _, model = shared
+    eng = DecodeEngine(cfg, model, backend=backend, device="cpu", **KW)
+    got = _drive(eng, PROMPTS, LATE)
+    assert got == repro_streams(backend) == jax_streams
+    plan, _ = eng._plans[0]
+    if backend == "flash":
+        assert int(plan.task_qnum.max()) == 1
 
 
 def test_engine_validation(shared):
