@@ -11,9 +11,11 @@ Phases (any failure raises and the script exits non-zero):
    ``nvcc`` from ``src/repro_torch/kernels/csrc``;
 2. hold PAC, POR and ``flash_decode`` against their plain torch versions at
    the full qwen3-4b attention width (h_q=32, n_kv=8, d=128): PAC/POR at
-   page 16, max_q 32 over three plan forests, ``flash_decode`` over uneven
-   ``kv_lens`` with NaN past every one, with and without a window; in
-   float32 and bfloat16 KV;
+   max_q 32 over plans that stress PAC's ring and its lanes — three codec
+   plan forests at page 16, the flash plan of the served forest (~130
+   steps a lane), a plan with more lanes than work, and page 64 —
+   ``flash_decode`` over uneven ``kv_lens`` with NaN past every one, with
+   and without a window; in float32 and bfloat16 KV;
 3. serve qwen3-4b at full width and depth (36 layers, bf16 random weights)
    through the engine's default ``codec-cuda`` backend: 8 requests over a
    shared 4096-token document + 64-token questions, 32 greedy tokens each;
@@ -24,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
    pool and plan): the engine's attention, the ``flash`` backend over a
    per-request plan and ``flash_decode`` over a dense copy of every
    request's context must agree; PAC under both plans, ``flash_decode``
-   and one SDPA call are timed against their bounds;
+   and one SDPA call are timed against their bounds, and PAC once more
+   over the codec plan rebuilt at 32 lanes;
 5. serve the same workload again through the ``flash`` backend (36
    layers) and print its TPOT beside ``codec-cuda``'s;
 6. at 4 layers, full width, f32 weights: greedy streams through
@@ -40,6 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -52,8 +57,10 @@ import torch
 HBM_BW = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # f32: the kernel and the plain version sum the same products in different
-# orders (and index_add_ on CUDA in a run-dependent order): ~1 ulp per add
-TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# orders (and index_add_ on CUDA in a run-dependent order): ~1 ulp per add.
+# bf16 KV: PAC's tensor cores see q and P as bf16 hi + lo terms (max |err|
+# ~4e-4 measured at these shapes), flash_decode stays on f32 FFMA
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 POR_TOL = 1e-6
 H_Q, N_KV, D, PAGE, MAX_Q, LANES = 32, 8, 128, 16, 32, 16
 BACKENDS = ("codec-cuda", "codec-torch", "flash", "hydragen")
@@ -70,8 +77,31 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def ptxas_reports(text):
+    """(kernel, report) for each registers / spill line of nvcc's
+    ``-Xptxas -v`` output, the kernel's name demangled where ``c++filt``
+    is at hand."""
+    out, name = [], ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line or "Function properties for" \
+                in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif ("registers" in line or "spill" in line) and name:
+            out.append((name, line.split(":", 1)[-1].strip()))
+    names = sorted({n for n, _ in out})
+    if names and shutil.which("c++filt"):
+        dem = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        pretty = dict(zip(names, dem.stdout.splitlines()))
+        out = [(pretty.get(n, n).replace("(anonymous namespace)::", ""), r)
+               for n, r in out]
+    return out
+
+
 class Timer:
-    """Mean device milliseconds of ``fn`` from CUDA events.
+    """Mean device milliseconds of ``fn`` over ``reps`` launches, from CUDA
+    events; the median of the same launches is kept in ``self.median``
+    (one stalled launch moves the mean, not the median).
 
     Before each launch the L2 cache is flushed (the engine meets every
     layer's pool cold) and the stream is held in a ~1 ms spin, so the host
@@ -80,11 +110,12 @@ class Timer:
 
     def __init__(self):
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+        self.median = float("nan")
 
     def __call__(self, fn, reps: int = 20) -> float:
         fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(reps):
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)
@@ -94,8 +125,9 @@ class Timer:
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / reps
+            times.append(start.elapsed_time(end))
+        self.median = statistics.median(times)
+        return statistics.mean(times)
 
 
 def max_err(got, want) -> float:
@@ -164,17 +196,20 @@ def fd_bound(q, k, kv_lens):
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions at full width
 # --------------------------------------------------------------------- #
-def check_kernels(forest_name, forest, window, dtype, gen):
+def check_kernels(forest_name, forest, window, dtype, gen, *, lanes=LANES,
+                  flash=False):
     from repro_torch.core import cost_model, plan as plan_mod
     from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
+    page = forest.block_size
     pages = plan_mod.assign_dense_pages(forest)
-    cm = cost_model.CostModel(H_Q, N_KV, D, page_size=PAGE)
-    plan = plan_mod.pad_plan(plan_mod.build_plan(
-        forest, cm, num_lanes=LANES, max_q=MAX_Q, window=window))
+    cm = cost_model.CostModel(H_Q, N_KV, D, page_size=page)
+    make = plan_mod.flash_plan if flash else plan_mod.build_plan
+    plan = plan_mod.pad_plan(make(forest, cm, num_lanes=lanes, max_q=MAX_Q,
+                                  window=window))
     B = len(forest.request_ids)
-    k = torch.randn(pages, PAGE, N_KV, D, generator=gen, device="cuda"
+    k = torch.randn(pages, page, N_KV, D, generator=gen, device="cuda"
                     ).to(dtype)
-    v = torch.randn(pages, PAGE, N_KV, D, generator=gen, device="cuda"
+    v = torch.randn(pages, page, N_KV, D, generator=gen, device="cuda"
                     ).to(dtype)
     q = torch.randn(B, H_Q, D, generator=gen, device="cuda").to(dtype)
     pa = ops.plan_arrays(plan, "cuda")
@@ -195,15 +230,17 @@ def check_kernels(forest_name, forest, window, dtype, gen):
     # POR: merge the plan partials with a second partial set
     other = ops.single_page_attention(q, k[:B], v[:B],
                                       torch.zeros(B, device="cuda"),
-                                      torch.full((B,), PAGE - 1,
+                                      torch.full((B,), page - 1,
                                                  device="cuda"))
     merged = por_mod.por(*full_t, *other)
     plain = por_mod.por_torch(*full_t, *other)
     torch.cuda.synchronize()
     por_err = assert_close(f"por {forest_name} {dtype}", merged, plain,
                            POR_TOL)
-    log(f"  {forest_name:<10} window={window:<4} {str(dtype):<15} tasks="
-        f"{plan.num_tasks:<3} steps/lane={plan.max_steps:<4} "
+    empty = int((plan.step_valid.sum(1) == 0).sum())
+    log(f"  {forest_name:<13} page={page:<3} window={window:<4} "
+        f"{str(dtype):<15} tasks={plan.num_tasks:<3} lanes={lanes} "
+        f"(empty {empty}) steps/lane={plan.max_steps:<4} "
         f"pac max|err|={err:.3e} (tol {TOL[dtype]:g})  "
         f"por max|err|={por_err:.3e} (tol {POR_TOL:g})")
 
@@ -211,15 +248,21 @@ def check_kernels(forest_name, forest, window, dtype, gen):
 def phase_kernels():
     from repro_torch.core import tree
     gen = torch.Generator(device="cuda").manual_seed(1)
+    served = lambda page=PAGE: tree.two_level(8, 4096, 64, block_size=page)
     forests = [
-        ("two-level", lambda: tree.two_level(8, 4096, 64, block_size=PAGE), 0),
-        ("3-ary x3", lambda: tree.full_kary(3, 3, 320, block_size=PAGE), 0),
+        ("two-level", served, 0, {}),
+        ("3-ary x3", lambda: tree.full_kary(3, 3, 320, block_size=PAGE), 0,
+         {}),
         ("windowed", lambda: tree.two_level(8, 2048, 64, block_size=PAGE),
-         512),
+         512, {}),
+        ("flash plan", served, 0, {"flash": True}),
+        ("padding lanes", lambda: tree.two_level(2, 40, 9, block_size=PAGE),
+         0, {"lanes": 64}),
+        ("page 64", lambda: served(64), 0, {}),
     ]
     for dtype in (torch.float32, torch.bfloat16):
-        for name, make, window in forests:
-            check_kernels(name, make(), window, dtype, gen)
+        for name, make, window, kw in forests:
+            check_kernels(name, make(), window, dtype, gen, **kw)
     check_flash_decode(gen)
 
 
@@ -325,22 +368,24 @@ def phase_serve(timer):
     por_err = assert_close("por main path", merged, plain, POR_TOL)
 
     pac_ms = timer(lambda: pac_mod.pac(q, pa, k_pool, v_pool))
+    pac_med = timer.median
     pac_plain_ms = timer(lambda: pac_mod.pac_torch(
         q[pa.q_gather.long()], pa.q_pos, k_pool, v_pool, pa.task_pages,
         pa.task_kvlen, pa.task_pos))
     por_ms = timer(lambda: por_mod.por(*o_f, *o_t))
+    por_med = timer.median
     por_plain_ms = timer(lambda: por_mod.por_torch(*o_f, *o_t))
     pac_b, pac_by = pac_bound(plan, pa, q, k_pool)
     por_b, por_by = por_bound(o_f[0])
     log(f"  main-path plan: {plan.num_tasks} tasks on {plan.num_lanes} lanes"
         f", {plan.max_steps} steps/lane, {int(plan.step_valid.sum())} "
         f"valid page steps")
-    log(f"  PAC {pac_ms:.4f} ms/launch (plain {pac_plain_ms:.4f}, bound "
-        f"{pac_b:.4f} by {pac_by}), max|err| {pac_err:.3e}; "
-        f"{pac_ms * n_attn:.3f} ms per decode step")
-    log(f"  POR {por_ms:.4f} ms/launch (plain {por_plain_ms:.4f}, bound "
-        f"{por_b:.5f} by {por_by}), max|err| {por_err:.3e}; "
-        f"{por_ms * n_attn:.3f} ms per decode step")
+    log(f"  PAC {pac_ms:.4f} ms/launch, mean of 20 (median {pac_med:.4f}; "
+        f"plain {pac_plain_ms:.4f}, bound {pac_b:.4f} by {pac_by}), max|err| "
+        f"{pac_err:.3e}; {pac_ms * n_attn:.3f} ms per decode step")
+    log(f"  POR {por_ms:.4f} ms/launch, mean of 20 (median {por_med:.4f}; "
+        f"plain {por_plain_ms:.4f}, bound {por_b:.5f} by {por_by}), max|err| "
+        f"{por_err:.3e}; {por_ms * n_attn:.3f} ms per decode step")
     kernels = [
         {"name": "pac", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pac.cu",
@@ -478,33 +523,56 @@ def phase_compare(engine, timer):
     log(f"  decode KV IO per layer: codec {io_c / 1e6:.2f} MB, flash "
         f"{io_f / 1e6:.2f} MB ({io_f / io_c:.2f}x)")
 
-    t = {
-        "pac_codec": timer(lambda: pac_mod.pac(q_bf, pa_c, k_pool, v_pool)),
-        "pac_flash": timer(lambda: pac_mod.pac(q_bf, pa_f, k_pool, v_pool)),
-        "fd": timer(lambda: fd.flash_decode(q_bf, kd, vd, kv_lens)),
-        "sdpa": timer(sdpa),
-        "pac_flash_plain": timer(lambda: pac_mod.pac_torch(
-            q_bf[pa_f.q_gather.long()], pa_f.q_pos, k_pool, v_pool,
-            pa_f.task_pages, pa_f.task_kvlen, pa_f.task_pos)),
-        "fd_plain": timer(lambda: fd.flash_decode_torch(q_bf, kd, vd,
-                                                        kv_lens)),
-    }
+    # the codec plan of the same state rebuilt at 32 lanes
+    plan_32 = plan_mod.pad_plan(plan_mod.build_plan(
+        forest, engine.cost_model, 32, engine.max_q, engine.max_kv_per_task,
+        req_rows=req_rows, window=0, truncate=truncate))
+    pa_32 = ops.plan_arrays(plan_32, "cuda")
+    o_32 = ops.codec_partials_arrays(q32, k_pool, v_pool, pa_32, B)
+    o_ref = ops.codec_partials_arrays(q32, k_pool, v_pool, pa_c, B)
+    torch.cuda.synchronize()
+    err_32 = assert_close("codec plan at 32 lanes", o_32, o_ref, tol)
+
+    t, med = {}, {}   # mean and median ms of each timed call
+    for key, fn in (
+            ("pac_codec", lambda: pac_mod.pac(q_bf, pa_c, k_pool, v_pool)),
+            ("pac_32", lambda: pac_mod.pac(q_bf, pa_32, k_pool, v_pool)),
+            ("pac_flash", lambda: pac_mod.pac(q_bf, pa_f, k_pool, v_pool)),
+            ("fd", lambda: fd.flash_decode(q_bf, kd, vd, kv_lens)),
+            ("sdpa", sdpa),
+            ("pac_flash_plain", lambda: pac_mod.pac_torch(
+                q_bf[pa_f.q_gather.long()], pa_f.q_pos, k_pool, v_pool,
+                pa_f.task_pages, pa_f.task_kvlen, pa_f.task_pos)),
+            ("fd_plain", lambda: fd.flash_decode_torch(q_bf, kd, vd,
+                                                       kv_lens))):
+        t[key] = timer(fn)
+        med[key] = timer.median
     b_c, by_c = pac_bound(plan_c, pa_c, q_bf, k_pool)
     b_f, by_f = pac_bound(plan_f, pa_f, q_bf, k_pool)
+    b_32, by_32 = pac_bound(plan_32, pa_32, q_bf, k_pool)
     b_fd, by_fd = fd_bound(q_bf, kd, kv_lens)
-    log(f"  PAC, codec plan  {t['pac_codec']:.4f} ms/launch (bound "
-        f"{b_c:.4f} by {by_c}; {int(plan_c.step_valid.sum())} page steps)")
-    log(f"  PAC, flash plan  {t['pac_flash']:.4f} ms/launch (bound "
-        f"{b_f:.4f} by {by_f}; plain {t['pac_flash_plain']:.4f}; "
-        f"{int(plan_f.step_valid.sum())} page steps)")
-    log(f"  flash_decode     {t['fd']:.4f} ms/launch (bound {b_fd:.4f} by "
-        f"{by_fd}; plain {t['fd_plain']:.4f}); launches {fd_launches}")
+    for key, name, plan, b, by in (
+            ("pac_codec", "codec plan", plan_c, b_c, by_c),
+            ("pac_32", "codec, 32 lanes", plan_32, b_32, by_32),
+            ("pac_flash", "flash plan", plan_f, b_f, by_f)):
+        log(f"  PAC, {name:<15} {t[key]:.4f} ms/launch, mean of 20 (median "
+            f"{med[key]:.4f}; bound {b:.4f} by {by}, {b / t[key]:.1%} of "
+            f"it; {plan.num_lanes} lanes, "
+            f"{int(plan.step_valid.sum())} page steps, "
+            f"{plan.max_steps} steps/lane)")
+    log(f"  PAC plain, flash plan {t['pac_flash_plain']:.4f} ms; codec "
+        f"plan at 32 lanes vs 16 lanes max|err| {err_32:.3e}")
+    log(f"  flash_decode     {t['fd']:.4f} ms/launch, mean of 20 (median "
+        f"{med['fd']:.4f}; bound {b_fd:.4f} by {by_fd}; plain "
+        f"{t['fd_plain']:.4f}); launches {fd_launches}")
     log(f"  SDPA ({backend}) {t['sdpa']:.4f} ms/call, max|err| vs "
         f"flash_decode {sdpa_err:.3e}")
     log(f"  flash plan / codec plan PAC time "
         f"{t['pac_flash'] / t['pac_codec']:.2f}x; flash_decode / "
-        f"codec-plan PAC {t['fd'] / t['pac_codec']:.2f}x; KV bytes "
-        f"{io_f / io_c:.2f}x")
+        f"codec-plan PAC {t['fd'] / t['pac_codec']:.2f}x (medians "
+        f"{med['fd'] / med['pac_codec']:.2f}x); KV bytes {io_f / io_c:.2f}x")
+    log(f"  flash_decode {b_fd / t['fd']:.1%} of its bound; "
+        f"flash_decode / flash-plan PAC {t['fd'] / t['pac_flash']:.2f}x")
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:91",
@@ -614,9 +682,12 @@ def main() -> int:
     info = build.build_info
     log(f"  kernels built in {info['seconds']:.1f} s "
         f"({'cached' if info['cached'] else 'nvcc sm_90a'})")
-    for line in str(info.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    for kernel, report in ptxas_reports(str(info.get("log", ""))):
+        log(f"  ptxas {kernel}: {report}")
+    lib = build.load()
+    log(f"  PAC blocks per SM at d={D} (occupancy query): f32 KV "
+        f"{lib.codec_pac_blocks_per_sm(D, 0)}, bf16 KV "
+        f"{lib.codec_pac_blocks_per_sm(D, 1)}")
 
     log("== 2. kernels vs plain versions at full width")
     phase_kernels()

@@ -2,10 +2,11 @@
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
 compiles each in seconds.  The library is built on first use into
-``build/repro_torch/`` at the root of the checkout, named by a hash of the
-sources and flags so an edited source is rebuilt and an unchanged one is
-reused.  Each source compiles in its own ``nvcc`` process, all started
-together, then one link makes the shared library.
+``build/repro_torch/`` at the root of the checkout, named by a hash of
+every file under ``csrc/`` (sources and headers) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Each
+source compiles in its own ``nvcc`` process, all started together, then
+one link makes the shared library.
 
 Nothing here runs at import time: this module is imported on machines
 without a GPU or a CUDA toolkit, where only the plain versions run.
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -50,11 +52,13 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
+    """The library's path, named by a hash of every file under ``csrc``
+    (the sources and the headers they include) and the flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in csrc.iterdir() if p.is_file()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcodec_kernels_{h.hexdigest()[:16]}.so"
 
@@ -74,19 +78,21 @@ def _run_all(cmds: List[List[str]]) -> str:
     return "".join(logs)
 
 
-def build() -> Path:
-    """Compile and link the kernel library unless it already exists."""
-    out = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile and link the kernel library from ``SOURCES`` in ``csrc``
+    (the package's own by default; a changed copy for an A/B build) unless
+    it already exists."""
+    out = library_path(csrc)
     if out.is_file():
         build_info.update(seconds=0.0, cached=True, log="")
         return out
     t0 = time.perf_counter()
     nvcc = nvcc_path()
-    tmp_dir = BUILD_DIR / f"tmp-{os.getpid()}"
-    tmp_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_dir = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_DIR))
     try:
         objs = [tmp_dir / (Path(s).stem + ".o") for s in SOURCES]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o",
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(csrc / s), "-o",
                          str(o)] for s, o in zip(SOURCES, objs)])
         tmp_lib = tmp_dir / out.name
         log += _run_all([[nvcc, "-shared", "-gencode",
@@ -99,18 +105,23 @@ def build() -> Path:
     return out
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def open_library(path: Path) -> ctypes.CDLL:
+    """A built kernel library, loaded, its entry points declared."""
+    lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.codec_pac.argtypes = ([P, I, P, P, P, P, P, I] + [P] * 7 + [P] * 3
                               + [I] * 8 + [F, P])
     lib.codec_pac.restype = I
-    lib.codec_pac_smem_bytes.argtypes = [I, I, I, I]
+    lib.codec_pac_smem_bytes.argtypes = [I, I]
     lib.codec_pac_smem_bytes.restype = ctypes.c_size_t
+    lib.codec_pac_blocks_per_sm.argtypes = [I, I]
+    lib.codec_pac_blocks_per_sm.restype = I
     lib.codec_por.argtypes = [P] * 9 + [ctypes.c_longlong, I, P]
     lib.codec_por.restype = I
     lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 7
                                        + [F, P])
     lib.codec_flash_decode.restype = I
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -118,9 +129,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            _declare(lib)
-            _lib = lib
+            _lib = open_library(build())
     return _lib
 
 

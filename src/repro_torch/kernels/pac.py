@@ -16,7 +16,7 @@ masked by the caller (``ops.codec_partials_arrays``).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,9 +26,6 @@ from .ref import MASK_VALUE
 # launches of the CUDA kernel in this process (plain-path calls are not
 # counted); chip_smoke.py resets it before driving the serving path
 launches = 0
-
-# largest dynamic shared memory a block may use on Hopper (227 KB)
-MAX_SMEM_BYTES = 232448
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -102,13 +99,16 @@ def _check(name: str, t: torch.Tensor, dev, dtypes) -> None:
 
 
 def pac(q: torch.Tensor, pa, k_pool: torch.Tensor, v_pool: torch.Tensor,
-        *, window: int = 0
+        *, window: int = 0,
+        out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """PAC over a plan's arrays (``ops.PlanArrays``).
 
     q: (B, h_q, d) float32/bfloat16; pools: (P, page, n_kv, d) float32 or
     bfloat16.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (or raise).
+    kernel (or raise).  ``out``: float32 ``(o, m, l)`` for the kernel to
+    write into instead of fresh ``torch.empty`` tensors; its dead slots
+    keep what they held.
     """
     if q.device.type == "cpu":
         return pac_torch(q[pa.q_gather.long()], pa.q_pos, k_pool, v_pool,
@@ -130,9 +130,11 @@ def pac(q: torch.Tensor, pa, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if v_pool.shape != k_pool.shape or dk != d:
         raise ValueError(f"pac: pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not fit q {tuple(q.shape)}")
-    if h_q % n_kv or d % 4:
-        raise ValueError(f"pac: needs h_q % n_kv == 0 and d % 4 == 0, got "
-                         f"h_q={h_q} n_kv={n_kv} d={d}")
+    if h_q % n_kv or d % 4 or d > 512:
+        raise ValueError(f"pac: needs h_q % n_kv == 0, d % 4 == 0 and "
+                         f"d <= 512, got h_q={h_q} n_kv={n_kv} d={d}")
+    if page >= 1 << 20:
+        raise ValueError(f"pac: page {page} >= {1 << 20}")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pac: pools must be 16-byte aligned (vector loads)")
     Tp1, max_q = pa.q_gather.shape
@@ -144,14 +146,16 @@ def pac(q: torch.Tensor, pa, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if pa.q_pos.shape != (Tp1, max_q) or pa.task_qnum.shape != (Tp1,):
         raise ValueError("pac: task arrays disagree with q_gather")
     lib = build.load()
-    smem = lib.codec_pac_smem_bytes(max_q, h_q // n_kv, d, page)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"pac: max_q={max_q} x group={h_q // n_kv} x d={d} "
-                         f"needs {smem} B of shared memory (> "
-                         f"{MAX_SMEM_BYTES}); lower max_q")
-    o = torch.empty((Tp1, max_q, h_q, d), dtype=torch.float32, device=dev)
-    m = torch.empty((Tp1, max_q, h_q), dtype=torch.float32, device=dev)
-    l = torch.empty((Tp1, max_q, h_q), dtype=torch.float32, device=dev)
+    shapes = ((Tp1, max_q, h_q, d), (Tp1, max_q, h_q), (Tp1, max_q, h_q))
+    if out is None:
+        out = tuple(torch.empty(sh, dtype=torch.float32, device=dev)
+                    for sh in shapes)
+    for name, t, sh in zip("oml", out, shapes):
+        _check(name, t, dev, (torch.float32,))
+        if t.shape != sh:
+            raise ValueError(f"pac: out {name} shape {tuple(t.shape)}, "
+                             f"expected {sh}")
+    o, m, l = out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.codec_pac(
         q.data_ptr(), int(q.dtype == torch.bfloat16),

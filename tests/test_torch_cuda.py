@@ -1,6 +1,15 @@
 """The CUDA kernels (PAC, POR, flash_decode) against their plain torch
 versions, on the card.
 
+PAC is held on the plans that stress its ring and its row chunks: the
+codec and flash plans at full width, lanes with nothing but padding, last
+pages shorter than the page, a window crossing page edges, groups 1, 4
+and 8, pages 16 and 64, head dims 64 to 256, and more rows in a task than
+one block holds.  The kernel reads a pool whose every position no plan
+step covers is NaN, and writes into outputs filled with NaN: live slots
+must match the plain version (which reads zeros there), dead slots must
+still hold NaN, and the combined output must stay finite.
+
 Needs an NVIDIA GPU and ``nvcc`` (the kernels are built on first use);
 skips elsewhere.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports only
@@ -12,7 +21,8 @@ import pytest
 import torch
 
 from repro_torch.core import cost_model, plan as plan_mod, tree
-from repro_torch.kernels import flash_decode as fd, ops, por as por_mod
+from repro_torch.kernels import (build, flash_decode as fd, ops,
+                                 pac as pac_mod, por as por_mod)
 
 
 def _pool(forest, n_kv, d, seed):
@@ -37,7 +47,8 @@ def test_cuda_kernels_match_plain_on_card():
         max_q=32))
     B = len(f.request_ids)
     q = torch.randn(B, hq, d, generator=torch.Generator().manual_seed(0))
-    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+    # bf16 KV: PAC's tensor-core path, held as in test_pac_plans_on_card
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
         kc, vc = (torch.from_numpy(x).to("cuda", dt) for x in (k, v))
         qc = q.to("cuda", dt)
         pa = ops.plan_arrays(p, "cuda")
@@ -85,3 +96,132 @@ def test_flash_decode_matches_plain_on_card(window):
             assert torch.isfinite(got).all()
             assert (got[3] == 0).all()
             torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def _plan_pools(forest, plan, n_kv, d, seed):
+    """(pools for the kernel, pools for the plain version): NaN, resp.
+    zero, at every position no valid plan step covers and in two pages
+    past the forest's; random elsewhere."""
+    k, v = _pool(forest, n_kv, d, seed)
+    ps = forest.block_size
+    covered = np.zeros(k.shape[:2], bool)
+    valid = plan.step_valid.astype(bool)
+    for pg, n in zip(plan.step_page[valid], plan.step_kvlen[valid]):
+        covered[pg, :n] = True
+    extra = np.zeros((2, ps, n_kv, d), np.float32)
+    out = []
+    for fill in (np.nan, 0.0):
+        pair = []
+        for x in (k, v):
+            y = x.copy()
+            y[~covered] = fill
+            pair.append(np.concatenate([y, extra + fill]))
+        out.append(pair)
+    return out
+
+
+def _nan_outputs(pa, h_q, d):
+    Tp1, max_q = pa.q_gather.shape
+    return tuple(torch.full(sh, float("nan"), device="cuda") for sh in
+                 ((Tp1, max_q, h_q, d), (Tp1, max_q, h_q), (Tp1, max_q, h_q)))
+
+
+def _forest_plan(case):
+    page = 64 if case == "page64" else 16
+    hq, hkv, d = {"g1": (8, 8, 128), "g8": (32, 4, 128), "d64": (8, 8, 64),
+                  "d256": (8, 1, 256)}.get(case, (32, 8, 128))
+    forest = {
+        "padding-lanes": lambda: tree.two_level(2, 40, 9, block_size=page),
+        "window24": lambda: tree.two_level(4, 100, 30, block_size=page),
+        "rows-over-chunks": lambda: tree.two_level(24, 100, 20,
+                                                   block_size=page),
+        "page64": lambda: tree.two_level(8, 300, 70, block_size=page),
+        "kary": lambda: tree.full_kary(3, 3, 40, block_size=page),
+    }.get(case, lambda: tree.two_level(8, 200, 37, block_size=page))()
+    plan_mod.assign_dense_pages(forest)
+    cm = cost_model.CostModel(hq, hkv, d, page_size=page)
+    lanes = 64 if case == "padding-lanes" else 16
+    window = 24 if case == "window24" else 0
+    make = plan_mod.flash_plan if case == "flash" else plan_mod.build_plan
+    plan = plan_mod.pad_plan(make(forest, cm, num_lanes=lanes, max_q=32,
+                                  window=window))
+    return forest, plan, hq, hkv, d, window
+
+
+PAC_CASES = ("codec", "flash", "padding-lanes", "window24", "g1", "g8",
+             "page64", "rows-over-chunks", "d64", "d256", "kary")
+PAC_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAC_CASES)
+def test_pac_plans_on_card(case, monkeypatch):
+    """On an H100: PAC against pac_torch per plan, q and KV types mixed;
+    dead slots untouched; NaN from them or from unread positions never
+    reaches the combined output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    forest, plan, hq, hkv, d, window = _forest_plan(case)
+    if case == "padding-lanes":
+        assert (plan.step_valid.sum(1) == 0).sum() > plan.num_lanes // 2
+    (k_nan, v_nan), (k0, v0) = _plan_pools(forest, plan, hkv, d, seed=5)
+    B = plan.num_queries
+    q = np.random.default_rng(6).standard_normal((B, hq, d)).astype(
+        np.float32)
+    pa = ops.plan_arrays(plan, "cuda")
+    live = (torch.arange(plan.max_q, device="cuda")[None, :]
+            < pa.task_qnum[:, None])
+    orig = pac_mod.pac
+    for qdt, kvdt in PAC_TYPES:
+        # bf16 KV runs on tensor cores with q and P split into hi + lo
+        # bf16 terms: ~3.4e-4 measured, so 2e-3 would catch a P rounded
+        # to plain bf16
+        tol = 2e-3 if kvdt == torch.bfloat16 else 1e-5
+        qc = torch.from_numpy(q).to("cuda", qdt)
+        kn, vn, kz, vz = (torch.from_numpy(x).to("cuda", kvdt)
+                          for x in (k_nan, v_nan, k0, v0))
+        got = orig(qc, pa, kn, vn, window=window,
+                   out=_nan_outputs(pa, hq, d))
+        want = pac_mod.pac_torch(qc[pa.q_gather.long()], pa.q_pos, kz, vz,
+                                 pa.task_pages, pa.task_kvlen, pa.task_pos,
+                                 window=window)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[live], w[live], rtol=tol, atol=tol)
+            assert torch.isnan(g[~live]).all(), "a dead slot was written"
+        monkeypatch.setattr(pac_mod, "pac", lambda q_, pa_, k_, v_, *,
+                            window=0: orig(q_, pa_, k_, v_, window=window,
+                                           out=_nan_outputs(pa_, hq, d)))
+        comb = ops.codec_partials_arrays(qc, kn, vn, pa, B, window=window,
+                                         impl="cuda")
+        monkeypatch.undo()
+        plain = ops.codec_partials_arrays(qc, kz, vz, pa, B, window=window,
+                                          impl="torch")
+        torch.cuda.synchronize()
+        for g, w in zip(comb, plain):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_pac_fits_two_blocks_per_sm():
+    """On an H100: at qwen3-4b's head dim PAC fits at least two blocks on
+    an SM, as the library's own occupancy query reports, for both KV
+    types; head dims the kernel does not take are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    lib = build.load()
+    for kv_bf16 in (0, 1):
+        assert lib.codec_pac_blocks_per_sm(128, kv_bf16) >= 2, kv_bf16
+        for d in (16, 64, 256, 512):
+            assert lib.codec_pac_smem_bytes(d, kv_bf16) > 0, (d, kv_bf16)
+            assert lib.codec_pac_blocks_per_sm(d, kv_bf16) >= 1, (d, kv_bf16)
+        assert lib.codec_pac_smem_bytes(1024, kv_bf16) == 0
+    forest, plan, hq, hkv, _, _ = _forest_plan("codec")
+    pa = ops.plan_arrays(plan, "cuda")
+    for d in (130, 1024):
+        q = torch.zeros(plan.num_queries, hq, d, device="cuda")
+        pool = torch.zeros(4, forest.block_size, hkv, d, device="cuda")
+        with pytest.raises(ValueError, match="d % 4 == 0"):
+            pac_mod.pac(q, pa, pool, pool)

@@ -7,6 +7,8 @@ themselves are held against their plain versions on the card in
 ``test_torch_cuda.py``.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,3 +160,27 @@ def test_wrappers_refuse_devices_without_kernel():
     pool = torch.empty(4, 16, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         pac_mod.pac(q, pa, pool, pool)
+
+
+@pytest.mark.parametrize("edit", ["pac.cu", "por.cu", "flash_decode.cu",
+                                  "hopper.cuh", "new header", "flags"])
+def test_library_path_covers_every_csrc_file(edit, tmp_path, monkeypatch):
+    """The kernel library is named by every file under csrc/ (sources and
+    the headers they include) and the flags: an unchanged tree keeps its
+    name, and any one edit gives a new one, so the build cache is never
+    stale."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = build.library_path(csrc)
+    assert build.library_path(csrc) == before
+    assert before == build.library_path(build.CSRC)
+    if edit == "new header":
+        (csrc / "extra.cuh").write_text("#pragma once\n")
+    elif edit == "flags":
+        monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    else:
+        path = csrc / edit
+        path.write_text(path.read_text() + "\n// edited\n")
+    assert build.library_path(csrc) != before
+    assert build.library_path(csrc).parent == build.BUILD_DIR
