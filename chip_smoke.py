@@ -9,19 +9,26 @@ Phases (any failure raises and the script exits non-zero):
 
 1. identify the card (``nvidia-smi``) and build the CUDA kernels with
    ``nvcc`` from ``src/repro_torch/kernels/csrc``;
-2. hold PAC, POR and ``flash_decode`` against their plain torch versions at
-   the full qwen3-4b attention width (h_q=32, n_kv=8, d=128): PAC/POR at
-   max_q 32 over plans that stress PAC's ring and its lanes — three codec
-   plan forests at page 16, the flash plan of the served forest (~130
-   steps a lane), a plan with more lanes than work, and page 64 —
-   ``flash_decode`` over uneven ``kv_lens`` with NaN past every one, with
-   and without a window; in float32 and bfloat16 KV;
+2. hold PAC, POR, the POR epilogue and ``flash_decode`` against their
+   plain torch versions at the full qwen3-4b attention width (h_q=32,
+   n_kv=8, d=128): PAC/POR at max_q 32 over plans that stress PAC's ring
+   and its lanes — three codec plan forests at page 16, the flash plan of
+   the served forest (~130 steps a lane), a plan with more lanes than
+   work, and page 64 — in float32 and bfloat16 KV; the epilogue over
+   engine-shaped plans (leaves cut to full pages, each request's last page
+   its tail) of the served forest under the codec and the flash plan, with
+   a tail-only request (an empty segment), with no task at all, under a
+   window of 512 and at page 64, q and KV in float32 and bfloat16, NaN in
+   every dead slot and in the output it writes; ``flash_decode`` over
+   uneven ``kv_lens`` with NaN past every one, with and without a window;
 3. serve qwen3-4b at full width and depth (36 layers, bf16 random weights)
    through the engine's default ``codec-cuda`` backend: 8 requests over a
    shared 4096-token document + 64-token questions, 32 greedy tokens each;
-   the kernels' launch counts must equal attention layers x decode steps.
-   Then PAC and POR are checked and timed at the plan and pool shapes that
-   run left behind;
+   PAC and the epilogue must each launch attention layers x decode steps
+   times, the pairwise POR kernel never.  Then PAC, POR and the epilogue
+   are checked and timed at the plan and pool shapes that run left
+   behind, the epilogue beside its plain version and beside the route it
+   replaced (select, segment reduction, tail page, pairwise POR, cast);
 4. CoDec against FlashDecoding on that run's last decode state (layer 0's
    pool and plan): the engine's attention, the ``flash`` backend over a
    per-request plan and ``flash_decode`` over a dense copy of every
@@ -29,7 +36,8 @@ Phases (any failure raises and the script exits non-zero):
    and one SDPA call are timed against their bounds, and PAC once more
    over the codec plan rebuilt at 32 lanes;
 5. serve the same workload again through the ``flash`` backend (36
-   layers) and print its TPOT beside ``codec-cuda``'s;
+   layers), with the same launch counts, and print its TPOT beside
+   ``codec-cuda``'s;
 6. at 4 layers, full width, f32 weights: greedy streams through
    ``codec-cuda``, ``codec-torch``, ``flash`` and ``hydragen`` must be
    equal;
@@ -62,6 +70,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # ~4e-4 measured at these shapes), flash_decode stays on f32 FFMA
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 POR_TOL = 1e-6
+# the epilogue against its plain version on the same partials: f32 output
+# within 1e-5 (sums in another order), bf16 output within one bf16 step
+# (the two round f32 values that differ in their last bits) wherever it
+# differs by more than 1e-5 (near zero a step is finer than that)
+EPI_TOL, EPI_ULPS = 1e-5, 1
 H_Q, N_KV, D, PAGE, MAX_Q, LANES = 32, 8, 128, 16, 32, 16
 BACKENDS = ("codec-cuda", "codec-torch", "flash", "hydragen")
 
@@ -104,9 +117,11 @@ class Timer:
     (one stalled launch moves the mean, not the median).
 
     Before each launch the L2 cache is flushed (the engine meets every
-    layer's pool cold) and the stream is held in a ~1 ms spin, so the host
-    has queued ``fn``'s launches before the start event fires: the events
-    then bracket device work only, not the wrapper's host overhead."""
+    layer's pool cold) and the stream is held in a spin of ~5 ms, so the
+    host has queued all of ``fn``'s launches before the start event fires:
+    the events then bracket device work only, not the host's (a plain
+    version or a replaced route issues dozens of launches, which a spin of
+    ~1 ms did not always cover)."""
 
     def __init__(self):
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -118,7 +133,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(10_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -140,6 +155,96 @@ def assert_close(name, got, want, tol) -> float:
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
                                    msg=lambda m: f"{name}: {m}")
     return max_err(got, want)
+
+
+def bf16_ulps(got, want, atol=EPI_TOL) -> int:
+    """Largest distance, in bf16 steps, between two bf16 tensors, over the
+    elements that differ by more than ``atol``."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    far = (got.float() - want.float()).abs() > atol
+    steps = (ordered(got) - ordered(want)).abs()[far]
+    return int(steps.max()) if steps.numel() else 0
+
+
+def cut_leaves(forest, rows):
+    """What the engine's decode step derives from the forest for ``rows``:
+    each leaf cut to its full pages (the plan's ``truncate``) and each
+    request's tail arrays (tail_pages, tail_base, q_pos) on the card."""
+    ps = forest.block_size
+    truncate = {}
+    tail = np.zeros((3, len(rows)), np.int64)
+    for i, r in enumerate(rows):
+        leaf = forest.nodes[forest.leaf_of[r]]
+        tp = (leaf.length - 1) // ps
+        truncate[leaf.id] = tp * ps
+        tail[:, i] = (leaf.page_ids[tp], leaf.start_pos + tp * ps,
+                      forest.context_len(r) - 1)
+    return truncate, list(torch.as_tensor(tail, device="cuda").unbind(0))
+
+
+def engine_state(forest, cm, lanes, max_q, max_kv, window=0, flash=False):
+    """The plan the engine builds for this forest (leaves cut, rows in
+    request order, padded) and each request's tail arrays."""
+    from repro_torch.core import plan as plan_mod
+    rows = sorted(forest.request_ids)
+    truncate, tails = cut_leaves(forest, rows)
+    make = plan_mod.flash_plan if flash else plan_mod.build_plan
+    plan = plan_mod.pad_plan(make(
+        forest, cm, lanes, max_q, max_kv,
+        req_rows={r: i for i, r in enumerate(rows)}, window=window,
+        truncate=truncate))
+    return plan, tails
+
+
+def epilogue_bound(q, parts, k_pool, tails, window=0):
+    """Least time for the epilogue on these inputs: the live partial rows
+    (o, m, l), the tail K and V tokens each query sees, q, the CSR and the
+    tail arrays read once and the output written once, over HBM; its FLOPs
+    (4 per query head, column and tail token; 3 per head, column and
+    partial row) over the f32 peak.  Returns (ms, "bytes" | "operations").
+    """
+    B, h_q, d = q.shape
+    _, page, n_kv, _ = k_pool.shape
+    tail_pages, tail_base, q_pos = tails
+    hi = torch.clamp(q_pos - tail_base, max=page - 1)
+    lo = (torch.clamp(q_pos - window + 1 - tail_base, min=0) if window > 0
+          else torch.zeros_like(hi))
+    tokens = int(torch.clamp(hi - lo + 1, min=0).sum())
+    nnz = parts.seg_rows.numel()
+    nbytes = (nnz * h_q * (d + 2) * 4
+              + 2 * tokens * n_kv * d * k_pool.element_size()
+              + 2 * q.numel() * q.element_size()
+              + (B + 1 + nnz) * 4 + 3 * B * 8)
+    flops = 4.0 * tokens * h_q * d + 3.0 * nnz * h_q * d
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def parent_epilogue(q, raw, pa, seg_ids, k_pool, v_pool, tails):
+    """The route the epilogue replaced, op for op as the engine ran it
+    before: the dead-slot selects on PAC's task-major partials, the segment
+    reduction, the tail page over gathered pages, the pairwise POR kernel
+    and the cast."""
+    from repro_torch.kernels import ops, por as por_mod, ref
+    o, m, l = raw
+    tail_pages, tail_base, q_pos = tails
+    slot = torch.arange(pa.q_gather.shape[1], device=q.device)
+    live = slot[None, :] < pa.task_qnum[:, None]
+    m = torch.where(live[..., None], m, torch.full_like(m, ops.MASK_VALUE))
+    l = torch.where(live[..., None], l, torch.zeros_like(l))
+    o = torch.where(live[..., None, None], o, torch.zeros_like(o))
+    P = o.shape[0] * o.shape[1]
+    o_f = ref.combine_partials_stats_ref(
+        o.reshape(P, *o.shape[2:]), m.reshape(P, -1), l.reshape(P, -1),
+        seg_ids, q.shape[0])
+    o_t = ops.single_page_attention(q, k_pool[tail_pages], v_pool[tail_pages],
+                                    tail_base, q_pos)
+    return por_mod.por(*o_f, *o_t)[0].to(q.dtype)
 
 
 def live_slots(pa):
@@ -245,6 +350,63 @@ def check_kernels(forest_name, forest, window, dtype, gen, *, lanes=LANES,
         f"por max|err|={por_err:.3e} (tol {POR_TOL:g})")
 
 
+EPI_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
+
+
+def check_epilogue(name, forest, window, gen, *, flash=False):
+    """The epilogue against its plain version on an engine-shaped plan of
+    ``forest``: PAC's raw partials with NaN in every dead slot, each
+    request's last page as its tail, the output pre-filled with NaN; q
+    and KV in each pair of types.  Returns the largest error of the f32
+    output and the largest distance of the bf16 output in bf16 steps."""
+    from repro_torch.core import cost_model, plan as plan_mod
+    from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
+    page = forest.block_size
+    pages = plan_mod.assign_dense_pages(forest)
+    cm = cost_model.CostModel(H_Q, N_KV, D, page_size=page)
+    plan, tails = engine_state(forest, cm, LANES, MAX_Q, 2048, window, flash)
+    pa = ops.plan_arrays(plan, "cuda")
+    B = plan.num_queries
+    k = torch.randn(pages, page, N_KV, D, generator=gen, device="cuda")
+    v = torch.randn(pages, page, N_KV, D, generator=gen, device="cuda")
+    q = torch.randn(B, H_Q, D, generator=gen, device="cuda")
+    nan = float("nan")
+    o_err, ulps, bf_err, ml_err = 0.0, 0, 0.0, 0.0
+    for qdt, kvdt in EPI_TYPES:
+        qc, kc, vc = q.to(qdt), k.to(kvdt), v.to(kvdt)
+        Tp1, max_q = pa.q_gather.shape
+        raw = (torch.full((Tp1, max_q, H_Q, D), nan, device="cuda"),
+               torch.full((Tp1, max_q, H_Q), nan, device="cuda"),
+               torch.full((Tp1, max_q, H_Q), nan, device="cuda"))
+        o, m, l = pac_mod.pac(qc, pa, kc, vc, window=window, out=raw)
+        parts = ops.Parts(o.view(-1, H_Q, D), m.view(-1, H_Q),
+                          l.view(-1, H_Q), pa.seg_offsets, pa.seg_rows)
+        out = torch.full_like(qc, nan)
+        got = por_mod.por_epilogue(qc, *parts, kc, vc, *tails, window=window,
+                                   stats=True, out=out)
+        want = por_mod.por_epilogue_torch(qc, *parts, kc, vc, *tails,
+                                          window=window)
+        torch.cuda.synchronize()
+        tag = f"epilogue {name} q {qdt} kv {kvdt}"
+        assert all(bool(torch.isfinite(g).all()) for g in got), tag
+        ml_err = max(ml_err, assert_close(tag, got[1:], want[1:], EPI_TOL))
+        if qdt == torch.bfloat16:
+            ulps = max(ulps, bf16_ulps(got[0], want[0]))
+            assert ulps <= EPI_ULPS, (tag, ulps)
+            bf_err = max(bf_err, max_err(got[:1], want[:1]))
+        else:
+            o_err = max(o_err, assert_close(tag, got[:1], want[:1], EPI_TOL))
+    empty = int((pa.seg_offsets[1:] == pa.seg_offsets[:-1]).sum())
+    log(f"  epilogue {name:<13} page={page:<3} window={window:<4} "
+        f"queries={B} tasks={plan.num_tasks:<3} live rows="
+        f"{pa.seg_rows.numel():<4} empty segments={empty}: f32 o max|err| "
+        f"{o_err:.3e} (tol {EPI_TOL:g}); bf16 o within {ulps} step(s) (tol "
+        f"{EPI_ULPS}), max|err| {bf_err:.3e}; m, l max|err| {ml_err:.3e} "
+        f"(rtol = atol = {EPI_TOL:g})")
+    return o_err, ulps
+
+
 def phase_kernels():
     from repro_torch.core import tree
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -263,7 +425,29 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         for name, make, window, kw in forests:
             check_kernels(name, make(), window, dtype, gen, **kw)
+
+    def tail_only():   # the served forest and a request in its tail alone
+        f = served()
+        f.attach_request(8, f.add_node(tree.ROOT_ID, 5).id)
+        return f
+
+    def no_task():     # every request in its tail page: a zero-task plan
+        f = tree.PrefixForest(PAGE)
+        for r in range(8):
+            f.attach_request(r, f.add_node(tree.ROOT_ID, 3 + r).id)
+        return f
+
+    epi = [check_epilogue(name, make(), window, gen, **kw)
+           for name, make, window, kw in (
+               ("codec plan", served, 0, {}),
+               ("flash plan", served, 0, {"flash": True}),
+               ("tail-only", tail_only, 0, {}),
+               ("zero-task", no_task, 0, {}),
+               ("windowed", lambda: tree.two_level(8, 2048, 64,
+                                                   block_size=PAGE), 512, {}),
+               ("page 64", lambda: served(64), 0, {}))]
     check_flash_decode(gen)
+    return max(e for e, _ in epi), max(u for _, u in epi)
 
 
 def check_flash_decode(gen):
@@ -295,6 +479,25 @@ def check_flash_decode(gen):
         del q, k, v
 
 
+def reset_launches() -> None:
+    from repro_torch.kernels import pac as pac_mod, por as por_mod
+    pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels import pac as pac_mod, por as por_mod
+    return {"pac": pac_mod.launches, "por_epilogue": por_mod.epilogue_launches,
+            "por": por_mod.launches}
+
+
+def last_state(engine):
+    """The rows, leaf truncation and tail arrays of an engine's last
+    decode step: every request ran to it, so its rows are all of them, in
+    id order, and the forest is as that step left it."""
+    rows = sorted(engine.requests)
+    return (rows, *cut_leaves(engine.forest, rows))
+
+
 # --------------------------------------------------------------------- #
 # phase 3: serve qwen3-4b at full width and depth
 # --------------------------------------------------------------------- #
@@ -322,9 +525,9 @@ def phase_serve(timer):
     def on_step(eng):
         finite.append(bool(torch.isfinite(eng.last_logits).all()))
 
-    pac_mod.launches = por_mod.launches = 0
+    reset_launches()
     res = serve(engine, prompts, max_new=32, on_step=on_step)
-    launches = {"pac": pac_mod.launches, "por": por_mod.launches}
+    launches = read_launches()
     n_attn = len(engine.attn_layer_idx)
     expect = n_attn * res["steps"]
     lens = sorted({len(t) for t in res["streams"].values()})
@@ -332,19 +535,22 @@ def phase_serve(timer):
         f"decode steps {res['steps']}; plan builds {res['replans']}")
     assert lens == [32], lens
     assert finite and all(finite), "non-finite logits"
-    assert launches == {"pac": expect, "por": expect}, (launches, expect)
-    log(f"  launches: PAC {launches['pac']}, POR {launches['por']} = "
-        f"{n_attn} attention layers x {res['steps']} decode steps")
+    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0}, \
+        (launches, expect)
+    log(f"  launches: PAC {launches['pac']}, epilogue "
+        f"{launches['por_epilogue']} = {n_attn} attention layers x "
+        f"{res['steps']} decode steps; pairwise POR {launches['por']}")
     log(f"  prefill {res['prefill_s'] * 1e3:.1f} ms (8 prompts, 4160 tokens "
         f"each, 4096 shared); TPOT {res['tpot_ms']:.3f} ms per step of 8 "
         f"tokens; plan builds {res['plan_s'] * 1e3:.2f} ms total, per-step "
         f"plan advance {res['advance_s'] * 1e3 / res['steps']:.3f} ms")
 
-    # PAC and POR at the shapes this run gave them: the last plan, layer
-    # 0's pool and bf16 queries of the batch's shape
+    # PAC, POR and the epilogue at the shapes this run gave them: the last
+    # plan and tails, layer 0's pool and bf16 queries of the batch's shape
     plan, pa = engine._plans[0]
     k_pool, v_pool = engine.pool.layer_pools(0)
     B = plan.num_queries
+    _, _, tails = last_state(engine)
     gen = torch.Generator(device="cuda").manual_seed(2)
     q = torch.randn(B, cfg.num_heads, cfg.head_dim, generator=gen,
                     device="cuda").to(torch.bfloat16)
@@ -367,6 +573,27 @@ def phase_serve(timer):
     torch.cuda.synchronize()
     por_err = assert_close("por main path", merged, plain, POR_TOL)
 
+    # the epilogue on the engine's own inputs: PAC's raw partials of this
+    # plan, the CSR, the last step's tails; against its plain version and
+    # the route it replaced
+    raw = pac_mod.pac(q, pa, k_pool, v_pool)
+    parts = ops.Parts(raw[0].view(-1, cfg.num_heads, cfg.head_dim),
+                      raw[1].view(-1, cfg.num_heads),
+                      raw[2].view(-1, cfg.num_heads), pa.seg_offsets,
+                      pa.seg_rows)
+    seg_ids = torch.as_tensor(np.asarray(plan.seg_ids, np.int64),
+                              device="cuda")
+    epi = por_mod.por_epilogue(q, *parts, k_pool, v_pool, *tails, stats=True)
+    epi_plain = por_mod.por_epilogue_torch(q, *parts, k_pool, v_pool, *tails)
+    before = parent_epilogue(q, raw, pa, seg_ids, k_pool, v_pool, tails)
+    torch.cuda.synchronize()
+    epi_ulps = max(bf16_ulps(epi[0], epi_plain[0]),
+                   bf16_ulps(epi[0], before))
+    assert epi_ulps <= EPI_ULPS, ("epilogue main path", epi_ulps)
+    epi_ml_err = assert_close("epilogue main path m, l", epi[1:],
+                              epi_plain[1:], EPI_TOL)
+    epi_err = max_err([epi[0]], [epi_plain[0]])
+
     pac_ms = timer(lambda: pac_mod.pac(q, pa, k_pool, v_pool))
     pac_med = timer.median
     pac_plain_ms = timer(lambda: pac_mod.pac_torch(
@@ -375,17 +602,34 @@ def phase_serve(timer):
     por_ms = timer(lambda: por_mod.por(*o_f, *o_t))
     por_med = timer.median
     por_plain_ms = timer(lambda: por_mod.por_torch(*o_f, *o_t))
+    epi_ms = timer(lambda: por_mod.por_epilogue(q, *parts, k_pool, v_pool,
+                                                *tails))
+    epi_med = timer.median
+    epi_plain_ms = timer(lambda: por_mod.por_epilogue_torch(
+        q, *parts, k_pool, v_pool, *tails))
+    epi_plain_med = timer.median
+    before_ms = timer(lambda: parent_epilogue(q, raw, pa, seg_ids, k_pool,
+                                              v_pool, tails))
+    before_med = timer.median
     pac_b, pac_by = pac_bound(plan, pa, q, k_pool)
     por_b, por_by = por_bound(o_f[0])
+    epi_b, epi_by = epilogue_bound(q, parts, k_pool, tails)
     log(f"  main-path plan: {plan.num_tasks} tasks on {plan.num_lanes} lanes"
         f", {plan.max_steps} steps/lane, {int(plan.step_valid.sum())} "
-        f"valid page steps")
+        f"valid page steps, {parts.seg_rows.numel()} live partial rows")
     log(f"  PAC {pac_ms:.4f} ms/launch, mean of 20 (median {pac_med:.4f}; "
         f"plain {pac_plain_ms:.4f}, bound {pac_b:.4f} by {pac_by}), max|err| "
         f"{pac_err:.3e}; {pac_ms * n_attn:.3f} ms per decode step")
     log(f"  POR {por_ms:.4f} ms/launch, mean of 20 (median {por_med:.4f}; "
         f"plain {por_plain_ms:.4f}, bound {por_b:.5f} by {por_by}), max|err| "
-        f"{por_err:.3e}; {por_ms * n_attn:.3f} ms per decode step")
+        f"{por_err:.3e}; off the main path")
+    log(f"  epilogue {epi_ms:.4f} ms/launch, mean of 20 (median "
+        f"{epi_med:.4f}; bound {epi_b:.5f} by {epi_by}, {epi_b / epi_ms:.1%} "
+        f"of it); plain {epi_plain_ms:.4f} (median {epi_plain_med:.4f}); "
+        f"the route it replaced {before_ms:.4f} (median {before_med:.4f}), "
+        f"{before_ms / epi_ms:.1f}x; bf16 output within {epi_ulps} step(s) "
+        f"of both, max|err| {epi_err:.3e} (m, l {epi_ml_err:.3e}); "
+        f"{epi_ms * n_attn:.3f} ms per decode step")
     kernels = [
         {"name": "pac", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pac.cu",
@@ -399,8 +643,16 @@ def phase_serve(timer):
          "launches": launches["por"], "max_abs_err": por_err,
          "ms": por_ms, "plain_ms": por_plain_ms, "bound_ms": por_b,
          "bound_by": por_by, "library_ms": None},
+        {"name": "por_epilogue", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/por.cu",
+         "replaces": "src/repro/kernels/por.py:44, "
+                     "src/repro/kernels/ops.py:80, "
+                     "src/repro/kernels/ops.py:91",
+         "launches": launches["por_epilogue"], "max_abs_err": epi_err,
+         "ms": epi_ms, "plain_ms": epi_plain_ms, "bound_ms": epi_b,
+         "bound_by": epi_by, "library_ms": None},
     ]
-    del got, want, o_f, o_t, merged, plain
+    del got, want, o_f, o_t, merged, plain, raw, parts, epi, epi_plain
     return engine, model, res, kernels
 
 
@@ -429,17 +681,16 @@ def sdpa_backend(fn) -> str:
 
 def phase_compare(engine, timer):
     """The last decode state of phase 3 attended three ways: the engine's
-    codec-cuda attention (frozen plan + tail page + POR), the same through
-    the ``flash`` backend over a per-request plan, and ``flash_decode``
-    over a dense copy of each request's context."""
+    codec-cuda attention (frozen plan, then the epilogue with the tail
+    page), the same through the ``flash`` backend over a per-request plan,
+    and ``flash_decode`` over a dense copy of each request's context."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.kernels import (flash_decode as fd, ops,
                                      pac as pac_mod, por as por_mod,
                                      registry)
-    cfg, forest, ps = engine.cfg, engine.forest, engine.page_size
-    # every request ran to the last step, so the last plan's rows are all
-    # of them, in id order, and the forest is as that step left it
-    rows = sorted(engine.requests)
+    cfg, forest = engine.cfg, engine.forest
+    rows, truncate, tails = last_state(engine)
+    tail_pages, tail_base, q_pos = tails
     B = len(rows)
     plan_c, pa_c = engine._plans[0]
     assert plan_c.num_queries == B, (plan_c.num_queries, B)
@@ -448,16 +699,6 @@ def phase_compare(engine, timer):
     # the flash plan over the same forest, rows and truncation as
     # DecodeEngine._rebuild_plans builds the codec plan
     req_rows = {r: i for i, r in enumerate(rows)}
-    truncate = {}
-    tail = np.zeros((4, B), np.int64)
-    for i, r in enumerate(rows):
-        leaf = forest.nodes[forest.leaf_of[r]]
-        truncate[leaf.id] = max(0, ((leaf.length - 1) // ps) * ps)
-        tp = (leaf.length - 1) // ps
-        tail[:, i] = (leaf.page_ids[tp], leaf.start_pos + tp * ps,
-                      (leaf.length - 1) % ps, forest.context_len(r) - 1)
-    tail_pages, tail_base, _, q_pos = \
-        torch.as_tensor(tail, device="cuda").unbind(0)
     flash = registry.get("flash")
     plan_f = plan_mod.pad_plan(plan_mod.flash_plan(
         forest, engine.cost_model, engine.num_lanes, engine.max_q,
@@ -481,15 +722,10 @@ def phase_compare(engine, timer):
     # the same bf16 values held in f32, so all three outputs stay f32
     q32 = q_bf.float()
 
-    def attend(backend, plan, prepared, q):
-        o_f = backend.partials(q, k_pool, v_pool, plan, prepared)
-        o_t = ops.single_page_attention(q, k_pool[tail_pages],
-                                        v_pool[tail_pages], tail_base, q_pos)
-        return por_mod.por(*o_f, *o_t)[0]
-
     o_a = engine._attend(q32, k_pool, v_pool, 0, tail_pages, tail_base,
                          q_pos)
-    o_b = attend(flash, plan_f, pa_f, q32)
+    o_b = por_mod.por_epilogue(q32, *flash.parts(q32, k_pool, v_pool, plan_f,
+                                                 pa_f), k_pool, v_pool, *tails)
     fd.launches = 0
     o_c = fd.flash_decode(q32, kd, vd, kv_lens)
     fd_launches = fd.launches
@@ -585,7 +821,6 @@ def phase_compare(engine, timer):
 # phase 5: the same workload through the flash backend
 # --------------------------------------------------------------------- #
 def phase_serve_flash(cfg, model, codec_res):
-    from repro_torch.kernels import pac as pac_mod, por as por_mod
     from repro_torch.launch.serve import doc_prompts, serve
     from repro_torch.serving.engine import DecodeEngine
 
@@ -598,18 +833,21 @@ def phase_serve_flash(cfg, model, codec_res):
     def on_step(eng):
         finite.append(bool(torch.isfinite(eng.last_logits).all()))
 
-    pac_mod.launches = por_mod.launches = 0
+    reset_launches()
     res = serve(engine, prompts, max_new=32, on_step=on_step)
-    launches = {"pac": pac_mod.launches, "por": por_mod.launches}
+    launches = read_launches()
     expect = len(engine.attn_layer_idx) * res["steps"]
     assert finite and all(finite), "non-finite logits"
-    assert launches == {"pac": expect, "por": expect}, (launches, expect)
+    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0}, \
+        (launches, expect)
     plan, _ = engine._plans[0]
     assert int(plan.task_qnum.max()) == 1, "flash plan shares a task"
     same = sum(res["streams"][r] == codec_res["streams"][r]
                for r in codec_res["streams"])
-    log(f"  flash: PAC {launches['pac']}, POR {launches['por']} launches "
-        f"over {res['steps']} steps; last plan {plan.num_tasks} tasks")
+    log(f"  flash: PAC {launches['pac']}, epilogue "
+        f"{launches['por_epilogue']}, pairwise POR {launches['por']} "
+        f"launches over {res['steps']} steps; last plan {plan.num_tasks} "
+        f"tasks")
     log(f"  TPOT flash {res['tpot_ms']:.3f} ms vs codec-cuda "
         f"{codec_res['tpot_ms']:.3f} ms per step of 8 tokens; "
         f"{same} of {len(codec_res['streams'])} streams equal codec-cuda's "
@@ -690,7 +928,10 @@ def main() -> int:
         f"{lib.codec_pac_blocks_per_sm(D, 1)}")
 
     log("== 2. kernels vs plain versions at full width")
-    phase_kernels()
+    epi_err, epi_ulps = phase_kernels()
+    log(f"  epilogue over all phase-2 cases: f32 output max|err| "
+        f"{epi_err:.3e} (tol {EPI_TOL:g}), bf16 output within {epi_ulps} "
+        f"step(s) (tol {EPI_ULPS})")
     timer = Timer()
 
     log("== 3. serve qwen3-4b, full width and depth")

@@ -1,6 +1,6 @@
 // PTX wrappers shared by the hand-written kernels (sm_80 and later; built
-// for sm_90a): asynchronous global->shared copies, ldmatrix and the bf16
-// mma.sync tensor-core product.
+// for sm_90a): asynchronous global->shared copies, ldmatrix, the bf16
+// mma.sync tensor-core product and the warp's transposing butterfly sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +8,8 @@
 #include <cstdint>
 
 namespace codec {
+
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -84,6 +86,37 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const float2 f = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x - f.x, y - f.y);
+}
+
+// One round of the transposing butterfly over a warp: lanes whose offset
+// bit O is set keep the upper N of the first 2N values, the others the
+// lower N, and each adds its partner's copy of the half it kept.
+template <int N, int O, int M>
+__device__ __forceinline__ void xpose(float (&v)[M], int ln) {
+  const bool up = (ln & O) != 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = up ? v[i] : v[i + N];
+    const float keep = up ? v[i + N] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFullMask, send, O);
+  }
+}
+
+// Sums N partial values (N a power of two) over the warp: rounds at
+// offsets 16, 8, ... first halve the values a lane keeps (xpose), then add
+// the last one, so lane ln ends with the sum of value ln >> (5 - log2 N).
+// Every index is a constant, so the values stay in registers.
+template <int N, int O, int M>
+__device__ __forceinline__ void reduce_rounds(float (&v)[M], int ln) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      xpose<N / 2, O>(v, ln);
+      reduce_rounds<N / 2, O / 2>(v, ln);
+    } else {
+      v[0] += __shfl_xor_sync(kFullMask, v[0], O);
+      reduce_rounds<1, O / 2>(v, ln);
+    }
+  }
 }
 
 }  // namespace codec

@@ -89,6 +89,7 @@ using codec::cp_async16;
 using codec::cp_async8;
 using codec::cp_async_commit;
 using codec::cp_async_wait;
+using codec::reduce_rounds;
 
 constexpr float kMask = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -184,39 +185,8 @@ __device__ __forceinline__ void scale4(float4& acc, float s) {
 // Policies: the per-warp compute of one tile, and what a block holds.
 // ------------------------------------------------------------------------
 
-// One round of the transposing butterfly over a warp: lanes whose offset
-// bit O is set keep the upper N of the first 2N values, the others the
-// lower N, and each adds its partner's copy of the half it kept.
-template <int N, int O, int M>
-__device__ __forceinline__ void xpose(float (&v)[M], int ln) {
-  const bool up = (ln & O) != 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float send = up ? v[i] : v[i + N];
-    const float keep = up ? v[i + N] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, O);
-  }
-}
-
 __host__ __device__ constexpr int ilog2(int n) {
   return n <= 1 ? 0 : 1 + ilog2(n / 2);
-}
-
-// Sums N partial values (N a power of two) over the warp: rounds at
-// offsets 16, 8, ... first halve the values a lane keeps (xpose), then add
-// the last one, so lane ln ends with the sum of value ln >> (5 - log2 N).
-// Every index is a constant, so the values stay in registers.
-template <int N, int O, int M>
-__device__ __forceinline__ void reduce_rounds(float (&v)[M], int ln) {
-  if constexpr (O > 0) {
-    if constexpr (N > 1) {
-      xpose<N / 2, O>(v, ln);
-      reduce_rounds<N / 2, O / 2>(v, ln);
-    } else {
-      v[0] += __shfl_xor_sync(kFull, v[0], O);
-      reduce_rounds<1, O / 2>(v, ln);
-    }
-  }
 }
 
 // CUDA cores; DV = 1, 2, 4 for d <= 128, 256, 512.

@@ -1,16 +1,19 @@
 """Plan arrays and the CoDec decode-attention op (port of
 ``repro.kernels.ops``).
 
-``codec_partials_arrays`` is the public op: stacked decode queries + paged
-KV pool + a compiled plan's device arrays -> per-query mergeable flash
-statistics ``(o, m, l)``, with two implementations of the PAC stage:
+``codec_parts_arrays`` runs the PAC stage over a compiled plan's device
+arrays and returns the raw partials flattened to rows with the per-query
+CSR over their live rows (``Parts``): what the engine's epilogue
+(``por.por_epilogue``) consumes.  Two implementations of PAC:
 
 * ``cuda``  — ``pac.pac``: the hand-written CUDA kernel on the card (its
               plain version for CPU tensors);
 * ``torch`` — ``pac.pac_torch``: the same task/plan semantics as dense
               torch ops (the twin of ``repro``'s ``pac_xla``).
 
-Both feed the flattened segment-LSE reduction (``combine_partials_stats``).
+``codec_partials_arrays`` is the public op: those parts reduced to
+per-query mergeable flash statistics ``(o, m, l)`` by the plain segment
+log-sum-exp (``combine_parts``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ MASK_VALUE = ref_mod.MASK_VALUE
 
 
 class PlanArrays(NamedTuple):
-    """Device copies of a DecodePlan's arrays (int32; ``seg_ids`` int64)."""
+    """Device copies of a DecodePlan's arrays (int32), with the per-query
+    CSR over the live task slots (``plan_csr``)."""
     step_task: torch.Tensor
     step_page: torch.Tensor
     step_valid: torch.Tensor
@@ -42,27 +46,53 @@ class PlanArrays(NamedTuple):
     task_pages: torch.Tensor
     q_gather: torch.Tensor
     q_pos: torch.Tensor
-    seg_ids: torch.Tensor
+    seg_offsets: torch.Tensor   # (B+1,) query b's rows: seg_offsets[b]..
+    seg_rows: torch.Tensor      # (nnz,) flattened task slots, ascending
+
+
+class Parts(NamedTuple):
+    """A backend's raw partials flattened to rows, and the CSR over the
+    rows that belong to each query: query ``b`` reduces rows
+    ``seg_rows[seg_offsets[b]:seg_offsets[b+1]]``.  Rows the CSR does not
+    list (dead task slots, the trash row) are never read; they may hold
+    NaN."""
+    o: torch.Tensor             # (P, h, d) float32
+    m: torch.Tensor             # (P, h)
+    l: torch.Tensor             # (P, h)
+    seg_offsets: torch.Tensor   # (B+1,) int32
+    seg_rows: torch.Tensor      # (nnz,) int32
+
+
+def plan_csr(plan):
+    """(seg_offsets (B+1,), seg_rows (nnz,)) int32 from ``plan.seg_ids``:
+    the flattened task slots whose id is a query (below ``num_queries``;
+    dead slots and the trash row carry ``num_queries``), stably sorted by
+    query, so every live slot appears once, in ascending order within its
+    query."""
+    seg = np.asarray(plan.seg_ids, np.int64)
+    nq = plan.num_queries
+    live = np.nonzero(seg < nq)[0]
+    rows = live[np.argsort(seg[live], kind="stable")]
+    offsets = np.zeros(nq + 1, np.int64)
+    np.cumsum(np.bincount(seg[live], minlength=nq), out=offsets[1:])
+    return offsets.astype(np.int32), rows.astype(np.int32)
 
 
 def plan_arrays(plan, device="cuda") -> PlanArrays:
-    """Upload a plan's arrays in one host->device copy.
+    """Upload a plan's arrays, the CSR included, in one host->device copy.
 
     The int32 arrays are packed into one buffer and split into contiguous
-    views on the device; ``seg_ids`` (indices of the segment reduction,
-    which ``scatter_reduce`` wants as int64) travel as a second copy.
+    views on the device.
     """
-    fields = PlanArrays._fields[:-1]
     arrs = [np.ascontiguousarray(getattr(plan, f), dtype=np.int32)
-            for f in fields]
+            for f in PlanArrays._fields[:-2]] + list(plan_csr(plan))
     flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrs]))
     flat = flat.to(device)
     views, off = [], 0
     for a in arrs:
         views.append(flat[off:off + a.size].view(a.shape))
         off += a.size
-    seg = torch.from_numpy(np.asarray(plan.seg_ids, np.int64)).to(device)
-    return PlanArrays(*views, seg)
+    return PlanArrays(*views)
 
 
 def advance_plan_arrays(pa: PlanArrays, delta) -> PlanArrays:
@@ -77,16 +107,6 @@ def advance_plan_arrays(pa: PlanArrays, delta) -> PlanArrays:
 def gather_queries(q: torch.Tensor, q_gather: torch.Tensor) -> torch.Tensor:
     """(B, h, d) -> task-major (T+1, max_q, h, d)."""
     return q[q_gather.long()]
-
-
-def combine_partials_stats(o_parts, m_parts, l_parts, seg_ids,
-                           num_queries: int):
-    """Segment-LSE reduction of task-major partials -> per-query (o, m, l)."""
-    P = o_parts.shape[0] * o_parts.shape[1]
-    h, d = o_parts.shape[2], o_parts.shape[3]
-    return ref_mod.combine_partials_stats_ref(
-        o_parts.reshape(P, h, d), m_parts.reshape(P, h),
-        l_parts.reshape(P, h), seg_ids, num_queries)
 
 
 def single_page_attention(q: torch.Tensor,        # (B, h_q, d)
@@ -126,11 +146,39 @@ def single_page_attention(q: torch.Tensor,        # (B, h_q, d)
     return (o.reshape(B, h_q, d), m.reshape(B, h_q), l.reshape(B, h_q))
 
 
-def codec_partials_arrays(q: torch.Tensor, k_pool: torch.Tensor,
-                          v_pool: torch.Tensor, pa: PlanArrays,
-                          num_queries: int, *, window: int = 0,
-                          impl: str = "cuda"):
-    """Plan-covered attention -> per-query mergeable (o, m, l) stats."""
+def identity_parts(o: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> Parts:
+    """Per-query statistics (B, h, d) / (B, h) as parts: one row a query."""
+    B = o.shape[0]
+    idx = torch.arange(B + 1, dtype=torch.int32, device=o.device)
+    return Parts(o, m, l, idx, idx[:B])
+
+
+def combine_parts(parts: Parts):
+    """Segment-LSE reduction of parts -> per-query (o, m, l), as plain
+    torch ops.  Rows outside the CSR are selected away (never multiplied:
+    they may hold NaN) and reduce into the trash segment, as in
+    ``repro``'s ``codec_partials_arrays``."""
+    o, m, l, offsets, rows = parts
+    B = offsets.shape[0] - 1
+    dev = m.device
+    seg = torch.full((m.shape[0],), B, dtype=torch.int64, device=dev)
+    seg[rows.long()] = torch.repeat_interleave(
+        torch.arange(B, device=dev), (offsets[1:] - offsets[:-1]).long(),
+        output_size=rows.shape[0])
+    live = seg < B
+    m = torch.where(live[:, None], m, torch.full_like(m, MASK_VALUE))
+    l = torch.where(live[:, None], l, torch.zeros_like(l))
+    o = torch.where(live[:, None, None], o, torch.zeros_like(o))
+    return ref_mod.combine_partials_stats_ref(o, m, l, seg, B)
+
+
+def codec_parts_arrays(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, pa: PlanArrays, *,
+                       window: int = 0, impl: str = "cuda") -> Parts:
+    """PAC over the plan -> its raw partials as ``Parts``.  Dead slots
+    (padding, the trash row) are never finalised by the kernel: they hold
+    ``torch.empty`` garbage, NaNs included, and no CSR row names them."""
     if impl == "cuda":
         o, m, l = pac_mod.pac(q, pa, k_pool, v_pool, window=window)
     elif impl == "torch":
@@ -140,15 +188,23 @@ def codec_partials_arrays(q: torch.Tensor, k_pool: torch.Tensor,
                                     window=window)
     else:
         raise ValueError(impl)
-    # dead slots (padding, the trash row) are never finalised by the
-    # kernel: they hold torch.empty garbage, NaNs included.  Select, never
-    # multiply, so nothing of them can reach a segment.
-    slot = torch.arange(pa.q_gather.shape[1], device=q.device)
-    live = slot[None, :] < pa.task_qnum[:, None]              # (T+1, max_q)
-    m = torch.where(live[..., None], m, torch.full_like(m, MASK_VALUE))
-    l = torch.where(live[..., None], l, torch.zeros_like(l))
-    o = torch.where(live[..., None, None], o, torch.zeros_like(o))
-    return combine_partials_stats(o, m, l, pa.seg_ids, num_queries)
+    P = o.shape[0] * o.shape[1]
+    h, d = o.shape[2], o.shape[3]
+    return Parts(o.reshape(P, h, d), m.reshape(P, h), l.reshape(P, h),
+                 pa.seg_offsets, pa.seg_rows)
+
+
+def codec_partials_arrays(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, pa: PlanArrays,
+                          num_queries: int, *, window: int = 0,
+                          impl: str = "cuda"):
+    """Plan-covered attention -> per-query mergeable (o, m, l) stats."""
+    parts = codec_parts_arrays(q, k_pool, v_pool, pa, window=window,
+                               impl=impl)
+    if parts.seg_offsets.shape[0] != num_queries + 1:
+        raise ValueError(f"plan arrays hold {parts.seg_offsets.shape[0] - 1}"
+                         f" queries, expected {num_queries}")
+    return combine_parts(parts)
 
 
 def codec_attention(q, k_pool, v_pool, plan, *, impl: str = "cuda",

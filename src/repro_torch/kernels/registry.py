@@ -7,9 +7,11 @@ so the engine, the CLI and the tests resolve backends by *name*:
     backend = registry.get("codec-cuda")
     out = backend(q, k_pool, v_pool, plan, window=0)        # (B, h_q, d)
 
-``partials`` returns per-query mergeable flash statistics ``(o, m, l)`` so
-the serving engine can POR-merge a backend's frozen-plan output with its
-per-step tail-page attention.  ``prepare(plan, device)`` uploads the host
+``parts`` returns a backend's raw partials with the per-query CSR over
+them (``ops.Parts``): the serving engine hands them, with its per-step
+tail page, to one ``por.por_epilogue`` call per layer.  ``partials``
+returns the same reduced to per-query mergeable flash statistics
+``(o, m, l)``.  ``prepare(plan, device)`` uploads the host
 ``DecodePlan`` into the device arrays the backend consumes; the engine
 caches the result across decode steps.
 
@@ -45,6 +47,10 @@ class AttentionBackend:
     ``partials_fn(q, k_pool, v_pool, plan, prepared, window)`` returns
     per-query flash statistics ``(o, m, l)`` — ``o`` normalised within the
     plan-covered KV — a valid partial for further POR merges.
+    ``parts_fn`` (same arguments) returns the raw partials before that
+    reduction as ``ops.Parts``; a backend without one reduces inside
+    ``partials_fn`` and hands its per-query statistics on as one part a
+    query (``ops.identity_parts``).
 
     ``partials_arrays_fn(q, k_pool, v_pool, prepared, *, num_queries,
     window)`` consumes only the device arrays from ``prepare`` and
@@ -57,6 +63,7 @@ class AttentionBackend:
 
     name: str
     partials_fn: Callable[..., Tuple]
+    parts_fn: Optional[Callable[..., "ops.Parts"]] = None
     prepare: Callable[..., Any] = ops.plan_arrays
     plan_kind: str = "codec"
     needs_plan: bool = True
@@ -73,18 +80,30 @@ class AttentionBackend:
         return (self.partials_arrays_fn is not None
                 and self.advance_fn is not None)
 
-    def partials(self, q, k_pool, v_pool, plan, prepared=None, *,
-                 window: int = 0):
-        """Per-query mergeable (o, m, l) over the plan-covered KV."""
+    def _prepared(self, q, plan, prepared, window):
         if window and not self.supports_window:
             raise ValueError(
                 f"backend {self.name!r} does not support sliding windows")
         if self.needs_plan and plan is None:
             raise ValueError(
                 f"backend {self.name!r} requires a compiled DecodePlan")
-        if prepared is None:
-            prepared = self.prepare(plan, q.device)
+        return self.prepare(plan, q.device) if prepared is None else prepared
+
+    def partials(self, q, k_pool, v_pool, plan, prepared=None, *,
+                 window: int = 0):
+        """Per-query mergeable (o, m, l) over the plan-covered KV."""
+        prepared = self._prepared(q, plan, prepared, window)
         return self.partials_fn(q, k_pool, v_pool, plan, prepared, window)
+
+    def parts(self, q, k_pool, v_pool, plan, prepared=None, *,
+              window: int = 0) -> "ops.Parts":
+        """Raw partials over the plan-covered KV with their per-query CSR,
+        for ``por.por_epilogue``."""
+        prepared = self._prepared(q, plan, prepared, window)
+        if self.parts_fn is None:
+            return ops.identity_parts(*self.partials_fn(
+                q, k_pool, v_pool, plan, prepared, window))
+        return self.parts_fn(q, k_pool, v_pool, plan, prepared, window)
 
     def __call__(self, q, k_pool, v_pool, plan, *, window: int = 0,
                  prepared=None) -> torch.Tensor:
@@ -140,6 +159,13 @@ def _codec_partials(impl: str):
     return fn
 
 
+def _codec_parts(impl: str):
+    def fn(q, k_pool, v_pool, plan, pa, window):
+        return ops.codec_parts_arrays(q, k_pool, v_pool, pa, window=window,
+                                      impl=impl)
+    return fn
+
+
 def _codec_partials_arrays(impl: str):
     def fn(q, k_pool, v_pool, pa, *, num_queries, window):
         return ops.codec_partials_arrays(q, k_pool, v_pool, pa,
@@ -161,6 +187,7 @@ def _ref_partials(q, k_pool, v_pool, plan, prepared, window):
 register(AttentionBackend(
     name="codec-cuda",
     partials_fn=_codec_partials("cuda"),
+    parts_fn=_codec_parts("cuda"),
     partials_arrays_fn=_codec_partials_arrays("cuda"),
     advance_fn=ops.advance_plan_arrays,
     description="CoDec PAC CUDA kernel over the lane-scheduled plan "
@@ -169,6 +196,7 @@ register(AttentionBackend(
 register(AttentionBackend(
     name="codec-torch",
     partials_fn=_codec_partials("torch"),
+    parts_fn=_codec_parts("torch"),
     partials_arrays_fn=_codec_partials_arrays("torch"),
     advance_fn=ops.advance_plan_arrays,
     description="CoDec plan semantics as dense torch ops"))
@@ -176,6 +204,7 @@ register(AttentionBackend(
 register(AttentionBackend(
     name="flash",
     partials_fn=_codec_partials("cuda"),
+    parts_fn=_codec_parts("cuda"),
     partials_arrays_fn=_codec_partials_arrays("cuda"),
     advance_fn=ops.advance_plan_arrays,
     plan_kind="flash",

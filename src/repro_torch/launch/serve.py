@@ -9,7 +9,8 @@ seed on the device.  Prints prefill time, TPOT (decode seconds per engine
 step; each step emits one token for every running request) and the CUDA
 kernel launch counts.  ``--profile N`` traces decode steps 2..N+1 with
 ``torch.profiler`` and prints the device-busy share and the kernels by
-device time (those steps are left out of TPOT).  Every run prints the
+device time, the top 12 or ``--top N`` (0: all; those steps are left out
+of TPOT).  Every run prints the
 decode KV bytes CoDec reads per step against FlashDecoding's.
 ``--compare`` serves the same prompts through ``codec-cuda`` and then the
 ``flash`` baseline, prints both TPOTs and whether the greedy streams are
@@ -54,8 +55,9 @@ def _device_us(e) -> float:
 
 def profile_summary(prof, wall_s: float, steps: int,
                     top: int = 12) -> Dict[str, object]:
-    """Per-step device busy time, idle share and the top kernels of a
-    ``torch.profiler`` trace over ``steps`` decode steps."""
+    """Per-step device busy time, idle share and the top kernels (all of
+    them for ``top`` 0) of a ``torch.profiler`` trace over ``steps``
+    decode steps."""
     # device-side entries only (kernels, memcpy, memset): a host op's own
     # device time repeats its kernels'
     kernels = [e for e in prof.key_averages()
@@ -69,16 +71,18 @@ def profile_summary(prof, wall_s: float, steps: int,
             "top": [(e.key[:60], _device_us(e) / 1e3 / steps,
                      e.count / steps)
                     for e in sorted(kernels, key=_device_us,
-                                    reverse=True)[:top]]}
+                                    reverse=True)[:top or None]]}
 
 
 def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
-          on_step=None, profile_steps: int = 0) -> Dict[str, object]:
+          on_step=None, profile_steps: int = 0,
+          profile_top: int = 12) -> Dict[str, object]:
     """Admit + prefill every prompt, then decode until all are done.
 
     ``on_step(engine)`` runs after every decode step (outside the engine's
     own decode timer).  ``profile_steps`` > 0 traces that many decode
-    steps after the first with ``torch.profiler`` (left out of TPOT).
+    steps after the first with ``torch.profiler`` (left out of TPOT) and
+    keeps its ``profile_top`` kernels by device time (0: all).
     Returns the streams and host-clock timings.
     """
     dev = engine.device
@@ -105,7 +109,8 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
             wall = time.perf_counter() - w0
             traced_s = engine.stats["decode_time"] - d0
             prof.__exit__(None, None, None)
-            profile, prof = profile_summary(prof, wall, profile_steps), None
+            profile = profile_summary(prof, wall, profile_steps, profile_top)
+            prof = None
         if on_step is not None:
             on_step(engine)
     _sync(dev)
@@ -129,8 +134,9 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
                           num_lanes=args.num_lanes, device=device)
     prompts = doc_prompts(args.requests, args.doc_len, args.q_len,
                           cfg.vocab_size, args.seed)
-    pac_mod.launches = por_mod.launches = 0
-    res = serve(engine, prompts, args.max_new, profile_steps=args.profile)
+    pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
+    res = serve(engine, prompts, args.max_new, profile_steps=args.profile,
+                profile_top=args.top)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device {name}: {cfg.name} x{cfg.num_layers} layers, "
@@ -160,6 +166,7 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
             print(f"  {ms:9.4f} ms/step  {count:7.1f}/step  {kname}")
     print(json.dumps({"backend": backend,
                       "pac_launches": pac_mod.launches,
+                      "epilogue_launches": por_mod.epilogue_launches,
                       "por_launches": por_mod.launches,
                       "tokens": {str(r): len(t)
                                  for r, t in res["streams"].items()}}))
@@ -184,6 +191,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N decode steps with torch.profiler")
+    ap.add_argument("--top", type=int, default=12, metavar="N",
+                    help="kernels listed from the trace (0: all)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

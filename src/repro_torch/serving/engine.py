@@ -12,9 +12,10 @@ Continuous-batching greedy decode with CoDec as the attention backend:
 * decode attention = **frozen CoDec plan** over all full pages (rebuilt
   exactly when ``core.plan.plan_key`` changes: batch membership, path
   structure, or a leaf crossing a page boundary) through the backend's
-  ``partials`` — the CUDA PAC kernel by default — merged by the CUDA
-  **POR kernel** with a **tail attention** over each request's growing
-  last page.
+  raw ``parts`` — the CUDA PAC kernel by default — then one CUDA
+  **POR epilogue** launch per layer: the per-query segment reduction of
+  those partials, a **tail attention** over each request's growing last
+  page, their POR merge and the cast.
 
 Left for later slices: chunked prefill and preempt-and-recompute (a dry
 pool raises ``MemoryError``), the fused single-launch step, sampling at
@@ -36,7 +37,7 @@ from ..core import plan as plan_mod
 from ..core import tree as tree_mod
 from ..core.cost_model import CostModel
 from ..core.scheduler import AdmissionController, min_working_pages
-from ..kernels import ops, por as por_mod, registry as registry_mod
+from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
 from ..models.transformer import Transformer
 from . import sampler
@@ -541,15 +542,13 @@ class DecodeEngine:
     def _attend(self, qb, k_pool, v_pool, window, tail_pages, tail_base,
                 q_pos):
         plan, prepared = self._plans[window]
-        # frozen part: backend partials over all full pages
-        o_f, m_f, l_f = self._backend.partials(
-            qb, k_pool, v_pool, plan, prepared, window=window)
-        # tail part: each request's growing last page
-        o_t, m_t, l_t = ops.single_page_attention(
-            qb, k_pool[tail_pages], v_pool[tail_pages], tail_base, q_pos,
-            window=window)
-        o, _, _ = por_mod.por(o_f, m_f, l_f, o_t, m_t, l_t)
-        return o.to(qb.dtype)
+        # frozen part: the backend's raw partials over all full pages;
+        # the epilogue reduces them per query, attends each request's
+        # growing last page, POR-merges the two and casts, in one launch
+        parts = self._backend.parts(qb, k_pool, v_pool, plan, prepared,
+                                    window=window)
+        return por_mod.por_epilogue(qb, *parts, k_pool, v_pool, tail_pages,
+                                    tail_base, q_pos, window=window)
 
     # ------------------------------------------------------------------ #
     def run(self, max_steps: int = 64) -> Dict[int, List[int]]:

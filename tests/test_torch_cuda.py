@@ -1,5 +1,5 @@
-"""The CUDA kernels (PAC, POR, flash_decode) against their plain torch
-versions, on the card.
+"""The CUDA kernels (PAC, POR, the POR epilogue, flash_decode) against
+their plain torch versions, on the card.
 
 PAC is held on the plans that stress its ring and its row chunks: the
 codec and flash plans at full width, lanes with nothing but padding, last
@@ -8,7 +8,10 @@ and 8, pages 16 and 64, head dims 64 to 256, and more rows in a task than
 one block holds.  The kernel reads a pool whose every position no plan
 step covers is NaN, and writes into outputs filled with NaN: live slots
 must match the plain version (which reads zeros there), dead slots must
-still hold NaN, and the combined output must stay finite.
+still hold NaN, and the combined output must stay finite.  The epilogue
+takes the same plans, PAC's raw partials with NaN in every dead slot, and
+each request's last page as its tail (NaN past the request's position),
+writes into an output filled with NaN, and gives the same bits twice.
 
 Needs an NVIDIA GPU and ``nvcc`` (the kernels are built on first use);
 skips elsewhere.  Run on the card with
@@ -225,3 +228,113 @@ def test_pac_fits_two_blocks_per_sm():
         pool = torch.zeros(4, forest.block_size, hkv, d, device="cuda")
         with pytest.raises(ValueError, match="d % 4 == 0"):
             pac_mod.pac(q, pa, pool, pool)
+
+
+def _bf16_steps(got: torch.Tensor, want: torch.Tensor,
+                atol: float = 1e-5) -> int:
+    """Largest distance, in bf16 steps, between two bf16 tensors, over the
+    elements that differ by more than ``atol``: near zero a bf16 step is
+    finer than the f32 rounding both sides carry (at 1e-5 it is 6e-8)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    far = (got.float() - want.float()).abs() > atol
+    steps = (ordered(got) - ordered(want)).abs()[far]
+    return int(steps.max()) if steps.numel() else 0
+
+
+def _tails(forest, plan):
+    """Each query's tail arrays: its leaf's last page, that page's first
+    position and the query's position, in the plan's row order."""
+    ps = forest.block_size
+    tail = np.zeros((3, plan.num_queries), np.int64)
+    for i, r in enumerate(sorted(forest.request_ids)):
+        leaf = forest.nodes[forest.leaf_of[r]]
+        tp = (leaf.length - 1) // ps
+        tail[:, i] = (leaf.page_ids[tp], leaf.start_pos + tp * ps,
+                      forest.context_len(r) - 1)
+    return [torch.from_numpy(x).cuda() for x in tail]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAC_CASES)
+def test_por_epilogue_plans_on_card(case):
+    """On an H100: the epilogue against por_epilogue_torch on PAC's raw
+    partials of every PAC test plan, q and KV types mixed; NaN in dead
+    slots, in the pool past each query and in the output it writes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    forest, plan, hq, hkv, d, window = _forest_plan(case)
+    (k_nan, v_nan), (k0, v0) = _plan_pools(forest, plan, hkv, d, seed=7)
+    B = plan.num_queries
+    q = np.random.default_rng(8).standard_normal((B, hq, d)).astype(
+        np.float32)
+    pa = ops.plan_arrays(plan, "cuda")
+    tails = _tails(forest, plan)
+    for qdt, kvdt in PAC_TYPES:
+        qc = torch.from_numpy(q).to("cuda", qdt)
+        kn, vn, kz, vz = (torch.from_numpy(x).to("cuda", kvdt)
+                          for x in (k_nan, v_nan, k0, v0))
+        o, m, l = pac_mod.pac(qc, pa, kn, vn, window=window,
+                              out=_nan_outputs(pa, hq, d))
+        parts = ops.Parts(o.view(-1, hq, d), m.view(-1, hq), l.view(-1, hq),
+                          pa.seg_offsets, pa.seg_rows)
+        out = torch.full_like(qc, float("nan"))
+        got = por_mod.por_epilogue(qc, *parts, kn, vn, *tails,
+                                   window=window, stats=True, out=out)
+        want = por_mod.por_epilogue_torch(qc, *parts, kz, vz, *tails,
+                                          window=window)
+        again = por_mod.por_epilogue(qc, *parts, kn, vn, *tails,
+                                     window=window, stats=True)
+        torch.cuda.synchronize()
+        assert got[0] is out and out.dtype == qdt
+        for g, w, a in zip(got, want, again):
+            assert torch.isfinite(g).all()
+            assert torch.equal(g, a), "two launches differ"
+        if qdt == torch.bfloat16:
+            # one bf16 step (or 1e-5 where a step is finer): the kernel
+            # and the plain version round f32 values that differ in their
+            # last bits
+            assert _bf16_steps(got[0], want[0]) <= 1
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                       atol=1e-5)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_por_epilogue_refuses_shapes_it_does_not_take():
+    """On an H100: head dims, pages and groups outside the kernel's set
+    raise before any launch, as do wrong types."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+
+    def args(B=2, hq=8, hkv=2, d=128, page=16, qdt=torch.float32):
+        q = torch.zeros(B, hq, d, device="cuda", dtype=qdt)
+        o = torch.zeros(3, hq, d, device="cuda")
+        ml = torch.zeros(3, hq, device="cuda")
+        offs = torch.tensor([0, 1, 2], dtype=torch.int32, device="cuda")
+        rows = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+        pool = torch.zeros(4, page, hkv, d, device="cuda")
+        t = torch.zeros(B, dtype=torch.int64, device="cuda")
+        return (q, o, ml, ml, offs, rows, pool, pool, t, t, t)
+
+    lo = por_mod.epilogue_launches
+    por_mod.por_epilogue(*args())
+    torch.cuda.synchronize()
+    assert por_mod.epilogue_launches == lo + 1
+    for kw in ({"d": 96}, {"d": 32}, {"d": 512}, {"page": 32},
+               {"hq": 18, "hkv": 2}):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            por_mod.por_epilogue(*args(**kw))
+    a = list(args())
+    a[9] = a[9].int()   # tail_base as int32
+    with pytest.raises(TypeError, match="tail_base"):
+        por_mod.por_epilogue(*a)
+    a = list(args())
+    a[1] = a[1].half()
+    with pytest.raises(TypeError, match="o_parts"):
+        por_mod.por_epilogue(*a)
+    assert por_mod.epilogue_launches == lo + 1
