@@ -19,8 +19,11 @@ Phases (any failure raises and the script exits non-zero):
    its tail) of the served forest under the codec and the flash plan, with
    a tail-only request (an empty segment), with no task at all, under a
    window of 512 and at page 64, q and KV in float32 and bfloat16, NaN in
-   every dead slot and in the output it writes; ``flash_decode`` over
-   uneven ``kv_lens`` with NaN past every one, with and without a window;
+   every dead slot and in the output it writes, and in the fused step's
+   form (6 requests in a bucket of 8: padded rows with empty segments,
+   the trash page as tail and ``q_pos = -1`` must come out zero);
+   ``flash_decode`` over uneven ``kv_lens`` with NaN past every one, with
+   and without a window;
 3. serve qwen3-4b at full width and depth (36 layers, bf16 random weights)
    through the engine's default ``codec-cuda`` backend: 8 requests over a
    shared 4096-token document + 64-token questions, 32 greedy tokens each;
@@ -40,8 +43,18 @@ Phases (any failure raises and the script exits non-zero):
    ``codec-cuda``'s;
 6. at 4 layers, full width, f32 weights: greedy streams through
    ``codec-cuda``, ``codec-torch``, ``flash`` and ``hydragen`` must be
-   equal;
-7. print the ``kernels`` JSON line and the closing device line.
+   equal, and each backend's fused streams (one CUDA-graph replay a
+   token) equal to its eager ones;
+7. the fused decode step at full depth: phase 3's workload on phase 3's
+   model through ``codec-cuda`` and then ``flash``, fused, beside the
+   eager serves of phases 3 and 5 in the same process (each of the four
+   serves traces decode steps 2-4); graph replays must equal decode
+   steps, graphs captured the bucket signatures, each graph must hold 36
+   PAC and 36 epilogue launches (counted across its capture), and a
+   traced steady-state window one graph launch a step and no kernel
+   launch from the host; TPOT, device busy, idle share and kernels a step
+   are printed for both paths;
+8. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -77,6 +90,8 @@ POR_TOL = 1e-6
 EPI_TOL, EPI_ULPS = 1e-5, 1
 H_Q, N_KV, D, PAGE, MAX_Q, LANES = 32, 8, 128, 16, 32, 16
 BACKENDS = ("codec-cuda", "codec-torch", "flash", "hydragen")
+# decode steps traced (steps 2..PROFILE_STEPS + 1) in each full-depth serve
+PROFILE_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -185,18 +200,26 @@ def cut_leaves(forest, rows):
     return truncate, list(torch.as_tensor(tail, device="cuda").unbind(0))
 
 
-def engine_state(forest, cm, lanes, max_q, max_kv, window=0, flash=False):
+def engine_state(forest, cm, lanes, max_q, max_kv, window=0, flash=False,
+                 bucket=0, trash_page=0):
     """The plan the engine builds for this forest (leaves cut, rows in
-    request order, padded) and each request's tail arrays."""
+    request order, padded) and each request's tail arrays.  ``bucket``:
+    the fused step's form instead, the plan bucketed to that many rows and
+    the tails padded as the step pads them (the trash page, position 0,
+    ``q_pos = -1``)."""
     from repro_torch.core import plan as plan_mod
     rows = sorted(forest.request_ids)
     truncate, tails = cut_leaves(forest, rows)
     make = plan_mod.flash_plan if flash else plan_mod.build_plan
-    plan = plan_mod.pad_plan(make(
-        forest, cm, lanes, max_q, max_kv,
-        req_rows={r: i for i, r in enumerate(rows)}, window=window,
-        truncate=truncate))
-    return plan, tails
+    plan = make(forest, cm, lanes, max_q, max_kv,
+                req_rows={r: i for i, r in enumerate(rows)}, window=window,
+                truncate=truncate)
+    if not bucket:
+        return plan_mod.pad_plan(plan), tails
+    pad = bucket - len(rows)
+    tails = [torch.cat([t, t.new_full((pad,), fill)])
+             for t, fill in zip(tails, (trash_page, 0, -1))]
+    return plan_mod.bucket_plan(plan, bucket), tails
 
 
 def epilogue_bound(q, parts, k_pool, tails, window=0):
@@ -354,22 +377,30 @@ EPI_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
 
 
-def check_epilogue(name, forest, window, gen, *, flash=False):
+def check_epilogue(name, forest, window, gen, *, flash=False, bucket=0):
     """The epilogue against its plain version on an engine-shaped plan of
     ``forest``: PAC's raw partials with NaN in every dead slot, each
     request's last page as its tail, the output pre-filled with NaN; q
-    and KV in each pair of types.  Returns the largest error of the f32
-    output and the largest distance of the bf16 output in bf16 steps."""
+    and KV in each pair of types.  ``bucket``: the plan and tails as the
+    fused step holds them, rows padded to ``bucket`` (empty segments, the
+    trash page as tail, ``q_pos = -1``; they must come out zero) and the
+    CSR padded to the plan's capacity.  Returns the largest error of the
+    f32 output and the largest distance of the bf16 output in bf16
+    steps."""
     from repro_torch.core import cost_model, plan as plan_mod
     from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
     page = forest.block_size
     pages = plan_mod.assign_dense_pages(forest)
     cm = cost_model.CostModel(H_Q, N_KV, D, page_size=page)
-    plan, tails = engine_state(forest, cm, LANES, MAX_Q, 2048, window, flash)
-    pa = ops.plan_arrays(plan, "cuda")
+    plan, tails = engine_state(forest, cm, LANES, MAX_Q, 2048, window, flash,
+                               bucket=bucket, trash_page=pages)
+    pa = ops.upload(ops.PlanArrays, ops.plan_host_arrays(
+        plan, padded=bool(bucket)), "cuda")
     B = plan.num_queries
-    k = torch.randn(pages, page, N_KV, D, generator=gen, device="cuda")
-    v = torch.randn(pages, page, N_KV, D, generator=gen, device="cuda")
+    live_rows = len(forest.request_ids)
+    # one page past the forest's: the trash page padded rows take as tail
+    k = torch.randn(pages + 1, page, N_KV, D, generator=gen, device="cuda")
+    v = torch.randn(pages + 1, page, N_KV, D, generator=gen, device="cuda")
     q = torch.randn(B, H_Q, D, generator=gen, device="cuda")
     nan = float("nan")
     o_err, ulps, bf_err, ml_err = 0.0, 0, 0.0, 0.0
@@ -390,6 +421,7 @@ def check_epilogue(name, forest, window, gen, *, flash=False):
         torch.cuda.synchronize()
         tag = f"epilogue {name} q {qdt} kv {kvdt}"
         assert all(bool(torch.isfinite(g).all()) for g in got), tag
+        assert bool((got[0][live_rows:] == 0).all()), (tag, "padded rows")
         ml_err = max(ml_err, assert_close(tag, got[1:], want[1:], EPI_TOL))
         if qdt == torch.bfloat16:
             ulps = max(ulps, bf16_ulps(got[0], want[0]))
@@ -400,7 +432,7 @@ def check_epilogue(name, forest, window, gen, *, flash=False):
     empty = int((pa.seg_offsets[1:] == pa.seg_offsets[:-1]).sum())
     log(f"  epilogue {name:<13} page={page:<3} window={window:<4} "
         f"queries={B} tasks={plan.num_tasks:<3} live rows="
-        f"{pa.seg_rows.numel():<4} empty segments={empty}: f32 o max|err| "
+        f"{int(pa.seg_offsets[-1]):<4} empty segments={empty}: f32 o max|err| "
         f"{o_err:.3e} (tol {EPI_TOL:g}); bf16 o within {ulps} step(s) (tol "
         f"{EPI_ULPS}), max|err| {bf_err:.3e}; m, l max|err| {ml_err:.3e} "
         f"(rtol = atol = {EPI_TOL:g})")
@@ -445,7 +477,11 @@ def phase_kernels():
                ("zero-task", no_task, 0, {}),
                ("windowed", lambda: tree.two_level(8, 2048, 64,
                                                    block_size=PAGE), 512, {}),
-               ("page 64", lambda: served(64), 0, {}))]
+               ("page 64", lambda: served(64), 0, {}),
+               # the fused step's form: 6 requests in a bucket of 8
+               ("bucket-padded", lambda: tree.two_level(6, 4096, 64,
+                                                        block_size=PAGE), 0,
+                {"bucket": 8}))]
     check_flash_decode(gen)
     return max(e for e, _ in epi), max(u for _, u in epi)
 
@@ -526,7 +562,8 @@ def phase_serve(timer):
         finite.append(bool(torch.isfinite(eng.last_logits).all()))
 
     reset_launches()
-    res = serve(engine, prompts, max_new=32, on_step=on_step)
+    res = serve(engine, prompts, max_new=32, on_step=on_step,
+                profile_steps=PROFILE_STEPS)
     launches = read_launches()
     n_attn = len(engine.attn_layer_idx)
     expect = n_attn * res["steps"]
@@ -834,7 +871,8 @@ def phase_serve_flash(cfg, model, codec_res):
         finite.append(bool(torch.isfinite(eng.last_logits).all()))
 
     reset_launches()
-    res = serve(engine, prompts, max_new=32, on_step=on_step)
+    res = serve(engine, prompts, max_new=32, on_step=on_step,
+                profile_steps=PROFILE_STEPS)
     launches = read_launches()
     expect = len(engine.attn_layer_idx) * res["steps"]
     assert finite and all(finite), "non-finite logits"
@@ -853,6 +891,7 @@ def phase_serve_flash(cfg, model, codec_res):
         f"{same} of {len(codec_res['streams'])} streams equal codec-cuda's "
         f"(bf16 weights: near-ties may flip a token)")
     del engine
+    return res
 
 
 # --------------------------------------------------------------------- #
@@ -877,6 +916,22 @@ def phase_backends():
             torch.topk(e.last_logits, 2).values.cpu()))
         streams[backend], top2[backend] = res["streams"], gaps
         del engine
+        # the same through the fused step: equal bits at f32, so equal
+        # streams (its logits are read only after a flush: no top-2 here)
+        engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                              num_lanes=LANES, max_q=MAX_Q, backend=backend,
+                              fused=True, device="cuda")
+        fres = serve(engine, prompts, max_new=32)
+        assert engine.fused_step.replays == fres["steps"], backend
+        assert engine.stats["nonfinite_rows"] == 0, backend
+        if fres["streams"] != res["streams"]:
+            bad = [r for r in res["streams"]
+                   if fres["streams"][r] != res["streams"][r]]
+            raise AssertionError(f"{backend}: fused streams differ from "
+                                 f"eager for requests {bad}")
+        log(f"  {backend}: fused == eager on {len(res['streams'])} streams "
+            f"({fres['steps']} graph replays, {engine.fused_step.graphs} graphs)")
+        del engine
         torch.cuda.empty_cache()
     a = streams["codec-cuda"]
     for other in BACKENDS[1:]:
@@ -893,7 +948,80 @@ def phase_backends():
                     f"{None if g is None else g.tolist()}")
         raise AssertionError(f"codec-cuda and {other} streams differ")
     log(f"  {cfg.num_layers} layers f32: {' == '.join(BACKENDS)} on "
-        f"{len(a)} streams x 32 tokens")
+        f"{len(a)} streams x 32 tokens, eager and fused alike")
+
+
+# --------------------------------------------------------------------- #
+# phase 7: the fused decode step at full depth
+# --------------------------------------------------------------------- #
+def log_serve(backend, fused, r) -> None:
+    prof = r["profile"]
+    log(f"  {backend} {'fused' if fused else 'eager'}: TPOT "
+        f"{r['tpot_ms']:.3f} ms over {r['steps'] - PROFILE_STEPS} "
+        f"untraced steps (traced device busy over it: idle share "
+        f"{1 - prof['device_busy_ms'] / r['tpot_ms']:.3f}); "
+        f"traced steps 2-{PROFILE_STEPS + 1}: wall "
+        f"{prof['wall_ms']:.3f} ms/step, device busy "
+        f"{prof['device_busy_ms']:.3f} ms/step, idle share "
+        f"{prof['idle_share']:.3f}, {prof['kernels_per_step']:.0f} "
+        f"kernels/step; host launches/step: kernels "
+        f"{prof['kernel_launches_per_step']:.1f}, graphs "
+        f"{prof['graph_launches_per_step']:.1f}")
+
+
+def phase_fused(cfg, model, eager):
+    """Phase 3's workload through the fused step (one CUDA-graph replay a
+    token), for ``codec-cuda`` and ``flash``, on phase 3's model, beside
+    the eager serves of phases 3 and 5 (``eager``: their results, by
+    backend) in the same process: replays, captures and the launches
+    inside each graph are checked; a traced steady-state window must show
+    one graph launch a step and no kernel launch from the host."""
+    from repro_torch.launch.serve import doc_prompts, serve
+    from repro_torch.serving.engine import DecodeEngine
+
+    prompts = doc_prompts(8, 4096, 64, cfg.vocab_size, seed=0)
+    n_attn = cfg.num_layers
+    tpot = {}
+    for backend in ("codec-cuda", "flash"):
+        engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                              num_lanes=LANES, max_q=MAX_Q, backend=backend,
+                              fused=True, device="cuda")
+        r = serve(engine, prompts, max_new=32, profile_steps=PROFILE_STEPS)
+        prof = r["profile"]
+        lens = sorted({len(t) for t in r["streams"].values()})
+        assert lens == [32], (backend, lens)
+        assert engine.stats["nonfinite_rows"] == 0, backend
+        step = engine.fused_step
+        assert step.replays == r["steps"] == engine.stats["fused_calls"], \
+            (step.replays, r["steps"])
+        assert step.graphs == len(engine.bucket_signatures) \
+            == engine.fused_cache_size, (step.graphs,
+                                         engine.bucket_signatures)
+        held = [slot.launches for slot in step.slots.values()]
+        assert held == [(n_attn, n_attn)] * step.graphs, held
+        log(f"  {backend} fused, CUDA API calls a traced step: "
+            + ", ".join(f"{k} {n:g}" for k, n in sorted(
+                prof["api_calls_per_step"].items())))
+        assert prof["graph_launches_per_step"] == 1, prof
+        assert prof["kernel_launches_per_step"] == 0, prof
+        log(f"  {backend} fused: {step.replays} graph replays = decode "
+            f"steps; {step.graphs} graph(s) captured for "
+            f"{len(engine.bucket_signatures)} signature(s) over "
+            f"{engine.stats['replans']} plan epochs in {r['capture_s']:.3f} "
+            f"s; each graph holds PAC x {held[0][0]} and the epilogue x "
+            f"{held[0][1]}; token flushes {engine.stats['token_flushes']}")
+        e = eager[backend]
+        log_serve(backend, False, e)
+        log_serve(backend, True, r)
+        same = sum(r["streams"][q] == e["streams"][q] for q in e["streams"])
+        log(f"  {backend}: TPOT eager {e['tpot_ms']:.3f} ms, fused "
+            f"{r['tpot_ms']:.3f} ms ({e['tpot_ms'] / r['tpot_ms']:.2f}x); "
+            f"{same} of {len(e['streams'])} bf16 streams equal eager's")
+        tpot[backend] = r["tpot_ms"]
+        del engine
+        torch.cuda.empty_cache()
+    log(f"  fused TPOT flash - codec-cuda: "
+        f"{tpot['flash'] - tpot['codec-cuda']:.3f} ms a step")
 
 
 def main() -> int:
@@ -944,12 +1072,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== 5. serve qwen3-4b again through the flash backend")
-    phase_serve_flash(cfg, model, codec_res)
+    flash_res = phase_serve_flash(cfg, model, codec_res)
+
+    log("== 6. backend streams agree, eager and fused")
+    phase_backends()
+
+    log("== 7. the fused decode step at full depth, beside eager")
+    phase_fused(cfg, model, {"codec-cuda": codec_res, "flash": flash_res})
     del model
     torch.cuda.empty_cache()
-
-    log("== 6. backend streams agree")
-    phase_backends()
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

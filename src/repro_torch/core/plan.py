@@ -304,12 +304,43 @@ def build_plan(forest: PrefixForest,
 def bucket_pow2(n: int, floor: int = 1) -> int:
     """Smallest power of two >= ``n`` (at least ``floor``).
 
-    The engine pads the step axis of every plan to such a bucket so the
-    PAC launch shape changes only O(log n) times as the batch grows.
+    All shape bucketing routes through here (the step axis of every plan,
+    and the fused step's rows, tasks and pages), so each launch or graph
+    shape changes only O(log n) times as the batch grows.
     """
     if n <= 0:
         return floor
     return max(floor, 1 << (n - 1).bit_length())
+
+
+def bucket_plan(plan: DecodePlan, num_rows: int) -> DecodePlan:
+    """Bucket every plan shape the fused decode step sees.
+
+    ``pad_plan`` already buckets the step axis; this additionally buckets
+    the task and per-task page axes to powers of two and re-targets the
+    query dimension at ``num_rows`` — the *bucketed* batch-row count the
+    engine stacks its queries to — so one captured step serves every plan
+    rebuild (arrivals, completions) whose buckets are unchanged.
+
+    Padded task rows clone the trash row (``task_qnum == 0``, pages 0),
+    so they are inert: every implementation masks dead query slots and
+    the segment reduction drops anything mapped to the trash segment.
+    ``seg_ids`` entries pointing at the old trash segment
+    (``plan.num_queries``) are re-pointed at ``num_rows``; real query
+    rows are below the live batch size and therefore below ``num_rows``.
+    """
+    if num_rows < plan.num_queries:
+        raise ValueError(
+            f"bucketed rows {num_rows} < live queries {plan.num_queries}")
+    p = pad_plan(plan, steps=bucket_pow2(plan.max_steps),
+                 tasks=bucket_pow2(plan.task_qnum.shape[0]))
+    pages = bucket_pow2(p.max_pages)
+    task_pages = np.zeros((p.task_qnum.shape[0], pages), np.int32)
+    task_pages[:, :p.max_pages] = p.task_pages
+    seg = p.seg_ids.copy()
+    seg[seg == p.num_queries] = num_rows
+    return dataclasses.replace(p, max_pages=pages, task_pages=task_pages,
+                               seg_ids=seg, num_queries=num_rows)
 
 
 def pad_plan(plan: DecodePlan, steps: Optional[int] = None,

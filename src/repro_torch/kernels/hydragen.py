@@ -25,12 +25,12 @@ batch.  Window pruning done by the planner carries over unchanged.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from . import ref as ref_mod
+from . import ops, ref as ref_mod
 
 MASK_VALUE = ref_mod.MASK_VALUE
 
@@ -67,9 +67,9 @@ def _bucket_rows(n: int) -> int:
     return 0 if n <= 0 else 1 << (n - 1).bit_length()
 
 
-def prepare(plan, device="cuda") -> HydragenArrays:
-    """Split a DecodePlan's tasks into prefix/suffix batches (host side)
-    and upload them in one host-to-device copy."""
+def host_arrays(plan) -> List[np.ndarray]:
+    """Split a DecodePlan's tasks into prefix/suffix batches (host side):
+    the int64 arrays of ``HydragenArrays``, in its order."""
     T = plan.num_tasks
     max_q = plan.max_q
     trash = plan.num_queries
@@ -86,7 +86,7 @@ def prepare(plan, device="cuda") -> HydragenArrays:
             a = np.concatenate([a, pad], 0)
         return a
 
-    arrs = [
+    return [
         rows(plan.task_pages[shared], S),
         rows(plan.task_kvlen[shared], S),
         rows(plan.task_pos[shared], S),
@@ -101,13 +101,11 @@ def prepare(plan, device="cuda") -> HydragenArrays:
         rows(plan.q_pos[single, 0], U),
         rows(seg[single, 0], U, fill=trash),
     ]
-    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrs]))
-    flat = flat.to(device)
-    views, off = [], 0
-    for a in arrs:
-        views.append(flat[off:off + a.size].view(a.shape))
-        off += a.size
-    return HydragenArrays(*views)
+
+
+def prepare(plan, device="cuda") -> HydragenArrays:
+    """``host_arrays`` uploaded in one host-to-device copy."""
+    return ops.upload(HydragenArrays, host_arrays(plan), device)
 
 
 def advance(ha: HydragenArrays, delta) -> HydragenArrays:

@@ -18,7 +18,7 @@ log-sum-exp (``combine_parts``).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -78,21 +78,84 @@ def plan_csr(plan):
     return offsets.astype(np.int32), rows.astype(np.int32)
 
 
-def plan_arrays(plan, device="cuda") -> PlanArrays:
-    """Upload a plan's arrays, the CSR included, in one host->device copy.
+def plan_host_arrays(plan, *, padded: bool = False) -> List[np.ndarray]:
+    """A plan's int32 arrays in ``PlanArrays`` order, the CSR last.
 
-    The int32 arrays are packed into one buffer and split into contiguous
-    views on the device.
+    ``padded`` pads ``seg_rows`` to the plan's capacity, one entry per task
+    slot (``task_qnum.shape[0] * max_q``), so that its length depends on
+    the plan's shapes alone and not on how many slots are live: the fused
+    step's fixed buffers need that.  The padding is never read: the
+    epilogue and ``combine_parts`` read only the first ``seg_offsets[-1]``
+    entries.
     """
     arrs = [np.ascontiguousarray(getattr(plan, f), dtype=np.int32)
-            for f in PlanArrays._fields[:-2]] + list(plan_csr(plan))
-    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrs]))
-    flat = flat.to(device)
+            for f in PlanArrays._fields[:-2]]
+    offsets, rows = plan_csr(plan)
+    if padded:
+        rows = np.pad(rows, (0, plan.task_qnum.shape[0] * plan.max_q
+                             - rows.size))
+    return arrs + [offsets, rows]
+
+
+def _views(flat: torch.Tensor, arrs) -> List[torch.Tensor]:
+    """Contiguous views of ``flat`` shaped as ``arrs``, in order."""
     views, off = [], 0
     for a in arrs:
         views.append(flat[off:off + a.size].view(a.shape))
         off += a.size
-    return PlanArrays(*views)
+    return views
+
+
+def upload(cls, arrs, device):
+    """``cls`` over device views of the numpy arrays ``arrs`` (one dtype),
+    packed into one buffer and uploaded in one host->device copy."""
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrs]))
+    return cls(*_views(flat.to(device), arrs))
+
+
+def plan_arrays(plan, device="cuda") -> PlanArrays:
+    """Upload a plan's arrays, the CSR included, in one host->device
+    copy."""
+    return upload(PlanArrays, plan_host_arrays(plan), device)
+
+
+class StaticArrays:
+    """Device arrays at fixed addresses, refreshed from pinned host memory.
+
+    A CUDA graph replays fixed pointers, so the fused decode step keeps
+    each family of per-epoch arrays (a backend's prepared plan, the step's
+    base) in one device buffer for as long as their shapes hold.  ``load``
+    writes new values into a pinned host buffer and refreshes the device
+    buffer from it with one asynchronous ``copy_`` on the current stream,
+    outside any graph; it first waits until the previous copy has read the
+    host buffer.  ``arrays`` is ``cls`` over views of the device buffer.
+    On the CPU both buffers are plain tensors.
+    """
+
+    def __init__(self, cls, arrs, device):
+        device = torch.device(device)
+        self.shapes = tuple(a.shape for a in arrs)
+        cuda = device.type == "cuda"
+        host = torch.from_numpy(np.concatenate([a.ravel() for a in arrs]))
+        self._host = host.pin_memory() if cuda else host
+        self._dev = torch.empty_like(self._host, device=device)
+        self.arrays = cls(*_views(self._dev, arrs))
+        self._copied = torch.cuda.Event() if cuda else None
+        self._copy()
+
+    def _copy(self) -> None:
+        self._dev.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+    def load(self, arrs) -> None:
+        if tuple(a.shape for a in arrs) != self.shapes:
+            raise ValueError(f"arrays of shapes {[a.shape for a in arrs]} "
+                             f"do not fit the buffer's {self.shapes}")
+        if self._copied is not None:
+            self._copied.synchronize()
+        np.concatenate([a.ravel() for a in arrs], out=self._host.numpy())
+        self._copy()
 
 
 def advance_plan_arrays(pa: PlanArrays, delta) -> PlanArrays:
@@ -161,11 +224,16 @@ def combine_parts(parts: Parts):
     ``repro``'s ``codec_partials_arrays``."""
     o, m, l, offsets, rows = parts
     B = offsets.shape[0] - 1
+    P = m.shape[0]
     dev = m.device
-    seg = torch.full((m.shape[0],), B, dtype=torch.int64, device=dev)
-    seg[rows.long()] = torch.repeat_interleave(
-        torch.arange(B, device=dev), (offsets[1:] - offsets[:-1]).long(),
-        output_size=rows.shape[0])
+    # the query of each CSR entry (B past offsets[-1], where a padded CSR
+    # holds unused entries: they are sent to a spare slot P), with no
+    # host sync
+    j = torch.arange(rows.shape[0], device=dev)
+    seg = torch.full((P + 1,), B, dtype=torch.int64, device=dev)
+    seg[torch.where(j < offsets[-1], rows.long(), P)] = torch.searchsorted(
+        offsets[1:].long(), j, right=True)
+    seg = seg[:P]
     live = seg < B
     m = torch.where(live[:, None], m, torch.full_like(m, MASK_VALUE))
     l = torch.where(live[:, None], l, torch.zeros_like(l))
@@ -175,12 +243,16 @@ def combine_parts(parts: Parts):
 
 def codec_parts_arrays(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, pa: PlanArrays, *,
-                       window: int = 0, impl: str = "cuda") -> Parts:
+                       window: int = 0, impl: str = "cuda",
+                       out=None) -> Parts:
     """PAC over the plan -> its raw partials as ``Parts``.  Dead slots
     (padding, the trash row) are never finalised by the kernel: they hold
-    ``torch.empty`` garbage, NaNs included, and no CSR row names them."""
+    ``torch.empty`` garbage, NaNs included, and no CSR row names them.
+    ``out``: preallocated ``(o, m, l)`` for the CUDA kernel to write
+    (``pac_outputs``); the plain versions allocate their own."""
     if impl == "cuda":
-        o, m, l = pac_mod.pac(q, pa, k_pool, v_pool, window=window)
+        kw = {} if out is None else {"out": out}
+        o, m, l = pac_mod.pac(q, pa, k_pool, v_pool, window=window, **kw)
     elif impl == "torch":
         o, m, l = pac_mod.pac_torch(gather_queries(q, pa.q_gather), pa.q_pos,
                                     k_pool, v_pool, pa.task_pages,
@@ -192,6 +264,15 @@ def codec_parts_arrays(q: torch.Tensor, k_pool: torch.Tensor,
     h, d = o.shape[2], o.shape[3]
     return Parts(o.reshape(P, h, d), m.reshape(P, h), l.reshape(P, h),
                  pa.seg_offsets, pa.seg_rows)
+
+
+def pac_outputs(pa: PlanArrays, h_q: int, d: int, device):
+    """Float32 ``(o, m, l)`` of the task-major shapes PAC writes for
+    ``pa``, to be passed as its ``out``."""
+    Tp1, max_q = pa.q_gather.shape
+    return (torch.empty((Tp1, max_q, h_q, d), device=device),
+            torch.empty((Tp1, max_q, h_q), device=device),
+            torch.empty((Tp1, max_q, h_q), device=device))
 
 
 def codec_partials_arrays(q: torch.Tensor, k_pool: torch.Tensor,

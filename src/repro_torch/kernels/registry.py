@@ -47,23 +47,27 @@ class AttentionBackend:
     ``partials_fn(q, k_pool, v_pool, plan, prepared, window)`` returns
     per-query flash statistics ``(o, m, l)`` — ``o`` normalised within the
     plan-covered KV — a valid partial for further POR merges.
-    ``parts_fn`` (same arguments) returns the raw partials before that
-    reduction as ``ops.Parts``; a backend without one reduces inside
-    ``partials_fn`` and hands its per-query statistics on as one part a
-    query (``ops.identity_parts``).
+    ``parts_arrays_fn(q, k_pool, v_pool, prepared, *, window, out)``
+    returns the raw partials before that reduction as ``ops.Parts``, from
+    the prepared device arrays alone (``out``: preallocated PAC outputs);
+    a backend without one reduces inside ``partials_fn`` and hands its
+    per-query statistics on as one part a query (``ops.identity_parts``).
 
     ``partials_arrays_fn(q, k_pool, v_pool, prepared, *, num_queries,
-    window)`` consumes only the device arrays from ``prepare`` and
+    window)`` consumes only the device arrays from ``prepare``;
     ``advance_fn(prepared, delta)`` moves every query position by
-    ``delta`` steps on the device; together they let a future fused step
-    reuse one set of prepared arrays for a whole plan epoch.
+    ``delta`` steps on the device (``delta`` may be a device tensor); and
+    ``host_arrays(plan)`` returns ``(cls, arrays)``, the numpy arrays
+    ``prepare`` would upload and the ``NamedTuple`` it would wrap them in,
+    with every length a function of the plan's shapes alone.  Together
+    they let the fused step (``serving/step_fn.py``) keep one set of
+    prepared arrays at fixed device addresses for a whole plan epoch.
     ``shardable`` marks backends whose partials are valid over one
     device's slice of the pool (none yet in this port).
     """
 
     name: str
     partials_fn: Callable[..., Tuple]
-    parts_fn: Optional[Callable[..., "ops.Parts"]] = None
     prepare: Callable[..., Any] = ops.plan_arrays
     plan_kind: str = "codec"
     needs_plan: bool = True
@@ -71,14 +75,18 @@ class AttentionBackend:
     supports_gqa: bool = True
     description: str = ""
     partials_arrays_fn: Optional[Callable[..., Tuple]] = None
+    parts_arrays_fn: Optional[Callable[..., "ops.Parts"]] = None
     advance_fn: Optional[Callable[[Any, Any], Any]] = None
+    host_arrays: Optional[Callable[[Any], Tuple[type, List]]] = None
     shardable: bool = False
 
     @property
     def jit_safe(self) -> bool:
-        """Whether the backend can run from prepared arrays alone."""
+        """Whether the backend can run from prepared arrays alone (the
+        fused step's contract)."""
         return (self.partials_arrays_fn is not None
-                and self.advance_fn is not None)
+                and self.advance_fn is not None
+                and self.host_arrays is not None)
 
     def _prepared(self, q, plan, prepared, window):
         if window and not self.supports_window:
@@ -100,10 +108,23 @@ class AttentionBackend:
         """Raw partials over the plan-covered KV with their per-query CSR,
         for ``por.por_epilogue``."""
         prepared = self._prepared(q, plan, prepared, window)
-        if self.parts_fn is None:
+        if self.partials_arrays_fn is None:         # needs the host plan
             return ops.identity_parts(*self.partials_fn(
                 q, k_pool, v_pool, plan, prepared, window))
-        return self.parts_fn(q, k_pool, v_pool, plan, prepared, window)
+        return self.parts_arrays(q, k_pool, v_pool, prepared,
+                                 num_queries=plan.num_queries, window=window)
+
+    def parts_arrays(self, q, k_pool, v_pool, prepared, *, num_queries: int,
+                     window: int = 0, out=None) -> "ops.Parts":
+        """``parts`` from the prepared arrays alone (no host plan): what
+        the fused step calls.  ``out`` reaches PAC where the backend runs
+        it."""
+        if self.parts_arrays_fn is None:
+            return ops.identity_parts(*self.partials_arrays_fn(
+                q, k_pool, v_pool, prepared, num_queries=num_queries,
+                window=window))
+        return self.parts_arrays_fn(q, k_pool, v_pool, prepared,
+                                    window=window, out=out)
 
     def __call__(self, q, k_pool, v_pool, plan, *, window: int = 0,
                  prepared=None) -> torch.Tensor:
@@ -159,19 +180,27 @@ def _codec_partials(impl: str):
     return fn
 
 
-def _codec_parts(impl: str):
-    def fn(q, k_pool, v_pool, plan, pa, window):
-        return ops.codec_parts_arrays(q, k_pool, v_pool, pa, window=window,
-                                      impl=impl)
-    return fn
-
-
 def _codec_partials_arrays(impl: str):
     def fn(q, k_pool, v_pool, pa, *, num_queries, window):
         return ops.codec_partials_arrays(q, k_pool, v_pool, pa,
                                          num_queries, window=window,
                                          impl=impl)
     return fn
+
+
+def _codec_parts_arrays(impl: str):
+    def fn(q, k_pool, v_pool, pa, *, window, out=None):
+        return ops.codec_parts_arrays(q, k_pool, v_pool, pa, window=window,
+                                      impl=impl, out=out)
+    return fn
+
+
+def _codec_host_arrays(plan):
+    return ops.PlanArrays, ops.plan_host_arrays(plan, padded=True)
+
+
+def _hydragen_host_arrays(plan):
+    return hydragen_mod.HydragenArrays, hydragen_mod.host_arrays(plan)
 
 
 def _hydragen_partials_arrays(q, k_pool, v_pool, ha, *, num_queries,
@@ -187,26 +216,29 @@ def _ref_partials(q, k_pool, v_pool, plan, prepared, window):
 register(AttentionBackend(
     name="codec-cuda",
     partials_fn=_codec_partials("cuda"),
-    parts_fn=_codec_parts("cuda"),
     partials_arrays_fn=_codec_partials_arrays("cuda"),
+    parts_arrays_fn=_codec_parts_arrays("cuda"),
     advance_fn=ops.advance_plan_arrays,
+    host_arrays=_codec_host_arrays,
     description="CoDec PAC CUDA kernel over the lane-scheduled plan "
                 "(its plain torch version for CPU tensors)"))
 
 register(AttentionBackend(
     name="codec-torch",
     partials_fn=_codec_partials("torch"),
-    parts_fn=_codec_parts("torch"),
     partials_arrays_fn=_codec_partials_arrays("torch"),
+    parts_arrays_fn=_codec_parts_arrays("torch"),
     advance_fn=ops.advance_plan_arrays,
+    host_arrays=_codec_host_arrays,
     description="CoDec plan semantics as dense torch ops"))
 
 register(AttentionBackend(
     name="flash",
     partials_fn=_codec_partials("cuda"),
-    parts_fn=_codec_parts("cuda"),
     partials_arrays_fn=_codec_partials_arrays("cuda"),
+    parts_arrays_fn=_codec_parts_arrays("cuda"),
     advance_fn=ops.advance_plan_arrays,
+    host_arrays=_codec_host_arrays,
     plan_kind="flash",
     description="FlashDecoding baseline: the CUDA PAC kernel over the "
                 "per-request plan, shared prefix KV re-read once per "
@@ -218,6 +250,7 @@ register(AttentionBackend(
     prepare=hydragen_mod.prepare,
     partials_arrays_fn=_hydragen_partials_arrays,
     advance_fn=hydragen_mod.advance,
+    host_arrays=_hydragen_host_arrays,
     description="Hydragen-style batched shared-prefix decomposition: "
                 "one dense matmul per shared node for all sharing "
                 "queries, per-request suffix attention, LSE merge"))

@@ -17,10 +17,16 @@ Continuous-batching greedy decode with CoDec as the attention backend:
   those partials, a **tail attention** over each request's growing last
   page, their POR merge and the cast.
 
+``fused=True`` (backends with the jit-safe contract; ``ref`` stays eager)
+decodes each token with one replay of a captured CUDA graph
+(``serving/step_fn.py``): plans are bucketed and held at fixed addresses
+for a plan epoch, and the sampled tokens stay on the device, appended as
+placeholders, until a sync point (``flush_tokens``: a plan epoch,
+admission, reclamation, a completion, the end of ``run``).
+
 Left for later slices: chunked prefill and preempt-and-recompute (a dry
-pool raises ``MemoryError``), the fused single-launch step, sampling at
-temperature > 0, the prefix cache, cascade prefill, faults, telemetry and
-speculation.
+pool raises ``MemoryError``), sampling at temperature > 0, the prefix
+cache, cascade prefill, faults, telemetry and speculation.
 """
 
 from __future__ import annotations
@@ -41,10 +47,33 @@ from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
 from ..models.transformer import Transformer
 from . import sampler
+from . import step_fn as step_fn_mod
 from .kv_cache import PagedKVPool
 
 # request lifecycle states
 WAITING, PREFILL, RUNNING, DONE = "waiting", "prefill", "running", "done"
+
+# a sampled token that still lives in an unread fused-step output;
+# materialised by ``DecodeEngine.flush_tokens``
+PENDING_DEVICE = "<device>"
+_PLACEHOLDER = -1
+
+
+class _Deferred:
+    """One fused step's sampled tokens, not yet read on the host.
+
+    ``patches`` records where each token was appended as a placeholder
+    (request ``generated`` index + forest leaf token slot) so a later
+    flush can write the real values in place.
+    """
+
+    __slots__ = ("tokens", "event", "rows", "patches")
+
+    def __init__(self, tokens, event, rows):
+        self.tokens = tokens          # (2, bucket) host int64: tokens, ok
+        self.event = event            # CUDA event after its copy, or None
+        self.rows = rows              # request id per row
+        self.patches = []             # (rid, row, gen_idx, node_id, tok_idx)
 
 
 @dataclasses.dataclass
@@ -52,7 +81,8 @@ class Request:
     rid: int
     prompt: List[int]
     generated: List[int] = dataclasses.field(default_factory=list)
-    pending: Optional[int] = None      # sampled, not yet appended
+    pending: object = None             # sampled, not yet appended (an
+    #                                    int, or PENDING_DEVICE)
     max_new: int = 16
     state: str = WAITING
     kv_freed: bool = False             # done + KV reclaimed
@@ -70,6 +100,7 @@ class DecodeEngine:
                  num_lanes: int = 2, max_q: int = 32,
                  max_kv_per_task: int = 2048,
                  temperature: float = 0.0,
+                 fused: bool = False,
                  device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -108,14 +139,35 @@ class DecodeEngine:
         self._plans: Dict[int, Tuple] = {}
         self._plan_dirty = True
         self._plan_key: Optional[tuple] = None
-        # float32 logits of the last decode step (B, V)
+        # float32 logits of the last decode step (B, V); on the fused
+        # path the step's output buffer, valid once its work has completed
+        # (read it after a flush)
         self.last_logits: Optional[torch.Tensor] = None
         # host-clock seconds: plan builds, per-step q-position advances
         # (re-prepare + re-upload of every plan array), prefill, decode
+        # (fused: enqueueing), fused dispatch, token syncs, graph captures
         self.stats = {"steps": 0, "replans": 0, "plan_time": 0.0,
                       "advance_time": 0.0, "prefill_time": 0.0,
                       "decode_time": 0.0, "prefill_tokens": 0,
-                      "admitted": 0, "reclaimed": 0}
+                      "admitted": 0, "reclaimed": 0, "fused_calls": 0,
+                      "token_flushes": 0, "decode_dispatch_time": 0.0,
+                      "decode_sync_time": 0.0, "capture_time": 0.0,
+                      "nonfinite_rows": 0}
+
+        # ---- fused decode: one graph replay a token (step_fn.py) ------ #
+        # active only for backends with the jit-safe contract (``ref``
+        # decodes eagerly)
+        self.fused = bool(fused) and self._backend.jit_safe
+        self.fused_step = (step_fn_mod.FusedStep(
+            cfg, self.model, self.pool, self._backend, self._windows(),
+            self.attn_layer_idx, self.device)
+            if self.fused else None)
+        # async token plumbing
+        self._deferred: List[_Deferred] = []
+        self._pending_ref: Dict[int, Tuple[_Deferred, int]] = {}
+        # distinct fused shape signatures seen (one step state, and on the
+        # card one captured graph, each)
+        self.bucket_signatures: set = set()
 
     # ------------------------------------------------------------------ #
     # request admission (admit phase) + whole-prompt prefill
@@ -175,6 +227,10 @@ class DecodeEngine:
             while not self._has_pages_for(head):
                 if not self._reclaim_one(set()):
                     return                  # no free memory: keep waiting
+            # admission boundary: radix insertion compares token values,
+            # so in-flight device tokens must land before _admit (the
+            # probe above only under-matches a placeholder)
+            self.flush_tokens()
             self.admission.pop()
             self._admit(head)
             self._prefill_step(head)
@@ -185,6 +241,55 @@ class DecodeEngine:
         req.state = PREFILL
         self._prefilling.append(req.rid)
         self.stats["admitted"] += 1
+
+    # ------------------------------------------------------------------ #
+    # async-token sync (fused path)
+    # ------------------------------------------------------------------ #
+    def flush_tokens(self) -> None:
+        """Materialise every deferred fused-step token on the host.
+
+        The fused decode path appends sampled tokens to the forest and to
+        ``Request.generated`` as placeholders while their copies to the
+        host are still in flight; this is the single blocking sync point,
+        run only at plan-epoch, admission, reclamation and completion
+        boundaries and at the end of ``run`` (a no-op otherwise: the eager
+        path never defers).  Rows whose logits were not finite are
+        counted in ``stats["nonfinite_rows"]``.
+        """
+        if not self._deferred and not self._pending_ref:
+            return
+        t0 = time.perf_counter()
+        for e in self._deferred:
+            if e.event is not None:
+                e.event.synchronize()
+        for e in self._deferred:
+            toks, ok = e.tokens.numpy()
+            self.stats["nonfinite_rows"] += int(
+                (ok[:len(e.rows)] == 0).sum())
+            for rid, row, gen_idx, node_id, tok_idx in e.patches:
+                tok = int(toks[row])
+                req = self.requests.get(rid)
+                if req is not None and gen_idx < len(req.generated):
+                    req.generated[gen_idx] = tok
+                node = self.forest.nodes.get(node_id)
+                if (node is not None and node.tokens is not None
+                        and tok_idx < len(node.tokens)):
+                    node.tokens[tok_idx] = tok
+        # sampled-but-not-yet-appended tokens become host ``pending``s
+        for rid, (e, row) in self._pending_ref.items():
+            req = self.requests.get(rid)
+            if req is not None and req.pending is PENDING_DEVICE:
+                req.pending = int(e.tokens[0, row])
+        self._deferred = []
+        self._pending_ref = {}
+        self.stats["token_flushes"] += 1
+        self.stats["decode_sync_time"] += time.perf_counter() - t0
+
+    @property
+    def fused_cache_size(self) -> int:
+        """Step states kept, one per bucket signature (on the card each
+        holds one captured graph)."""
+        return 0 if self.fused_step is None else len(self.fused_step.slots)
 
     # ------------------------------------------------------------------ #
     # reclamation (finished requests' KV only; preemption is not ported)
@@ -222,6 +327,8 @@ class DecodeEngine:
                             and len(q.generated) >= q.max_new))
             if (complete and not q.kv_freed and rid not in exclude
                     and rid in self.forest.leaf_of):
+                # a finished request's tokens land before its nodes go
+                self.flush_tokens()
                 self._release_kv(rid)
                 q.state = DONE
                 q.kv_freed = True
@@ -445,6 +552,8 @@ class DecodeEngine:
         """One engine step: admission + prefill, then append pending tokens
         and decode one token per running request."""
         self._admit_phase()
+        if self.fused:
+            return self._decode_phase_fused()
         return self._decode_phase_eager()
 
     def _grow_leaf_tail(self, r: int):
@@ -461,19 +570,27 @@ class DecodeEngine:
 
     def _append_pending(self, rows0: List[int]) -> None:
         """Append each running request's pending token to its leaf and
-        grow tail pages."""
+        grow tail pages.  Device pendings (fused path) are appended as
+        placeholders and patched at the next ``flush_tokens``."""
         for r in rows0:
             req = self.requests[r]
             if req.state != RUNNING or req.pending is None:
                 continue
-            self.forest.append_token(r, req.pending)
-            req.generated.append(req.pending)
+            if req.pending is PENDING_DEVICE:
+                ent, row = self._pending_ref.pop(r)
+                self.forest.append_token(r, _PLACEHOLDER)
+                leaf = self.forest.nodes[self.forest.leaf_of[r]]
+                ent.patches.append((r, row, len(req.generated), leaf.id,
+                                    len(leaf.tokens) - 1))
+                req.generated.append(_PLACEHOLDER)
+            else:
+                self.forest.append_token(r, req.pending)
+                req.generated.append(req.pending)
             req.pending = None
             self._grow_leaf_tail(r)
 
     @torch.no_grad()
     def _decode_phase_eager(self) -> Dict[int, int]:
-        cfg = self.cfg
         rows0 = self._active_rows()
         if not rows0:
             return {}
@@ -507,25 +624,9 @@ class DecodeEngine:
         tail_pages, tail_base, tail_off, q_pos = \
             torch.as_tensor(tail, device=dev).unbind(0)
         tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
-        x = self.model.embed_tokens(tok[:, None])              # (B, 1, d)
-
-        for j, layer in enumerate(self.layers):
-            h = L.apply_norm(layer.ln, x, cfg)
-            la = self.attn_layer_idx[j]
-            window = (cfg.sliding_window if layer.kind.mixer == "attn_local"
-                      else 0)
-            q, k_new, v_new = L.attn_project(layer.attn, cfg, h,
-                                             q_pos[:, None])
-            self.pool.write_tokens(la, tail_pages, tail_off,
-                                   k_new[:, 0], v_new[:, 0])
-            k_pool, v_pool = self.pool.layer_pools(la)
-            o = self._attend(q[:, 0], k_pool, v_pool, window,
-                             tail_pages, tail_base, q_pos)
-            x = x + L.dense(layer.attn.wo,
-                            o.reshape(B, 1, cfg.num_heads * cfg.head_dim))
-            x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
-
-        logits = self.model.unembed(x)[:, 0]                  # (B, V)
+        logits = step_fn_mod.decode_stack(
+            self.model, self.pool, self.attn_layer_idx, tok, q_pos,
+            tail_pages, tail_base, tail_off, self._attend)        # (B, V)
         self.last_logits = logits
         toks = sampler.sample(logits, self.temperature).cpu().numpy()
         out = {}
@@ -551,14 +652,113 @@ class DecodeEngine:
                                     tail_base, q_pos, window=window)
 
     # ------------------------------------------------------------------ #
+    # fused decode phase: one graph replay a token, host syncs only at
+    # plan-epoch / admission / reclamation / completion boundaries
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def _decode_phase_fused(self) -> Dict[int, Optional[int]]:
+        rows0 = self._active_rows()
+        if not rows0:
+            return {}
+        t0 = time.perf_counter()
+        # 1. append pending tokens (host ints after a sync or a prefill,
+        #    otherwise placeholders for the in-flight step outputs)
+        self._append_pending(rows0)
+        rows = self._active_rows()
+        if not rows:
+            return {}
+        # 2. plan lifecycle: a new epoch is a sync point (deferred tokens
+        #    land; plans and the step's base are rebuilt, bucketed); within
+        #    an epoch the step advances itself on the device
+        if (self._plan_dirty
+                or plan_mod.plan_key(self.forest, rows) != self._plan_key):
+            self._fused_epoch(rows)
+        elif len(self._deferred) >= self.fused_step.ring_size:
+            self.flush_tokens()         # every pinned output slice is held
+        # 3. one replay: layers, KV writes, attention, FFN, unembed, argmax
+        t_d0 = time.perf_counter()
+        host, event = self.fused_step()
+        self.stats["decode_dispatch_time"] += time.perf_counter() - t_d0
+        self.last_logits = self.fused_step.logits[:len(rows)]
+        ent = _Deferred(host, event, list(rows))
+        self._deferred.append(ent)
+        out: Dict[int, Optional[int]] = {}
+        done_any = False
+        for i, r in enumerate(rows):
+            req = self.requests[r]
+            req.pending = PENDING_DEVICE
+            self._pending_ref[r] = (ent, i)
+            out[r] = None
+            if len(req.generated) >= req.max_new:
+                req.state = DONE
+                done_any = True
+        self.stats["steps"] += 1
+        self.stats["fused_calls"] += 1
+        if done_any:
+            # completion boundary: finished streams must be readable
+            self.flush_tokens()
+            for r in rows:
+                if self.requests[r].state == DONE:
+                    out[r] = self.requests[r].pending
+        self.stats["decode_time"] += time.perf_counter() - t0
+        return out
+
+    def _fused_epoch(self, rows: List[int]) -> None:
+        """Start a new plan epoch (the fused path's one sync point): plans
+        bucketed to the row bucket, loaded with the step's base into the
+        signature's fixed buffers (captured on first use)."""
+        self.flush_tokens()
+        t0 = time.perf_counter()
+        B = len(rows)
+        bucket = plan_mod.bucket_pow2(B)
+        req_rows = {r: i for i, r in enumerate(rows)}
+        ps = self.page_size
+        truncate, tail, q_pos0 = {}, [], []
+        for r in rows:
+            leaf = self.forest.nodes[self.forest.leaf_of[r]]
+            tp = (leaf.length - 1) // ps
+            truncate[leaf.id] = max(0, tp * ps)
+            tail.append((leaf.page_ids[tp], leaf.start_pos + tp * ps,
+                         (leaf.length - 1) % ps))
+            q_pos0.append(self.forest.context_len(r) - 1)
+        build = (plan_mod.flash_plan if self._backend.plan_kind == "flash"
+                 else plan_mod.build_plan)
+        plans, host, sig = [], [], [bucket]
+        for w in self._windows():
+            p = build(self.forest, self.cost_model, self.num_lanes,
+                      self.max_q, self.max_kv_per_task, req_rows=req_rows,
+                      window=w, truncate=truncate)
+            p = plan_mod.bucket_plan(p, bucket)
+            cls, arrs = self._backend.host_arrays(p)
+            plans.append(p)
+            host.append((cls, arrs))
+            sig.append((w, cls.__name__, tuple(a.shape for a in arrs)))
+        sig = tuple(sig)
+        self.bucket_signatures.add(sig)
+        base = step_fn_mod.step_base(
+            [self.requests[r].generated[-1] for r in rows], q_pos0, tail,
+            bucket, self.pool.trash_page)
+        self.stats["plan_time"] += time.perf_counter() - t0
+        capture0 = self.fused_step.capture_time
+        prepared = self.fused_step.epoch(sig, host, base)
+        self.stats["capture_time"] += self.fused_step.capture_time - capture0
+        self._plans = {w: (p, pa) for w, p, pa in
+                       zip(self._windows(), plans, prepared)}
+        self._plan_key = plan_mod.plan_key(self.forest, rows)
+        self._plan_dirty = False
+        self.stats["replans"] += 1
+
+    # ------------------------------------------------------------------ #
     def run(self, max_steps: int = 64) -> Dict[int, List[int]]:
         for _ in range(max_steps):
             if not self.has_work():
                 break
             self.step()
+        self.flush_tokens()
         return {r: req.generated for r, req in self.requests.items()}
 
     def release(self, rid: int) -> None:
+        self.flush_tokens()
         self.requests.pop(rid)
         self.admission.remove(rid)
         if rid in self._prefilling:

@@ -1,0 +1,297 @@
+"""Fused decode step: one CUDA-graph replay per token (port of
+``repro.serving.step_fn``).
+
+The eager engine loop (``DecodeEngine._decode_phase_eager``) launches
+every kernel of a decode step from Python, some 2500 at full depth, so the
+host's launches, not the card, set the time per token.  ``FusedStep``
+collapses the step into one replay of a captured ``torch.cuda.CUDAGraph``:
+
+* every input lives at a fixed device address for a whole **plan epoch**
+  (the interval between plan rebuilds): the backend's prepared plan arrays
+  (one ``ops.StaticArrays`` per attention window), the step's base
+  (``StepBase``: the input tokens, row validity, each row's query
+  position, tail page and tail slot at ``delta = 0``, and ``delta``) and
+  PAC's outputs.  A new epoch refreshes them with one host-to-device copy
+  each, outside the graph;
+* within an epoch the graph needs nothing from the host: query positions,
+  plan positions and tail slots advance as ``base + delta`` on the device,
+  the graph increments ``delta`` itself and copies its sampled tokens into
+  its own input buffer for the next replay;
+* the graph holds the whole step: the embedding, every layer's norm,
+  projections, RoPE and KV tail write, the backend's raw partials over the
+  frozen plan (PAC for the codec backends) and one ``por.por_epilogue``,
+  the FFN, the unembedding, the argmax and the finite-logits flag;
+* shapes are bucketed (rows and plan arrays to powers of two:
+  ``core.plan.bucket_plan``), so arrivals and completions reuse a graph
+  while their buckets hold: one ``_Slot`` (buffers and graph) per bucket
+  signature.  Padded rows carry ``q_pos = -1`` and write their tail KV to
+  the pool's trash page.
+
+After each step the tokens and flags go to the host by one asynchronous
+copy into a slice of a pinned ring, with an event recorded after it; the
+engine reads them only at its sync points (``DecodeEngine.flush_tokens``).
+
+On the card, the first epoch of a signature runs the step once, eagerly
+and without feeding its tokens forward (that call builds the kernel
+library, sets the kernels' shared-memory attributes and warms cuBLAS),
+then captures it; all graphs share one memory pool.  A failed capture or
+replay raises: there is no eager fallback on the card.  On the CPU the
+same step body runs eagerly over the same buffers, with the same
+semantics.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels import ops, pac as pac_mod, por as por_mod
+from ..models import layers as L
+from ..models.transformer import Transformer
+from .kv_cache import PagedKVPool
+
+# pinned host slices for step outputs not yet read: the engine flushes
+# before it would reuse one (plan epochs come every page of tokens, so
+# in practice a flush comes first)
+RING_SIZE = 64
+
+
+class StepBase(NamedTuple):
+    """Per-epoch step inputs at fixed addresses, int64: (B,) each but
+    ``delta``, a scalar."""
+
+    tokens: torch.Tensor     # tokens appended this step; the step writes
+    #                          the next ones here
+    row_valid: torch.Tensor  # 1 for live rows, 0 for bucket padding
+    q_pos0: torch.Tensor     # query position at delta 0 (-1 pads)
+    tail_page: torch.Tensor  # tail KV page (pads: the pool's trash page)
+    tail_base: torch.Tensor  # absolute position of the tail page's slot 0
+    tail_off0: torch.Tensor  # in-page slot written at delta 0
+    delta: torch.Tensor      # steps into the epoch; the step increments it
+
+
+class _Slot:
+    """The buffers of one bucket signature, and its graph on the card."""
+
+    def __init__(self, plans, base, device, h_q: int, d: int):
+        self.plans = [ops.StaticArrays(cls, arrs, device)
+                      for cls, arrs in plans]
+        self.base = ops.StaticArrays(StepBase, base, device)
+        self.pac_out = [ops.pac_outputs(p.arrays, h_q, d, device)
+                        if isinstance(p.arrays, ops.PlanArrays) else None
+                        for p in self.plans]
+        bucket = self.base.arrays.tokens.shape[0]
+        # (tokens, row_ok) of the last step, the source of the host copy
+        self.out = torch.zeros((2, bucket), dtype=torch.int64, device=device)
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        # (PAC, epilogue) launches recorded into the graph at its capture
+        self.launches: Optional[Tuple[int, int]] = None
+
+    def load(self, plans, base) -> None:
+        for static, (_, arrs) in zip(self.plans, plans):
+            static.load(arrs)
+        self.base.load(base)
+
+
+class FusedStep:
+    """The fused decode step of one engine: per bucket signature, fixed
+    buffers and (on the card) one captured graph.
+
+    ``epoch(sig, plans, base)`` makes the signature current, loading its
+    buffers with ``plans`` (``(cls, arrays)`` per window, from the
+    backend's ``host_arrays``) and ``base`` (``StepBase``'s arrays) and
+    capturing its graph the first time; each call then decodes one token
+    and returns ``(host, event)``: a pinned ``(2, bucket)`` int64 slice
+    that will hold the step's tokens and finite-logits flags once
+    ``event`` has completed (``None`` on the CPU, where it holds them at
+    once).  The ring holds ``ring_size`` slices: the caller reads a slice
+    before it asks for ``ring_size`` more steps.
+    """
+
+    def __init__(self, cfg: ModelConfig, model: Transformer,
+                 pool: PagedKVPool, backend, windows: Sequence[int],
+                 attn_layer_idx: Dict[int, int], device):
+        self.cfg = cfg
+        self.model = model
+        self.pool = pool
+        self.backend = backend
+        self.win_slot = {w: i for i, w in enumerate(windows)}
+        self.attn_layer_idx = attn_layer_idx
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.slots: Dict[tuple, _Slot] = {}
+        self._cur: Optional[_Slot] = None
+        self._mempool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self.ring_size = RING_SIZE
+        self._ring: Optional[torch.Tensor] = None
+        self._events: List[Optional[torch.cuda.Event]] = []
+        self._next = 0
+        self.graphs = 0            # graphs captured
+        self.replays = 0           # graph replays (eager calls on the CPU)
+        self.capture_time = 0.0    # host seconds of warm-ups and captures
+
+    # ------------------------------------------------------------------ #
+    def epoch(self, sig: tuple, plans, base) -> List:
+        """Start a plan epoch at signature ``sig``; returns the prepared
+        plan arrays (one per window) at their fixed addresses."""
+        self._cur = None
+        slot = self.slots.get(sig)
+        if slot is None:
+            slot = _Slot(plans, base, self.device, self.cfg.num_heads,
+                         self.cfg.head_dim)
+            self.slots[sig] = slot
+        else:
+            slot.load(plans, base)
+        self._ensure_ring(slot.out.shape[1])
+        if self.cuda and slot.graph is None:
+            self._capture(slot)
+        self._cur = slot
+        return [p.arrays for p in slot.plans]
+
+    @property
+    def logits(self) -> Optional[torch.Tensor]:
+        """Float32 (bucket, V) logits of the current signature's last step
+        (on the card: its graph's output buffer, valid once the step's
+        work has completed)."""
+        return None if self._cur is None else self._cur.logits
+
+    def __call__(self) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        slot = self._cur
+        if slot is None:
+            raise RuntimeError("FusedStep called outside a plan epoch")
+        if self.cuda:
+            slot.graph.replay()
+        else:
+            slot.logits = self._body(slot, feed=True)
+        self.replays += 1
+        i = self._next
+        self._next = (i + 1) % self.ring_size
+        # the slice's first 2 x bucket elements: contiguous, so the copy
+        # lands in pinned memory asynchronously (a strided destination
+        # would go through a pageable temporary and block the host)
+        host = self._ring[i, :slot.out.numel()].view(slot.out.shape)
+        assert host.is_contiguous()
+        host.copy_(slot.out, non_blocking=True)
+        event = self._events[i]
+        if event is not None:
+            event.record()
+        return host, event
+
+    # ------------------------------------------------------------------ #
+    def _ensure_ring(self, bucket: int) -> None:
+        """Pinned host slices for ``ring_size`` steps' outputs, one row of
+        ``2 x bucket`` each (a smaller bucket takes a row's front).  A new
+        ring is made only when a bucket outgrows it; slices of the old one
+        stay alive while the engine still holds them."""
+        if self._ring is not None and self._ring.shape[1] >= 2 * bucket:
+            return
+        ring = torch.zeros((self.ring_size, 2 * bucket), dtype=torch.int64)
+        self._ring = ring.pin_memory() if self.cuda else ring
+        self._events = [torch.cuda.Event() if self.cuda else None
+                        for _ in range(self.ring_size)]
+        self._next = 0
+
+    def _capture(self, slot: _Slot) -> None:
+        """Warm the step up eagerly (tokens not fed forward), then capture
+        it into ``slot.graph``; any failure raises."""
+        t0 = time.perf_counter()
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(slot, feed=False)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        pac0, epi0 = pac_mod.launches, por_mod.epilogue_launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._mempool):
+            slot.logits = self._body(slot, feed=True)
+        slot.launches = (pac_mod.launches - pac0,
+                         por_mod.epilogue_launches - epi0)
+        slot.graph = graph
+        torch.cuda.synchronize(dev)
+        self.graphs += 1
+        self.capture_time += time.perf_counter() - t0
+
+    def _body(self, slot: _Slot, feed: bool) -> torch.Tensor:
+        """One decode step over the slot's buffers; returns the logits.
+        ``feed``: write the sampled tokens into the input buffer and
+        advance ``delta`` (off only for the warm-up before a capture)."""
+        base = slot.base.arrays
+        dlt = base.delta * base.row_valid
+        q_pos = base.q_pos0 + dlt
+        prepared = [self.backend.advance_fn(p.arrays, base.delta)
+                    for p in slot.plans]
+        B = q_pos.shape[0]
+
+        def attend(qb, k_pool, v_pool, window, tail_page, tail_base, q_pos):
+            w = self.win_slot[window]
+            parts = self.backend.parts_arrays(
+                qb, k_pool, v_pool, prepared[w], num_queries=B,
+                window=window, out=slot.pac_out[w])
+            return por_mod.por_epilogue(qb, *parts, k_pool, v_pool,
+                                        tail_page, tail_base, q_pos,
+                                        window=window)
+
+        logits = decode_stack(self.model, self.pool, self.attn_layer_idx,
+                              base.tokens, q_pos, base.tail_page,
+                              base.tail_base, base.tail_off0 + dlt, attend)
+        slot.out[0].copy_(torch.argmax(logits, -1))
+        slot.out[1].copy_(torch.isfinite(logits).all(-1))
+        if feed:
+            base.tokens.copy_(slot.out[0])
+            base.delta.add_(1)
+        return logits
+
+
+def decode_stack(model: Transformer, pool: PagedKVPool,
+                 attn_layer_idx: Dict[int, int], tokens: torch.Tensor,
+                 q_pos: torch.Tensor, tail_page: torch.Tensor,
+                 tail_base: torch.Tensor, tail_off: torch.Tensor,
+                 attend) -> torch.Tensor:
+    """The model over one decode token a row: the embedding, every
+    layer's norm, projections and RoPE, its KV write to slot ``tail_off``
+    of page ``tail_page``, ``attend(q, k_pool, v_pool, window, tail_page,
+    tail_base, q_pos)`` and its FFN, then the unembedding; returns the
+    (B, V) logits.  The eager engine step and the fused step share it and
+    differ only in ``attend`` and in where their inputs live."""
+    cfg = model.cfg
+    B = tokens.shape[0]
+    x = model.embed_tokens(tokens[:, None])                    # (B, 1, d)
+    for j, layer in enumerate(model.layers):
+        h = L.apply_norm(layer.ln, x, cfg)
+        la = attn_layer_idx[j]
+        window = (cfg.sliding_window if layer.kind.mixer == "attn_local"
+                  else 0)
+        q, k_new, v_new = L.attn_project(layer.attn, cfg, h, q_pos[:, None])
+        pool.write_tokens(la, tail_page, tail_off, k_new[:, 0], v_new[:, 0])
+        k_pool, v_pool = pool.layer_pools(la)
+        o = attend(q[:, 0], k_pool, v_pool, window, tail_page, tail_base,
+                   q_pos)
+        x = x + L.dense(layer.attn.wo,
+                        o.reshape(B, 1, cfg.num_heads * cfg.head_dim))
+        x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+    return model.unembed(x)[:, 0]
+
+
+def step_base(tokens: Sequence[int], q_pos0: Sequence[int],
+              tail: Sequence[Tuple[int, int, int]], bucket: int,
+              trash_page: int) -> List[np.ndarray]:
+    """``StepBase``'s arrays for the live rows, padded to ``bucket``:
+    padded rows take token 0, ``q_pos0 = -1`` and the pool's trash page
+    as their tail; ``delta`` starts at 0.  ``tail`` holds each live row's
+    (tail page, absolute position of its slot 0, slot at delta 0)."""
+    B = len(tokens)
+    a = np.zeros((6, bucket), np.int64)
+    a[0, :B] = tokens
+    a[1, :B] = 1
+    a[2] = -1
+    a[2, :B] = q_pos0
+    a[3] = trash_page
+    if B:
+        a[3:6, :B] = np.asarray(tail, np.int64).T
+    return list(a) + [np.zeros((), np.int64)]

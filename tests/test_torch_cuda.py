@@ -338,3 +338,137 @@ def test_por_epilogue_refuses_shapes_it_does_not_take():
     with pytest.raises(TypeError, match="o_parts"):
         por_mod.por_epilogue(*a)
     assert por_mod.epilogue_launches == lo + 1
+
+
+# --------------------------------------------------------------------- #
+# the fused decode step (one CUDA-graph replay a token)
+# --------------------------------------------------------------------- #
+def _fused_model():
+    """qwen3-4b at smoke widths but the epilogue kernel's smallest head
+    dim (64; the smoke config's 16 is not a shape it takes), two layers,
+    f32 weights from seed 0."""
+    import dataclasses
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=2,
+                              d_model=128, num_heads=4, num_kv_heads=2,
+                              head_dim=64, d_ff=192, vocab_size=509)
+    return build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+
+
+def _fused_engine(model, backend, fused):
+    from repro_torch.serving.engine import DecodeEngine
+    return DecodeEngine(model.cfg, model, page_size=16, num_pages=256,
+                        max_q=8, backend=backend, fused=fused, device="cuda")
+
+
+def _crossing(eng):
+    """Rows 2 -> 3 -> 5 (row buckets 2 -> 4 -> 8), then completions."""
+    doc = list(range(10, 58))
+    rids = [eng.add_request(doc + [100 + i], max_new=12) for i in range(2)]
+    eng.step(); eng.step()
+    rids.append(eng.add_request(doc + [200], max_new=9))
+    eng.step(); eng.step()
+    rids += [eng.add_request(doc + [210 + i], max_new=7) for i in range(2)]
+    eng.run(40)
+    return [list(eng.requests[r].generated) for r in rids]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["codec-cuda", "codec-torch", "flash",
+                                     "hydragen"])
+def test_fused_streams_equal_eager_on_card(backend):
+    """On an H100: the fused engine's streams equal the eager engine's at
+    f32 weights; one replay a step; one graph a bucket signature, each
+    holding one PAC (codec backends) and one epilogue launch a layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    want = _crossing(_fused_engine(model, backend, fused=False))
+    eng = _fused_engine(model, backend, fused=True)
+    got = _crossing(eng)
+    assert got == want
+    step = eng.fused_step
+    assert step.replays == eng.stats["steps"] == eng.stats["fused_calls"]
+    assert step.graphs == len(eng.bucket_signatures) == eng.fused_cache_size
+    assert sorted({s[0] for s in eng.bucket_signatures}) == [2, 4, 8]
+    layers = model.cfg.num_layers
+    pac = layers if backend != "hydragen" and backend != "codec-torch" else 0
+    assert all(slot.launches == (pac, layers)
+               for slot in step.slots.values())
+    assert eng.stats["nonfinite_rows"] == 0
+    for rid in list(eng.requests):
+        eng.release(rid)
+    eng.pool.allocator.check()
+    assert eng.pool.num_free == eng.pool.num_pages
+
+
+@pytest.mark.cuda
+def test_fused_epochs_of_one_signature_share_a_graph():
+    """On an H100: four rows lose one to completion, gain an arrival and
+    lose one again; every plan epoch keeps bucket 4 and the plan's shapes,
+    so later epochs refresh the fixed buffers and replay the one graph
+    captured first, with no new capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    model = _fused_model()
+    doc = list(range(10, 58))
+    streams = {}
+    for fused in (False, True):
+        eng = _fused_engine(model, "codec-cuda", fused)
+        for i, n in enumerate([3, 12, 12, 12]):
+            eng.add_request(doc + [100 + i, 7], max_new=n)
+        for _ in range(5):
+            eng.step()
+        eng.add_request(doc + [200, 7], max_new=4)
+        streams[fused] = eng.run(32)
+    assert streams[True] == streams[False]
+    assert eng.stats["replans"] >= 4
+    assert eng.fused_step.graphs == len(eng.bucket_signatures) == 1
+    assert eng.fused_step.replays == eng.stats["steps"]
+
+
+@pytest.mark.cuda
+def test_por_epilogue_bucket_padded_rows_on_card():
+    """On an H100: the epilogue in the fused step's form (the plan
+    bucketed to 8 rows for 6 requests, the CSR padded to the plan's
+    capacity, padded rows with empty segments, the trash page as tail and
+    ``q_pos = -1``) equals its plain version; padded rows are zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    hq, hkv, d, page = 32, 8, 128, 16
+    forest = tree.two_level(6, 300, 21, block_size=page)
+    pages = plan_mod.assign_dense_pages(forest)
+    rows = sorted(forest.request_ids)
+    truncate = {}
+    for r in rows:
+        leaf = forest.nodes[forest.leaf_of[r]]
+        truncate[leaf.id] = ((leaf.length - 1) // page) * page
+    plan = plan_mod.bucket_plan(plan_mod.build_plan(
+        forest, cost_model.CostModel(hq, hkv, d, page_size=page),
+        num_lanes=16, max_q=32, req_rows={r: i for i, r in enumerate(rows)},
+        truncate=truncate), 8)
+    pa = ops.upload(ops.PlanArrays, ops.plan_host_arrays(plan, padded=True),
+                    "cuda")
+    assert pa.seg_rows.numel() > int(pa.seg_offsets[-1])
+    tails = _tails(forest, plan)          # rows 6 and 7 are padding:
+    tails[0][6:] = pages                  # the trash page,
+    tails[2][6:] = -1                     # q_pos = -1 (tail_base 0)
+    rng = np.random.default_rng(9)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (pages + 1, page, hkv, d)).astype(np.float32)).cuda()
+        for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((8, hq, d)).astype(
+        np.float32)).cuda()
+    o, m, l = pac_mod.pac(q, pa, k, v, out=_nan_outputs(pa, hq, d))
+    parts = ops.Parts(o.view(-1, hq, d), m.view(-1, hq), l.view(-1, hq),
+                      pa.seg_offsets, pa.seg_rows)
+    got = por_mod.por_epilogue(q, *parts, k, v, *tails, stats=True,
+                               out=torch.full_like(q, float("nan")))
+    want = por_mod.por_epilogue_torch(q, *parts, k, v, *tails)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[0][6:], torch.zeros_like(got[0][6:]))

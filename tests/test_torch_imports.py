@@ -25,6 +25,7 @@ def test_port_imports_with_jax_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert 'repro_torch.serving.engine' in mods, mods\n"
+        "assert 'repro_torch.serving.step_fn' in mods, mods\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
         " or k.startswith('repro.') for k, v in sys.modules.items()"
         " if v is not None)\n"
