@@ -14,14 +14,16 @@ Phases (any failure raises and the script exits non-zero):
    n_kv=8, d=128): PAC/POR at max_q 32 over plans that stress PAC's ring
    and its lanes — three codec plan forests at page 16, the flash plan of
    the served forest (~130 steps a lane), a plan with more lanes than
-   work, and page 64 — in float32 and bfloat16 KV; the epilogue over
+   work, page 64 and phase 8's 24 requests over a 2048-token document —
+   in float32 and bfloat16 KV; PAC and then the epilogue over
    engine-shaped plans (leaves cut to full pages, each request's last page
    its tail) of the served forest under the codec and the flash plan, with
    a tail-only request (an empty segment), with no task at all, under a
    window of 512 and at page 64, q and KV in float32 and bfloat16, NaN in
    every dead slot and in the output it writes, and in the fused step's
-   form (6 requests in a bucket of 8: padded rows with empty segments,
-   the trash page as tail and ``q_pos = -1`` must come out zero);
+   form (6 requests in a bucket of 8, and phase 8's 12 in 16 and 24 in
+   32: padded rows with empty segments, the trash page as tail and
+   ``q_pos = -1`` must come out zero);
    ``flash_decode`` over uneven ``kv_lens`` with NaN past every one, with
    and without a window;
 3. serve qwen3-4b at full width and depth (36 layers, bf16 random weights)
@@ -54,7 +56,25 @@ Phases (any failure raises and the script exits non-zero):
    traced steady-state window one graph launch a step and no kernel
    launch from the host; TPOT, device busy, idle share and kernels a step
    are printed for both paths;
-8. print the ``kernels`` JSON line and the closing device line.
+8. serving under memory pressure at full depth, on phase 3's model: 24
+   requests over a shared 2048-token document (64-token questions, 64
+   greedy tokens each) arriving by a Poisson process at 0.5 a step, with
+   512-token prefill chunks, on a pool of 224 pages (about 320 would hold
+   every working set), eager and fused, then fused on 1024 pages; the
+   pressured runs must preempt, recompute, chunk and fill the pool, the
+   row bucket must grow and shrink through at least three sizes, the
+   fused runs replay once a decode step and capture one graph a
+   signature of 36 PAC and 36 epilogue launches, no page or node may
+   leak; the same arrivals on phase 6's 4-layer f32 model must give
+   equal streams pressured and unconstrained, eager and fused, for
+   ``codec-cuda`` and ``flash``; steps, buckets, signatures, captures,
+   both step times, prefill seconds, tokens per second and the pressure
+   counters are printed, and where the bf16 fused streams part from the
+   eager ones, the eager top-2 logits there; then PAC and the epilogue
+   are held against their plain versions at the shape of each run's
+   widest decode step (its forest and rows, the plan the engine builds,
+   bucketed as the fused step holds it);
+9. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -377,21 +397,24 @@ EPI_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
 
 
-def check_epilogue(name, forest, window, gen, *, flash=False, bucket=0):
-    """The epilogue against its plain version on an engine-shaped plan of
-    ``forest``: PAC's raw partials with NaN in every dead slot, each
+def check_epilogue(name, forest, window, gen, *, flash=False, bucket=0,
+                   cm=None):
+    """PAC and the epilogue against their plain versions on an
+    engine-shaped plan of ``forest`` (``cm``: the engine's cost model; by
+    default one for 2-byte KV): PAC's live slots against ``pac_torch``,
+    then the epilogue on PAC's raw partials with NaN in every dead slot, each
     request's last page as its tail, the output pre-filled with NaN; q
     and KV in each pair of types.  ``bucket``: the plan and tails as the
     fused step holds them, rows padded to ``bucket`` (empty segments, the
     trash page as tail, ``q_pos = -1``; they must come out zero) and the
     CSR padded to the plan's capacity.  Returns the largest error of the
     f32 output and the largest distance of the bf16 output in bf16
-    steps."""
+    steps (PAC's error is logged)."""
     from repro_torch.core import cost_model, plan as plan_mod
     from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
     page = forest.block_size
     pages = plan_mod.assign_dense_pages(forest)
-    cm = cost_model.CostModel(H_Q, N_KV, D, page_size=page)
+    cm = cm or cost_model.CostModel(H_Q, N_KV, D, page_size=page)
     plan, tails = engine_state(forest, cm, LANES, MAX_Q, 2048, window, flash,
                                bucket=bucket, trash_page=pages)
     pa = ops.upload(ops.PlanArrays, ops.plan_host_arrays(
@@ -404,6 +427,8 @@ def check_epilogue(name, forest, window, gen, *, flash=False, bucket=0):
     q = torch.randn(B, H_Q, D, generator=gen, device="cuda")
     nan = float("nan")
     o_err, ulps, bf_err, ml_err = 0.0, 0, 0.0, 0.0
+    pac_err = {torch.float32: 0.0, torch.bfloat16: 0.0}     # by KV type
+    live = live_slots(pa)
     for qdt, kvdt in EPI_TYPES:
         qc, kc, vc = q.to(qdt), k.to(kvdt), v.to(kvdt)
         Tp1, max_q = pa.q_gather.shape
@@ -411,6 +436,13 @@ def check_epilogue(name, forest, window, gen, *, flash=False, bucket=0):
                torch.full((Tp1, max_q, H_Q), nan, device="cuda"),
                torch.full((Tp1, max_q, H_Q), nan, device="cuda"))
         o, m, l = pac_mod.pac(qc, pa, kc, vc, window=window, out=raw)
+        plain = pac_mod.pac_torch(qc[pa.q_gather.long()], pa.q_pos, kc, vc,
+                                  pa.task_pages, pa.task_kvlen, pa.task_pos,
+                                  window=window)
+        if bool(live.any()):            # a zero-task plan has no live slot
+            pac_err[kvdt] = max(pac_err[kvdt], assert_close(
+                f"pac {name} q {qdt} kv {kvdt}", [x[live] for x in (o, m, l)],
+                [x[live] for x in plain], TOL[kvdt]))
         parts = ops.Parts(o.view(-1, H_Q, D), m.view(-1, H_Q),
                           l.view(-1, H_Q), pa.seg_offsets, pa.seg_rows)
         out = torch.full_like(qc, nan)
@@ -432,7 +464,10 @@ def check_epilogue(name, forest, window, gen, *, flash=False, bucket=0):
     empty = int((pa.seg_offsets[1:] == pa.seg_offsets[:-1]).sum())
     log(f"  epilogue {name:<13} page={page:<3} window={window:<4} "
         f"queries={B} tasks={plan.num_tasks:<3} live rows="
-        f"{int(pa.seg_offsets[-1]):<4} empty segments={empty}: f32 o max|err| "
+        f"{int(pa.seg_offsets[-1]):<4} empty segments={empty}: pac max|err| "
+        f"f32 KV {pac_err[torch.float32]:.3e} (tol {TOL[torch.float32]:g}), "
+        f"bf16 KV {pac_err[torch.bfloat16]:.3e} (tol "
+        f"{TOL[torch.bfloat16]:g}); f32 o max|err| "
         f"{o_err:.3e} (tol {EPI_TOL:g}); bf16 o within {ulps} step(s) (tol "
         f"{EPI_ULPS}), max|err| {bf_err:.3e}; m, l max|err| {ml_err:.3e} "
         f"(rtol = atol = {EPI_TOL:g})")
@@ -453,6 +488,9 @@ def phase_kernels():
         ("padding lanes", lambda: tree.two_level(2, 40, 9, block_size=PAGE),
          0, {"lanes": 64}),
         ("page 64", lambda: served(64), 0, {}),
+        # phase 8's widest batch: 24 requests over its 2048-token document
+        ("24 rows", lambda: tree.two_level(24, 2048, 64, block_size=PAGE),
+         0, {}),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, make, window, kw in forests:
@@ -481,7 +519,14 @@ def phase_kernels():
                # the fused step's form: 6 requests in a bucket of 8
                ("bucket-padded", lambda: tree.two_level(6, 4096, 64,
                                                         block_size=PAGE), 0,
-                {"bucket": 8}))]
+                {"bucket": 8}),
+               # phase 8's buckets: 12 requests in 16, 24 requests in 32
+               ("bucket 16", lambda: tree.two_level(12, 2048, 64,
+                                                    block_size=PAGE), 0,
+                {"bucket": 16}),
+               ("bucket 32", lambda: tree.two_level(24, 2048, 64,
+                                                    block_size=PAGE), 0,
+                {"bucket": 32}))]
     check_flash_decode(gen)
     return max(e for e, _ in epi), max(u for _, u in epi)
 
@@ -1024,6 +1069,258 @@ def phase_fused(cfg, model, eager):
         f"{tpot['flash'] - tpot['codec-cuda']:.3f} ms a step")
 
 
+# --------------------------------------------------------------------- #
+# phase 8: serving under memory pressure, continuously batched
+# --------------------------------------------------------------------- #
+P8_REQUESTS, P8_DOC, P8_Q, P8_NEW = 24, 2048, 64, 64
+P8_RATE, P8_CHUNK = 0.5, 512
+# 224 pages hold the document (128 pages) and 12 finished private tails
+# (8 pages each) of the 24; the unconstrained pool holds all of them
+P8_PAGES, P8_FREE_PAGES = 224, 1024
+
+
+def pressure_workload(vocab):
+    """Phase 8's prompts and their Poisson arrival steps (seed 0)."""
+    from repro_torch.launch.serve import build_schedule, doc_prompts
+    prompts = doc_prompts(P8_REQUESTS, P8_DOC, P8_Q, vocab, seed=0)
+    steps = build_schedule("poisson", P8_RATE, np.random.default_rng(0),
+                           len(prompts))
+    return prompts, steps
+
+
+def decode_shape(forest, rows):
+    """A forest of ``forest``'s shape cut to ``rows``: the nodes on their
+    paths at their lengths, each row on its leaf (no pages yet)."""
+    from repro_torch.core import tree
+    f = tree.PrefixForest(forest.block_size)
+    ids = {tree.ROOT_ID: tree.ROOT_ID}
+    for r in rows:
+        for node in forest.path(r):
+            if node.id not in ids:
+                ids[node.id] = f.add_node(ids[node.parent], node.length).id
+        f.attach_request(r, ids[forest.leaf_of[r]])
+    return f
+
+
+def pressured_serve(cfg, model, backend, fused, pages, top2=None):
+    """Serve phase 8's arrivals through one engine; check its launches,
+    graphs and hygiene (no leaked page or node after every release, no
+    non-finite logit); returns ``serve``'s result, with ``widest``: the
+    forest's shape (``decode_shape``) at the first decode step of the most
+    rows.  ``top2`` (eager): a dict that gets, by request and token index,
+    the top-2 logits of each token a decode step sampled."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import DecodeEngine
+    engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=pages,
+                          num_lanes=LANES, max_q=MAX_Q, backend=backend,
+                          fused=fused, prefill_chunk=P8_CHUNK, device="cuda")
+    prompts, steps = pressure_workload(cfg.vocab_size)
+    finite, widest = [], [None]
+
+    def on_step(eng):
+        rows = eng.step_stats[-1]["decoded"]
+        if not rows:
+            return
+        if widest[0] is None or rows > len(widest[0].request_ids):
+            widest[0] = decode_shape(eng.forest, eng.last_rows)
+        if fused:                  # the logits are read after a flush only
+            return
+        finite.append(bool(torch.isfinite(eng.last_logits).all()))
+        if top2 is not None:
+            vals = torch.topk(eng.last_logits, 2).values.cpu().tolist()
+            for r, v in zip(eng.last_rows, vals):
+                # the token this step sampled is still the pending one
+                top2[r, len(eng.requests[r].generated)] = v
+
+    reset_launches()
+    res = serve(engine, prompts, max_new=P8_NEW, arrival_steps=steps,
+                on_step=on_step)
+    res["widest"] = widest[0]
+    launches = read_launches()
+    n_attn = len(engine.attn_layer_idx)
+    tag = f"{backend} {'fused' if fused else 'eager'} {pages} pages"
+    lens = sorted({len(t) for t in res["streams"].values()})
+    assert lens == [P8_NEW] and len(res["streams"]) == P8_REQUESTS, \
+        (tag, lens)
+    assert all(finite), (tag, "non-finite logits")
+    assert engine.stats["nonfinite_rows"] == 0, tag
+    if fused:
+        step = engine.fused_step
+        assert step.replays == res["steps"] == engine.stats["fused_calls"], \
+            (tag, step.replays, res["steps"])
+        assert step.graphs == len(engine.bucket_signatures) \
+            == res["graphs"] == res["signatures"], tag
+        held = [slot.launches for slot in step.slots.values()]
+        assert held == [(n_attn, n_attn)] * step.graphs, (tag, held)
+    else:
+        expect = n_attn * res["steps"]
+        assert launches == {"pac": expect, "por_epilogue": expect,
+                            "por": 0}, (tag, launches, expect)
+    for rid in list(engine.requests):
+        engine.release(rid)
+    engine.pool.allocator.check()
+    assert engine.pool.num_free == engine.pool.num_pages, (tag, "leak")
+    assert set(engine.forest.nodes) == {0}, (tag, "forest leak")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def log_pressured(tag, r) -> None:
+    p = r["pressure"]
+    log(f"  {tag}: {r['loop_steps']} loop steps, {r['steps']} decode "
+        f"steps; row buckets {r['buckets']}; {r['signatures']} bucket "
+        f"signature(s), {r['graphs']} graph(s) captured in "
+        f"{r['capture_s']:.3f} s ({r['capture_s'] / r['loop_s']:.1%} of "
+        f"the loop)")
+    log(f"  {tag}: step {r['step_ms']:.3f} ms wall over the loop "
+        f"({r['loop_s']:.3f} s), decode {r['tpot_ms']:.3f} ms a step (§2 "
+        f"rule); prefill in the loop {r['prefill_loop_s']:.3f} s; "
+        f"{r['tokens_per_s']:.1f} generated tokens/s; preempted "
+        f"{p['preempted']}, recompute_tokens {p['recompute_tokens']}, "
+        f"prefill_chunks {p['prefill_chunks']}, prefill_stalls "
+        f"{p['prefill_stalls']}, reclaimed {p['reclaimed']}; peak pages "
+        f"{r['peak_pages']}, {r['allocs']} handed out; plan builds "
+        f"{r['replans']} in {r['plan_s']:.3f} s")
+
+
+def check_pressure(tag, r, pages) -> None:
+    p, b = r["pressure"], r["buckets"]
+    assert p["preempted"] >= 1 and p["recompute_tokens"] >= 1 \
+        and p["prefill_chunks"] >= 1, (tag, p)
+    assert r["peak_pages"] == pages, (tag, r["peak_pages"])
+    assert len(set(b)) >= 3 and any(x < y for x, y in zip(b, b[1:])) \
+        and any(x > y for x, y in zip(b, b[1:])), (tag, b)
+
+
+def check_widest(tag, r, gen):
+    """PAC and the epilogue against their plain versions at the shape of
+    a phase-8 run's widest decode step: its forest and rows, the plan the
+    engine builds for them (f32 pool) bucketed as the fused step holds it
+    (phase 2's ``check_epilogue``: NaN in dead slots, four q/KV type
+    pairs)."""
+    from repro_torch.core import cost_model
+    from repro_torch.core.plan import bucket_pow2
+    f = r["widest"]
+    n = len(f.request_ids)
+    cm = cost_model.CostModel(H_Q, N_KV, D, bytes_per=4, page_size=PAGE)
+    check_epilogue(f"{tag}: widest, {n} rows", f, 0, gen,
+                   bucket=bucket_pow2(n), cm=cm)
+
+
+def bf16_witness(eager, fused, top2) -> None:
+    """Where the bf16 fused streams part from the eager ones: each
+    request's first differing token, and the eager run's top-2 logits
+    there beside the top-2 gaps of every token the eager decode steps
+    sampled."""
+    gaps = sorted(a - b for a, b in top2.values())
+    worst = 0.0
+    for rid in sorted(eager["streams"]):
+        diff = first_difference({rid: eager["streams"][rid]},
+                                {rid: fused["streams"][rid]})
+        if diff is None:
+            continue
+        _, i, x, y = diff
+        v = top2.get((rid, i))
+        if v is not None:
+            worst = max(worst, v[0] - v[1])
+        log(f"  bf16: request {rid} first differs at token {i}: eager "
+            f"{x}, fused {y}; eager top-2 logits there "
+            + (f"{v[0]:.4f}, {v[1]:.4f} (gap {v[0] - v[1]:.4f})"
+               if v is not None else "not logged (sampled by a prefill)"))
+    share = sum(g <= worst for g in gaps) / max(len(gaps), 1)
+    log(f"  bf16: top-2 gaps of the {len(gaps)} tokens the eager decode "
+        f"steps sampled: median {statistics.median(gaps):.4f}; "
+        f"{share:.1%} are at or below the largest gap at a first "
+        f"difference ({worst:.4f})")
+
+
+def phase_pressure(cfg, model):
+    """Phase 8 at full depth on phase 3's bf16 model, ``codec-cuda``:
+    pressured eager, pressured fused, unconstrained fused; then PAC and
+    the epilogue against their plain versions at each run's widest
+    decode step."""
+    top2 = {}
+    eager = pressured_serve(cfg, model, "codec-cuda", False, P8_PAGES,
+                            top2=top2)
+    log_pressured(f"codec-cuda eager, {P8_PAGES} pages", eager)
+    check_pressure("eager", eager, P8_PAGES)
+    fused = pressured_serve(cfg, model, "codec-cuda", True, P8_PAGES)
+    log_pressured(f"codec-cuda fused, {P8_PAGES} pages", fused)
+    check_pressure("fused", fused, P8_PAGES)
+    free = pressured_serve(cfg, model, "codec-cuda", True, P8_FREE_PAGES)
+    log_pressured(f"codec-cuda fused, {P8_FREE_PAGES} pages", free)
+    assert free["pressure"]["preempted"] == 0, free["pressure"]
+    n = len(free["streams"])
+    log(f"  bf16 streams equal to the unconstrained run's: eager "
+        f"{sum(eager['streams'][r] == free['streams'][r] for r in free['streams'])}"
+        f" of {n}, fused "
+        f"{sum(fused['streams'][r] == free['streams'][r] for r in free['streams'])}"
+        f" of {n}; fused equal to eager "
+        f"{sum(fused['streams'][r] == eager['streams'][r] for r in free['streams'])}"
+        f" of {n} (not asserted: recomputed KV comes from the prefill "
+        f"path, and bf16 streams part after near-ties)")
+    bf16_witness(eager, fused, top2)
+    log(f"  fused / eager decode time a step "
+        f"{fused['tpot_ms'] / eager['tpot_ms']:.3f}; step wall "
+        f"{fused['step_ms'] / eager['step_ms']:.3f}")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for tag, r in (("eager", eager), ("fused", fused),
+                   ("unconstrained", free)):
+        check_widest(tag, r, gen)
+
+
+def first_difference(a, b):
+    for r in sorted(a):
+        for i, (x, y) in enumerate(zip(a[r], b[r])):
+            if x != y:
+                return r, i, x, y
+    return None
+
+
+def phase_pressure_f32():
+    """Phase 8's arrivals and page counts on phase 6's 4-layer f32 model:
+    pressured streams equal unconstrained ones and fused equal eager, for
+    ``codec-cuda`` and ``flash``."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    for backend in ("codec-cuda", "flash"):
+        runs, top2 = {}, {}
+        for mode, pages in (("eager", P8_FREE_PAGES), ("eager", P8_PAGES),
+                            ("fused", P8_PAGES), ("fused", P8_FREE_PAGES)):
+            fused = mode == "fused"
+            top2[mode, pages] = {}
+            runs[mode, pages] = pressured_serve(
+                cfg, model, backend, fused, pages,
+                top2=None if fused else top2[mode, pages])
+        want = runs["eager", P8_FREE_PAGES]["streams"]
+        for key, r in runs.items():
+            diff = first_difference(want, r["streams"])
+            if diff is not None:
+                rid, i, x, y = diff
+                log(f"  {backend} {key}: request {rid} first differs from "
+                    f"the unconstrained eager run at token {i}: {y} vs {x}; "
+                    f"top-2 logits there: unconstrained eager "
+                    f"{top2['eager', P8_FREE_PAGES].get((rid, i))}, "
+                    f"pressured eager "
+                    f"{top2['eager', P8_PAGES].get((rid, i))} (None: "
+                    f"sampled by a prefill)")
+                raise AssertionError(f"{backend} {key}: streams differ")
+        check_pressure(f"{backend} f32", runs["eager", P8_PAGES], P8_PAGES)
+        check_pressure(f"{backend} f32 fused", runs["fused", P8_PAGES],
+                       P8_PAGES)
+        p = runs["fused", P8_PAGES]["pressure"]
+        log(f"  {backend} {cfg.num_layers} layers f32: {P8_REQUESTS} "
+            f"streams x {P8_NEW} tokens equal pressured ({P8_PAGES} pages: "
+            f"preempted {p['preempted']}, recompute_tokens "
+            f"{p['recompute_tokens']}) and unconstrained ({P8_FREE_PAGES}),"
+            f" eager and fused")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1079,8 +1376,13 @@ def main() -> int:
 
     log("== 7. the fused decode step at full depth, beside eager")
     phase_fused(cfg, model, {"codec-cuda": codec_res, "flash": flash_res})
+
+    log("== 8. serving under memory pressure: Poisson arrivals, chunked "
+        "prefill, preempt-and-recompute")
+    phase_pressure(cfg, model)
     del model
     torch.cuda.empty_cache()
+    phase_pressure_f32()
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,4 +1,4 @@
-"""Task division + scheduling (paper §5.1) and FCFS admission.
+"""Task division + scheduling (paper §5.1) and admission control.
 
 The port's copy of the parts of ``repro.core.scheduler`` that the
 single-GPU decode path runs.  The optimisation problem — choose per-node
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Deque, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -69,20 +69,78 @@ class Schedule:
 
 
 # --------------------------------------------------------------------- #
-# admission control: FCFS admission of whole prompts
+# admission control (serving under memory pressure)
 # --------------------------------------------------------------------- #
-def min_working_pages(seq_len: int, page_size: int) -> int:
-    """Pages a sequence needs resident to make progress: whole-prompt
-    prefill (chunked prefill is a later slice) needs every page at once,
-    so a prompt above the pool can never be admitted."""
-    ps = max(int(page_size), 1)
-    return -(-max(seq_len, 1) // ps)
+@dataclasses.dataclass(frozen=True)
+class AdmissionPolicy:
+    """Queue policy for the engine's admit/prefill phase.
+
+    ``prefill_chunk``: per-step prefill token budget — ``None`` admits and
+    prefills whole prompts at once, an ``int`` is a fixed chunk,
+    ``"auto"`` derives the chunk from the cost model so one step's prefill
+    work stays within ``balance_ratio`` times the estimated
+    decode-attention work of the running batch (chunked prefill bounds
+    time-between-tokens interference, not memory).
+
+    ``reserve_pages``: low watermark — admission never dips the free list
+    below it, keeping headroom for decode growth of the running batch.
+    ``max_running``: cap on admitted (prefilling + decoding) requests.
+    """
+
+    prefill_chunk: Optional[Union[int, str]] = None
+    reserve_pages: int = 0
+    max_running: Optional[int] = None
+    balance_ratio: float = 4.0
+    max_auto_chunk: int = 16384
+
+    def admission_reserve(self, num_running: int) -> int:
+        """Free-page watermark admission must stay above (the same for
+        any batch size until speculation's per-request draft reserve is
+        ported)."""
+        return self.reserve_pages
+
+    def min_working_pages(self, seq_len: int, page_size: int) -> int:
+        """Smallest page count that can ever make progress on a sequence.
+
+        Whole-prompt prefill (``prefill_chunk=None``) needs the full
+        sequence resident, so the working set is every page.  Chunked
+        prefill only needs one chunk plus the tail page it is growing
+        into — a prompt larger than the pool is still servable as long
+        as each chunk fits (earlier chunks' pages are reclaimable via
+        preempt-and-recompute).  Admission raises ``MemoryError`` only
+        when this floor exceeds the pool; anything above it just waits.
+        """
+        ps = max(int(page_size), 1)
+        total = -(-max(seq_len, 1) // ps)
+        pc = self.prefill_chunk
+        if pc is None:
+            return total
+        chunk = ps if pc == "auto" else int(pc)
+        return min(total, -(-max(min(seq_len, chunk), 1) // ps) + 1)
+
+    def __post_init__(self):
+        pc = self.prefill_chunk
+        if isinstance(pc, str) and pc != "auto":
+            raise ValueError(f"prefill_chunk must be int, None or 'auto', "
+                             f"got {pc!r}")
+        if isinstance(pc, int) and pc < 1:
+            raise ValueError("prefill_chunk must be >= 1")
 
 
 class AdmissionController:
-    """FCFS wait queue (deadline ordering is a later slice)."""
+    """FCFS wait queue + cost-model per-step prefill budget.
 
-    def __init__(self):
+    Preempted requests re-enter at the *front* (they were admitted
+    earliest; resuming them first preserves completion order and bounds
+    each request's preemption count).  Deadline (EDF) ordering is a later
+    slice.
+    """
+
+    def __init__(self, policy: AdmissionPolicy, cost_model,
+                 page_size: int):
+        self.policy = policy
+        self.cost_model = cost_model
+        self.page_size = max(int(page_size), 1)
         self.queue: Deque[int] = deque()
 
     def __len__(self) -> int:
@@ -90,6 +148,10 @@ class AdmissionController:
 
     def push(self, rid: int) -> None:
         self.queue.append(rid)
+
+    def requeue(self, rid: int) -> None:
+        """Re-enter a preempted request at the head of the queue."""
+        self.queue.appendleft(rid)
 
     def peek(self) -> Optional[int]:
         return self.queue[0] if self.queue else None
@@ -102,6 +164,32 @@ class AdmissionController:
             self.queue.remove(rid)
         except ValueError:
             pass
+
+    def prefill_budget(self, running_ctx: Sequence[int]) -> Optional[int]:
+        """Prefill token budget for one engine step (``None`` = unlimited).
+
+        In ``"auto"`` mode the budget is the largest page-aligned chunk
+        whose estimated attention cost stays within ``balance_ratio`` times
+        the running batch's decode-attention cost, so admitted prompts
+        cannot monopolise a step.  With nothing decoding there is nothing
+        to starve and the budget is unlimited.
+        """
+        pc = self.policy.prefill_chunk
+        if pc is None:
+            return None
+        if isinstance(pc, int):
+            return pc
+        if not running_ctx:
+            return None
+        decode_cost = sum(self.cost_model(1, max(c, 1)) for c in running_ctx)
+        target = self.policy.balance_ratio * decode_cost
+        mean_ctx = int(sum(running_ctx) / len(running_ctx))
+        chunk = self.page_size
+        while (chunk * 2 <= self.policy.max_auto_chunk
+               and self.cost_model(chunk * 2, mean_ctx + chunk * 2)
+               <= target):
+            chunk *= 2
+        return chunk
 
 
 # --------------------------------------------------------------------- #

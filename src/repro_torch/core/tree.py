@@ -41,7 +41,8 @@ class Node:
     children: List[int] = dataclasses.field(default_factory=list)
     requests: List[int] = dataclasses.field(default_factory=list)
     page_ids: List[int] = dataclasses.field(default_factory=list)
-    # engine bookkeeping: the filled-token count ("filled")
+    # engine bookkeeping: the filled-token count ("filled") and the pin
+    # refcount of preempted requests waiting to resume ("pins")
     meta: Dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -58,6 +59,10 @@ class PrefixForest:
         self._next_id = 1
         # request id -> leaf node id
         self.leaf_of: Dict[int, int] = {}
+        # optional observer called as on_split(upper, lower) after a node
+        # split; the engine uses it to extend per-request pin bookkeeping
+        # over the new lower half
+        self.on_split = None
 
     # ------------------------------------------------------------------ #
     # construction
@@ -201,10 +206,17 @@ class PrefixForest:
         if filled is not None:
             lower.meta["filled"] = max(0, filled - at)
             node.meta["filled"] = min(filled, at)
+        # pins guard the whole pinned span: a waiting request that pinned
+        # this node counted all its pages toward its admission estimate,
+        # so both halves stay protected
+        if "pins" in node.meta:
+            lower.meta["pins"] = node.meta["pins"]
         # fix leaf_of for requests whose leaf was the split node
         for rid, leaf in list(self.leaf_of.items()):
             if leaf == node.id:
                 self.leaf_of[rid] = lower.id
+        if self.on_split is not None:
+            self.on_split(node, lower)
 
     def append_token(self, request_id: int,
                      token: Optional[int] = None) -> None:

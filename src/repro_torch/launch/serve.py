@@ -19,6 +19,18 @@ CoDec reads per step against FlashDecoding's.  ``--compare`` serves the
 same prompts through ``codec-cuda`` and then the ``flash`` baseline,
 prints both TPOTs and whether the greedy streams are equal, and exits 1
 when they differ.  Runs on the card unless ``--device cpu``.
+
+Serving under memory pressure: ``--max-pages`` sizes the KV pool (an
+undersized pool preempts and recomputes), ``--prefill-chunk`` (an int or
+``auto``) prefills long prompts in chunks interleaved with decode steps,
+``--reserve-pages`` holds free pages back from admission and
+``--max-running`` caps the admitted requests.  ``--arrivals scripted``
+(one request every ``1/--rate`` steps) or ``poisson`` (exponential gaps at
+``--rate`` requests a step, from ``--seed``) adds the requests as the loop
+reaches their steps instead of all before it; the run then also prints its
+loop steps, the row buckets it went through, both step times (§2 of
+PERF.md), prefill seconds inside the loop, generated tokens per second and
+the pressure counters.
 """
 
 from __future__ import annotations
@@ -27,12 +39,13 @@ import argparse
 import json
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs import get_config
+from ..core.plan import bucket_pow2
 from ..kernels import pac as pac_mod, por as por_mod
 from ..models.transformer import build_model
 from ..serving.engine import DecodeEngine
@@ -44,6 +57,25 @@ def doc_prompts(n: int, doc_len: int, q_len: int, vocab: int,
     rng = np.random.default_rng(seed)
     doc = rng.integers(1, vocab, doc_len).tolist()
     return [doc + rng.integers(1, vocab, q_len).tolist() for _ in range(n)]
+
+
+def build_schedule(arrivals: str, rate: float, rng: np.random.Generator,
+                   n: int) -> List[int]:
+    """The loop step at which each of ``n`` requests arrives.
+
+    * ``scripted``: a fixed staircase — one request per ``1/rate`` steps;
+    * ``poisson``: exponential inter-arrival gaps at ``rate`` requests a
+      step, drawn from ``rng`` (open-loop replay).
+    """
+    if arrivals == "scripted":
+        steps = [int(i / rate) for i in range(n)]
+    elif arrivals == "poisson":
+        gaps = rng.exponential(scale=1.0 / rate, size=n)
+        steps = np.floor(np.cumsum(gaps)).astype(int).tolist()
+    else:
+        raise ValueError(f"arrivals must be 'scripted' or 'poisson', got "
+                         f"{arrivals!r}")
+    return steps
 
 
 def _sync(device: torch.device) -> None:
@@ -60,6 +92,11 @@ def _device_us(e) -> float:
 # trace names them) that launch a kernel, and those that launch a graph
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+# the engine counters of serving under memory pressure
+PRESSURE_COUNTERS = ("preempted", "recompute_tokens", "prefill_chunks",
+                     "prefill_stalls", "reclaimed")
 
 
 def _count_calls(calls: Dict[str, int], prefixes) -> int:
@@ -97,37 +134,60 @@ def profile_summary(prof, wall_s: float, steps: int,
 
 
 def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
-          on_step=None, profile_steps: int = 0,
-          profile_top: int = 12) -> Dict[str, object]:
-    """Admit + prefill every prompt, then decode until all are done.
+          on_step=None, profile_steps: int = 0, profile_top: int = 12,
+          arrival_steps: Optional[Sequence[int]] = None
+          ) -> Dict[str, object]:
+    """Serve ``prompts`` to the end: admit and prefill every prompt, then
+    step until all are done; with ``arrival_steps`` each prompt is added
+    at the start of its loop step instead, and the loop runs on while
+    arrivals remain, even when the engine is idle.
 
-    TPOT is the host clock around the decode loop, stopped after a final
-    synchronize, over the steps it ran: the fused path enqueues steps
-    ahead of the card, so its engine-side ``decode_time`` counts
-    enqueueing, not decoding, and both paths are timed by this one rule.
-    Left out of it, and returned apart: ``profile_steps`` > 0 traces that
-    many decode steps after the first with ``torch.profiler`` (from a
-    synchronize to a synchronize, profiler set-up included; its ``profile_top`` kernels by device
-    time are kept, 0: all), graph captures (``capture_s``) and the time of
-    ``on_step(engine)``, which runs after every decode step.
-    Returns the streams and host-clock timings.
+    Two step times, from the host clock around the loop, stopped after a
+    final synchronize (the fused path enqueues steps ahead of the card, so
+    its engine-side ``decode_time`` counts enqueueing, not decoding; both
+    paths are timed by these rules): ``step_ms``, the loop over its steps;
+    and ``tpot_ms``, the decode time a step: the loop less graph captures
+    (``capture_s``), prefill seconds inside the loop (``prefill_loop_s``:
+    on the card the stream time between the events the engine records
+    around each chunk, read after the synchronizes), the
+    traced steps and ``on_step(engine)``, which runs after every step,
+    over the decode steps.  ``profile_steps`` > 0 traces that many loop
+    steps after the first with ``torch.profiler`` (from a synchronize to a
+    synchronize, profiler set-up included; its ``profile_top`` kernels by
+    device time are kept, 0: all).  Returns the streams, the timings, the
+    row buckets the decode steps went through (consecutive repeats
+    merged), the bucket signatures and graphs captured, the pressure
+    counters, the pool's peak pages in use and the pages it handed out.
     """
     dev = engine.device
+    arrivals, prefill_s = [], 0.0
     _sync(dev)
-    t0 = time.perf_counter()
-    for p in prompts:
-        engine.add_request(p, max_new=max_new)
-    _sync(dev)
-    prefill_s = time.perf_counter() - t0
-    steps0 = engine.stats["steps"]
-    decode0 = engine.stats["decode_time"]
-    capture0 = engine.stats["capture_time"]
-    prof, profile, traced_s, hook_s, i = None, None, 0.0, 0.0, 0
+    if arrival_steps is None:
+        t0 = time.perf_counter()
+        for p in prompts:
+            engine.add_request(p, max_new=max_new)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+    else:
+        arrivals = sorted(zip(arrival_steps, range(len(prompts))))
+    stats = engine.stats
+    steps0, decode0 = stats["steps"], stats["decode_time"]
+    capture0, prefill0 = stats["capture_time"], engine.prefill_time()
+    pressure0 = {k: stats[k] for k in PRESSURE_COUNTERS}
+    tokens0 = sum(len(q.generated) for q in engine.requests.values())
+    prof, profile, hook_s, i, nxt = None, None, 0.0, 0, 0
+    traced_s = traced_prefill = traced_steps = 0.0
+    buckets: List[int] = []
     loop0 = time.perf_counter()
-    while engine.has_work():
+    while nxt < len(arrivals) or engine.has_work():
+        while nxt < len(arrivals) and arrivals[nxt][0] <= i:
+            engine.add_request(prompts[arrivals[nxt][1]], max_new=max_new)
+            nxt += 1
         if profile_steps and i == 1:
             _sync(dev)              # the untraced steps' work ends here
             trace0 = time.perf_counter()
+            trace_prefill0, trace_steps0 = (engine.prefill_time(),
+                                            stats["steps"])
             acts = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -136,6 +196,9 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
             w0 = time.perf_counter()
         engine.step()
         i += 1
+        rows = engine.step_stats[-1]["decoded"]
+        if rows and (not buckets or buckets[-1] != bucket_pow2(rows)):
+            buckets.append(bucket_pow2(rows))
         if prof is not None and i == 1 + profile_steps:
             _sync(dev)
             wall = time.perf_counter() - w0
@@ -143,24 +206,41 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
             profile = profile_summary(prof, wall, profile_steps, profile_top)
             prof = None
             traced_s = time.perf_counter() - trace0
+            traced_prefill = engine.prefill_time() - trace_prefill0
+            traced_steps = stats["steps"] - trace_steps0
         if on_step is not None:
             h0 = time.perf_counter()
             on_step(engine)
             hook_s += time.perf_counter() - h0
     _sync(dev)
     loop_s = time.perf_counter() - loop0
-    steps = engine.stats["steps"] - steps0
-    capture_s = engine.stats["capture_time"] - capture0
-    timed = steps - (profile_steps if profile is not None else 0)
+    steps = stats["steps"] - steps0
+    capture_s = stats["capture_time"] - capture0
+    prefill_loop_s = engine.prefill_time() - prefill0 - traced_prefill
+    tokens = sum(len(q.generated) for q in engine.requests.values()) \
+        - tokens0
+    timed = steps - traced_steps
+    fused = engine.fused_step
     return {"streams": {r: q.generated for r, q in engine.requests.items()},
             "prefill_s": prefill_s, "loop_s": loop_s, "steps": steps,
-            "decode_s": engine.stats["decode_time"] - decode0,
+            "loop_steps": i,
+            "decode_s": stats["decode_time"] - decode0,
             "traced_s": traced_s, "capture_s": capture_s, "hook_s": hook_s,
-            "tpot_ms": 1e3 * (loop_s - traced_s - capture_s - hook_s)
-            / max(timed, 1),
-            "plan_s": engine.stats["plan_time"],
-            "advance_s": engine.stats["advance_time"],
-            "replans": engine.stats["replans"], "profile": profile}
+            "prefill_loop_s": prefill_loop_s,
+            "step_ms": 1e3 * loop_s / max(i, 1),
+            "tpot_ms": 1e3 * (loop_s - traced_s - capture_s - hook_s
+                              - prefill_loop_s) / max(timed, 1),
+            "tokens_per_s": tokens / loop_s if loop_s > 0 else 0.0,
+            "buckets": buckets,
+            "signatures": len(engine.bucket_signatures),
+            "graphs": 0 if fused is None else fused.graphs,
+            "pressure": {k: stats[k] - pressure0[k]
+                         for k in PRESSURE_COUNTERS},
+            "peak_pages": engine.pool.allocator.peak_used,
+            "allocs": engine.pool.allocator.total_allocs,
+            "plan_s": stats["plan_time"],
+            "advance_s": stats["advance_time"],
+            "replans": stats["replans"], "profile": profile}
 
 
 def run(args, cfg, model, backend: str) -> Dict[str, object]:
@@ -170,12 +250,18 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     engine = DecodeEngine(cfg, model, page_size=args.page_size,
                           num_pages=args.max_pages, backend=backend,
                           num_lanes=args.num_lanes, fused=args.fused,
-                          device=device)
+                          prefill_chunk=args.prefill_chunk,
+                          reserve_pages=args.reserve_pages,
+                          max_running=args.max_running, device=device)
     prompts = doc_prompts(args.requests, args.doc_len, args.q_len,
                           cfg.vocab_size, args.seed)
+    steps = None
+    if args.arrivals != "all":
+        steps = build_schedule(args.arrivals, args.rate,
+                               np.random.default_rng(args.seed), len(prompts))
     pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
     res = serve(engine, prompts, args.max_new, profile_steps=args.profile,
-                profile_top=args.top)
+                profile_top=args.top, arrival_steps=steps)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device {name}: {cfg.name} x{cfg.num_layers} layers, "
@@ -184,10 +270,20 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
           f"{args.num_lanes} lanes, {'fused' if engine.fused else 'eager'}")
     print(f"prefill {res['prefill_s']:.3f} s, TPOT {res['tpot_ms']:.3f} ms "
           f"over {res['steps']} steps (decode loop {res['loop_s']:.3f} s, "
-          f"less traced {res['traced_s']:.3f} s and capture "
-          f"{res['capture_s']:.3f} s; plan builds {res['replans']}, "
+          f"less traced {res['traced_s']:.3f} s, capture "
+          f"{res['capture_s']:.3f} s and prefill in the loop "
+          f"{res['prefill_loop_s']:.3f} s; plan builds {res['replans']}, "
           f"{res['plan_s']:.3f} s; per-step plan advance "
           f"{res['advance_s']:.3f} s)")
+    if steps is not None or res["pressure"]["preempted"]:
+        print(f"{args.arrivals} arrivals: {res['loop_steps']} loop steps, "
+              f"{res['steps']} decode steps, row buckets {res['buckets']}; "
+              f"step {res['step_ms']:.3f} ms wall, decode {res['tpot_ms']:.3f} "
+              f"ms a step; prefill in the loop {res['prefill_loop_s']:.3f} s; "
+              f"{res['tokens_per_s']:.1f} generated tokens/s; pressure "
+              + ", ".join(f"{k} {v}" for k, v in res["pressure"].items())
+              + f"; peak pages {res['peak_pages']} of "
+              f"{engine.pool.num_pages}, {res['allocs']} handed out")
     if engine.fused:
         print(f"fused step: graph replays {engine.fused_step.replays} over "
               f"{engine.stats['fused_calls']} steps, graphs captured "
@@ -222,6 +318,12 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     return res
 
 
+def _chunk(v: str):
+    if v in ("none", ""):
+        return None
+    return v if v == "auto" else int(v)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-4b")
@@ -231,7 +333,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--q-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--max-pages", type=int, default=1024)
+    ap.add_argument("--max-pages", type=int, default=1024,
+                    help="KV pool size in pages; an undersized pool "
+                         "preempts and recomputes")
+    ap.add_argument("--prefill-chunk", type=_chunk, default=None,
+                    help="prefill token budget per step: int, 'auto' "
+                         "(cost-model-driven), or 'none' (whole prompt)")
+    ap.add_argument("--reserve-pages", type=int, default=0,
+                    help="admission low watermark: free pages kept back "
+                         "for decode growth of the running batch")
+    ap.add_argument("--max-running", type=int, default=None,
+                    help="cap on concurrently admitted requests")
+    ap.add_argument("--arrivals", choices=("all", "scripted", "poisson"),
+                    default="all",
+                    help="all requests before the loop, or arriving at "
+                         "loop steps (scripted staircase or Poisson)")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="arrivals per engine step (scripted, poisson)")
     ap.add_argument("--num-lanes", type=int, default=16)
     ap.add_argument("--backend", default="codec-cuda")
     ap.add_argument("--fused", action="store_true",

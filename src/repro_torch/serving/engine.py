@@ -1,11 +1,15 @@
 """Prefix-shared decode engine, eager path (port of
 ``repro.serving.engine.DecodeEngine``).
 
-Continuous-batching greedy decode with CoDec as the attention backend:
+Continuous-batching greedy decode with CoDec as the attention backend,
+organised as a per-step state machine — **admit → prefill → decode →
+evict** (``repro``'s DESIGN §6) — so the engine serves traffic larger than
+its KV pool instead of raising ``MemoryError``:
 
-* requests enter a FCFS **waiting queue**; a request is admitted when the
-  pool holds the pages its whole prompt needs (finished requests' KV is
-  reclaimed first), and its prompt is prefilled whole;
+* requests enter a FCFS **waiting queue**; admission is gated by a page
+  watermark, a ``max_running`` cap and a cost-model prefill budget
+  (``core.scheduler.AdmissionController``), and long prompts are
+  prefilled in **chunks** interleaved with decode steps;
 * prompts are radix-inserted into a ``PrefixForest``; already-cached
   nodes are *not* recomputed (prefill prefix reuse) — only the new leaf's
   KV is computed, attending to the gathered cached prefix;
@@ -15,18 +19,26 @@ Continuous-batching greedy decode with CoDec as the attention backend:
   raw ``parts`` — the CUDA PAC kernel by default — then one CUDA
   **POR epilogue** launch per layer: the per-query segment reduction of
   those partials, a **tail attention** over each request's growing last
-  page, their POR merge and the cast.
+  page, their POR merge and the cast;
+* when the paged pool runs dry the engine reclaims, cheapest first:
+  finished requests' KV, nodes only a waiting request still pins, then it
+  **preempts and recomputes** — the live victim with the fewest generated
+  tokens releases its non-shared pages, its shared prefix nodes stay
+  pinned (``node.meta["pins"]``) and it re-enters the queue at the front
+  to be re-prefilled from the radix-cached prefix.  Under greedy decoding
+  its stream is the one an unconstrained run gives.
 
 ``fused=True`` (backends with the jit-safe contract; ``ref`` stays eager)
 decodes each token with one replay of a captured CUDA graph
 (``serving/step_fn.py``): plans are bucketed and held at fixed addresses
 for a plan epoch, and the sampled tokens stay on the device, appended as
 placeholders, until a sync point (``flush_tokens``: a plan epoch,
-admission, reclamation, a completion, the end of ``run``).
+admission, reclamation, preemption, a completion, the end of ``run``).
 
-Left for later slices: chunked prefill and preempt-and-recompute (a dry
-pool raises ``MemoryError``), sampling at temperature > 0, the prefix
-cache, cascade prefill, faults, telemetry and speculation.
+Left for later slices: sampling at temperature > 0, the prefix cache and
+its reclaim tier, deadlines and failing a lone request whose KV outgrows
+the pool (here it raises ``MemoryError``), cascade prefill, telemetry and
+speculation.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from ..configs.base import ModelConfig
 from ..core import plan as plan_mod
 from ..core import tree as tree_mod
 from ..core.cost_model import CostModel
-from ..core.scheduler import AdmissionController, min_working_pages
+from ..core.scheduler import AdmissionController, AdmissionPolicy
 from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
 from ..models.transformer import Transformer
@@ -85,6 +97,9 @@ class Request:
     #                                    int, or PENDING_DEVICE)
     max_new: int = 16
     state: str = WAITING
+    preemptions: int = 0
+    computed_hwm: int = 0              # highest position ever computed
+    pinned: List[int] = dataclasses.field(default_factory=list)
     kv_freed: bool = False             # done + KV reclaimed
 
     @property
@@ -100,6 +115,8 @@ class DecodeEngine:
                  num_lanes: int = 2, max_q: int = 32,
                  max_kv_per_task: int = 2048,
                  temperature: float = 0.0,
+                 prefill_chunk=None, reserve_pages: int = 0,
+                 max_running: Optional[int] = None,
                  fused: bool = False,
                  device="cuda"):
         self.cfg = cfg
@@ -126,6 +143,9 @@ class DecodeEngine:
                                 page_size, max(cfg.num_kv_heads, 1),
                                 max(cfg.head_dim, 1), device=self.device)
         self.forest = tree_mod.PrefixForest(page_size)
+        # splitting a pinned node must extend each waiting holder's pin
+        # list over the new lower half (see _on_split_pins)
+        self.forest.on_split = self._on_split_pins
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
         self.cost_model = CostModel(max(cfg.num_heads, 1),
@@ -133,26 +153,39 @@ class DecodeEngine:
                                     max(cfg.head_dim, 1),
                                     bytes_per=self.pool.k.element_size(),
                                     page_size=page_size)
-        self.admission = AdmissionController()
+        self.policy = AdmissionPolicy(prefill_chunk=prefill_chunk,
+                                      reserve_pages=reserve_pages,
+                                      max_running=max_running)
+        self.admission = AdmissionController(self.policy, self.cost_model,
+                                             page_size)
         self._prefilling: List[int] = []   # admitted, prompt not prefilled
+        # (start, end) CUDA events of the prefill chunks not yet read
+        self._prefill_events: List[Tuple] = []
         # plans keyed by window size (0 = full attention)
         self._plans: Dict[int, Tuple] = {}
         self._plan_dirty = True
         self._plan_key: Optional[tuple] = None
-        # float32 logits of the last decode step (B, V); on the fused
-        # path the step's output buffer, valid once its work has completed
-        # (read it after a flush)
+        # float32 logits of the last decode step (B, V), row i for request
+        # last_rows[i]; on the fused path the step's output buffer, valid
+        # once its work has completed (read it after a flush)
         self.last_logits: Optional[torch.Tensor] = None
+        self.last_rows: List[int] = []
         # host-clock seconds: plan builds, per-step q-position advances
-        # (re-prepare + re-upload of every plan array), prefill, decode
-        # (fused: enqueueing), fused dispatch, token syncs, graph captures
+        # (re-prepare + re-upload of every plan array), prefill (on the
+        # card stream time, see prefill_time), decode (fused: enqueueing),
+        # fused dispatch, token syncs, graph captures
         self.stats = {"steps": 0, "replans": 0, "plan_time": 0.0,
                       "advance_time": 0.0, "prefill_time": 0.0,
                       "decode_time": 0.0, "prefill_tokens": 0,
-                      "admitted": 0, "reclaimed": 0, "fused_calls": 0,
+                      "admitted": 0, "preempted": 0, "reclaimed": 0,
+                      "recompute_tokens": 0, "prefill_chunks": 0,
+                      "prefill_stalls": 0, "fused_calls": 0,
                       "token_flushes": 0, "decode_dispatch_time": 0.0,
                       "decode_sync_time": 0.0, "capture_time": 0.0,
                       "nonfinite_rows": 0}
+        # one record a step: what it decoded, admitted, preempted,
+        # reclaimed and prefilled, and the queue and pool it left
+        self.step_stats: List[Dict] = []
 
         # ---- fused decode: one graph replay a token (step_fn.py) ------ #
         # active only for backends with the jit-safe contract (``ref``
@@ -170,11 +203,11 @@ class DecodeEngine:
         self.bucket_signatures: set = set()
 
     # ------------------------------------------------------------------ #
-    # request admission (admit phase) + whole-prompt prefill
+    # request admission (admit phase) + chunked prefill (prefill phase)
     # ------------------------------------------------------------------ #
     def add_request(self, prompt: List[int], max_new: int = 16) -> int:
-        """Enqueue a request; admits (and prefills) it at once when the
-        pool has room, so under no pressure this is immediate prefill."""
+        """Enqueue a request; admits (and prefills) it at once when memory
+        allows, so under no pressure this is immediate prefill."""
         prompt = list(prompt)
         if not prompt:
             raise ValueError("prompt must contain at least one token")
@@ -189,7 +222,10 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt token id {lo if lo < 0 else hi} outside the "
                 f"vocabulary [0, {self.cfg.vocab_size})")
-        need = min_working_pages(len(prompt), self.page_size)
+        # only an unservable prompt is an error: whole-prompt prefill needs
+        # every page at once, chunked prefill one chunk + the tail it grows
+        # into (larger prompts just wait in the queue)
+        need = self.policy.min_working_pages(len(prompt), self.page_size)
         if need > self.pool.num_pages:
             raise MemoryError(
                 f"prompt working set needs {need} KV pages but the pool "
@@ -206,38 +242,82 @@ class DecodeEngine:
         return any(q.state in (WAITING, PREFILL, RUNNING)
                    for q in self.requests.values())
 
+    def _live(self) -> List[int]:
+        return [r for r in sorted(self.requests)
+                if self.requests[r].state in (PREFILL, RUNNING)]
+
     def _active_rows(self) -> List[int]:
         return [r for r in sorted(self.requests)
                 if self.requests[r].state == RUNNING]
 
     def _has_pages_for(self, req: Request) -> bool:
+        """Whether the pool holds the request's unmatched pages above the
+        admission watermark."""
         seq = req.seq
         matched = self.forest.match_len(np.asarray(seq, np.int32))
         need = (-(-max(len(seq), 1) // self.page_size)
                 - matched // self.page_size)
-        return self.pool.num_free >= need
+        # the watermark is the same at every batch size until
+        # speculation's per-request draft reserve is ported
+        return self.pool.num_free - self.policy.reserve_pages >= need
 
     def _admit_phase(self) -> None:
-        """Finish stalled prefills, then admit waiting requests FCFS
-        (head-of-line blocks) while the pool has room for their prompt."""
-        for rid in list(self._prefilling):
-            self._prefill_step(self.requests[rid])
+        """Admission + chunked-prefill phase: continue admitted prefills
+        first, then admit waiting requests FCFS (head-of-line blocks)
+        within the page watermark (reclaiming finished KV and orphaned
+        pins, never preempting), the ``max_running`` cap and the step's
+        cost-model prefill budget."""
+        running_ctx = [self.forest.context_len(r)
+                       for r in self._active_rows()]
+        budget = self.admission.prefill_budget(running_ctx)
+        # 1. advance chunked prefills already admitted
+        spent = self._advance_prefills(budget)
+        # 2. admit from the queue
         while len(self.admission):
+            if budget is not None and spent >= budget:
+                return
+            if (self.policy.max_running is not None
+                    and len(self._live()) >= self.policy.max_running):
+                return                      # capacity cap, not memory
             head = self.requests[self.admission.peek()]
+            need_min = self.policy.min_working_pages(len(head.seq),
+                                                     self.page_size)
+            if need_min > self.pool.num_pages:
+                raise MemoryError(
+                    f"request {head.rid} needs a {need_min}-page working "
+                    f"set but the pool holds only {self.pool.num_pages}")
             while not self._has_pages_for(head):
-                if not self._reclaim_one(set()):
+                if not self._reclaim_one(set(), allow_preempt=False):
                     return                  # no free memory: keep waiting
             # admission boundary: radix insertion compares token values,
             # so in-flight device tokens must land before _admit (the
-            # probe above only under-matches a placeholder)
+            # probe above only under-matches a placeholder, so a request
+            # blocked on memory costs the fused path no sync a step)
             self.flush_tokens()
             self.admission.pop()
             self._admit(head)
-            self._prefill_step(head)
+            spent += self._prefill_step(
+                head, None if budget is None else budget - spent)
+
+    def _advance_prefills(self, budget: Optional[int]) -> int:
+        """Advance every admitted-but-unfinished prefill by one chunk."""
+        spent = 0
+        for rid in list(self._prefilling):
+            if budget is not None and spent >= budget:
+                return spent
+            req = self.requests[rid]
+            if req.state != PREFILL:       # preempted by an earlier prefill
+                continue
+            spent += self._prefill_step(
+                req, None if budget is None else budget - spent)
+        return spent
 
     def _admit(self, req: Request) -> None:
-        """Radix-insert the request's sequence into the forest."""
+        """(Re-)insert the request's sequence into the forest and release
+        the pins it held while waiting (its path now keeps those nodes
+        alive by membership)."""
         self.forest.insert_tokens(req.rid, np.asarray(req.seq, np.int32))
+        self._unpin(req)
         req.state = PREFILL
         self._prefilling.append(req.rid)
         self.stats["admitted"] += 1
@@ -292,21 +372,26 @@ class DecodeEngine:
         return 0 if self.fused_step is None else len(self.fused_step.slots)
 
     # ------------------------------------------------------------------ #
-    # reclamation (finished requests' KV only; preemption is not ported)
+    # eviction (evict phase) / reclamation
     # ------------------------------------------------------------------ #
-    def _maybe_free_node(self, node) -> None:
-        """Free a node once nothing references it (no requests, no
-        children), then try its parent."""
-        if node.id == tree_mod.ROOT_ID or node.id not in self.forest.nodes:
-            return
-        if node.requests or node.children:
-            return
+    def _drop_node(self, node) -> None:
+        """Release a node's pages and unlink it from the forest."""
         if node.page_ids:
             self.pool.allocator.release(node.page_ids)
             node.page_ids = []
-        parent = self.forest.nodes[node.parent]
-        parent.children.remove(node.id)
+        self.forest.nodes[node.parent].children.remove(node.id)
         del self.forest.nodes[node.id]
+
+    def _maybe_free_node(self, node) -> None:
+        """Free a node once nothing references it (no requests pass
+        through it, no children, no waiting request pins it), then try
+        its parent."""
+        if node.id == tree_mod.ROOT_ID or node.id not in self.forest.nodes:
+            return
+        if node.requests or node.children or node.meta.get("pins", 0) > 0:
+            return
+        parent = self.forest.nodes[node.parent]
+        self._drop_node(node)
         self._maybe_free_node(parent)
 
     def _release_kv(self, rid: int) -> None:
@@ -318,8 +403,77 @@ class DecodeEngine:
             self._maybe_free_node(node)
         del self.forest.leaf_of[rid]
 
-    def _reclaim_one(self, exclude: Set[int]) -> bool:
-        """Free the KV of one finished request; False if none is left."""
+    def _unpin(self, req: Request) -> None:
+        """Drop the pins a waiting request holds, freeing the nodes only
+        they kept."""
+        for nid in req.pinned:
+            node = self.forest.nodes.get(nid)
+            if node is not None:
+                node.meta["pins"] = node.meta.get("pins", 0) - 1
+                self._maybe_free_node(node)
+        req.pinned = []
+
+    def _preempt(self, rid: int) -> None:
+        """Evict a live request: release its non-shared pages, pin the
+        shared prefix nodes it leaves behind, and requeue it (front) to be
+        re-prefilled from the radix-cached prefix."""
+        # re-prefill recomputes from token values, and a device pending
+        # must become a host one (its re-prefill does not sample it
+        # again); the sync also retires every queued replay that reads
+        # the pages about to be freed
+        self.flush_tokens()
+        req = self.requests[rid]
+        assert req.state in (PREFILL, RUNNING), req.state
+        if len(req.generated) >= req.max_new:
+            # generation already complete (evicted between its final
+            # append and the done transition): just drop the KV
+            self._release_kv(rid)
+            if rid in self._prefilling:
+                self._prefilling.remove(rid)
+            req.state = DONE
+            req.kv_freed = True
+            self.stats["reclaimed"] += 1
+            return
+        pinned = []
+        for node in reversed(self.forest.path(rid)):
+            if node.id not in self.forest.nodes:
+                continue
+            node.requests.remove(rid)
+            if (node.requests or node.children
+                    or node.meta.get("pins", 0) > 0):
+                node.meta["pins"] = node.meta.get("pins", 0) + 1
+                pinned.append(node.id)
+            else:
+                self._drop_node(node)
+        del self.forest.leaf_of[rid]
+        if rid in self._prefilling:
+            self._prefilling.remove(rid)
+        req.pinned = pinned
+        req.state = WAITING
+        req.preemptions += 1
+        self.admission.requeue(rid)
+        self.stats["preempted"] += 1
+
+    def _reclaimable_pages(self, rid: int) -> int:
+        """Pages that preempting ``rid`` would free (its non-shared
+        nodes)."""
+        n = 0
+        freeable: Set[int] = set()
+        for node in reversed(self.forest.path(rid)):
+            others = [r for r in node.requests if r != rid]
+            kids = set(node.children) - freeable
+            if others or kids or node.meta.get("pins", 0) > 0:
+                continue
+            freeable.add(node.id)
+            n += len(node.page_ids)
+        return n
+
+    def _reclaim_one(self, exclude: Set[int],
+                     allow_preempt: bool = True) -> bool:
+        """Free some pages, cheapest first: (1) finished-request KV,
+        (2) orphaned pinned nodes, (3) preempt the live victim with the
+        fewest generated tokens (ties: latest arrival).  False when
+        nothing is left to free."""
         for rid in sorted(self.requests):
             q = self.requests[rid]
             complete = (q.state == DONE
@@ -327,7 +481,8 @@ class DecodeEngine:
                             and len(q.generated) >= q.max_new))
             if (complete and not q.kv_freed and rid not in exclude
                     and rid in self.forest.leaf_of):
-                # a finished request's tokens land before its nodes go
+                # a finished request's tokens land, and the replays that
+                # read its pages retire, before its nodes go
                 self.flush_tokens()
                 self._release_kv(rid)
                 q.state = DONE
@@ -335,13 +490,56 @@ class DecodeEngine:
                 self._plan_dirty = True
                 self.stats["reclaimed"] += 1
                 return True
-        return False
+        for rid in sorted(self.requests):
+            q = self.requests[rid]
+            if q.state != WAITING or not q.pinned:
+                continue
+            for nid in list(q.pinned):
+                node = self.forest.nodes.get(nid)
+                if node is None:
+                    q.pinned.remove(nid)
+                    continue
+                if not node.requests and not node.children:
+                    # drop this waiter's pin; the node frees once the last
+                    # pin goes (multiply-pinned nodes shed one pin per
+                    # holder until the final drop releases the pages)
+                    q.pinned.remove(nid)
+                    node.meta["pins"] = node.meta.get("pins", 0) - 1
+                    self._maybe_free_node(node)
+                    if nid not in self.forest.nodes:
+                        self.stats["reclaimed"] += 1
+                        return True
+        if not allow_preempt:
+            return False
+        victims = [r for r in sorted(self.requests)
+                   if self.requests[r].state in (PREFILL, RUNNING)
+                   and r not in exclude
+                   and self._reclaimable_pages(r) > 0]
+        if not victims:
+            return False
+        victim = min(victims,
+                     key=lambda r: (len(self.requests[r].generated), -r))
+        self._preempt(victim)
+        return True
 
-    def _alloc_pages(self, n: int, exclude: Set[int]) -> Optional[List[int]]:
-        """Allocate ``n`` pages, reclaiming finished KV; ``None`` when
-        nothing more can be reclaimed."""
+    def _on_split_pins(self, upper, lower) -> None:
+        """Forest split observer: ``tree._split`` copies the pin refcount
+        to the lower half; the per-request pin lists must follow, or
+        un-pinning at re-admission would strand the lower half pinned
+        forever."""
+        if upper.meta.get("pins", 0) <= 0:
+            return
+        for req in self.requests.values():
+            if upper.id in req.pinned:
+                req.pinned.append(lower.id)
+
+    def _alloc_pages(self, n: int, exclude: Set[int],
+                     allow_preempt: bool = True) -> Optional[List[int]]:
+        """Allocate ``n`` pages, reclaiming (and preempting, unless
+        ``allow_preempt`` is off) under pressure; ``None`` when nothing
+        more can be reclaimed."""
         while self.pool.num_free < n:
-            if not self._reclaim_one(exclude):
+            if not self._reclaim_one(exclude, allow_preempt):
                 return None
         return self.pool.allocator.alloc(n)
 
@@ -405,15 +603,44 @@ class DecodeEngine:
         if req.rid in self._prefilling:
             self._prefilling.remove(req.rid)
 
+    def _prefill_mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _prefill_done(self, t0) -> None:
+        if self.device.type != "cuda":
+            self.stats["prefill_time"] += time.perf_counter() - t0
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._prefill_events.append((t0, ev))
+
+    def prefill_time(self) -> float:
+        """Seconds of prefill so far, ``stats["prefill_time"]`` brought up
+        to date: on the card the stream time between each chunk's pair of
+        events (the engine never waits for them: call this after a
+        synchronize), on the CPU the host clock around each chunk."""
+        for a, b in self._prefill_events:
+            self.stats["prefill_time"] += a.elapsed_time(b) / 1e3
+        self._prefill_events.clear()
+        return self.stats["prefill_time"]
+
     @torch.no_grad()
-    def _prefill_step(self, req: Request) -> int:
-        """Prefill the request's whole uncached span; returns tokens
+    def _prefill_step(self, req: Request, budget: Optional[int]) -> int:
+        """Advance the request's prefill by one chunk of ``<= budget``
+        tokens (``None`` = the whole remaining span); returns tokens
         computed (0 = stalled on pages, retried next step).
 
         Attention KV of the cached prefix is reused (gathered from the
         paged pool).  A fully cached prompt recomputes only its final
         position so its logits exist.  When the sequence completes, the
-        request joins the decode batch with its first token pending.
+        request joins the decode batch; ``pending`` is sampled only if it
+        did not survive a preemption.  The chunk's seconds: on the card a
+        pair of CUDA events around its work (read by ``prefill_time``), on
+        the CPU the host clock.
         """
         cfg = self.cfg
         rid = req.rid
@@ -428,21 +655,25 @@ class DecodeEngine:
         else:
             self._promote(req)
             return 0
-        if not self._ensure_pages_upto(rid, total):
+        # a chunk of the budget, never below one new token of progress
+        end = total if budget is None else min(
+            total, max(start + max(budget, 1), kv_filled + 1))
+        if not self._ensure_pages_upto(rid, end):
+            self.stats["prefill_stalls"] += 1
             return 0
-        t0 = time.perf_counter()
+        t0 = self._prefill_mark()
         dev = self.device
-        tokens = torch.as_tensor(np.asarray(seq[start:total], np.int64),
+        tokens = torch.as_tensor(np.asarray(seq[start:end], np.int64),
                                  device=dev)
         Tn = tokens.shape[0]
-        positions = torch.arange(start, total, device=dev)[None]  # (1, Tn)
+        positions = torch.arange(start, end, device=dev)[None]    # (1, Tn)
 
         # node segments covering the span (for KV writes)
         segments = []        # (node, lo, hi) in span-local coordinates
         off = 0
         for node in path:
             lo = max(0, off - start)
-            hi = min(total, off + node.length) - start
+            hi = min(end, off + node.length) - start
             if hi > lo:
                 segments.append((node, lo, hi))
             off += node.length
@@ -460,7 +691,7 @@ class DecodeEngine:
             v_all = torch.cat([pv.to(v_new.dtype)[None], v_new], 1)
             o = L.mha(q, k_all, v_all, causal=True, window=window,
                       q_positions=positions,
-                      kv_positions=torch.arange(total, device=dev)[None])
+                      kv_positions=torch.arange(end, device=dev)[None])
             x = x + L.dense(layer.attn.wo,
                             o.reshape(1, Tn, cfg.num_heads * cfg.head_dim))
             new_kv.append((la, k_new[0], v_new[0]))
@@ -487,11 +718,17 @@ class DecodeEngine:
                 self.pool.write_tokens(la, pg, of, k_new[rows], v_new[rows])
 
         self.stats["prefill_tokens"] += Tn
-        if req.pending is None:
+        self.stats["recompute_tokens"] += max(
+            0, min(end, req.computed_hwm) - start)
+        req.computed_hwm = max(req.computed_hwm, end)
+        if end < total:
+            self.stats["prefill_chunks"] += 1
+        elif req.pending is None:
             logits = self.model.unembed(x[:, -1])               # (1, V)
             req.pending = int(sampler.sample(logits, self.temperature)[0])
-        self.stats["prefill_time"] += time.perf_counter() - t0
-        self._promote(req)
+        self._prefill_done(t0)
+        if end == total:
+            self._promote(req)
         return Tn
 
     # ------------------------------------------------------------------ #
@@ -548,33 +785,55 @@ class DecodeEngine:
     # ------------------------------------------------------------------ #
     # decode step (admit -> prefill -> decode)
     # ------------------------------------------------------------------ #
+    _STEP_COUNTERS = ("admitted", "preempted", "reclaimed",
+                      "prefill_tokens", "recompute_tokens")
+
     def step(self) -> Dict[int, int]:
-        """One engine step: admission + prefill, then append pending tokens
-        and decode one token per running request."""
+        """One engine step: admission + chunked prefill, then append
+        pending tokens (evicting under pressure) and decode one token per
+        running request; appends the step's record to ``step_stats``."""
+        snap = {k: self.stats[k] for k in self._STEP_COUNTERS}
         self._admit_phase()
-        if self.fused:
-            return self._decode_phase_fused()
-        return self._decode_phase_eager()
+        out = (self._decode_phase_fused() if self.fused
+               else self._decode_phase_eager())
+        self.step_stats.append({
+            "step": len(self.step_stats),
+            "decoded": len(out),
+            **{k: self.stats[k] - snap[k] for k in self._STEP_COUNTERS},
+            "waiting": len(self.admission),
+            "prefilling": len(self._prefilling),
+            "running": len(self._active_rows()),
+            "pages_free": self.pool.num_free,
+        })
+        return out
 
     def _grow_leaf_tail(self, r: int):
         """Ensure the request's leaf has a page slot for its newest
-        token; returns the leaf."""
+        token, preempting under pressure (never ``r`` itself); returns
+        the leaf."""
         leaf = self.forest.nodes[self.forest.leaf_of[r]]
         if -(-leaf.length // self.page_size) > len(leaf.page_ids):
             got = self._grow_node_pages(leaf, 1, exclude={r})
             if got is None:
                 raise MemoryError(
-                    f"KV pool exhausted growing request {r}: nothing left "
-                    f"to reclaim (preemption is not implemented here)")
+                    f"KV pool exhausted growing request {r}: nothing "
+                    f"left to evict (pool smaller than the working set)")
         return leaf
 
     def _append_pending(self, rows0: List[int]) -> None:
         """Append each running request's pending token to its leaf and
-        grow tail pages.  Device pendings (fused path) are appended as
-        placeholders and patched at the next ``flush_tokens``."""
+        grow tail pages, preempting the fewest-generated victim when the
+        pool runs dry.  When nothing else can be evicted the growing row
+        is preempted itself if other requests are live; a lone request
+        that outgrows the pool raises ``MemoryError`` (``repro`` fails it
+        as ``kv_exhausted``, with the lifecycle states of a later slice).
+        Device pendings (fused path) are appended as placeholders and
+        patched at the next ``flush_tokens``."""
         for r in rows0:
             req = self.requests[r]
-            if req.state != RUNNING or req.pending is None:
+            if req.state != RUNNING:    # evicted growing an earlier row
+                continue
+            if req.pending is None:
                 continue
             if req.pending is PENDING_DEVICE:
                 ent, row = self._pending_ref.pop(r)
@@ -587,7 +846,17 @@ class DecodeEngine:
                 self.forest.append_token(r, req.pending)
                 req.generated.append(req.pending)
             req.pending = None
-            self._grow_leaf_tail(r)
+            try:
+                self._grow_leaf_tail(r)
+            except MemoryError:
+                # with other tenants the pressure is transient:
+                # preempt-and-recompute keeps the greedy stream intact
+                others = [q for q in self.requests.values()
+                          if q.rid != r
+                          and q.state in (WAITING, PREFILL, RUNNING)]
+                if not others:
+                    raise
+                self._preempt(r)
 
     @torch.no_grad()
     def _decode_phase_eager(self) -> Dict[int, int]:
@@ -627,12 +896,13 @@ class DecodeEngine:
         logits = step_fn_mod.decode_stack(
             self.model, self.pool, self.attn_layer_idx, tok, q_pos,
             tail_pages, tail_base, tail_off, self._attend)        # (B, V)
-        self.last_logits = logits
+        self.last_logits, self.last_rows = logits, list(rows)
         toks = sampler.sample(logits, self.temperature).cpu().numpy()
         out = {}
         for i, r in enumerate(rows):
             req = self.requests[r]
             req.pending = int(toks[i])
+            req.computed_hwm = max(req.computed_hwm, int(ctx[i]))
             out[r] = int(toks[i])
             if len(req.generated) >= req.max_new:
                 req.state = DONE
@@ -680,6 +950,7 @@ class DecodeEngine:
         host, event = self.fused_step()
         self.stats["decode_dispatch_time"] += time.perf_counter() - t_d0
         self.last_logits = self.fused_step.logits[:len(rows)]
+        self.last_rows = list(rows)
         ent = _Deferred(host, event, list(rows))
         self._deferred.append(ent)
         out: Dict[int, Optional[int]] = {}
@@ -688,6 +959,8 @@ class DecodeEngine:
             req = self.requests[r]
             req.pending = PENDING_DEVICE
             self._pending_ref[r] = (ent, i)
+            req.computed_hwm = max(req.computed_hwm,
+                                   self.forest.context_len(r))
             out[r] = None
             if len(req.generated) >= req.max_new:
                 req.state = DONE
@@ -759,8 +1032,11 @@ class DecodeEngine:
 
     def release(self, rid: int) -> None:
         self.flush_tokens()
-        self.requests.pop(rid)
+        req = self.requests.pop(rid)
         self.admission.remove(rid)
+        if req.state == WAITING:
+            self._unpin(req)
+            return
         if rid in self._prefilling:
             self._prefilling.remove(rid)
         if rid in self.forest.leaf_of:

@@ -21,6 +21,9 @@ class PageAllocator:
         self.num_pages = num_pages
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
         self._refs: Dict[int, int] = {}
+        # accounting (watermarks / pressure diagnostics)
+        self.peak_used = 0
+        self.total_allocs = 0
 
     @property
     def num_free(self) -> int:
@@ -37,6 +40,8 @@ class PageAllocator:
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._refs[p] = 1
+        self.total_allocs += n
+        self.peak_used = max(self.peak_used, self.num_used)
         return pages
 
     def release(self, pages: List[int]) -> None:

@@ -472,3 +472,86 @@ def test_por_epilogue_bucket_padded_rows_on_card():
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     assert torch.equal(got[0][6:], torch.zeros_like(got[0][6:]))
+
+
+# --------------------------------------------------------------------- #
+# serving under memory pressure (chunked prefill, preempt-and-recompute)
+# --------------------------------------------------------------------- #
+def _nan_on_free(eng):
+    """Fill every page the engine frees with NaN, in stream order: a
+    replay or a plan that still read a freed page would turn its logits
+    non-finite or its stream away from the eager one."""
+    alloc, pool = eng.pool.allocator, eng.pool
+    release = alloc.release
+
+    def release_nan(pages):
+        before = alloc.num_free
+        release(pages)
+        freed = alloc._free[before:]
+        if freed:
+            idx = torch.as_tensor(freed, device=pool.k.device)
+            pool.k[:, idx] = float("nan")
+            pool.v[:, idx] = float("nan")
+    alloc.release = release_nan
+
+
+def _pressured_serve(model, backend, fused, num_pages):
+    """Ten requests over a 64-token document, Poisson arrivals at 0.5 a
+    step, 16-token prefill chunks, 20 tokens each."""
+    from repro_torch.launch.serve import build_schedule, serve
+    from repro_torch.serving.engine import DecodeEngine
+    eng = DecodeEngine(model.cfg, model, page_size=16, num_pages=num_pages,
+                       max_q=8, backend=backend, fused=fused,
+                       prefill_chunk=16, device="cuda")
+    _nan_on_free(eng)
+    doc = list(range(10, 74))
+    prompts = [doc + [100 + 3 * i + j for j in range(3)] for i in range(10)]
+    steps = build_schedule("poisson", 0.5, np.random.default_rng(0),
+                           len(prompts))
+    finite = []
+
+    def on_step(e):
+        if e.step_stats[-1]["decoded"]:
+            finite.append(bool(torch.isfinite(e.last_logits).all()))
+    res = serve(eng, prompts, max_new=20, arrival_steps=steps,
+                on_step=None if fused else on_step)
+    assert finite or fused
+    assert all(finite)
+    assert eng.stats["nonfinite_rows"] == 0
+    if fused:
+        assert eng.fused_step.replays == res["steps"]
+        assert eng.fused_step.graphs == len(eng.bucket_signatures) \
+            == res["graphs"] == res["signatures"]
+    for rid in list(eng.requests):
+        eng.release(rid)
+    eng.pool.allocator.check()
+    assert eng.pool.num_free == eng.pool.num_pages
+    assert set(eng.forest.nodes) == {0}
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["codec-cuda", "flash"])
+def test_pressured_fused_equals_eager_and_unconstrained_on_card(backend):
+    """On an H100: under an undersized pool whose freed pages turn NaN,
+    the fused streams equal the eager ones and an unconstrained run's at
+    f32 weights, preemption, chunked prefill and recomputation all fire,
+    the row bucket grows and shrinks, no logit is non-finite, one graph
+    is captured a signature and no page leaks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    eager = _pressured_serve(model, backend, False, 12)
+    fused = _pressured_serve(model, backend, True, 12)
+    free = _pressured_serve(model, backend, True, 256)
+    assert fused["streams"] == eager["streams"] == free["streams"]
+    assert all(len(t) == 20 for t in fused["streams"].values())
+    for r in (eager, fused):
+        assert r["peak_pages"] == 12
+        for k in ("preempted", "prefill_chunks", "recompute_tokens"):
+            assert r["pressure"][k] >= 1, r["pressure"]
+    assert free["pressure"]["preempted"] == 0
+    b = fused["buckets"]
+    assert len(set(b)) >= 3 and any(x < y for x, y in zip(b, b[1:])) \
+        and any(x > y for x, y in zip(b, b[1:])), b
