@@ -74,7 +74,23 @@ Phases (any failure raises and the script exits non-zero):
    are held against their plain versions at the shape of each run's
    widest decode step (its forest and rows, the plan the engine builds,
    bucketed as the fused step holds it);
-9. print the ``kernels`` JSON line and the closing device line.
+9. the request lifecycle, on phase 3's model, fused, 1024 pages: wave A
+   (8 questions over a shared 2048-token document, 32 tokens each), then
+   wave B (8 new questions on the same document) once A has finished,
+   without the prefix cache and with it, twice in turns: wave B's
+   prefill seconds (CUDA events), the prompt tokens the cache served and
+   the pages it kept;
+   every ``on_token`` sequence equals its stream and ``on_done`` fires
+   once, ``check()`` and ``shutdown()`` leave every page free, and PAC
+   and the epilogue launch (into the graphs); wave A sampled at
+   temperature 0.8, fused beside eager, with the sampled and greedy
+   fused TPOT.  On phase 6's 4-layer f32 model: waves A and B equal with
+   and without the cache; sampled streams fused == eager, and again
+   under phase 8's pressured arrivals; a seeded fault plan (an ``alloc``,
+   a ``dispatch`` and a ``nan_logits`` fault) with a cancel and a
+   deadline on an injected clock, fused: each request's terminal reason,
+   the survivors' streams equal to a fault-free run's, ``check()``;
+10. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -1102,18 +1118,21 @@ def decode_shape(forest, rows):
     return f
 
 
-def pressured_serve(cfg, model, backend, fused, pages, top2=None):
+def pressured_serve(cfg, model, backend, fused, pages, top2=None,
+                    **engine_kw):
     """Serve phase 8's arrivals through one engine; check its launches,
     graphs and hygiene (no leaked page or node after every release, no
     non-finite logit); returns ``serve``'s result, with ``widest``: the
     forest's shape (``decode_shape``) at the first decode step of the most
     rows.  ``top2`` (eager): a dict that gets, by request and token index,
-    the top-2 logits of each token a decode step sampled."""
+    the top-2 logits of each token a decode step sampled.  ``engine_kw``
+    go to the engine (phase 9: ``temperature``)."""
     from repro_torch.launch.serve import serve
     from repro_torch.serving.engine import DecodeEngine
     engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=pages,
                           num_lanes=LANES, max_q=MAX_Q, backend=backend,
-                          fused=fused, prefill_chunk=P8_CHUNK, device="cuda")
+                          fused=fused, prefill_chunk=P8_CHUNK, device="cuda",
+                          **engine_kw)
     prompts, steps = pressure_workload(cfg.vocab_size)
     finite, widest = [], [None]
 
@@ -1321,6 +1340,284 @@ def phase_pressure_f32():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 9: the request lifecycle
+# --------------------------------------------------------------------- #
+P9_REQUESTS, P9_DOC, P9_Q, P9_NEW = 8, 2048, 64, 32
+P9_TEMPERATURE = 0.8
+# the fault run: requests, tokens, and which request each fault targets
+P9F_DOC, P9F_NEW = 1024, 24
+P9F_NAN, P9F_CANCEL, P9F_DEADLINE = 2, 5, 6
+P9F_CANCEL_STEP, P9F_DEADLINE_S = 6, 10.5
+
+
+class StreamLog:
+    """Streaming callbacks: the tokens each request streamed, and every
+    stream close."""
+
+    def __init__(self):
+        self.tokens, self.closed = {}, {}
+
+    def on_token(self, rid, tok):
+        self.tokens.setdefault(rid, []).append(int(tok))
+
+    def on_done(self, rid, why):
+        self.closed.setdefault(rid, []).append(why)
+
+
+class StepClock:
+    """An injected engine clock: one unit a step."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def lifecycle_engine(cfg, model, **kw):
+    from repro_torch.serving.engine import DecodeEngine
+    return DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                        num_lanes=LANES, max_q=MAX_Q, device="cuda", **kw)
+
+
+def serve_waves(cfg, model, waves=("A", "B"), **kw):
+    """Phase 9's waves through one engine (``kw``: its options), each
+    served to the end before the next is added: wave A is 8 questions
+    over a 2048-token document, wave B 8 new questions over the same
+    document.  Checks every stream: each ``on_token`` sequence equals its
+    final stream and ``on_done`` fired once, ``done``.  Then
+    ``check()``, ``shutdown()`` and every page free.  Returns each wave's
+    ``serve`` result with its prefill seconds (``prefill_time``: the
+    engine's CUDA events), the prompt tokens the cache served and the
+    pages it kept."""
+    from repro_torch.launch.serve import doc_prompts, serve
+    prompts = doc_prompts(2 * P9_REQUESTS, P9_DOC, P9_Q, cfg.vocab_size,
+                          seed=0)
+    by_wave = {"A": prompts[:P9_REQUESTS], "B": prompts[P9_REQUESTS:]}
+    engine = lifecycle_engine(cfg, model, **kw)
+    streams = StreamLog()
+    out = {}
+    for name in waves:
+        cache = engine.cache
+        hits0 = cache.stats["hit_tokens"] if cache else 0
+        prefill0 = engine.prefill_time()
+        r = serve(engine, by_wave[name], P9_NEW, on_token=streams.on_token,
+                  on_done=streams.on_done)
+        r["prefill_events_s"] = engine.prefill_time() - prefill0
+        r["hit_tokens"] = (cache.stats["hit_tokens"] - hits0 if cache
+                           else 0)
+        r["kept_pages"] = cache.resident_pages() if cache else 0
+        rids = sorted(r["streams"])[-P9_REQUESTS:]
+        r["streams"] = {rid: list(r["streams"][rid]) for rid in rids}
+        out[name] = r
+    n = len(engine.requests)
+    assert all(engine.requests[rid].generated == streams.tokens[rid]
+               for rid in engine.requests), "on_token differs from streams"
+    assert streams.closed == {rid: ["done"] for rid in engine.requests}, \
+        streams.closed
+    assert engine.stats["nonfinite_rows"] == 0
+    fused = engine.fused_step
+    if fused is not None:
+        n_attn = len(engine.attn_layer_idx)
+        assert fused.replays == engine.stats["fused_calls"]
+        assert [s.launches for s in fused.slots.values()] \
+            == [(n_attn, n_attn)] * fused.graphs == \
+            [(n_attn, n_attn)] * len(engine.bucket_signatures)
+    engine.check()
+    summary = engine.shutdown()
+    assert summary["used_pages"] == 0, summary
+    assert engine.pool.num_free == engine.pool.num_pages
+    out["streams_checked"] = n
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lifecycle(cfg, model):
+    """Phase 9 at full depth on phase 3's bf16 model: waves A and B
+    without the prefix cache and with it, twice in turns (off, on, off,
+    on: the first of a process's prefills run cold), streaming checked;
+    then wave A sampled at temperature 0.8, fused and eager, beside the
+    greedy fused TPOT."""
+    runs = []
+    for cache in (False, True, False, True):
+        reset_launches()
+        w = serve_waves(cfg, model, fused=True, cache=cache or None)
+        launches = read_launches()
+        assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
+            launches
+        b = w["B"]
+        log(f"  cache {'on' if cache else 'off'}: wave B prefill "
+            f"{b['prefill_events_s']:.3f} s (CUDA events; host "
+            f"{b['prefill_s']:.3f} s), cache_hit_tokens {b['hit_tokens']},"
+            f" pages kept after wave A {w['A']['kept_pages']}; wave A "
+            f"prefill {w['A']['prefill_events_s']:.3f} s; TPOT wave A "
+            f"{w['A']['tpot_ms']:.3f} ms, wave B {b['tpot_ms']:.3f} ms; "
+            f"{w['streams_checked']} streams: on_token == stream, one "
+            f"on_done each; check() and shutdown(): no page leaked; PAC "
+            f"and epilogue launches captured {launches['pac']}, "
+            f"{launches['por_epilogue']}")
+        if cache:
+            assert b["hit_tokens"] == P9_REQUESTS * P9_DOC, b
+            assert w["A"]["kept_pages"] >= P9_DOC // PAGE, w["A"]
+        runs.append(w)
+    cold, warm = runs[2], runs[3]
+    same = sum(warm["B"]["streams"][r] == cold["B"]["streams"][r]
+               for r in cold["B"]["streams"])
+    log(f"  wave B prefill with the cache / without: "
+        f"{runs[1]['B']['prefill_events_s'] / runs[0]['B']['prefill_events_s']:.3f}"
+        f" (first pair), "
+        f"{warm['B']['prefill_events_s'] / cold['B']['prefill_events_s']:.3f}"
+        f" (second pair); bf16 wave B streams equal with and without the "
+        f"cache: {same} of {P9_REQUESTS} (asserted at f32 below)")
+    sampled = serve_waves(cfg, model, waves=("A",), fused=True,
+                          temperature=P9_TEMPERATURE)["A"]
+    reset_launches()
+    sampled_eager = serve_waves(cfg, model, waves=("A",),
+                                temperature=P9_TEMPERATURE)["A"]
+    launches = read_launches()
+    expect = cfg.num_layers * sampled_eager["steps"]
+    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0}, \
+        (launches, expect)
+    same = sum(sampled["streams"][r] == sampled_eager["streams"][r]
+               for r in sampled["streams"])
+    greedy = cold["A"]["tpot_ms"]
+    log(f"  temperature {P9_TEMPERATURE}: fused TPOT "
+        f"{sampled['tpot_ms']:.3f} ms against greedy fused {greedy:.3f} ms "
+        f"({sampled['tpot_ms'] - greedy:+.3f} ms a step of {P9_REQUESTS} "
+        f"rows); eager {sampled_eager['tpot_ms']:.3f} ms; bf16 sampled "
+        f"streams fused == eager: {same} of {P9_REQUESTS} (asserted at f32"
+        f" below)")
+
+
+def fault_plan():
+    """The first seeded schedule (``FaultPlan.seeded``) with exactly one
+    ``nan_logits`` fault (on request ``P9F_NAN``, from step 4), ``alloc``
+    faults only at steps 0-1 (where every request allocates its first
+    decode page) and one or two ``dispatch`` faults, none at the
+    ``nan_logits`` step: a recovery that preempts the NaN's target then
+    would move the NaN to another row."""
+    from repro_torch.serving.faults import FaultPlan
+    for seed in range(1000):
+        plan = FaultPlan.seeded(seed, steps=12, rate=0.12,
+                                kinds=("alloc", "dispatch", "nan_logits"),
+                                rids=[P9F_NAN])
+        steps = {k: [s.step for s in plan if s.kind == k]
+                 for k in ("alloc", "dispatch", "nan_logits")}
+        if (len(steps["nan_logits"]) == 1 and steps["nan_logits"][0] >= 4
+                and steps["alloc"] and max(steps["alloc"]) <= 1
+                and 1 <= len(steps["dispatch"]) <= 2
+                and steps["nan_logits"][0] not in steps["dispatch"]):
+            return seed, plan
+    raise AssertionError("no seeded fault plan fits")
+
+
+def phase_lifecycle_f32():
+    """Phase 9 on phase 6's 4-layer f32 model, where streams are held
+    equal: waves A and B with and without the cache; wave A sampled at
+    temperature 0.8 fused and eager, and phase 8's pressured arrivals
+    sampled, fused and eager; a seeded fault plan with a cancel and a
+    deadline, whose survivors' streams equal a fault-free run's."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    warm = serve_waves(cfg, model, fused=True, cache=True)
+    cold = serve_waves(cfg, model, fused=True)
+    for w in ("A", "B"):
+        assert warm[w]["streams"] == cold[w]["streams"], w
+    log(f"  {cfg.num_layers} layers f32: waves A and B equal with and "
+        f"without the cache ({2 * P9_REQUESTS} streams; wave B prefill "
+        f"{warm['B']['prefill_events_s']:.3f} s against "
+        f"{cold['B']['prefill_events_s']:.3f} s)")
+    t = P9_TEMPERATURE
+    fused = serve_waves(cfg, model, waves=("A",), fused=True,
+                        temperature=t)["A"]["streams"]
+    eager = serve_waves(cfg, model, waves=("A",), temperature=t)["A"][
+        "streams"]
+    assert fused == eager, first_difference(eager, fused)
+    greedy = cold["A"]["streams"]
+    assert fused != greedy
+    runs = {mode: pressured_serve(cfg, model, "codec-cuda", mode == "fused",
+                                  P8_PAGES, temperature=t)
+            for mode in ("eager", "fused")}
+    diff = first_difference(runs["eager"]["streams"],
+                            runs["fused"]["streams"])
+    assert diff is None, diff
+    p = runs["fused"]["pressure"]
+    assert p["preempted"] >= 1 and p["recompute_tokens"] >= 1, p
+    log(f"  temperature {t}: wave A fused == eager ({P9_REQUESTS} "
+        f"streams, {sum(fused[r] != greedy[r] for r in fused)} differ from "
+        f"greedy); phase 8's arrivals on {P8_PAGES} pages fused == eager "
+        f"({P8_REQUESTS} streams; preempted {p['preempted']}, "
+        f"recompute_tokens {p['recompute_tokens']})")
+
+    # the fault plan, fused, against a fault-free run of the same prompts
+    prompts = doc_prompts(8, P9F_DOC, P9_Q, cfg.vocab_size, seed=3)
+    ref = lifecycle_engine(cfg, model, fused=True)
+    for q in prompts:
+        ref.add_request(q, max_new=P9F_NEW)
+    want = {r: list(g) for r, g in ref.run(200).items()}
+    del ref
+    seed, plan = fault_plan()
+    clock, streams = StepClock(), StreamLog()
+    engine = lifecycle_engine(cfg, model, fused=True, faults=plan,
+                              nan_guard=True, clock=clock, check_every=4)
+    for i, q in enumerate(prompts):
+        engine.add_request(q, max_new=P9F_NEW, on_token=streams.on_token,
+                           on_done=streams.on_done,
+                           deadline_s=(P9F_DEADLINE_S if i == P9F_DEADLINE
+                                       else None))
+    for step in range(200):
+        if not engine.has_work():
+            break
+        if step == P9F_CANCEL_STEP:
+            assert engine.cancel(P9F_CANCEL)
+        engine.step()
+        clock.t += 1.0
+    got = engine.run(0)
+    reasons = {r: (q.state, q.finish_reason)
+               for r, q in engine.requests.items()}
+    expect = {r: ("done", "done") for r in reasons}
+    expect.update({P9F_NAN: ("failed", "nan_logits"),
+                   P9F_CANCEL: ("cancelled", "cancelled"),
+                   P9F_DEADLINE: ("timed_out", "deadline")})
+    assert reasons == expect, reasons
+    for r, g in got.items():
+        if reasons[r][0] == "done":
+            assert g == want[r], (r, first_difference({r: want[r]},
+                                                      {r: g}))
+        else:
+            assert g == want[r][:len(g)] and len(g) < P9F_NEW, (r, g)
+        assert streams.tokens.get(r, []) == g, r
+        assert streams.closed[r] == [reasons[r][1]], (r, streams.closed)
+    fired, st = engine.injector.fired, engine.stats
+    assert fired["alloc"] >= 1 and fired["dispatch"] >= 1 \
+        and fired["nan_logits"] == 1, fired
+    assert st["dispatch_recoveries"] == fired["dispatch"] \
+        and st["nan_rows"] == 1, st
+    engine.check()
+    summary = engine.shutdown()
+    assert summary["used_pages"] == 0, summary
+    log(f"  faults (seeded plan {seed}: "
+        + ", ".join(f"{s.kind}@{s.step}" + (f":{s.rid}" if s.rid is not None
+                                             else "") for s in plan)
+        + f"), fused: fired {dict(fired)}; dispatch failures "
+        f"{st['dispatch_failures']} / recovered "
+        f"{st['dispatch_recoveries']}; preempted {st['preempted']}; "
+        f"outcomes: request {P9F_NAN} failed nan_logits after "
+        f"{len(got[P9F_NAN])} tokens, {P9F_CANCEL} cancelled after "
+        f"{len(got[P9F_CANCEL])}, {P9F_DEADLINE} timed out after "
+        f"{len(got[P9F_DEADLINE])}; the other "
+        f"{sum(v[0] == 'done' for v in reasons.values())} streams equal "
+        f"the fault-free run; {st['invariant_checks']} self-checks passed,"
+        f" no page leaked")
+    del engine, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1380,9 +1677,14 @@ def main() -> int:
     log("== 8. serving under memory pressure: Poisson arrivals, chunked "
         "prefill, preempt-and-recompute")
     phase_pressure(cfg, model)
+
+    log("== 9. the request lifecycle: prefix cache, streaming, sampling "
+        "at temperature 0.8, faults")
+    phase_lifecycle(cfg, model)
     del model
     torch.cuda.empty_cache()
     phase_pressure_f32()
+    phase_lifecycle_f32()
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

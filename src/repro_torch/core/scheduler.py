@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional, Sequence, Tuple, Union
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -128,12 +128,17 @@ class AdmissionPolicy:
 
 
 class AdmissionController:
-    """FCFS wait queue + cost-model per-step prefill budget.
+    """Deadline-aware wait queue + cost-model per-step prefill budget.
 
-    Preempted requests re-enter at the *front* (they were admitted
-    earliest; resuming them first preserves completion order and bounds
-    each request's preemption count).  Deadline (EDF) ordering is a later
-    slice.
+    Requests without a deadline queue FCFS; a request pushed with a
+    ``deadline`` (absolute engine-clock time) is ordered
+    earliest-deadline-first ahead of every later-deadline and every
+    deadline-less request (EDF).  Ties (equal deadlines, and the whole
+    no-deadline class) keep arrival order.
+
+    Preempted requests re-enter at the *front* regardless of deadline
+    (they were admitted earliest; resuming them first preserves
+    completion order and bounds each request's preemption count).
     """
 
     def __init__(self, policy: AdmissionPolicy, cost_model,
@@ -142,12 +147,26 @@ class AdmissionController:
         self.cost_model = cost_model
         self.page_size = max(int(page_size), 1)
         self.queue: Deque[int] = deque()
+        self.deadline: Dict[int, float] = {}
+        self._arrival: Dict[int, int] = {}
+        self._seq = 0
 
     def __len__(self) -> int:
         return len(self.queue)
 
-    def push(self, rid: int) -> None:
-        self.queue.append(rid)
+    def _key(self, rid: int) -> Tuple[float, int]:
+        return (self.deadline.get(rid, float("inf")),
+                self._arrival.get(rid, 0))
+
+    def push(self, rid: int, deadline: Optional[float] = None) -> None:
+        self._arrival[rid] = self._seq
+        self._seq += 1
+        if deadline is not None:
+            self.deadline[rid] = float(deadline)
+        key = self._key(rid)
+        idx = next((i for i, q in enumerate(self.queue)
+                    if self._key(q) > key), len(self.queue))
+        self.queue.insert(idx, rid)
 
     def requeue(self, rid: int) -> None:
         """Re-enter a preempted request at the head of the queue."""
@@ -157,13 +176,17 @@ class AdmissionController:
         return self.queue[0] if self.queue else None
 
     def pop(self) -> int:
-        return self.queue.popleft()
+        rid = self.queue.popleft()
+        self._arrival.pop(rid, None)
+        return rid
 
     def remove(self, rid: int) -> None:
         try:
             self.queue.remove(rid)
         except ValueError:
             pass
+        self.deadline.pop(rid, None)
+        self._arrival.pop(rid, None)
 
     def prefill_budget(self, running_ctx: Sequence[int]) -> Optional[int]:
         """Prefill token budget for one engine step (``None`` = unlimited).

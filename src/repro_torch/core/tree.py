@@ -41,8 +41,9 @@ class Node:
     children: List[int] = dataclasses.field(default_factory=list)
     requests: List[int] = dataclasses.field(default_factory=list)
     page_ids: List[int] = dataclasses.field(default_factory=list)
-    # engine bookkeeping: the filled-token count ("filled") and the pin
-    # refcount of preempted requests waiting to resume ("pins")
+    # engine bookkeeping: the filled-token count ("filled"), the pin
+    # refcount of preempted requests waiting to resume ("pins") and the
+    # prefix cache's last-touch step ("touch")
     meta: Dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -208,9 +209,10 @@ class PrefixForest:
             node.meta["filled"] = min(filled, at)
         # pins guard the whole pinned span: a waiting request that pinned
         # this node counted all its pages toward its admission estimate,
-        # so both halves stay protected
-        if "pins" in node.meta:
-            lower.meta["pins"] = node.meta["pins"]
+        # so both halves stay protected (and LRU recency travels too)
+        for key in ("pins", "touch"):
+            if key in node.meta:
+                lower.meta[key] = node.meta[key]
         # fix leaf_of for requests whose leaf was the split node
         for rid, leaf in list(self.leaf_of.items()):
             if leaf == node.id:

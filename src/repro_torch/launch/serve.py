@@ -14,8 +14,9 @@ and capture seconds.  ``--profile N`` traces decode steps 2..N+1 with
 ``torch.profiler`` and prints the device-busy share, the kernel and graph
 launches the host issued and the kernels by device time, the top 12 or
 ``--top N`` (0: all).  Traced steps, graph captures and ``on_step``
-callbacks are left out of TPOT.  Every run prints the decode KV bytes
-CoDec reads per step against FlashDecoding's.  ``--compare`` serves the
+callbacks are left out of TPOT.  Every run without ``--cache`` prints the
+decode KV bytes CoDec reads per step against FlashDecoding's.
+``--compare`` serves the
 same prompts through ``codec-cuda`` and then the ``flash`` baseline,
 prints both TPOTs and whether the greedy streams are equal, and exits 1
 when they differ.  Runs on the card unless ``--device cpu``.
@@ -31,6 +32,22 @@ reaches their steps instead of all before it; the run then also prints its
 loop steps, the row buckets it went through, both step times (§2 of
 PERF.md), prefill seconds inside the loop, generated tokens per second and
 the pressure counters.
+
+The request lifecycle: ``--cache`` (or ``--cache-ttl`` / ``--cache-pages``,
+which imply it) keeps finished requests' prefix KV resident and serves a
+second wave of new questions over the same document through the same
+engine, printing its time, hit rate and resident pages; ``--stream``
+registers per-request streaming callbacks and prints first-token
+latencies; ``--max-steps`` bounds the engine steps of each wave (0: none,
+the loop runs until every request has ended); ``--deadline`` and
+``--max-queue`` give every request an end-to-end and a queueing deadline
+in seconds; ``--check-every`` runs the engine's invariant self-check
+every N steps; ``--inject`` takes a fault schedule
+(``serving/faults.py``'s grammar, e.g. ``dispatch@3*2,nan_logits@5:0``)
+and ``--nan-guard`` quarantines rows whose logits turn non-finite; the
+run then prints the faults fired, recoveries and each request's outcome.
+Sampling at ``temperature > 0`` is the engine's ``temperature=`` argument,
+as in ``repro``: the CLI has no flag for it.
 """
 
 from __future__ import annotations
@@ -48,7 +65,9 @@ from ..configs import get_config
 from ..core.plan import bucket_pow2
 from ..kernels import pac as pac_mod, por as por_mod
 from ..models.transformer import build_model
+from ..serving.cache import CachePolicy
 from ..serving.engine import DecodeEngine
+from ..serving.faults import FaultPlan
 
 
 def doc_prompts(n: int, doc_len: int, q_len: int, vocab: int,
@@ -135,8 +154,10 @@ def profile_summary(prof, wall_s: float, steps: int,
 
 def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
           on_step=None, profile_steps: int = 0, profile_top: int = 12,
-          arrival_steps: Optional[Sequence[int]] = None
-          ) -> Dict[str, object]:
+          arrival_steps: Optional[Sequence[int]] = None,
+          max_steps: Optional[int] = None, on_token=None, on_done=None,
+          deadline_s: Optional[float] = None,
+          max_queue_s: Optional[float] = None) -> Dict[str, object]:
     """Serve ``prompts`` to the end: admit and prefill every prompt, then
     step until all are done; with ``arrival_steps`` each prompt is added
     at the start of its loop step instead, and the loop runs on while
@@ -157,15 +178,23 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
     device time are kept, 0: all).  Returns the streams, the timings, the
     row buckets the decode steps went through (consecutive repeats
     merged), the bucket signatures and graphs captured, the pressure
-    counters, the pool's peak pages in use and the pages it handed out.
+    counters, the pool's peak pages in use and the pages it handed out,
+    and each request's outcome.  ``max_steps`` bounds the loop's steps;
+    ``on_token``, ``on_done``, ``deadline_s`` and ``max_queue_s`` go to
+    every ``add_request``.
     """
+    def add(p):
+        engine.add_request(p, max_new=max_new, on_token=on_token,
+                           on_done=on_done, deadline_s=deadline_s,
+                           max_queue_s=max_queue_s)
+
     dev = engine.device
     arrivals, prefill_s = [], 0.0
     _sync(dev)
     if arrival_steps is None:
         t0 = time.perf_counter()
         for p in prompts:
-            engine.add_request(p, max_new=max_new)
+            add(p)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
     else:
@@ -179,9 +208,10 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
     traced_s = traced_prefill = traced_steps = 0.0
     buckets: List[int] = []
     loop0 = time.perf_counter()
-    while nxt < len(arrivals) or engine.has_work():
+    while ((nxt < len(arrivals) or engine.has_work())
+           and (max_steps is None or i < max_steps)):
         while nxt < len(arrivals) and arrivals[nxt][0] <= i:
-            engine.add_request(prompts[arrivals[nxt][1]], max_new=max_new)
+            add(prompts[arrivals[nxt][1]])
             nxt += 1
         if profile_steps and i == 1:
             _sync(dev)              # the untraced steps' work ends here
@@ -212,6 +242,7 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
             h0 = time.perf_counter()
             on_step(engine)
             hook_s += time.perf_counter() - h0
+    engine.flush_tokens()
     _sync(dev)
     loop_s = time.perf_counter() - loop0
     steps = stats["steps"] - steps0
@@ -240,28 +271,54 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
             "allocs": engine.pool.allocator.total_allocs,
             "plan_s": stats["plan_time"],
             "advance_s": stats["advance_time"],
-            "replans": stats["replans"], "profile": profile}
+            "replans": stats["replans"], "profile": profile,
+            "outcomes": outcomes(engine)}
+
+
+def outcomes(engine: DecodeEngine) -> Dict[str, int]:
+    """Requests by state: done, waiting, running, cancelled, ..."""
+    out: Dict[str, int] = {}
+    for q in engine.requests.values():
+        out[q.state] = out.get(q.state, 0) + 1
+    return out
 
 
 def run(args, cfg, model, backend: str) -> Dict[str, object]:
     """Serve the prompts of ``args`` through ``backend``; print TPOT, the
     decode KV IO, the profile and the launch counts."""
     device = torch.device(args.device)
+    cache = (CachePolicy(ttl_steps=args.cache_ttl,
+                         max_pages=args.cache_pages)
+             if args.cache else None)
     engine = DecodeEngine(cfg, model, page_size=args.page_size,
                           num_pages=args.max_pages, backend=backend,
                           num_lanes=args.num_lanes, fused=args.fused,
                           prefill_chunk=args.prefill_chunk,
                           reserve_pages=args.reserve_pages,
-                          max_running=args.max_running, device=device)
+                          max_running=args.max_running, cache=cache,
+                          faults=(FaultPlan.parse(args.inject)
+                                  if args.inject else None),
+                          nan_guard=args.nan_guard,
+                          check_every=args.check_every, device=device)
     prompts = doc_prompts(args.requests, args.doc_len, args.q_len,
                           cfg.vocab_size, args.seed)
     steps = None
     if args.arrivals != "all":
         steps = build_schedule(args.arrivals, args.rate,
                                np.random.default_rng(args.seed), len(prompts))
+    max_steps = args.max_steps or None
+    first_tok: Dict[int, float] = {}
+
+    def on_token(rid, tok):
+        first_tok.setdefault(rid, time.perf_counter())
+
     pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
+    t_submit = time.perf_counter()
     res = serve(engine, prompts, args.max_new, profile_steps=args.profile,
-                profile_top=args.top, arrival_steps=steps)
+                profile_top=args.top, arrival_steps=steps,
+                max_steps=max_steps,
+                on_token=on_token if args.stream else None,
+                deadline_s=args.deadline, max_queue_s=args.max_queue)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device {name}: {cfg.name} x{cfg.num_layers} layers, "
@@ -290,14 +347,17 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               f"{engine.fused_step.graphs} for {len(engine.bucket_signatures)} "
               f"bucket signatures, capture {res['capture_s']:.3f} s, token "
               f"flushes {engine.stats['token_flushes']}")
-    esize = engine.pool.k.element_size()
-    io_c = engine.forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim,
-                                        esize)
-    io_f = engine.forest.flash_io_bytes(cfg.num_kv_heads, cfg.head_dim,
-                                        esize)
-    print(f"decode KV IO per layer and step: codec {io_c / 1e6:.1f} MB vs "
-          f"flash {io_f / 1e6:.1f} MB per-request ({io_f / io_c:.2f}x "
-          f"saved)")
+    if engine.cache is None:
+        # with the cache on, finished requests have left the forest: the
+        # line would count cached nodes against no request
+        esize = engine.pool.k.element_size()
+        io_c = engine.forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim,
+                                            esize)
+        io_f = engine.forest.flash_io_bytes(cfg.num_kv_heads, cfg.head_dim,
+                                            esize)
+        print(f"decode KV IO per layer and step: codec {io_c / 1e6:.1f} MB "
+              f"vs flash {io_f / 1e6:.1f} MB per-request "
+              f"({io_f / io_c:.2f}x saved)")
     prof = res["profile"]
     if prof is not None:
         print(f"profile over {args.profile} decode steps: wall "
@@ -309,6 +369,45 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               f"{prof['graph_launches_per_step']:.1f}")
         for kname, ms, count in prof["top"]:
             print(f"  {ms:9.4f} ms/step  {count:7.1f}/step  {kname}")
+    st = engine.stats
+    if engine.injector is not None or args.nan_guard or args.deadline:
+        fired = (dict(engine.injector.fired)
+                 if engine.injector is not None else {})
+        print(f"faults: {st['faults_injected']} injected {fired}, "
+              f"{st['dispatch_failures']} dispatch failures / "
+              f"{st['dispatch_recoveries']} recovered, {st['nan_rows']} "
+              f"NaN rows quarantined, {st['callback_errors']} callback "
+              f"errors, {st['invariant_checks']} self-checks | outcomes "
+              f"{res['outcomes']}")
+    if args.stream and first_tok:
+        ttft = sorted(1e3 * (t - t_submit) for t in first_tok.values())
+        print(f"streaming: first token after {ttft[0]:.0f}-{ttft[-1]:.0f} "
+              f"ms ({len(first_tok)} streams)")
+    if engine.cache is not None:
+        # a second wave: new questions over the same document, served by
+        # the same engine, whose admission finds the document resident
+        warm = [p[:args.doc_len] + q[args.doc_len:] for p, q in zip(
+            prompts, doc_prompts(args.requests, args.doc_len, args.q_len,
+                                 cfg.vocab_size, args.seed + 1))]
+        p0 = engine.prefill_time()
+        wres = serve(engine, warm, args.max_new, max_steps=max_steps)
+        cs = engine.cache.stats
+        last = engine.step_stats[-1] if engine.step_stats else {}
+        print(f"prefix cache: warm wave prefill "
+              f"{wres['prefill_s']:.3f} s ({engine.prefill_time() - p0:.3f} "
+              f"s of prefill work), TPOT {wres['tpot_ms']:.3f} ms, hit rate "
+              f"{engine.cache.hit_rate:.0%} ({cs['hits']} hits / "
+              f"{cs['misses']} misses, {cs['hit_tokens']} of "
+              f"{cs['lookup_tokens']} prompt tokens cached), resident "
+              f"{last.get('cache_resident_pages', 0)} pages "
+              f"({last.get('cache_resident_bytes', 0) / 1e6:.1f} MB), "
+              f"{cs['evicted_nodes']} nodes / {cs['evicted_pages']} pages "
+              f"evicted")
+    unfinished = [r for r, q in engine.requests.items()
+                  if len(q.generated) < q.max_new and not q.finished]
+    if unfinished:
+        print(f"WARNING: {len(unfinished)} requests unfinished within "
+              f"{max_steps} steps: {unfinished}")
     print(json.dumps({"backend": backend,
                       "pac_launches": pac_mod.launches,
                       "epilogue_launches": por_mod.epilogue_launches,
@@ -357,12 +456,49 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--compare", action="store_true",
                     help="serve through codec-cuda, then flash; exit 1 "
                          "when the streams differ")
+    ap.add_argument("--cache", action="store_true",
+                    help="persistent cross-request prefix cache: finished "
+                         "requests detach but their prefix KV stays "
+                         "resident (serves a second wave over the same "
+                         "document to show warm-cache admission)")
+    ap.add_argument("--cache-ttl", type=int, default=None,
+                    help="evict cached nodes untouched for this many "
+                         "engine steps (implies --cache)")
+    ap.add_argument("--cache-pages", type=int, default=None,
+                    help="LRU cap on resident cached pages "
+                         "(implies --cache)")
+    ap.add_argument("--stream", action="store_true",
+                    help="register per-request streaming callbacks and "
+                         "report first-token latencies")
+    ap.add_argument("--max-steps", type=int, default=0,
+                    help="engine step budget of each wave (0 = until "
+                         "every request has ended)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request end-to-end deadline in seconds; "
+                         "requests past it end TIMED_OUT with their KV "
+                         "released")
+    ap.add_argument("--max-queue", type=float, default=None,
+                    help="max seconds a request may wait unadmitted "
+                         "before it times out")
+    ap.add_argument("--check-every", type=int, default=0,
+                    help="run the engine invariant self-check every N "
+                         "steps (0 = only after recoveries)")
+    ap.add_argument("--inject", default=None,
+                    help="fault schedule, e.g. 'dispatch@3*2,"
+                         "nan_logits@5:0,stall@8=0.01' or "
+                         "'seed:7[:rate]' (serving/faults.py grammar)")
+    ap.add_argument("--nan-guard", action="store_true",
+                    help="per-row NaN/inf logit guard: poisoned rows "
+                         "are quarantined as FAILED instead of "
+                         "streaming garbage")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N decode steps with torch.profiler")
     ap.add_argument("--top", type=int, default=12, metavar="N",
                     help="kernels listed from the trace (0: all)")
     args = ap.parse_args(argv)
+    if args.cache_ttl is not None or args.cache_pages is not None:
+        args.cache = True
 
     cfg = get_config(args.arch)
     model = build_model(cfg, seed=args.seed, device=torch.device(args.device),

@@ -35,17 +35,34 @@ for a plan epoch, and the sampled tokens stay on the device, appended as
 placeholders, until a sync point (``flush_tokens``: a plan epoch,
 admission, reclamation, preemption, a completion, the end of ``run``).
 
-Left for later slices: sampling at temperature > 0, the prefix cache and
-its reclaim tier, deadlines and failing a lone request whose KV outgrows
-the pool (here it raises ``MemoryError``), cascade prefill, telemetry and
-speculation.
+The request lifecycle (``repro``'s DESIGN §11-§12):
+
+* ``temperature > 0`` samples each row from ``repro``'s threefry stream
+  (``sampler.py``); the engine's key is a device buffer split once per
+  completed prefill and once per decode step, inside the graph on the
+  fused path;
+* ``cache=`` keeps finished requests' prefix nodes resident (``cache.py``):
+  they detach from the forest, a later request matches them by value and
+  skips their prefill, TTL/LRU bound residency, and cached nodes are the
+  first reclaim tier;
+* ``add_request(on_token=, on_done=)`` streams tokens as their values
+  land on the host and closes each stream once with its terminal reason;
+  a raising callback fails only its own request;
+* ``cancel``, ``deadline_s`` / ``max_queue_s`` on an injectable clock
+  (EDF admission), the terminal states ``CANCELLED`` / ``TIMED_OUT`` /
+  ``FAILED`` with their KV released, ``kv_exhausted`` for a lone request
+  that outgrows the pool, ``faults=`` (``faults.py``) with the dispatch
+  degradation ladder, the NaN guard's quarantine, ``check()`` and
+  ``shutdown()``.
+
+Left for later slices: cascade prefill, telemetry and speculation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -58,12 +75,19 @@ from ..core.scheduler import AdmissionController, AdmissionPolicy
 from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
 from ..models.transformer import Transformer
+from . import faults as faults_mod
 from . import sampler
 from . import step_fn as step_fn_mod
+from .cache import CachePolicy, PrefixCache
+from .faults import EngineInvariantError, InjectedFault, ResourceExhausted
 from .kv_cache import PagedKVPool
 
 # request lifecycle states
 WAITING, PREFILL, RUNNING, DONE = "waiting", "prefill", "running", "done"
+# terminal failure states: the request is over, its KV released, and its
+# stream closed via on_done(rid, reason)
+CANCELLED, TIMED_OUT, FAILED = "cancelled", "timed_out", "failed"
+TERMINAL = frozenset({DONE, CANCELLED, TIMED_OUT, FAILED})
 
 # a sampled token that still lives in an unread fused-step output;
 # materialised by ``DecodeEngine.flush_tokens``
@@ -101,6 +125,18 @@ class Request:
     computed_hwm: int = 0              # highest position ever computed
     pinned: List[int] = dataclasses.field(default_factory=list)
     kv_freed: bool = False             # done + KV reclaimed
+    on_token: Optional[Callable] = None  # streaming callback (rid, token)
+    emitted: int = 0                   # tokens already streamed out
+    on_done: Optional[Callable] = None   # stream-close callback (rid, reason)
+    submit_t: float = 0.0              # engine-clock time at add_request
+    deadline: Optional[float] = None   # absolute end-to-end deadline
+    queue_deadline: Optional[float] = None  # absolute admission deadline
+    finish_reason: Optional[str] = None
+    notified: bool = False             # on_done already fired
+
+    @property
+    def finished(self) -> bool:
+        return self.state in TERMINAL
 
     @property
     def seq(self) -> List[int]:
@@ -114,10 +150,13 @@ class DecodeEngine:
                  backend: str = "codec-cuda",
                  num_lanes: int = 2, max_q: int = 32,
                  max_kv_per_task: int = 2048,
-                 temperature: float = 0.0,
+                 temperature: float = 0.0, seed: int = 0,
                  prefill_chunk=None, reserve_pages: int = 0,
                  max_running: Optional[int] = None,
-                 fused: bool = False,
+                 fused: bool = False, cache=None,
+                 faults=None, nan_guard: bool = False,
+                 check_every: int = 0, clock=None,
+                 max_dispatch_retries: int = 4,
                  device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -135,6 +174,31 @@ class DecodeEngine:
         self.max_q = max_q
         self.max_kv_per_task = max_kv_per_task
         self.temperature = temperature
+        # the sampler's threefry key, split on the device where ``repro``
+        # splits its key: each completed prefill and each decode step (on
+        # the fused path inside the graph, so it stays at this address)
+        self.key = sampler.prng_key(seed, self.device)
+
+        # ---- lifecycle and faults (``repro``'s DESIGN §12) ------------ #
+        # clock: injectable monotonic time source; deadlines are enforced
+        # against it at step boundaries
+        self.clock = clock if clock is not None else time.monotonic
+        # nan_guard: quarantine a request whose logits turn non-finite
+        # (``repro`` rejects it only with a mesh, which the port lacks)
+        self.nan_guard = bool(nan_guard)
+        self.check_every = int(check_every)
+        self.max_dispatch_retries = int(max_dispatch_retries)
+        if faults is not None and not isinstance(faults,
+                                                 faults_mod.FaultInjector):
+            faults = faults_mod.FaultInjector(faults)
+        self.injector: Optional[faults_mod.FaultInjector] = faults
+        # admission-shrink rung of the degradation ladder: extra pages
+        # the watermark holds back after repeated dispatch failures
+        self._backoff_pages = 0
+        # (page, slot) pairs the nan_logits injector poisoned: scrubbed
+        # when the target request is quarantined so a future tenant of
+        # those pages never reads the NaNs
+        self._nan_dirty: List[Tuple[int, int]] = []
         self.layers = list(model.layers)
         self.attn_layer_idx = {j: a for a, j in enumerate(
             j for j, layer in enumerate(self.layers)
@@ -146,6 +210,16 @@ class DecodeEngine:
         # splitting a pinned node must extend each waiting holder's pin
         # list over the new lower half (see _on_split_pins)
         self.forest.on_split = self._on_split_pins
+        # persistent cross-request prefix cache: cache=True (default
+        # policy) or a CachePolicy keeps finished requests' page-backed
+        # prefix nodes resident; None frees them as before
+        if cache is True:
+            cache = CachePolicy()
+        self.cache: Optional[PrefixCache] = (
+            PrefixCache(self.forest, cache) if cache is not None else None)
+        # rolling snapshot so step_stats deltas also cover lookups from
+        # admissions between steps (add_request)
+        self._cache_snap = dict(self.cache.stats) if self.cache else None
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
         self.cost_model = CostModel(max(cfg.num_heads, 1),
@@ -182,7 +256,11 @@ class DecodeEngine:
                       "prefill_stalls": 0, "fused_calls": 0,
                       "token_flushes": 0, "decode_dispatch_time": 0.0,
                       "decode_sync_time": 0.0, "capture_time": 0.0,
-                      "nonfinite_rows": 0}
+                      "nonfinite_rows": 0, "cancelled": 0, "timed_out": 0,
+                      "failed": 0, "callback_errors": 0,
+                      "faults_injected": 0, "dispatch_failures": 0,
+                      "dispatch_recoveries": 0, "nan_rows": 0,
+                      "invariant_checks": 0}
         # one record a step: what it decoded, admitted, preempted,
         # reclaimed and prefilled, and the queue and pool it left
         self.step_stats: List[Dict] = []
@@ -193,7 +271,7 @@ class DecodeEngine:
         self.fused = bool(fused) and self._backend.jit_safe
         self.fused_step = (step_fn_mod.FusedStep(
             cfg, self.model, self.pool, self._backend, self._windows(),
-            self.attn_layer_idx, self.device)
+            self.attn_layer_idx, self.device, temperature, self.key)
             if self.fused else None)
         # async token plumbing
         self._deferred: List[_Deferred] = []
@@ -205,9 +283,26 @@ class DecodeEngine:
     # ------------------------------------------------------------------ #
     # request admission (admit phase) + chunked prefill (prefill phase)
     # ------------------------------------------------------------------ #
-    def add_request(self, prompt: List[int], max_new: int = 16) -> int:
+    def add_request(self, prompt: List[int], max_new: int = 16,
+                    on_token=None, on_done=None,
+                    deadline_s: Optional[float] = None,
+                    max_queue_s: Optional[float] = None) -> int:
         """Enqueue a request; admits (and prefills) it at once when memory
-        allows, so under no pressure this is immediate prefill."""
+        allows, so under no pressure this is immediate prefill.
+
+        ``on_token(rid, token)`` streams each generated token once its
+        value is on the host (at once on the eager path; at sync points
+        on the fused path).  ``on_done(rid, reason)`` closes the stream
+        once with a terminal reason (``done``, ``cancelled``,
+        ``deadline``, ``queue_timeout``, or a failure such as
+        ``nan_logits``, ``kv_exhausted`` or ``callback_error``).
+
+        ``deadline_s`` bounds the request end to end (queueing included)
+        and ``max_queue_s`` its time waiting; both count from now on the
+        engine clock and are enforced at step boundaries (the request
+        ends ``TIMED_OUT`` with its KV released).  A deadline also orders
+        the waiting queue (EDF).
+        """
         prompt = list(prompt)
         if not prompt:
             raise ValueError("prompt must contain at least one token")
@@ -222,6 +317,12 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt token id {lo if lo < 0 else hi} outside the "
                 f"vocabulary [0, {self.cfg.vocab_size})")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(
+                f"deadline_s must be positive, got {deadline_s}")
+        if max_queue_s is not None and max_queue_s <= 0:
+            raise ValueError(
+                f"max_queue_s must be positive, got {max_queue_s}")
         # only an unservable prompt is an error: whole-prompt prefill needs
         # every page at once, chunked prefill one chunk + the tail it grows
         # into (larger prompts just wait in the queue)
@@ -233,8 +334,17 @@ class DecodeEngine:
                 f"admitted")
         rid = self._next_rid
         self._next_rid += 1
-        self.requests[rid] = Request(rid, prompt, max_new=max_new)
-        self.admission.push(rid)
+        now = self.clock()
+        req = Request(rid, prompt, max_new=max_new, on_token=on_token,
+                      on_done=on_done, submit_t=now)
+        if deadline_s is not None:
+            req.deadline = now + float(deadline_s)
+        if max_queue_s is not None:
+            req.queue_deadline = now + float(max_queue_s)
+        self.requests[rid] = req
+        edf = [d for d in (req.deadline, req.queue_deadline)
+               if d is not None]
+        self.admission.push(rid, deadline=min(edf) if edf else None)
         self._admit_phase()
         return rid
 
@@ -258,8 +368,10 @@ class DecodeEngine:
         need = (-(-max(len(seq), 1) // self.page_size)
                 - matched // self.page_size)
         # the watermark is the same at every batch size until
-        # speculation's per-request draft reserve is ported
-        return self.pool.num_free - self.policy.reserve_pages >= need
+        # speculation's per-request draft reserve is ported;
+        # _backoff_pages is the degradation ladder's admission-shrink rung
+        reserve = self.policy.reserve_pages + self._backoff_pages
+        return self.pool.num_free - reserve >= need
 
     def _admit_phase(self) -> None:
         """Admission + chunked-prefill phase: continue admitted prefills
@@ -316,7 +428,16 @@ class DecodeEngine:
         """(Re-)insert the request's sequence into the forest and release
         the pins it held while waiting (its path now keeps those nodes
         alive by membership)."""
-        self.forest.insert_tokens(req.rid, np.asarray(req.seq, np.int32))
+        seq = np.asarray(req.seq, np.int32)
+        if (self.cache is not None and req.preemptions == 0
+                and not req.generated):
+            # first admission only: a resumed request would count its own
+            # pinned prefix as a hit
+            self.cache.record_lookup(self.forest.match_len(seq), len(seq))
+        self.forest.insert_tokens(req.rid, seq)
+        if self.cache is not None:
+            for node in self.forest.path(req.rid):
+                self.cache.stamp(node)
         self._unpin(req)
         req.state = PREFILL
         self._prefilling.append(req.rid)
@@ -334,7 +455,9 @@ class DecodeEngine:
         run only at plan-epoch, admission, reclamation and completion
         boundaries and at the end of ``run`` (a no-op otherwise: the eager
         path never defers).  Rows whose logits were not finite are
-        counted in ``stats["nonfinite_rows"]``.
+        counted in ``stats["nonfinite_rows"]``; with ``nan_guard`` such a
+        request is quarantined (``FAILED``, ``nan_logits``) from its first
+        bad token on, and no other row is touched.
         """
         if not self._deferred and not self._pending_ref:
             return
@@ -342,11 +465,27 @@ class DecodeEngine:
         for e in self._deferred:
             if e.event is not None:
                 e.event.synchronize()
+        poisoned: Dict[int, int] = {}     # rid -> earliest bad gen index
         for e in self._deferred:
-            toks, ok = e.tokens.numpy()
+            ok = e.tokens[1].numpy()
             self.stats["nonfinite_rows"] += int(
                 (ok[:len(e.rows)] == 0).sum())
+            if self.nan_guard:
+                for rid, row, gen_idx, _nid, _tid in e.patches:
+                    if not ok[row] and gen_idx < poisoned.get(
+                            rid, gen_idx + 1):
+                        poisoned[rid] = gen_idx
+        if self.nan_guard:
+            for rid, (e, row) in self._pending_ref.items():
+                req = self.requests.get(rid)
+                if (not e.tokens[1, row] and rid not in poisoned
+                        and req is not None):   # sampled, never appended
+                    poisoned[rid] = len(req.generated)
+        for e in self._deferred:
+            toks = e.tokens[0].numpy()
             for rid, row, gen_idx, node_id, tok_idx in e.patches:
+                if gen_idx >= poisoned.get(rid, gen_idx + 1):
+                    continue              # untrusted suffix: never lands
                 tok = int(toks[row])
                 req = self.requests.get(rid)
                 if req is not None and gen_idx < len(req.generated):
@@ -358,12 +497,20 @@ class DecodeEngine:
         # sampled-but-not-yet-appended tokens become host ``pending``s
         for rid, (e, row) in self._pending_ref.items():
             req = self.requests.get(rid)
-            if req is not None and req.pending is PENDING_DEVICE:
+            if (req is not None and req.pending is PENDING_DEVICE
+                    and rid not in poisoned):
                 req.pending = int(e.tokens[0, row])
         self._deferred = []
         self._pending_ref = {}
         self.stats["token_flushes"] += 1
         self.stats["decode_sync_time"] += time.perf_counter() - t0
+        for rid, cut in poisoned.items():
+            req = self.requests.get(rid)
+            if req is None:
+                continue
+            del req.generated[cut:]       # placeholders only (never
+            self.stats["nan_rows"] += 1   # streamed, so emitted <= cut)
+            self._fail_request(rid, "nan_logits", flush=False)
 
     @property
     def fused_cache_size(self) -> int:
@@ -382,25 +529,41 @@ class DecodeEngine:
         self.forest.nodes[node.parent].children.remove(node.id)
         del self.forest.nodes[node.id]
 
-    def _maybe_free_node(self, node) -> None:
+    def _maybe_free_node(self, node, force: bool = False) -> None:
         """Free a node once nothing references it (no requests pass
         through it, no children, no waiting request pins it), then try
-        its parent."""
+        its parent.
+
+        With the prefix cache on, page-backed nodes are retained instead
+        (cache content, reclaimed by the TTL/LRU sweep or the pressure
+        tier); ``force=True`` frees them all the same."""
         if node.id == tree_mod.ROOT_ID or node.id not in self.forest.nodes:
             return
         if node.requests or node.children or node.meta.get("pins", 0) > 0:
+            return
+        if (not force and self.cache is not None
+                and self.cache.retainable(node)):
+            if "touch" not in node.meta:
+                self.cache.stamp(node)
             return
         parent = self.forest.nodes[node.parent]
         self._drop_node(node)
         self._maybe_free_node(parent)
 
-    def _release_kv(self, rid: int) -> None:
-        """Drop a request's forest footprint (finished or released)."""
+    def _release_kv(self, rid: int, force_leaf: bool = False) -> None:
+        """Drop a request's forest footprint (finished or released).
+
+        ``force_leaf=True`` (failed requests) frees the private leaf even
+        with the cache on: its tail KV may be poisoned or half written, so
+        no later prefix match may serve it.  Shared ancestors hold prompt
+        KV written by prefill and stay retainable."""
+        leaf_id = self.forest.leaf_of.get(rid)
         for node in reversed(self.forest.path(rid)):
             if node.id not in self.forest.nodes:
                 continue
             node.requests.remove(rid)
-            self._maybe_free_node(node)
+            self._maybe_free_node(node,
+                                  force=force_leaf and node.id == leaf_id)
         del self.forest.leaf_of[rid]
 
     def _unpin(self, req: Request) -> None:
@@ -470,10 +633,14 @@ class DecodeEngine:
 
     def _reclaim_one(self, exclude: Set[int],
                      allow_preempt: bool = True) -> bool:
-        """Free some pages, cheapest first: (1) finished-request KV,
+        """Free some pages, cheapest first: (0) evict cached (request-
+        less, unpinned) prefix nodes LRU-first, (1) finished-request KV,
         (2) orphaned pinned nodes, (3) preempt the live victim with the
         fewest generated tokens (ties: latest arrival).  False when
         nothing is left to free."""
+        if self.cache is not None and self._evict_cached(1) > 0:
+            self.stats["reclaimed"] += 1
+            return True
         for rid in sorted(self.requests):
             q = self.requests[rid]
             complete = (q.state == DONE
@@ -505,7 +672,7 @@ class DecodeEngine:
                     # holder until the final drop releases the pages)
                     q.pinned.remove(nid)
                     node.meta["pins"] = node.meta.get("pins", 0) - 1
-                    self._maybe_free_node(node)
+                    self._maybe_free_node(node, force=True)
                     if nid not in self.forest.nodes:
                         self.stats["reclaimed"] += 1
                         return True
@@ -533,11 +700,115 @@ class DecodeEngine:
             if upper.id in req.pinned:
                 req.pinned.append(lower.id)
 
+    # ------------------------------------------------------------------ #
+    # persistent cross-request prefix cache (cache.py) and streaming
+    # ------------------------------------------------------------------ #
+    def _free_cached_node(self, node) -> None:
+        """Evict one cached leaf: release its pages and unlink it (the
+        parent becomes a future candidate under its own touch stamp)."""
+        self.cache.stats["evicted_nodes"] += 1
+        self.cache.stats["evicted_pages"] += len(node.page_ids)
+        parent = self.forest.nodes[node.parent]
+        self._drop_node(node)
+        self._maybe_free_node(parent)   # frees empty husks, keeps cache
+
+    def _evict_cached(self, min_pages: int) -> int:
+        """Evict LRU cache entries until >= ``min_pages`` pages are freed
+        (or the cache is empty); returns the pages freed."""
+        freed = 0
+        while freed < min_pages:
+            cands = self.cache.candidates()
+            if not cands:
+                break
+            node = cands[0]
+            freed += len(node.page_ids)
+            self._free_cached_node(node)
+        return freed
+
+    def _detach_finished(self) -> None:
+        """Detach completed requests from the forest, keeping their
+        page-backed prefix nodes as cache (a finished request's document
+        stays resident for the next request that shares it)."""
+        done = [r for r in sorted(self.requests)
+                if self.requests[r].state == DONE
+                and not self.requests[r].kv_freed
+                and r in self.forest.leaf_of]
+        if not done:
+            return
+        # cached node tokens are matched by value at later admissions:
+        # in-flight placeholders land first
+        self.flush_tokens()
+        for rid in done:
+            if self.requests[rid].state != DONE:   # that flush failed it
+                continue
+            path = self.forest.path(rid)
+            self.forest.detach_request(rid)
+            for node in reversed(path):
+                if node.id in self.forest.nodes:
+                    self._maybe_free_node(node)
+            self.requests[rid].kv_freed = True
+
+    def _cache_sweep(self) -> None:
+        """Per-step TTL expiry + LRU enforcement of ``max_pages``."""
+        while True:
+            expired = [n for n in self.cache.expired()
+                       if n.id in self.forest.nodes]
+            if not expired:
+                break
+            for node in expired:    # parents become leaves next round
+                if node.id in self.forest.nodes:
+                    self._free_cached_node(node)
+        over = self.cache.over_cap()
+        if over > 0:
+            self._evict_cached(over)
+
+    def _cache_step_delta(self) -> Dict[str, int]:
+        """Advance the rolling cache-stats snapshot and return the delta
+        since the previous step (lookups of admissions between steps land
+        in exactly one step's record)."""
+        cur = dict(self.cache.stats)
+        prev = self._cache_snap
+        self._cache_snap = cur
+        return {k: cur[k] - prev.get(k, 0) for k in cur}
+
+    def _stream_ready(self) -> None:
+        """Deliver newly landed tokens to the streaming callbacks,
+        stopping at the first placeholder still on the device (so on the
+        fused path streams arrive at sync points, in order).  A raising
+        ``on_token`` fails only its own request (``callback_error``)."""
+        for req in list(self.requests.values()):
+            if req.on_token is None:
+                continue
+            gen = req.generated
+            while req.emitted < len(gen) and gen[req.emitted] >= 0:
+                tok = gen[req.emitted]
+                req.emitted += 1
+                try:
+                    if self.injector is not None:
+                        spec = self.injector.take("callback", rid=req.rid)
+                        if spec is not None:
+                            self.stats["faults_injected"] += 1
+                            raise InjectedFault(
+                                spec, f"injected on_token failure for "
+                                      f"request {req.rid}")
+                    req.on_token(req.rid, tok)
+                except Exception:
+                    self.stats["callback_errors"] += 1
+                    self._fail_request(req.rid, "callback_error",
+                                       flush=False)
+                    break
+
     def _alloc_pages(self, n: int, exclude: Set[int],
                      allow_preempt: bool = True) -> Optional[List[int]]:
         """Allocate ``n`` pages, reclaiming (and preempting, unless
         ``allow_preempt`` is off) under pressure; ``None`` when nothing
-        more can be reclaimed."""
+        more can be reclaimed, or when an injected ``alloc`` fault
+        simulates exhaustion (callers then degrade as under real
+        pressure: stall, or preempt and recompute)."""
+        if (self.injector is not None
+                and self.injector.take("alloc") is not None):
+            self.stats["faults_injected"] += 1
+            return None
         while self.pool.num_free < n:
             if not self._reclaim_one(exclude, allow_preempt):
                 return None
@@ -725,7 +996,8 @@ class DecodeEngine:
             self.stats["prefill_chunks"] += 1
         elif req.pending is None:
             logits = self.model.unembed(x[:, -1])               # (1, V)
-            req.pending = int(sampler.sample(logits, self.temperature)[0])
+            req.pending = int(sampler.sample(logits, self._split_key(),
+                                             self.temperature)[0])
         self._prefill_done(t0)
         if end == total:
             self._promote(req)
@@ -787,15 +1059,43 @@ class DecodeEngine:
     # ------------------------------------------------------------------ #
     _STEP_COUNTERS = ("admitted", "preempted", "reclaimed",
                       "prefill_tokens", "recompute_tokens")
+    _FAULT_COUNTERS = ("cancelled", "timed_out", "failed",
+                       "callback_errors", "faults_injected",
+                       "dispatch_failures", "dispatch_recoveries")
 
     def step(self) -> Dict[int, int]:
-        """One engine step: admission + chunked prefill, then append
-        pending tokens (evicting under pressure) and decode one token per
-        running request; appends the step's record to ``step_stats``."""
-        snap = {k: self.stats[k] for k in self._STEP_COUNTERS}
+        """One engine step: deadlines, admission + chunked prefill, then
+        append pending tokens (evicting under pressure) and decode one
+        token per running request under the dispatch degradation ladder;
+        then the cache sweep, streaming and stream closes.  Appends the
+        step's record to ``step_stats``."""
+        snap = {k: self.stats[k]
+                for k in self._STEP_COUNTERS + self._FAULT_COUNTERS}
+        if self.injector is not None:
+            self.injector.tick(len(self.step_stats))
+        self._enforce_deadlines()
         self._admit_phase()
-        out = (self._decode_phase_fused() if self.fused
-               else self._decode_phase_eager())
+        out = self._decode_with_recovery()
+        if self.cache is not None:
+            self.cache.tick()
+            self._detach_finished()
+            self._cache_sweep()
+        self._stream_ready()
+        self._notify_done()
+        if self.check_every and (len(self.step_stats) + 1) \
+                % self.check_every == 0:
+            self.check()
+        cache_stats = {}
+        if self.cache is not None:
+            d = self._cache_step_delta()
+            resident = self.cache.resident_pages()
+            cache_stats = {
+                "cache_hits": d["hits"],
+                "cache_hit_rate": self.cache.hit_rate,
+                "cache_resident_pages": resident,
+                "cache_resident_bytes": resident * self.pool.page_bytes,
+                "cache_evicted_nodes": d["evicted_nodes"],
+            }
         self.step_stats.append({
             "step": len(self.step_stats),
             "decoded": len(out),
@@ -804,8 +1104,75 @@ class DecodeEngine:
             "prefilling": len(self._prefilling),
             "running": len(self._active_rows()),
             "pages_free": self.pool.num_free,
+            "occupancy": self.pool.occupancy(),
+            **{k: self.stats[k] - snap[k] for k in self._FAULT_COUNTERS},
+            **cache_stats,
         })
         return out
+
+    def _split_key(self) -> torch.Tensor:
+        """Advance the engine's key in place (``repro``'s ``self.key, sk
+        = jax.random.split(self.key)``); returns the subkey.  Greedy
+        decoding draws no bits, so there the key stays as it is: its
+        state cannot show in any stream."""
+        if self.temperature == 0.0:
+            return self.key
+        keys = sampler.split(self.key)
+        self.key.copy_(keys[0])
+        return keys[1]
+
+    def _decode_with_recovery(self) -> Dict[int, Optional[int]]:
+        """The decode phase under the degradation ladder: a recoverable
+        dispatch failure (``ResourceExhausted``, from a backend or the
+        fault injector) walks one rung per retry (evict cached nodes,
+        then reclaim or preempt, then shrink admission), each followed by
+        a full ``check()``; past ``max_dispatch_retries`` it propagates.
+        (``repro``'s first rung, demoting replicated nodes, has nothing
+        to act on with one device.)"""
+        for attempt in range(self.max_dispatch_retries + 1):
+            try:
+                return self._decode_phase()
+            except ResourceExhausted:
+                self.stats["dispatch_failures"] += 1
+                if (attempt >= self.max_dispatch_retries
+                        or not self._recover_dispatch()):
+                    raise
+                self.stats["dispatch_recoveries"] += 1
+                self._plan_dirty = True
+                self.check()
+        return {}
+
+    def _recover_dispatch(self) -> bool:
+        """One rung of the degradation ladder; ``True`` if anything gave."""
+        if self.cache is not None and self._evict_cached(1) > 0:
+            return True
+        if self._reclaim_one(set(), allow_preempt=True):
+            return True
+        if self._backoff_pages < self.pool.num_pages:
+            self._backoff_pages += max(1, self.pool.num_pages // 16)
+            return True
+        return False
+
+    def _decode_phase(self) -> Dict[int, Optional[int]]:
+        if self.injector is not None:
+            spec = self.injector.take("stall")
+            if spec is not None:
+                # a latency fault (a slow device or host hiccup): the
+                # engine rides it out, streams are unaffected
+                self.stats["faults_injected"] += 1
+                time.sleep(float(spec.payload) or 0.002)
+            spec = self.injector.take("dispatch")
+            if spec is not None:
+                # raised before any state changes, like an out-of-memory
+                # at dispatch: the retry re-enters cleanly
+                self.stats["faults_injected"] += 1
+                raise ResourceExhausted(
+                    f"injected dispatch failure at step "
+                    f"{len(self.step_stats)}: out of device memory "
+                    f"(simulated)")
+        if self.fused:
+            return self._decode_phase_fused()
+        return self._decode_phase_eager()
 
     def _grow_leaf_tail(self, r: int):
         """Ensure the request's leaf has a page slot for its newest
@@ -825,16 +1192,15 @@ class DecodeEngine:
         grow tail pages, preempting the fewest-generated victim when the
         pool runs dry.  When nothing else can be evicted the growing row
         is preempted itself if other requests are live; a lone request
-        that outgrows the pool raises ``MemoryError`` (``repro`` fails it
-        as ``kv_exhausted``, with the lifecycle states of a later slice).
-        Device pendings (fused path) are appended as placeholders and
-        patched at the next ``flush_tokens``."""
+        that outgrows the pool fails (``kv_exhausted``).  Device pendings
+        (fused path) are appended as placeholders and patched at the next
+        ``flush_tokens``."""
         for r in rows0:
             req = self.requests[r]
             if req.state != RUNNING:    # evicted growing an earlier row
                 continue
-            if req.pending is None:
-                continue
+            if req.pending is None:     # dispatch-retry re-entry: this
+                continue                # row already appended this step
             if req.pending is PENDING_DEVICE:
                 ent, row = self._pending_ref.pop(r)
                 self.forest.append_token(r, _PLACEHOLDER)
@@ -854,9 +1220,12 @@ class DecodeEngine:
                 others = [q for q in self.requests.values()
                           if q.rid != r
                           and q.state in (WAITING, PREFILL, RUNNING)]
-                if not others:
-                    raise
-                self._preempt(r)
+                if others:
+                    self._preempt(r)
+                else:
+                    # a lone request can never get more room: fail it
+                    # instead of livelocking
+                    self._fail_request(r, "kv_exhausted", flush=False)
 
     @torch.no_grad()
     def _decode_phase_eager(self) -> Dict[int, int]:
@@ -896,16 +1265,36 @@ class DecodeEngine:
         logits = step_fn_mod.decode_stack(
             self.model, self.pool, self.attn_layer_idx, tok, q_pos,
             tail_pages, tail_base, tail_off, self._attend)        # (B, V)
+        if self.injector is not None:
+            spec = self.injector.take("nan_logits")
+            if spec is not None:
+                target = spec.rid if spec.rid in rows else rows[0]
+                logits[rows.index(target)] = float("nan")
+                self.stats["faults_injected"] += 1
         self.last_logits, self.last_rows = logits, list(rows)
-        toks = sampler.sample(logits, self.temperature).cpu().numpy()
+        toks = sampler.sample(logits, self._split_key(),
+                              self.temperature).cpu().numpy()
+        bad_rows: List[int] = []
+        if self.nan_guard:
+            # the eager path syncs every step anyway: the finite check
+            # costs one more small copy
+            okv = torch.isfinite(logits).all(-1).cpu().numpy()
+            bad_rows = [r for i, r in enumerate(rows) if not okv[i]]
         out = {}
         for i, r in enumerate(rows):
+            if r in bad_rows:
+                continue
             req = self.requests[r]
             req.pending = int(toks[i])
             req.computed_hwm = max(req.computed_hwm, int(ctx[i]))
             out[r] = int(toks[i])
             if len(req.generated) >= req.max_new:
                 req.state = DONE
+        for r in bad_rows:
+            # quarantine: the poisoned token never enters the stream, the
+            # batch decodes on without the failed row
+            self.stats["nan_rows"] += 1
+            self._fail_request(r, "nan_logits", flush=False)
         self.stats["steps"] += 1
         self.stats["decode_time"] += time.perf_counter() - t0
         return out
@@ -940,12 +1329,42 @@ class DecodeEngine:
         # 2. plan lifecycle: a new epoch is a sync point (deferred tokens
         #    land; plans and the step's base are rebuilt, bucketed); within
         #    an epoch the step advances itself on the device
-        if (self._plan_dirty
-                or plan_mod.plan_key(self.forest, rows) != self._plan_key):
+        epoch = (self._plan_dirty
+                 or plan_mod.plan_key(self.forest, rows) != self._plan_key)
+        if epoch or len(self._deferred) >= self.fused_step.ring_size:
+            # a sync point (for the ring: every pinned output slice is
+            # held).  The NaN guard may quarantine rows here, which then
+            # leave the batch and dirty the plan.  (``repro`` builds the
+            # epoch from the rows of before its flush, and fails on a
+            # quarantined one.)
+            self.flush_tokens()
+            rows = self._active_rows()
+            if not rows:
+                return {}
+            epoch = epoch or self._plan_dirty
+        if epoch:
             self._fused_epoch(rows)
-        elif len(self._deferred) >= self.fused_step.ring_size:
-            self.flush_tokens()         # every pinned output slice is held
-        # 3. one replay: layers, KV writes, attention, FFN, unembed, argmax
+        # injected NaN: corrupt one live K slot of the target's private
+        # leaf (the previous token's, which the step's attention reads),
+        # so the step itself produces the NaN logits that its finite flag
+        # reports at the next flush
+        if self.injector is not None:
+            spec = self.injector.take("nan_logits")
+            if spec is not None:
+                target = spec.rid if spec.rid in rows else rows[0]
+                leaf = self.forest.nodes[self.forest.leaf_of[target]]
+                if (leaf.length >= 2 and len(leaf.requests) == 1
+                        and not leaf.children):
+                    slot = leaf.length - 2
+                    page = leaf.page_ids[slot // self.page_size]
+                    off = slot % self.page_size
+                    self.pool.k[:, page, off] = float("nan")
+                    self._nan_dirty.append((page, off))
+                    self.stats["faults_injected"] += 1
+                else:       # leaf shared or too short: try again later
+                    self.injector.requeue(spec)
+        # 3. one replay: layers, KV writes, attention, FFN, unembed,
+        #    sampling
         t_d0 = time.perf_counter()
         host, event = self.fused_step()
         self.stats["decode_dispatch_time"] += time.perf_counter() - t_d0
@@ -1028,6 +1447,8 @@ class DecodeEngine:
                 break
             self.step()
         self.flush_tokens()
+        self._stream_ready()
+        self._notify_done()
         return {r: req.generated for r, req in self.requests.items()}
 
     def release(self, rid: int) -> None:
@@ -1042,3 +1463,231 @@ class DecodeEngine:
         if rid in self.forest.leaf_of:
             self._release_kv(rid)
             self._plan_dirty = True
+        self._pending_ref.pop(rid, None)
+
+    # ------------------------------------------------------------------ #
+    # request lifecycle control and self-checks (``repro``'s DESIGN §12)
+    # ------------------------------------------------------------------ #
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request in any state before its end: its KV is
+        released (a waiting request's pins unwound), its stream closed
+        with ``on_done(rid, "cancelled")``, and tokens already delivered
+        stand.  ``False`` when the request is unknown or already over."""
+        req = self.requests.get(rid)
+        if req is None or req.state in TERMINAL:
+            return False
+        self.flush_tokens()    # deliverable tokens land before closing
+        self._finish(req, CANCELLED, "cancelled")
+        return True
+
+    def _finish(self, req: Request, state: str, reason: str) -> None:
+        """The terminal transition of the failure states: unwinds the
+        stage the request is in (waiting: queue entry and pins;
+        prefilling or running: forest membership and deferred-token
+        refs), releases its KV and closes the stream.  ``FAILED`` frees
+        the private leaf even with the cache on."""
+        if req.state in TERMINAL and req.kv_freed:
+            return
+        rid = req.rid
+        if req.state == WAITING:
+            self.admission.remove(rid)
+            self._unpin(req)
+        else:
+            if rid in self._prefilling:
+                self._prefilling.remove(rid)
+            if rid in self.forest.leaf_of:
+                self._release_kv(rid, force_leaf=state == FAILED)
+            self._pending_ref.pop(rid, None)
+            # the epoch's plan holds the departed row (and maybe its
+            # freed pages): rebuild it
+            self._plan_dirty = True
+        req.pending = None
+        req.kv_freed = True
+        req.state = state
+        req.finish_reason = reason
+        self.stats[{CANCELLED: "cancelled", TIMED_OUT: "timed_out",
+                    FAILED: "failed"}[state]] += 1
+        self._fire_on_done(req)
+
+    def _fail_request(self, rid: int, reason: str,
+                      flush: bool = True) -> None:
+        """Quarantine one request as ``FAILED`` without touching the rest
+        of the batch."""
+        req = self.requests.get(rid)
+        if req is None or (req.state in TERMINAL and req.kv_freed):
+            return
+        if flush:
+            self.flush_tokens()
+        if reason == "nan_logits":
+            # scrub injected NaN slots before their pages return to the
+            # free list: a later tenant must never read them
+            for page, off in self._nan_dirty:
+                self.pool.k[:, page, off] = 0.0
+            self._nan_dirty = []
+            # the poisoned row kept decoding until its flag was read, so
+            # its private leaf holds non-finite KV past the injected slot
+            # too: a later tenant's dead slots there would turn the plain
+            # tail attention NaN (0 x NaN; the CUDA epilogue never reads
+            # them).  ``repro`` scrubs the injected slots only.
+            leaf = self.forest.nodes.get(self.forest.leaf_of.get(rid))
+            if leaf is not None and leaf.requests == [rid] \
+                    and leaf.page_ids:
+                idx = torch.as_tensor(leaf.page_ids, device=self.device)
+                self.pool.k[:, idx] = 0.0
+                self.pool.v[:, idx] = 0.0
+        self._finish(req, FAILED, reason)
+
+    def _fire_on_done(self, req: Request) -> None:
+        """Close the stream once; a raising callback is isolated."""
+        if req.notified:
+            return
+        req.notified = True
+        self.admission.remove(req.rid)   # drop the EDF bookkeeping
+        try:
+            if self.injector is not None and req.on_done is not None:
+                spec = self.injector.take("callback", rid=req.rid)
+                if spec is not None:
+                    self.stats["faults_injected"] += 1
+                    raise InjectedFault(
+                        spec, f"injected on_done failure for request "
+                              f"{req.rid}")
+            if req.on_done is not None:
+                req.on_done(req.rid, req.finish_reason or "done")
+        except Exception:
+            self.stats["callback_errors"] += 1
+            if req.state == DONE:
+                # the only visible casualty is this request's status
+                if req.rid in self.forest.leaf_of:
+                    self._release_kv(req.rid)
+                    self._plan_dirty = True
+                req.kv_freed = True
+                req.state = FAILED
+                req.finish_reason = "callback_error"
+                self.stats["failed"] += 1
+
+    def _notify_done(self) -> None:
+        """Fire ``on_done`` for requests that completed normally once
+        their stream has drained (failure states notify in ``_finish``)."""
+        for req in list(self.requests.values()):
+            if req.state != DONE or req.notified:
+                continue
+            if req.on_token is not None and req.emitted < len(
+                    req.generated):
+                continue    # tokens still deferred: next sync point
+            req.finish_reason = req.finish_reason or "done"
+            self._fire_on_done(req)
+
+    def _enforce_deadlines(self) -> None:
+        """Step-boundary deadline sweep over every request not yet over
+        (the waiting queue included): an expired one ends ``TIMED_OUT``
+        with its KV released and its stream closed."""
+        now = self.clock()
+        for req in list(self.requests.values()):
+            if req.state in TERMINAL:
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                self.flush_tokens()
+                self._finish(req, TIMED_OUT, "deadline")
+            elif (req.state == WAITING and req.queue_deadline is not None
+                  and now >= req.queue_deadline):
+                self._finish(req, TIMED_OUT, "queue_timeout")
+
+    def check(self) -> None:
+        """Serving-time invariant self-check; raises
+        ``EngineInvariantError`` listing every violation.
+
+        The allocator's structural check, plus: every allocated page is
+        owned by exactly one forest node, pin refcounts equal the waiting
+        holders' pin lists, ``leaf_of`` agrees with request states,
+        deferred-token refs point at live requests, and cache residency
+        fits the pool.  Runs after every dispatch recovery and every
+        ``check_every`` steps."""
+        self.stats["invariant_checks"] += 1
+        failures: List[str] = []
+        try:
+            self.forest.validate()
+        except AssertionError as e:
+            failures.append(f"forest: {e}")
+        try:
+            self.pool.allocator.check()
+        except AssertionError as e:
+            failures.append(f"allocator: {e}")
+        owned: Dict[int, int] = {}
+        for node in self.forest.nodes.values():
+            if node.id == tree_mod.ROOT_ID:
+                continue
+            for p in node.page_ids:
+                owned[p] = owned.get(p, 0) + 1
+        for p, n in owned.items():
+            if n != 1:
+                failures.append(f"page {p} owned by {n} nodes")
+        used = self.pool.allocator.used_page_ids()
+        leaked = sorted(set(used) - set(owned))
+        dangling = sorted(set(owned) - set(used))
+        if leaked:
+            failures.append(
+                f"{len(leaked)} leaked page(s) (allocated, owned by no "
+                f"node): {leaked[:8]}")
+        if dangling:
+            failures.append(
+                f"{len(dangling)} dangling page(s) (node-owned, not "
+                f"allocated): {dangling[:8]}")
+        pin_count: Dict[int, int] = {}
+        for req in self.requests.values():
+            for nid in req.pinned:
+                pin_count[nid] = pin_count.get(nid, 0) + 1
+        for node in self.forest.nodes.values():
+            pins = node.meta.get("pins", 0)
+            if pins != pin_count.get(node.id, 0):
+                failures.append(
+                    f"node {node.id} pins={pins} but "
+                    f"{pin_count.get(node.id, 0)} holder(s) list it")
+        for rid, req in self.requests.items():
+            if (req.state in (PREFILL, RUNNING)
+                    and rid not in self.forest.leaf_of):
+                failures.append(f"live request {rid} has no forest leaf")
+            if req.state == WAITING and rid in self.forest.leaf_of:
+                failures.append(
+                    f"waiting request {rid} still in the forest")
+            if (req.state in TERMINAL and req.kv_freed
+                    and rid in self.forest.leaf_of):
+                failures.append(
+                    f"finished request {rid} still holds forest KV")
+        for rid in self.forest.leaf_of:
+            if rid not in self.requests:
+                failures.append(
+                    f"forest request {rid} unknown to the engine")
+        for rid in self._pending_ref:
+            req = self.requests.get(rid)
+            if req is None or req.pending is not PENDING_DEVICE:
+                failures.append(
+                    f"dangling deferred-token ref for request {rid}")
+        if self.cache is not None:
+            resident = self.cache.resident_pages()
+            total_used = sum(used.values())
+            if resident > total_used:
+                failures.append(
+                    f"cache claims {resident} resident pages but only "
+                    f"{total_used} are allocated")
+        if failures:
+            raise EngineInvariantError(failures)
+
+    def shutdown(self) -> Dict[str, int]:
+        """Graceful teardown: cancel all outstanding work, drop finished
+        and cached KV, self-check, and return a leak summary
+        (``used_pages`` is 0 after a clean shutdown)."""
+        for rid in sorted(self.requests):
+            if self.requests[rid].state not in TERMINAL:
+                self.cancel(rid)
+        self.flush_tokens()
+        self._stream_ready()
+        self._notify_done()
+        for rid, req in sorted(self.requests.items()):
+            if rid in self.forest.leaf_of:    # done, KV still resident
+                self._release_kv(rid)
+                req.kv_freed = True
+        if self.cache is not None:
+            self._evict_cached(self.pool.num_pages)
+        self.check()
+        return {"used_pages": self.pool.allocator.num_used,
+                "requests": len(self.requests)}

@@ -33,6 +33,13 @@ class PageAllocator:
     def num_used(self) -> int:
         return len(self._refs)
 
+    def occupancy(self) -> float:
+        return self.num_used / max(self.num_pages, 1)
+
+    def used_page_ids(self) -> Dict[int, int]:
+        """Allocated page id -> refcount (the engine's leak check)."""
+        return dict(self._refs)
+
     def alloc(self, n: int) -> List[int]:
         if n > len(self._free):
             raise MemoryError(
@@ -93,6 +100,9 @@ class PagedKVPool:
     @property
     def num_free(self) -> int:
         return self.allocator.num_free
+
+    def occupancy(self) -> float:
+        return self.allocator.occupancy()
 
     @property
     def page_bytes(self) -> int:

@@ -15,12 +15,15 @@ collapses the step into one replay of a captured ``torch.cuda.CUDAGraph``:
   each, outside the graph;
 * within an epoch the graph needs nothing from the host: query positions,
   plan positions and tail slots advance as ``base + delta`` on the device,
-  the graph increments ``delta`` itself and copies its sampled tokens into
-  its own input buffer for the next replay;
+  the graph increments ``delta`` itself, copies its sampled tokens into
+  its own input buffer for the next replay and splits the engine's
+  sampler key in place (the key's buffer is the engine's, so the
+  engine's own splits at prefill and the graph's advance one stream);
 * the graph holds the whole step: the embedding, every layer's norm,
   projections, RoPE and KV tail write, the backend's raw partials over the
   frozen plan (PAC for the codec backends) and one ``por.por_epilogue``,
-  the FFN, the unembedding, the argmax and the finite-logits flag;
+  the FFN, the unembedding, the sampler (argmax, or ``repro``'s threefry
+  Gumbel draw at ``temperature > 0``) and the finite-logits flag;
 * shapes are bucketed (rows and plan arrays to powers of two:
   ``core.plan.bucket_plan``), so arrivals and completions reuse a graph
   while their buckets hold: one ``_Slot`` (buffers and graph) per bucket
@@ -52,6 +55,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops, pac as pac_mod, por as por_mod
 from ..models import layers as L
 from ..models.transformer import Transformer
+from . import sampler
 from .kv_cache import PagedKVPool
 
 # pinned host slices for step outputs not yet read: the engine flushes
@@ -115,8 +119,15 @@ class FusedStep:
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  pool: PagedKVPool, backend, windows: Sequence[int],
-                 attn_layer_idx: Dict[int, int], device):
+                 attn_layer_idx: Dict[int, int], device,
+                 temperature: float = 0.0,
+                 key: Optional[torch.Tensor] = None):
         self.cfg = cfg
+        self.temperature = float(temperature)
+        # the sampler key, (2,) int64 on the device: each step splits it
+        # in place, as ``repro``'s fused step returns its split key
+        self.key = (key if key is not None
+                    else sampler.prng_key(0, device))
         self.model = model
         self.pool = pool
         self.backend = backend
@@ -240,11 +251,18 @@ class FusedStep:
         logits = decode_stack(self.model, self.pool, self.attn_layer_idx,
                               base.tokens, q_pos, base.tail_page,
                               base.tail_base, base.tail_off0 + dlt, attend)
-        slot.out[0].copy_(torch.argmax(logits, -1))
+        # greedy draws no bits, so its key is never split (the key's
+        # state cannot show in any stream)
+        split = self.temperature > 0
+        key, sub = sampler.split(self.key) if split else (None, self.key)
+        slot.out[0].copy_(sampler.sample(logits, sub, self.temperature,
+                                         compiled=True))
         slot.out[1].copy_(torch.isfinite(logits).all(-1))
         if feed:
             base.tokens.copy_(slot.out[0])
             base.delta.add_(1)
+            if split:
+                self.key.copy_(key)
         return logits
 
 

@@ -137,6 +137,37 @@ def test_hydragen_partials_match_repro(name, window):
                                   np.asarray(jha2.sf_qpos))
 
 
+def test_hydragen_partials_invariant_to_alignment_and_threads():
+    """The 3-ary case of ``test_hydragen_partials_match_repro`` once read
+    a value 2.6e-5 off in a few full-suite processes: an answer that
+    depends on where the inputs lie or how many threads run.  Here the
+    same inputs are copied to shifted addresses and run on 1-8 threads:
+    every answer must equal the first bit for bit."""
+    f = FORESTS["3-ary"](tree)
+    k, v = _pool(f, 2, 16, seed=3)
+    q = _queries(f, 8, 16, seed=4)
+    p = plan_mod.build_plan(f, cost_model.CostModel(8, 2, 16,
+                                                    page_size=PAGE),
+                            num_lanes=2, max_q=8)
+    ha = hydragen.prepare(p, "cpu")
+    threads = torch.get_num_threads()
+    first, keep = None, []
+    try:
+        for i in range(24):
+            keep.append(torch.empty(1 + 37 * i, dtype=torch.uint8))
+            torch.set_num_threads(1 + i % 8)
+            args = [torch.from_numpy(np.concatenate(
+                [np.zeros(i % 16, np.float32), a.ravel()])[i % 16:]
+                .reshape(a.shape)) for a in (q, k, v)]
+            got = hydragen.hydragen_partials(*args, p, ha)
+            if first is None:
+                first = got
+            for g, w in zip(got, first):
+                assert torch.equal(g, w), i
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_hydragen_zero_task_plan_is_all_trash():
     """A plan with no task at all (every row's KV is in its tail page)
     gives every query the empty partial."""

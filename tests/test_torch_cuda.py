@@ -555,3 +555,95 @@ def test_pressured_fused_equals_eager_and_unconstrained_on_card(backend):
     b = fused["buckets"]
     assert len(set(b)) >= 3 and any(x < y for x, y in zip(b, b[1:])) \
         and any(x > y for x, y in zip(b, b[1:])), b
+
+
+# --------------------------------------------------------------------- #
+# the request lifecycle: the threefry sampler, the NaN guard, the cache
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_sampler_bits_and_draws_on_card_equal_the_cpu():
+    """On an H100: the threefry bits, keys and uniforms on the card equal
+    the CPU's bit for bit, and so do the draws at temperature 0.8, eager
+    and in the compiled form (the fused step's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.serving import sampler
+    key = sampler.prng_key(11)
+    kc = key.to("cuda")
+    assert torch.equal(sampler.split(kc, 5).cpu(), sampler.split(key, 5))
+    rows = torch.arange(6)
+    assert torch.equal(sampler.fold_in(kc, rows.cuda()).cpu(),
+                       sampler.fold_in(key, rows))
+    assert torch.equal(sampler.random_bits(kc, (4, 999)).cpu(),
+                       sampler.random_bits(key, (4, 999)))
+    assert torch.equal(sampler.uniform(kc, (4096,), 1e-3, 2.0).cpu(),
+                       sampler.uniform(key, (4096,), 1e-3, 2.0))
+    logits = torch.randn(8, 151936,
+                         generator=torch.Generator().manual_seed(0)) * 4
+    for compiled in (False, True):
+        got = sampler.sample(logits.cuda(), kc, 0.8, compiled=compiled)
+        want = sampler.sample(logits, key, 0.8, compiled=compiled)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_fused_sampled_streams_equal_eager_on_card():
+    """On an H100: at temperature 0.8 the fused engine's streams equal
+    the eager engine's at f32 weights (the graph splits the engine's key
+    on the device, the prefills split it on the host's order), across a
+    bucket crossing; they differ from the greedy streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    streams = {}
+    for fused, t in ((False, 0.8), (True, 0.8), (True, 0.0)):
+        eng = DecodeEngine(model.cfg, model, page_size=16, num_pages=256,
+                           max_q=8, fused=fused, temperature=t, seed=5,
+                           device="cuda")
+        streams[fused, t] = _crossing(eng)
+        assert eng.stats["nonfinite_rows"] == 0
+    assert streams[True, 0.8] == streams[False, 0.8]
+    assert streams[True, 0.8] != streams[True, 0.0]
+
+
+def _nan_run(model, at=None):
+    """Three requests over a 48-token document, each with 14 private
+    tokens, 10 new tokens each, fused; ``at``: the step of a
+    ``nan_logits`` fault on request 1, under the NaN guard."""
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    plan = (None if at is None
+            else FaultPlan([FaultSpec("nan_logits", at, rid=1)]))
+    eng = DecodeEngine(model.cfg, model, page_size=16, num_pages=256,
+                       max_q=8, fused=True, nan_guard=at is not None,
+                       faults=plan, device="cuda")
+    doc = list(range(10, 58))
+    for i in range(3):
+        eng.add_request(doc + list(range(300 + 20 * i, 314 + 20 * i)),
+                        max_new=10)
+    return eng, eng.run(40)
+
+
+@pytest.mark.cuda
+def test_fused_nan_guard_quarantines_one_row_on_card():
+    """On an H100: a NaN written into one live K slot of one request's
+    private leaf reaches its logits, the graph's finite flag quarantines
+    it as ``nan_logits``, and the other rows' streams equal a fault-free
+    run's.  At step 2 the slot (the leaf's 16th) lies in a full page,
+    which PAC reads; at step 5 in the tail page, which the epilogue
+    reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    _, want = _nan_run(model)
+    for at in (2, 5):
+        eng, got = _nan_run(model, at)
+        assert eng.requests[1].finish_reason == "nan_logits", at
+        assert got[1] == want[1][:len(got[1])] and len(got[1]) < 10
+        assert got[0] == want[0] and got[2] == want[2], at
+        assert eng.stats["nan_rows"] == 1
+        eng.check()
+        assert eng.shutdown()["used_pages"] == 0

@@ -104,8 +104,8 @@ def test_baseline_streams_match_repro_baseline(shared, jax_streams,
 
 def test_engine_validation(shared):
     cfg, _, model = shared
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(cfg, model, device="cpu", **{**KW, "temperature": 0.7})
+    assert DecodeEngine(cfg, model, device="cpu",
+                        **{**KW, "temperature": 0.7}).temperature == 0.7
     with pytest.raises(ValueError):
         DecodeEngine(cfg, model, device="cpu", **{**KW, "temperature": -1.0})
     eng = DecodeEngine(cfg, model, device="cpu", **{**KW, "num_pages": 4})

@@ -24,8 +24,8 @@ def test_port_imports_with_jax_blocked():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert 'repro_torch.serving.engine' in mods, mods\n"
-        "assert 'repro_torch.serving.step_fn' in mods, mods\n"
+        "for m in ('engine', 'step_fn', 'sampler', 'cache', 'faults'):\n"
+        "    assert 'repro_torch.serving.' + m in mods, mods\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
         " or k.startswith('repro.') for k, v in sys.modules.items()"
         " if v is not None)\n"

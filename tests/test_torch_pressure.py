@@ -363,13 +363,60 @@ def test_chunked_prompt_larger_than_the_pool_waits(shared):
 
 def test_lone_request_outgrowing_the_pool_raises(shared):
     """With nothing to evict and no other tenant the growing request
-    cannot be preempted: the port raises (``repro`` fails it, with the
-    lifecycle states of a later slice)."""
+    cannot be preempted: it fails as ``kv_exhausted``, as ``repro``'s
+    does, instead of raising, with its pages back in the pool."""
+    params, model = shared
+    wl, pages = WORKLOADS["fixed"]
+    prompt = wl[0][0]
+    seen = []
+    for eng in (_engine(model, "codec-cuda", False, pages),
+                JaxEngine(CFG, params, backend="codec-xla", page_size=PAGE,
+                          num_pages=pages, max_q=8, temperature=0.0,
+                          prefill_chunk=CHUNK)):
+        rid = eng.add_request(prompt, max_new=30)
+        eng.run(40)
+        req = eng.requests[rid]
+        seen.append((req.state, req.finish_reason, list(req.generated),
+                     dict(eng.step_stats[-1])["pages_free"]))
+        eng.check()
+    assert seen[0] == seen[1]
+    assert seen[0][:2] == ("failed", "kv_exhausted")
+    assert seen[0][3] == pages and len(seen[0][2]) == pages * PAGE \
+        - len(prompt) + 1                          # with its overflow token
+
+
+# test_differential.py's pressure workload at temperature 0.8: sampling
+# through preemption and recompute must split the key as repro's does
+SAMPLED = dict(temperature=0.8, seed=3)
+
+
+@pytest.fixture(scope="module")
+def repro_sampled(shared):
+    params, _ = shared
+    wl, pages = WORKLOADS["fixed"]
+    return {fused: drive(JaxEngine(
+        CFG, params, backend="codec-xla", page_size=PAGE, num_pages=pages,
+        max_q=8, prefill_chunk=CHUNK, fused=fused, **SAMPLED), wl)
+        for fused in (False, True)}
+
+
+@pytest.mark.parametrize("fused", [False, True],
+                         ids=["eager", "fused"])
+def test_sampled_pressure_streams_and_trace_match_repro(shared,
+                                                        repro_sampled,
+                                                        fused):
     _, model = shared
-    eng = _engine(model, "codec-cuda", False, 2, prefill_chunk=None)
-    eng.add_request(list(range(1, 15)), max_new=10)
-    with pytest.raises(MemoryError):
-        eng.run(16)
+    wl, pages = WORKLOADS["fixed"]
+    want, want_trace, _, want_peak = repro_sampled[fused]
+    eng = DecodeEngine(CFG, model, backend="codec-cuda", fused=fused,
+                       page_size=PAGE, num_pages=pages, max_q=8,
+                       prefill_chunk=CHUNK, device="cpu", **SAMPLED)
+    got, trace, stats, peak = drive(eng, wl)
+    assert got == want
+    assert trace == want_trace and peak == want_peak
+    assert stats["preempted"] >= 1 and stats["recompute_tokens"] >= 1
+    greedy, _, _, _ = drive(_engine(model, "codec-cuda", fused, pages), wl)
+    assert got != greedy
 
 
 @pytest.mark.parametrize("arrivals,rate", [("scripted", 2.0),
