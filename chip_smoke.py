@@ -90,7 +90,21 @@ Phases (any failure raises and the script exits non-zero):
    a ``dispatch`` and a ``nan_logits`` fault) with a cancel and a
    deadline on an injected clock, fused: each request's terminal reason,
    the survivors' streams equal to a fault-free run's, ``check()``;
-10. print the ``kernels`` JSON line and the closing device line.
+10. cascade prefill and telemetry, on phase 3's model, fused: (a) a
+   burst of 8 questions over one uncached 2048-token document queued
+   behind a decoy, cascade off and on twice in turns: the burst's
+   prefill seconds (CUDA events), the cascade counters, TPOT, the bf16
+   streams equal as a count; (b) phase 9's wave A with telemetry off and
+   with ``Telemetry(profile_every=4)`` twice in turns: TPOT, the medians
+   of the sampled steps' host preparation, launch and device wait beside
+   a traced step's device busy, the request p50s, and the Chrome trace
+   written to ``chiprun_out/phase10_trace.json``, parsed and checked for
+   partially overlapping spans; (c) on phase 6's 4-layer f32 model, the
+   burst's streams equal with cascade and telemetry on and off, eager and
+   fused and with the cache, and phase 8's pressured arrivals with
+   cascade on and off; PAC and the epilogue launch (into the graphs) in
+   every run, which leaks no page and passes ``check()``;
+11. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -1381,7 +1395,7 @@ def lifecycle_engine(cfg, model, **kw):
                         num_lanes=LANES, max_q=MAX_Q, device="cuda", **kw)
 
 
-def serve_waves(cfg, model, waves=("A", "B"), **kw):
+def serve_waves(cfg, model, waves=("A", "B"), serve_kw=None, **kw):
     """Phase 9's waves through one engine (``kw``: its options), each
     served to the end before the next is added: wave A is 8 questions
     over a 2048-token document, wave B 8 new questions over the same
@@ -1390,7 +1404,8 @@ def serve_waves(cfg, model, waves=("A", "B"), **kw):
     ``check()``, ``shutdown()`` and every page free.  Returns each wave's
     ``serve`` result with its prefill seconds (``prefill_time``: the
     engine's CUDA events), the prompt tokens the cache served and the
-    pages it kept."""
+    pages it kept.  ``serve_kw`` go to every ``serve`` (phase 10:
+    ``profile_steps``)."""
     from repro_torch.launch.serve import doc_prompts, serve
     prompts = doc_prompts(2 * P9_REQUESTS, P9_DOC, P9_Q, cfg.vocab_size,
                           seed=0)
@@ -1403,7 +1418,7 @@ def serve_waves(cfg, model, waves=("A", "B"), **kw):
         hits0 = cache.stats["hit_tokens"] if cache else 0
         prefill0 = engine.prefill_time()
         r = serve(engine, by_wave[name], P9_NEW, on_token=streams.on_token,
-                  on_done=streams.on_done)
+                  on_done=streams.on_done, **(serve_kw or {}))
         r["prefill_events_s"] = engine.prefill_time() - prefill0
         r["hit_tokens"] = (cache.stats["hit_tokens"] - hits0 if cache
                            else 0)
@@ -1618,6 +1633,249 @@ def phase_lifecycle_f32():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 10: cascade prefill and telemetry
+# --------------------------------------------------------------------- #
+P10_REQUESTS, P10_DOC, P10_Q, P10_NEW = 8, 2048, 64, 32
+# a budget of 640 tokens a step (40 pages): the 2048-token document ends
+# 128 tokens into its fourth budget, which leaves 512 for the eight
+# 64-token questions in one batch (cascade regroups members by their
+# first unfilled node, so suffixes batch only in the call where the
+# shared span completes); the decoy takes one budget for each question
+# added after it, so all eight queue behind it (each add_request runs
+# admission with a fresh budget)
+P10_CHUNK = 640
+P10_DECOY = P10_REQUESTS * P10_CHUNK
+P10_PROFILE_EVERY = 4
+TRACE_OUT = Path("chiprun_out") / "phase10_trace.json"
+
+
+def burst_prompts(vocab):
+    """Phase 10's decoy and its burst: 8 questions over one uncached
+    2048-token document (seed 10)."""
+    rng = np.random.default_rng(10)
+    decoy = rng.integers(1, vocab, P10_DECOY).tolist()
+    doc = rng.integers(1, vocab, P10_DOC).tolist()
+    return decoy, [doc + rng.integers(1, vocab, P10_Q).tolist()
+                   for _ in range(P10_REQUESTS)]
+
+
+def hold_graphs(tag, engine):
+    """Fused: one replay a decode step, one graph a signature, each
+    holding PAC and the epilogue once a layer."""
+    step = engine.fused_step
+    if step is None:
+        return
+    n_attn = len(engine.attn_layer_idx)
+    assert step.replays == engine.stats["fused_calls"], tag
+    held = [slot.launches for slot in step.slots.values()]
+    assert step.graphs == len(engine.bucket_signatures) \
+        and held == [(n_attn, n_attn)] * step.graphs, (tag, held)
+
+
+def release_all(tag, engine) -> None:
+    engine.check()
+    for rid in list(engine.requests):
+        engine.release(rid)
+    if engine.cache is not None:
+        engine._evict_cached(engine.pool.num_pages)
+    engine.pool.allocator.check()
+    assert engine.pool.num_free == engine.pool.num_pages, (tag, "leak")
+    assert set(engine.forest.nodes) == {0}, (tag, "forest leak")
+
+
+def cascade_burst(cfg, model, cascade, fused=True, **kw):
+    """The burst through one engine: the decoy and the first 7 questions
+    are added by hand (the decoy's 8 budgets run meanwhile), the 8th by
+    ``serve``, which runs the engine to the end.  Returns ``serve``'s
+    result with the burst's prefill seconds (``prefill_time`` after the
+    decoy: the engine's CUDA events), the cascade counters and the
+    streams of all nine requests; checks the launches, the graphs and
+    that no page or node is left."""
+    from repro_torch.launch.serve import CASCADE_COUNTERS, serve
+    from repro_torch.serving.engine import DecodeEngine
+    engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                          num_lanes=LANES, max_q=MAX_Q, fused=fused,
+                          prefill_chunk=P10_CHUNK, cascade=cascade,
+                          device="cuda", **kw)
+    decoy, qs = burst_prompts(cfg.vocab_size)
+    tag = (f"{cfg.num_layers} layers {'fused' if fused else 'eager'} "
+           f"cascade {'on' if cascade else 'off'}")
+    reset_launches()
+    for p in [decoy] + qs[:-1]:
+        engine.add_request(p, max_new=P10_NEW)
+    torch.cuda.synchronize()
+    assert engine.stats["prefill_tokens"] == P10_DECOY, tag
+    p0 = engine.prefill_time()
+    res = serve(engine, qs[-1:], P10_NEW)
+    launches = read_launches()
+    assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
+        (tag, launches)
+    res["burst_prefill_s"] = engine.prefill_time() - p0
+    res["cascade"] = {k: engine.stats[k] for k in CASCADE_COUNTERS}
+    res["streams"] = {r: list(g) for r, g in res["streams"].items()}
+    assert sorted({len(g) for g in res["streams"].values()}) == [P10_NEW]
+    assert engine.stats["nonfinite_rows"] == 0, tag
+    hold_graphs(tag, engine)
+    release_all(tag, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_trace(path):
+    """The exported Chrome trace parses, and no span partially overlaps
+    another on its track."""
+    doc = json.loads(Path(path).read_text())
+    spans = {}
+    for ev in doc["traceEvents"]:
+        assert {"name", "ph", "pid", "tid"} <= set(ev), ev
+        if ev["ph"] == "X":
+            assert ev["ts"] >= 0 and ev["dur"] >= 0, ev
+            spans.setdefault((ev["pid"], ev["tid"]), []).append(
+                (ev["ts"], ev["ts"] + ev["dur"], ev["name"]))
+    for track, ss in spans.items():
+        ss.sort()
+        for (s0, e0, n0), (s1, e1, n1) in zip(ss, ss[1:]):
+            assert not (s1 < e0 < e1), (track, n0, n1)
+    return len(doc["traceEvents"]), len(spans)
+
+
+def phase_cascade_telemetry(cfg, model):
+    """Phase 10a-b at full depth on phase 3's bf16 model, fused: the burst
+    with cascade off and on in turns (prefill seconds, counters, TPOT,
+    streams equal); phase 9's wave A with telemetry off and with
+    ``Telemetry(profile_every=4)`` in turns (TPOT, the sampled steps'
+    medians beside a traced step's device busy, the request p50s), the
+    last trace exported and checked."""
+    from repro_torch.launch.serve import telemetry_summary
+    from repro_torch.serving.telemetry import Telemetry
+    log("  10a. the burst: a decoy of "
+        f"{P10_DECOY} tokens, then {P10_REQUESTS} questions of {P10_Q} "
+        f"over one uncached {P10_DOC}-token document, {P10_NEW} tokens "
+        f"each, prefill budget {P10_CHUNK} a step, fused")
+    runs = {}
+    for cascade in (False, True, False, True):
+        r = cascade_burst(cfg, model, cascade)
+        c = r["cascade"]
+        log(f"  cascade {'on ' if cascade else 'off'}: burst prefill "
+            f"{r['burst_prefill_s']:.4f} s (CUDA events; decoy excluded), "
+            f"loop prefill {r['prefill_loop_s']:.4f} s; "
+            + ", ".join(f"{k} {v}" for k, v in c.items())
+            + f"; fused TPOT {r['tpot_ms']:.3f} ms over {r['steps']} "
+            f"steps; PAC and epilogue launches captured into "
+            f"{r['graphs']} graph(s)")
+        if cascade:
+            assert c["cascade_groups"] >= 1 and c["cascade_batches"] >= 1, c
+        runs.setdefault(cascade, []).append(r)
+    for i in range(2):
+        off, on = runs[False][i]["streams"], runs[True][i]["streams"]
+        same = sum(on[q] == off[q] for q in off)
+        log(f"  pair {i + 1}: burst prefill on/off "
+            f"{runs[True][i]['burst_prefill_s'] / runs[False][i]['burst_prefill_s']:.3f};"
+            f" bf16 streams equal with cascade on and off: {same} of "
+            f"{len(off)} (asserted at f32 in 10c)")
+
+    log(f"  10b. phase 9's wave A ({P9_REQUESTS} questions over a "
+        f"{P9_DOC}-token document, {P9_NEW} tokens), fused, telemetry off "
+        f"and Telemetry(profile_every={P10_PROFILE_EVERY}), in turns; "
+        f"decode steps 2-{PROFILE_STEPS + 1} traced with telemetry off (a "
+        f"trace's wall time would enter the request latencies)")
+    tpot = {False: [], True: []}
+    for on in (False, True, False, True):
+        reset_launches()
+        tm = Telemetry(profile_every=P10_PROFILE_EVERY) if on else None
+        w = serve_waves(cfg, model, waves=("A",), fused=True, telemetry=tm,
+                        serve_kw={"profile_steps": 0 if on
+                                  else PROFILE_STEPS})["A"]
+        launches = read_launches()
+        assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
+            launches
+        tpot[on].append(w["tpot_ms"])
+        line = (f"  telemetry {'on ' if on else 'off'}: TPOT "
+                f"{w['tpot_ms']:.3f} ms over {w['steps']} steps")
+        if not on:
+            prof = w["profile"]
+            line += (f"; traced step: wall {prof['wall_ms']:.3f} ms, "
+                     f"device busy {prof['device_busy_ms']:.3f} ms")
+        else:
+            s = telemetry_summary(tm)
+            assert s["profiled_steps"] >= 1 \
+                and s["requests_done"] == P9_REQUESTS, s
+            line += (f"; {s['profiled_steps']} sampled steps, p50 host "
+                     f"prep {s['profile_host_p50_ms']:.3f} ms, launch "
+                     f"{s['profile_dispatch_p50_ms']:.3f} ms, device wait "
+                     f"{s['profile_device_p50_ms']:.3f} ms (the wait "
+                     f"drains every step queued since the last sync); p50 "
+                     f"ttft {s['ttft_p50_ms']:.1f} ms, tpot "
+                     f"{s['tpot_p50_ms']:.3f} ms, e2e {s['e2e_p50_ms']:.1f}"
+                     f" ms, queue wait {s['queue_wait_p50_ms']:.3f} ms, "
+                     f"step {s['step_p50_ms']:.3f} ms; "
+                     f"{s['trace_events']} trace events")
+            TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
+            tm.export_trace(str(TRACE_OUT))
+            n_ev, n_tracks = check_trace(TRACE_OUT)
+            line += (f"; trace {TRACE_OUT} parses ({n_ev} events, "
+                     f"{n_tracks} tracks, no partial overlap)")
+        log(line)
+    log(f"  TPOT telemetry on - off: "
+        f"{tpot[True][0] - tpot[False][0]:+.3f} ms (first pair), "
+        f"{tpot[True][1] - tpot[False][1]:+.3f} ms (second pair)")
+
+
+def phase_cascade_telemetry_f32():
+    """Phase 10c on phase 6's 4-layer f32 model: the burst's streams are
+    equal with cascade on and off and with telemetry on and off, eager
+    and fused, and with the prefix cache; phase 8's pressured arrivals
+    give equal streams with cascade on and off, eager and fused; the
+    cascade runs group and batch; no page leaks and ``check()`` passes
+    (``cascade_burst``)."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.telemetry import Telemetry
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    want = cascade_burst(cfg, model, False, fused=False)["streams"]
+    runs = {}
+    for fused in (False, True):
+        for cascade in (False, True):
+            for tm in (False, True):
+                if (fused, cascade, tm) == (False, False, False):
+                    continue
+                runs[fused, cascade, tm] = cascade_burst(
+                    cfg, model, cascade, fused=fused,
+                    telemetry=(Telemetry(profile_every=P10_PROFILE_EVERY)
+                               if tm else None))
+    runs["cache"] = cascade_burst(cfg, model, True, cache=True)
+    for key, r in runs.items():
+        diff = first_difference(want, r["streams"])
+        assert diff is None, (key, diff)
+        if key == "cache" or key[1]:
+            c = r["cascade"]
+            assert c["cascade_groups"] >= 1 \
+                and c["cascade_batches"] >= 1, (key, c)
+    c = runs[True, True, True]["cascade"]
+    log(f"  {cfg.num_layers} layers f32: the burst's {len(want)} streams "
+        f"equal with cascade on and off, telemetry on and off, eager and "
+        f"fused, and with the cache ({len(runs) + 1} runs; "
+        + ", ".join(f"{k} {v}" for k, v in c.items())
+        + "); check() passed and no page or node was left in each")
+    pres = {key: pressured_serve(cfg, model, "codec-cuda", key[0],
+                                 P8_PAGES, cascade=key[1])
+            for key in ((False, False), (False, True), (True, True))}
+    ref = pres[False, False]["streams"]
+    for key, r in pres.items():
+        diff = first_difference(ref, r["streams"])
+        assert diff is None, (key, diff)
+    p = pres[True, True]["pressure"]
+    log(f"  phase 8's arrivals on {P8_PAGES} pages: {len(ref)} streams "
+        f"equal with cascade off (eager) and on (eager, fused); "
+        f"preempted {p['preempted']}, recompute_tokens "
+        f"{p['recompute_tokens']} (fused, cascade on)")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1681,10 +1939,14 @@ def main() -> int:
     log("== 9. the request lifecycle: prefix cache, streaming, sampling "
         "at temperature 0.8, faults")
     phase_lifecycle(cfg, model)
+
+    log("== 10. cascade prefill and telemetry")
+    phase_cascade_telemetry(cfg, model)
     del model
     torch.cuda.empty_cache()
     phase_pressure_f32()
     phase_lifecycle_f32()
+    phase_cascade_telemetry_f32()
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

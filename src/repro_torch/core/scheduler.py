@@ -85,6 +85,13 @@ class AdmissionPolicy:
     ``reserve_pages``: low watermark — admission never dips the free list
     below it, keeping headroom for decode growth of the running batch.
     ``max_running``: cap on admitted (prefilling + decoding) requests.
+
+    ``cascade``: co-schedule waiting requests whose prompts share forest
+    paths with a just-admitted request (group key = deepest shared node
+    per ``tree.match_path``) so cascade prefill computes the shared span
+    once for the whole group and batches the per-request suffix chunks
+    into one dispatch (``repro``'s DESIGN §14).  ``max_cascade_group``
+    bounds the group (admitted head + co-admitted partners).
     """
 
     prefill_chunk: Optional[Union[int, str]] = None
@@ -92,6 +99,8 @@ class AdmissionPolicy:
     max_running: Optional[int] = None
     balance_ratio: float = 4.0
     max_auto_chunk: int = 16384
+    cascade: bool = False
+    max_cascade_group: int = 8
 
     def admission_reserve(self, num_running: int) -> int:
         """Free-page watermark admission must stay above (the same for
@@ -125,6 +134,9 @@ class AdmissionPolicy:
                              f"got {pc!r}")
         if isinstance(pc, int) and pc < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        if self.max_cascade_group < 2:
+            raise ValueError("max_cascade_group must be >= 2 (a group is "
+                             "the admitted head plus >= 1 partner)")
 
 
 class AdmissionController:
@@ -187,6 +199,29 @@ class AdmissionController:
             pass
         self.deadline.pop(rid, None)
         self._arrival.pop(rid, None)
+
+    def cascade_partners(self, anchor_nodes, key_of,
+                         limit: Optional[int] = None) -> List[int]:
+        """Waiting rids that cascade with a just-admitted request.
+
+        ``anchor_nodes`` is the set of forest node ids on the admitted
+        request's path; ``key_of(rid)`` maps a waiting request to its
+        prompt's deepest shared forest node (``tree.match_path``), or
+        ``None`` when it shares nothing worth cascading.  A waiting
+        request whose key lands on the anchor path shares that prefix's
+        uncached compute, so prefilling it now — ahead of its FCFS turn —
+        turns N copies of the shared span into one.  Queue order is kept
+        among partners; non-sharing requests keep their position.  The
+        caller admits each partner (memory probes still apply) and calls
+        :meth:`remove` for the ones it takes.
+        """
+        out: List[int] = []
+        for rid in list(self.queue):
+            if limit is not None and len(out) >= limit:
+                break
+            if key_of(rid) in anchor_nodes:
+                out.append(rid)
+        return out
 
     def prefill_budget(self, running_ctx: Sequence[int]) -> Optional[int]:
         """Prefill token budget for one engine step (``None`` = unlimited).

@@ -16,7 +16,7 @@ nodes only at page boundaries.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -178,6 +178,32 @@ class PrefixForest:
                 break          # insertion would split here; match stops
             cur = child
         return pos
+
+    def match_path(self, tokens: np.ndarray) -> Tuple[int, int]:
+        """``(deepest matched node id, matched length)`` of a prompt.
+
+        Pure query like :meth:`match_len` — no insertion or splitting.
+        The deepest node a prompt descends through is the cascade-prefill
+        group key: waiting requests whose ``match_path`` lands on a node
+        of a just-admitted request's path share that prefix's compute and
+        are co-scheduled so the shared span is computed once for the
+        whole group (``repro``'s DESIGN §14).  A prompt matching nothing
+        returns ``(ROOT_ID, 0)``.
+        """
+        tokens = np.asarray(tokens)
+        pos = 0
+        cur = self.nodes[ROOT_ID]
+        n = len(tokens)
+        while pos < n:
+            matched = self._match_child(cur, tokens[pos:])
+            if matched is None:
+                break
+            child, m = matched
+            pos += m
+            if m < child.length:
+                return child.id, pos   # partial: still descends into it
+            cur = child
+        return cur.id, pos
 
     def _split(self, node: Node, at: int) -> None:
         """Split ``node`` so its first ``at`` tokens become the parent part.

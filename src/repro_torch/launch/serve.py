@@ -48,6 +48,22 @@ and ``--nan-guard`` quarantines rows whose logits turn non-finite; the
 run then prints the faults fired, recoveries and each request's outcome.
 Sampling at ``temperature > 0`` is the engine's ``temperature=`` argument,
 as in ``repro``: the CLI has no flag for it.
+
+Telemetry and cascade prefill (``repro``'s DESIGN §13-§14): the CLI runs
+with the engine's telemetry on, as ``repro``'s does (``--no-telemetry``
+turns it off), and ends with a one-line summary from its metrics registry
+(requests done, tokens, p50 TTFT, TPOT, end-to-end and queue wait, the
+trace's event count); ``--report-every N`` prints a one-line report of the
+last N engine steps; ``--profile-every N`` makes every Nth fused step wait
+for the card after its graph replay and prints the medians of its host
+preparation, launch and device wait; ``--trace-out`` writes the Chrome
+trace-event JSON (Perfetto, ``chrome://tracing``) and ``--metrics-out``
+the registry (schema ``codec-metrics/1``), each suffixed with the backend
+under ``--compare``.  ``--cascade`` prefills requests that share an
+unfilled prefix as one group (the shared span once, the suffixes in one
+batch) and prints the cascade counters.  ``serve()`` drives an engine
+its caller built: there both are the engine's keywords
+(``DecodeEngine(telemetry=, cascade=)``), off unless asked for.
 """
 
 from __future__ import annotations
@@ -62,12 +78,14 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..core import metrics as metrics_mod
 from ..core.plan import bucket_pow2
 from ..kernels import pac as pac_mod, por as por_mod
 from ..models.transformer import build_model
 from ..serving.cache import CachePolicy
 from ..serving.engine import DecodeEngine
 from ..serving.faults import FaultPlan
+from ..serving.telemetry import Telemetry
 
 
 def doc_prompts(n: int, doc_len: int, q_len: int, vocab: int,
@@ -116,6 +134,58 @@ GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 # the engine counters of serving under memory pressure
 PRESSURE_COUNTERS = ("preempted", "recompute_tokens", "prefill_chunks",
                      "prefill_stalls", "reclaimed")
+# the engine counters of cascade prefill
+CASCADE_COUNTERS = ("cascade_groups", "cascade_shared_tokens",
+                    "cascade_suffix_tokens", "cascade_batches")
+
+
+def telemetry_summary(telemetry: Telemetry) -> Dict[str, float]:
+    """p50s in ms (None where nothing was observed) of the registry's
+    latency histograms (request TTFT, TPOT, end to end, queue wait;
+    engine step; and, where steps were sampled, their host preparation,
+    launch and device wait), with the requests done, tokens generated and
+    trace events, as of the engine's last step."""
+    snap = telemetry.metrics.snapshot()
+    out = {"requests_done": snap["requests_done"]["value"],
+           "tokens": snap["tokens_generated"]["value"],
+           "trace_events": len(telemetry.trace_events())}
+    for name in ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s", "step_s",
+                 "profile_host_s", "profile_dispatch_s",
+                 "profile_device_s"):
+        h = snap[name]
+        out[name[:-2] + "_p50_ms"] = (
+            1e3 * metrics_mod.hist_quantile(h, 0.5) if h["count"] else None)
+    out["profiled_steps"] = snap["profile_device_s"]["count"]
+    return out
+
+
+def metrics_reporter(engine: DecodeEngine, every: int):
+    """An ``on_step`` hook printing a one-line report every ``every``
+    decode steps from the engine's registry: tokens in the interval, rows
+    running and waiting, pool occupancy, p50 step and TTFT (reader-owned
+    snapshots, so other readers of the registry do not disturb it)."""
+    prev = [engine.publish_metrics().snapshot()]
+
+    def report(eng):
+        if eng.stats["steps"] % every:
+            return
+        now = eng.publish_metrics().snapshot()
+        d = metrics_mod.delta(now, prev[0])
+        prev[0] = now
+        line = (f"    [step {eng.stats['steps']}] "
+                f"+{d['tokens_generated']['value']:.0f} tok, run/wait "
+                f"{d['running']['value']:.0f}/{d['waiting']['value']:.0f},"
+                f" pool {d['pool_occupancy']['value']:.0%}, step p50 "
+                f"{1e3 * metrics_mod.hist_quantile(d['step_s'], 0.5):.1f}"
+                f" ms")
+        if d["ttft_s"]["count"]:
+            line += (f", ttft p50 "
+                     f"{1e3 * metrics_mod.hist_quantile(d['ttft_s'], 0.5):.0f}"
+                     f" ms")
+        if eng.cache is not None:
+            line += f", cache hit {d['cache_hit_rate']['value']:.0%}"
+        print(line)
+    return report
 
 
 def _count_calls(calls: Dict[str, int], prefixes) -> int:
@@ -290,16 +360,20 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     cache = (CachePolicy(ttl_steps=args.cache_ttl,
                          max_pages=args.cache_pages)
              if args.cache else None)
+    telemetry = (None if args.no_telemetry
+                 else Telemetry(profile_every=args.profile_every))
     engine = DecodeEngine(cfg, model, page_size=args.page_size,
                           num_pages=args.max_pages, backend=backend,
                           num_lanes=args.num_lanes, fused=args.fused,
                           prefill_chunk=args.prefill_chunk,
                           reserve_pages=args.reserve_pages,
                           max_running=args.max_running, cache=cache,
+                          cascade=args.cascade,
                           faults=(FaultPlan.parse(args.inject)
                                   if args.inject else None),
                           nan_guard=args.nan_guard,
-                          check_every=args.check_every, device=device)
+                          check_every=args.check_every,
+                          telemetry=telemetry, device=device)
     prompts = doc_prompts(args.requests, args.doc_len, args.q_len,
                           cfg.vocab_size, args.seed)
     steps = None
@@ -312,9 +386,12 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     def on_token(rid, tok):
         first_tok.setdefault(rid, time.perf_counter())
 
+    on_step = (metrics_reporter(engine, args.report_every)
+               if telemetry is not None and args.report_every > 0 else None)
     pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
     t_submit = time.perf_counter()
-    res = serve(engine, prompts, args.max_new, profile_steps=args.profile,
+    res = serve(engine, prompts, args.max_new, on_step=on_step,
+                profile_steps=args.profile,
                 profile_top=args.top, arrival_steps=steps,
                 max_steps=max_steps,
                 on_token=on_token if args.stream else None,
@@ -341,6 +418,10 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               + ", ".join(f"{k} {v}" for k, v in res["pressure"].items())
               + f"; peak pages {res['peak_pages']} of "
               f"{engine.pool.num_pages}, {res['allocs']} handed out")
+    if args.cascade:
+        print("cascade prefill: " + ", ".join(
+            f"{k} {engine.stats[k]}" for k in CASCADE_COUNTERS)
+            + f"; prefill {engine.prefill_time():.3f} s of prefill work")
     if engine.fused:
         print(f"fused step: graph replays {engine.fused_step.replays} over "
               f"{engine.stats['fused_calls']} steps, graphs captured "
@@ -408,6 +489,29 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     if unfinished:
         print(f"WARNING: {len(unfinished)} requests unfinished within "
               f"{max_steps} steps: {unfinished}")
+    if telemetry is not None:
+        s = telemetry_summary(telemetry)
+
+        def ms(k):
+            return "-" if s[k] is None else f"{s[k]:.1f} ms"
+        print(f"telemetry: {s['requests_done']:.0f} done, "
+              f"{s['tokens']:.0f} tokens; p50 ttft {ms('ttft_p50_ms')}, "
+              f"tpot {ms('tpot_p50_ms')}, e2e {ms('e2e_p50_ms')}, queue "
+              f"wait {ms('queue_wait_p50_ms')}, step {ms('step_p50_ms')};"
+              f" {s['trace_events']} trace events")
+        if s["profiled_steps"]:
+            print(f"sampled steps ({s['profiled_steps']}, every "
+                  f"{args.profile_every}): p50 host prep "
+                  f"{ms('profile_host_p50_ms')}, launch "
+                  f"{ms('profile_dispatch_p50_ms')}, device wait "
+                  f"{ms('profile_device_p50_ms')}")
+        suffix = f".{backend}" if args.compare else ""
+        if args.trace_out:
+            telemetry.export_trace(args.trace_out + suffix)
+            print(f"trace -> {args.trace_out + suffix}")
+        if args.metrics_out:
+            engine.export_metrics(args.metrics_out + suffix)
+            print(f"metrics -> {args.metrics_out + suffix}")
     print(json.dumps({"backend": backend,
                       "pac_launches": pac_mod.launches,
                       "epilogue_launches": por_mod.epilogue_launches,
@@ -491,6 +595,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="per-row NaN/inf logit guard: poisoned rows "
                          "are quarantined as FAILED instead of "
                          "streaming garbage")
+    ap.add_argument("--cascade", action="store_true",
+                    help="cascade prefill: co-admit waiting requests "
+                         "sharing forest paths, compute shared unfilled "
+                         "spans once a group and batch the per-request "
+                         "suffix chunks into one forward")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="turn off the metrics registry and tracing "
+                         "(on by default)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON (Perfetto, "
+                         "chrome://tracing); with --compare the backend "
+                         "name is suffixed")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics registry as JSON "
+                         "(schema codec-metrics/1)")
+    ap.add_argument("--profile-every", type=int, default=0, metavar="N",
+                    help="wait for the card after every Nth fused step's "
+                         "replay and split it into host prep, launch and "
+                         "device wait (0 = never; other steps untouched)")
+    ap.add_argument("--report-every", type=int, default=0, metavar="N",
+                    help="print a one-line metrics report every N decode "
+                         "steps (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N decode steps with torch.profiler")

@@ -55,7 +55,23 @@ The request lifecycle (``repro``'s DESIGN §11-§12):
   degradation ladder, the NaN guard's quarantine, ``check()`` and
   ``shutdown()``.
 
-Left for later slices: cascade prefill, telemetry and speculation.
+Telemetry and cascade prefill (``repro``'s DESIGN §13-§14):
+
+* ``telemetry=True`` (or a ``telemetry.Telemetry``) keeps a metrics
+  registry in step with the engine's stats and emits per-request and
+  engine spans on the engine clock (Chrome trace JSON); ``profile_every=N``
+  makes every Nth fused step synchronize after its graph replay and split
+  into host preparation, launch and device wait, leaving the other steps
+  as they are;
+* ``cascade=True`` prefills requests that share an unfilled forest node as
+  one group: the shared span once, through the group's lead, then the
+  members' suffix chunks in one padded batch; admitting a head-of-line
+  request pulls its cascade partners out of the queue.  ``repro``'s
+  Mamba hand-off (its ``has_mamba`` branches) waits for the Mamba models
+  (ROADMAP A11) and the replica page lists (``meta["replicas"]``) for the
+  mesh (A12).
+
+Left for later slices: speculation (A9).
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ from ..models.transformer import Transformer
 from . import faults as faults_mod
 from . import sampler
 from . import step_fn as step_fn_mod
+from . import telemetry as telemetry_mod
 from .cache import CachePolicy, PrefixCache
 from .faults import EngineInvariantError, InjectedFault, ResourceExhausted
 from .kv_cache import PagedKVPool
@@ -133,6 +150,10 @@ class Request:
     queue_deadline: Optional[float] = None  # absolute admission deadline
     finish_reason: Optional[str] = None
     notified: bool = False             # on_done already fired
+    # telemetry: engine-clock times a committed token value first/last
+    # became host-visible (None until the first one lands)
+    first_tok_t: Optional[float] = None
+    last_tok_t: Optional[float] = None
 
     @property
     def finished(self) -> bool:
@@ -153,11 +174,12 @@ class DecodeEngine:
                  temperature: float = 0.0, seed: int = 0,
                  prefill_chunk=None, reserve_pages: int = 0,
                  max_running: Optional[int] = None,
+                 cascade: bool = False, max_cascade_group: int = 8,
                  fused: bool = False, cache=None,
                  faults=None, nan_guard: bool = False,
                  check_every: int = 0, clock=None,
                  max_dispatch_retries: int = 4,
-                 device="cuda"):
+                 telemetry=None, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -183,6 +205,15 @@ class DecodeEngine:
         # clock: injectable monotonic time source; deadlines are enforced
         # against it at step boundaries
         self.clock = clock if clock is not None else time.monotonic
+        # telemetry: True builds a default Telemetry, an instance sets
+        # profile_every or a TraceSink; spans ride the engine clock, so a
+        # fake clock gives deterministic traces.  None keeps every hook off
+        if telemetry is True:
+            telemetry = telemetry_mod.Telemetry()
+        self.telemetry: Optional[telemetry_mod.Telemetry] = \
+            telemetry or None
+        if self.telemetry is not None:
+            self.telemetry.bind_clock(self.clock)
         # nan_guard: quarantine a request whose logits turn non-finite
         # (``repro`` rejects it only with a mesh, which the port lacks)
         self.nan_guard = bool(nan_guard)
@@ -229,7 +260,9 @@ class DecodeEngine:
                                     page_size=page_size)
         self.policy = AdmissionPolicy(prefill_chunk=prefill_chunk,
                                       reserve_pages=reserve_pages,
-                                      max_running=max_running)
+                                      max_running=max_running,
+                                      cascade=bool(cascade),
+                                      max_cascade_group=max_cascade_group)
         self.admission = AdmissionController(self.policy, self.cost_model,
                                              page_size)
         self._prefilling: List[int] = []   # admitted, prompt not prefilled
@@ -260,10 +293,15 @@ class DecodeEngine:
                       "failed": 0, "callback_errors": 0,
                       "faults_injected": 0, "dispatch_failures": 0,
                       "dispatch_recoveries": 0, "nan_rows": 0,
-                      "invariant_checks": 0}
+                      "invariant_checks": 0, "cascade_groups": 0,
+                      "cascade_shared_tokens": 0,
+                      "cascade_suffix_tokens": 0, "cascade_batches": 0}
         # one record a step: what it decoded, admitted, preempted,
-        # reclaimed and prefilled, and the queue and pool it left
+        # reclaimed and prefilled, the queue and pool it left, and its
+        # timing (``_decode_timing``: dispatch_time and flush_time; on
+        # sampled steps compute_time, host_time and profiled)
         self.step_stats: List[Dict] = []
+        self._decode_timing: Dict[str, float] = {}
 
         # ---- fused decode: one graph replay a token (step_fn.py) ------ #
         # active only for backends with the jit-safe contract (``ref``
@@ -342,6 +380,11 @@ class DecodeEngine:
         if max_queue_s is not None:
             req.queue_deadline = now + float(max_queue_s)
         self.requests[rid] = req
+        if self.telemetry is not None:
+            self.telemetry.metrics["requests_submitted"].inc()
+            self.telemetry.begin("queued", track=rid,
+                                 args={"prompt_tokens": len(prompt),
+                                       "max_new": max_new})
         edf = [d for d in (req.deadline, req.queue_deadline)
                if d is not None]
         self.admission.push(rid, deadline=min(edf) if edf else None)
@@ -378,7 +421,11 @@ class DecodeEngine:
         first, then admit waiting requests FCFS (head-of-line blocks)
         within the page watermark (reclaiming finished KV and orphaned
         pins, never preempting), the ``max_running`` cap and the step's
-        cost-model prefill budget."""
+        cost-model prefill budget.  With ``cascade=True`` prefilling
+        requests that share an unfilled forest node advance as one
+        cascade group, and admitting a head-of-line request pulls its
+        cascade partners out of the queue so the group prefills
+        together."""
         running_ctx = [self.forest.context_len(r)
                        for r in self._active_rows()]
         budget = self.admission.prefill_budget(running_ctx)
@@ -408,21 +455,334 @@ class DecodeEngine:
             self.flush_tokens()
             self.admission.pop()
             self._admit(head)
-            spent += self._prefill_step(
-                head, None if budget is None else budget - spent)
+            group = [head.rid]
+            if self.policy.cascade:
+                group += self._co_admit_partners(head)
+            spent += self._prefill_group(
+                group, None if budget is None else budget - spent)
 
     def _advance_prefills(self, budget: Optional[int]) -> int:
         """Advance every admitted-but-unfinished prefill by one chunk."""
         spent = 0
-        for rid in list(self._prefilling):
+        if not self.policy.cascade:
+            for rid in list(self._prefilling):
+                if budget is not None and spent >= budget:
+                    return spent
+                req = self.requests[rid]
+                if req.state != PREFILL:   # preempted by an earlier prefill
+                    continue
+                spent += self._prefill_step(
+                    req, None if budget is None else budget - spent)
+            return spent
+        # cascade: regroup every step — membership follows from the forest
+        # (the first unfilled node on each path), so preemption, node
+        # splits and members finishing apart need no group bookkeeping
+        for group in self._prefill_groups():
             if budget is not None and spent >= budget:
                 return spent
-            req = self.requests[rid]
-            if req.state != PREFILL:       # preempted by an earlier prefill
-                continue
-            spent += self._prefill_step(
-                req, None if budget is None else budget - spent)
+            spent += self._prefill_group(
+                group, None if budget is None else budget - spent)
         return spent
+
+    # ------------------------------------------------------------------ #
+    # cascade prefill (``repro``'s DESIGN §14)
+    # ------------------------------------------------------------------ #
+    def _co_admit_partners(self, head: Request) -> List[int]:
+        """Pull the head's cascade partners out of the wait queue: waiting
+        requests whose prompt's deepest shared forest node
+        (``tree.match_path``) lies on the head's freshly inserted path.
+        The page probe and the ``max_running`` cap still apply; a partner
+        failing either keeps its place in the queue."""
+        anchor = {n.id for n in self.forest.path(head.rid) if n.length}
+        if not anchor:
+            return []
+        ps = self.page_size
+
+        def key_of(rid: int) -> Optional[int]:
+            nid, matched = self.forest.match_path(
+                np.asarray(self.requests[rid].seq, np.int32))
+            # under one page shared: insertion would not split a node, so
+            # there is no shared span to cascade over
+            return nid if matched >= ps else None
+
+        admitted: List[int] = []
+        limit = self.policy.max_cascade_group - 1
+        for rid in self.admission.cascade_partners(anchor, key_of, limit):
+            if (self.policy.max_running is not None
+                    and len(self._live()) >= self.policy.max_running):
+                break
+            part = self.requests[rid]
+            if not self._has_pages_for(part):
+                continue
+            self.admission.remove(rid)
+            self._admit(part)
+            admitted.append(rid)
+        return admitted
+
+    def _cascade_key(self, rid: int) -> Optional[int]:
+        """Id of the first not fully filled node on the request's path:
+        prefilling requests with the same key are about to compute the
+        same node's KV (``None``: nothing left to fill)."""
+        for node in self.forest.path(rid):
+            if node.length == 0:
+                continue
+            if min(node.meta.get("filled", 0), node.length) < node.length:
+                return node.id
+        return None
+
+    def _prefill_groups(self) -> List[List[int]]:
+        """Partition ``_prefilling`` into cascade groups (order kept)."""
+        groups: List[List[int]] = []
+        by_key: Dict[int, int] = {}
+        for rid in list(self._prefilling):
+            if self.requests[rid].state != PREFILL:
+                continue
+            key = self._cascade_key(rid)
+            if key is not None and key in by_key:
+                groups[by_key[key]].append(rid)
+            else:
+                if key is not None:
+                    by_key[key] = len(groups)
+                groups.append([rid])
+        return groups
+
+    def _prefill_group(self, group: List[int],
+                       budget: Optional[int]) -> int:
+        group = [r for r in group if self.requests[r].state == PREFILL]
+        if not group:
+            return 0
+        if len(group) == 1:
+            return self._prefill_step(self.requests[group[0]], budget)
+        return self._cascade_prefill_step(group, budget)
+
+    def _shared_frontier(self, group: List[int]) -> int:
+        """Absolute end of the deepest node on every member's path: the
+        span whose compute the group shares."""
+        paths = [self.forest.path(r) for r in group]
+        end = 0
+        for nodes in zip(*paths):
+            nid = nodes[0].id
+            if any(n.id != nid for n in nodes[1:]):
+                break
+            end = nodes[0].end_pos
+        return end
+
+    def _cascade_prefill_step(self, group: List[int],
+                              budget: Optional[int]) -> int:
+        """Advance a cascade group by one chunk.
+
+        Phase A computes the group's shared unfilled span once, through
+        the lead member (``_prefill_step(stop_at=)``), writing the shared
+        nodes' KV as the sequential path does.  Phase B batches the
+        members' suffix chunks into one padded forward
+        (``_batched_suffix_prefill``); members whose next unfilled node is
+        shared with another member recurse as a deeper subgroup, and a
+        fully cached prompt takes the per-request path.  A member stalling
+        on pages is skipped while its siblings go on; a stall on the
+        shared span stalls the group (the span is on every member's
+        path)."""
+        tm = self.telemetry
+        spent = 0
+        alive = [r for r in group if self.requests[r].state == PREFILL]
+        if len(alive) < 2:
+            return self._prefill_group(alive, budget)
+        self.stats["cascade_groups"] += 1
+
+        # ---- phase A: the shared unfilled span, computed once ---------- #
+        lead = self.requests[alive[0]]
+        frontier = self._shared_frontier(alive)
+        if self._filled_front(lead.rid) < frontier:
+            c0 = self.clock() if tm is not None else 0.0
+            n = self._prefill_step(lead, budget, stop_at=frontier)
+            spent += n
+            if n:
+                self.stats["cascade_shared_tokens"] += n * (len(alive) - 1)
+                if tm is not None:
+                    c1 = self.clock()
+                    for rid in alive[1:]:
+                        # the shared chunk belongs to every member's
+                        # prefill span, not the lead's only
+                        tm.complete("prefill_chunk", c0, c1, track=rid,
+                                    args={"tokens": n, "shared": True})
+            if n == 0:
+                self.stats["prefill_stalls"] += len(alive) - 1
+                return spent       # the shared span stalled: group waits
+            if budget is not None and spent >= budget:
+                return spent
+            if self._filled_front(lead.rid) < frontier:
+                return spent       # the chunk ended inside the shared span
+
+        # ---- phase B: the members' suffix chunks, one batch ------------ #
+        alive = [r for r in alive if self.requests[r].state == PREFILL]
+        by_key: Dict[int, List[int]] = {}
+        for rid in alive:
+            key = self._cascade_key(rid)
+            by_key.setdefault(key if key is not None else ~rid,
+                              []).append(rid)
+        batch: List[Tuple[Request, int, int]] = []
+        for key, rids in by_key.items():
+            if budget is not None and spent >= budget:
+                break
+            left = None if budget is None else budget - spent
+            if len(rids) > 1:
+                # a deeper node shared by a strict subset of the group
+                spent += self._cascade_prefill_step(rids, left)
+                continue
+            req = self.requests[rids[0]]
+            if req.state != PREFILL:
+                continue           # preempted by a sibling's allocation
+            total = len(req.seq)
+            start = self._filled_front(req.rid)
+            if start >= total:
+                # fully cached prompt: the per-request path recomputes its
+                # last position and promotes it
+                spent += self._prefill_step(req, left)
+                continue
+            end = total if left is None else min(total, start + left)
+            if not self._ensure_pages_upto(req.rid, end):
+                self.stats["prefill_stalls"] += 1
+                continue           # this member stalls; siblings go on
+            batch.append((req, start, end))
+            spent += end - start
+        # a later member's allocation may have preempted an earlier one
+        # (``repro`` then raises ``KeyError`` in its batch: ROADMAP C)
+        batch = [b for b in batch if b[0].state == PREFILL]
+        if len(batch) == 1:
+            req, start, end = batch[0]
+            self._prefill_step(req, end - start)
+        elif batch:
+            self._batched_suffix_prefill(batch)
+        return spent
+
+    @torch.no_grad()
+    def _batched_suffix_prefill(
+            self, batch: List[Tuple[Request, int, int]]) -> int:
+        """One padded forward over several requests' suffix chunks.
+
+        Each row is a ``(request, start, end)`` span whose pages are
+        ensured and whose KV is filled up to ``start``.  Rows pad to
+        powers of two (``plan.bucket_pow2``) in batch, query length and
+        KV length; padded query slots carry position -1 and padded KV
+        slots are masked by ``kv_valid``.  Each row's prefix is gathered
+        from the pool per layer, its new K/V go to its own nodes' unfilled
+        slots, and rows that complete sample in batch order, each
+        splitting the key once as the sequential path does.  Timed like
+        ``_prefill_step``: a pair of CUDA events on the card."""
+        cfg = self.cfg
+        tm = self.telemetry
+        c0 = self.clock() if tm is not None else 0.0
+        t0 = self._prefill_mark()
+        dev = self.device
+        B = len(batch)
+        Tn = [end - start for _, start, end in batch]
+        T_pad = plan_mod.bucket_pow2(max(Tn))
+        S_pad = plan_mod.bucket_pow2(max(end for _, _, end in batch))
+        B_pad = plan_mod.bucket_pow2(B)
+        tok = np.zeros((B_pad, T_pad), np.int64)
+        qpos = np.full((B_pad, T_pad), -1, np.int64)
+        kv_valid = np.zeros((B_pad, S_pad), bool)
+        for i, (req, start, end) in enumerate(batch):
+            tok[i, :Tn[i]] = req.seq[start:end]
+            qpos[i, :Tn[i]] = start + np.arange(Tn[i])
+            kv_valid[i, :end] = True
+        qpos_t = torch.as_tensor(qpos, device=dev)
+        kv_valid_t = torch.as_tensor(kv_valid, device=dev)
+        kv_pos = torch.arange(S_pad, device=dev)[None].expand(B_pad, S_pad)
+
+        paths = {req.rid: self.forest.path(req.rid) for req, _, _ in batch}
+        segments: Dict[int, List[Tuple[object, int, int]]] = {}
+        for req, start, end in batch:
+            segs, off = [], 0
+            for node in paths[req.rid]:
+                lo = max(0, off - start)
+                hi = min(end, off + node.length) - start
+                if hi > lo:
+                    segs.append((node, lo, hi))
+                off += node.length
+            segments[req.rid] = segs
+
+        x = self.model.embed_tokens(torch.as_tensor(tok, device=dev))
+        new_kv = []  # (layer_attn, k (B_pad, T_pad, kv, hd), v)
+        for j, layer in enumerate(self.layers):
+            h = L.apply_norm(layer.ln, x, cfg)
+            la = self.attn_layer_idx[j]
+            window = (cfg.sliding_window if layer.kind.mixer == "attn_local"
+                      else 0)
+            q, k_new, v_new = L.attn_project(layer.attn, cfg, h, qpos_t)
+            k_all = k_new.new_zeros((B_pad, S_pad) + k_new.shape[2:])
+            v_all = v_new.new_zeros((B_pad, S_pad) + v_new.shape[2:])
+            for i, (req, start, end) in enumerate(batch):
+                pk, pv = self._gather_prefix_upto(la, paths[req.rid], start)
+                k_all[i, :start] = pk
+                v_all[i, :start] = pv
+                k_all[i, start:end] = k_new[i, :Tn[i]]
+                v_all[i, start:end] = v_new[i, :Tn[i]]
+            o = L.mha(q, k_all, v_all, causal=True, window=window,
+                      q_positions=qpos_t, kv_positions=kv_pos,
+                      kv_valid=kv_valid_t)
+            x = x + L.dense(layer.attn.wo,
+                            o.reshape(B_pad, T_pad,
+                                      cfg.num_heads * cfg.head_dim))
+            new_kv.append((la, k_new, v_new))
+            x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+
+        # write each row's new KV into its own nodes' unfilled slots
+        ps = self.page_size
+        pages, offs, rows_b, rows_t = [], [], [], []
+        for i, (req, start, end) in enumerate(batch):
+            for node, lo, hi in segments[req.rid]:
+                filled = node.meta.get("filled", 0)
+                base = node.start_pos - start
+                t_hi = hi - base
+                for t in range(max(filled, lo - base), t_hi):
+                    pages.append(node.page_ids[t // ps])
+                    offs.append(t % ps)
+                    rows_b.append(i)
+                    rows_t.append(base + t)
+                if t_hi > filled:
+                    node.meta["filled"] = t_hi
+        if pages:
+            bi = torch.as_tensor(rows_b, device=dev)
+            ti = torch.as_tensor(rows_t, device=dev)
+            pg = torch.as_tensor(pages, device=dev)
+            of = torch.as_tensor(offs, device=dev)
+            for la, k_new, v_new in new_kv:
+                self.pool.write_tokens(la, pg, of, k_new[bi, ti],
+                                       v_new[bi, ti])
+
+        done = sum(Tn)
+        self.stats["prefill_tokens"] += done
+        self.stats["cascade_suffix_tokens"] += done
+        self.stats["cascade_batches"] += 1
+        # the last position's logits of every row that completes and has
+        # no pending token yet (a resumed request keeps its own)
+        sample = [i for i, (req, _, end) in enumerate(batch)
+                  if end == len(req.seq) and req.pending is None]
+        logits = None
+        if sample:
+            idx = torch.as_tensor(sample, device=dev)
+            last = torch.as_tensor([Tn[i] - 1 for i in sample], device=dev)
+            logits = self.model.unembed(x[idx, last])       # (n, V)
+        for i, (req, start, end) in enumerate(batch):
+            self.stats["recompute_tokens"] += max(
+                0, min(end, req.computed_hwm) - start)
+            req.computed_hwm = max(req.computed_hwm, end)
+            if end < len(req.seq):
+                self.stats["prefill_chunks"] += 1
+                continue
+            if i in sample:
+                row = logits[sample.index(i)][None]
+                req.pending = int(sampler.sample(row, self._split_key(),
+                                                 self.temperature)[0])
+            self._promote(req)
+        self._prefill_done(t0)
+        if tm is not None:
+            c1 = self.clock()
+            for i, (req, _, _) in enumerate(batch):
+                tm.complete("prefill_chunk", c0, c1, track=req.rid,
+                            args={"tokens": Tn[i], "batched": True})
+            tm.observe("prefill_chunk_s", c1 - c0)
+        return done
 
     def _admit(self, req: Request) -> None:
         """(Re-)insert the request's sequence into the forest and release
@@ -442,6 +802,12 @@ class DecodeEngine:
         req.state = PREFILL
         self._prefilling.append(req.rid)
         self.stats["admitted"] += 1
+        if self.telemetry is not None:
+            if req.preemptions == 0 and not req.generated:
+                self.telemetry.observe("queue_wait_s",
+                                       self.clock() - req.submit_t)
+            self.telemetry.end(track=req.rid)          # "queued"
+            self.telemetry.begin("prefill", track=req.rid)
 
     # ------------------------------------------------------------------ #
     # async-token sync (fused path)
@@ -461,6 +827,8 @@ class DecodeEngine:
         """
         if not self._deferred and not self._pending_ref:
             return
+        tm = self.telemetry
+        c0 = self.clock() if tm is not None else 0.0
         t0 = time.perf_counter()
         for e in self._deferred:
             if e.event is not None:
@@ -481,6 +849,7 @@ class DecodeEngine:
                 if (not e.tokens[1, row] and rid not in poisoned
                         and req is not None):   # sampled, never appended
                     poisoned[rid] = len(req.generated)
+        landed: Set[int] = set()
         for e in self._deferred:
             toks = e.tokens[0].numpy()
             for rid, row, gen_idx, node_id, tok_idx in e.patches:
@@ -490,6 +859,7 @@ class DecodeEngine:
                 req = self.requests.get(rid)
                 if req is not None and gen_idx < len(req.generated):
                     req.generated[gen_idx] = tok
+                    landed.add(rid)
                 node = self.forest.nodes.get(node_id)
                 if (node is not None and node.tokens is not None
                         and tok_idx < len(node.tokens)):
@@ -503,7 +873,18 @@ class DecodeEngine:
         self._deferred = []
         self._pending_ref = {}
         self.stats["token_flushes"] += 1
-        self.stats["decode_sync_time"] += time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
+        self.stats["decode_sync_time"] += elapsed
+        # the wait is billed to the step the flush ran in, under its own
+        # key: never to that step's dispatch/device split
+        self._decode_timing["flush_time"] = \
+            self._decode_timing.get("flush_time", 0.0) + elapsed
+        if tm is not None:
+            for rid in landed:
+                self._note_token(self.requests[rid])
+            tm.observe("flush_s", elapsed)
+            tm.complete("flush", c0, self.clock(),
+                        args={"tokens": len(landed)})
         for rid, cut in poisoned.items():
             req = self.requests.get(rid)
             if req is None:
@@ -616,6 +997,11 @@ class DecodeEngine:
         req.preemptions += 1
         self.admission.requeue(rid)
         self.stats["preempted"] += 1
+        if self.telemetry is not None:
+            self.telemetry.end_all(rid)       # prefill/decode span
+            self.telemetry.instant("evict", track=rid,
+                                   args={"pinned_nodes": len(pinned)})
+            self.telemetry.begin("queued", track=rid)
 
     def _reclaimable_pages(self, rid: int) -> int:
         """Pages that preempting ``rid`` would free (its non-shared
@@ -873,6 +1259,17 @@ class DecodeEngine:
         req.state = RUNNING
         if req.rid in self._prefilling:
             self._prefilling.remove(req.rid)
+        if self.telemetry is not None:
+            self.telemetry.end(track=req.rid)         # "prefill"
+            self.telemetry.begin("decode", track=req.rid)
+
+    def _note_token(self, req: Request) -> None:
+        """Telemetry: a committed token value of ``req`` just became
+        host-visible (TTFT and TPOT attribution)."""
+        now = self.clock()
+        if req.first_tok_t is None:
+            req.first_tok_t = now
+        req.last_tok_t = now
 
     def _prefill_mark(self):
         if self.device.type != "cuda":
@@ -900,10 +1297,13 @@ class DecodeEngine:
         return self.stats["prefill_time"]
 
     @torch.no_grad()
-    def _prefill_step(self, req: Request, budget: Optional[int]) -> int:
+    def _prefill_step(self, req: Request, budget: Optional[int],
+                      stop_at: Optional[int] = None) -> int:
         """Advance the request's prefill by one chunk of ``<= budget``
         tokens (``None`` = the whole remaining span); returns tokens
-        computed (0 = stalled on pages, retried next step).
+        computed (0 = stalled on pages, retried next step).  ``stop_at``
+        caps the chunk at an absolute position: cascade phase A stops at
+        the group's shared frontier.
 
         Attention KV of the cached prefix is reused (gathered from the
         paged pool).  A fully cached prompt recomputes only its final
@@ -929,9 +1329,13 @@ class DecodeEngine:
         # a chunk of the budget, never below one new token of progress
         end = total if budget is None else min(
             total, max(start + max(budget, 1), kv_filled + 1))
+        if stop_at is not None and stop_at < end:
+            # never below the minimum-progress floor above
+            end = max(stop_at, min(kv_filled + 1, total))
         if not self._ensure_pages_upto(rid, end):
             self.stats["prefill_stalls"] += 1
             return 0
+        c0 = self.clock() if self.telemetry is not None else 0.0
         t0 = self._prefill_mark()
         dev = self.device
         tokens = torch.as_tensor(np.asarray(seq[start:end], np.int64),
@@ -992,6 +1396,11 @@ class DecodeEngine:
         self.stats["recompute_tokens"] += max(
             0, min(end, req.computed_hwm) - start)
         req.computed_hwm = max(req.computed_hwm, end)
+        if self.telemetry is not None:
+            c1 = self.clock()
+            self.telemetry.complete("prefill_chunk", c0, c1, track=rid,
+                                    args={"tokens": Tn})
+            self.telemetry.observe("prefill_chunk_s", c1 - c0)
         if end < total:
             self.stats["prefill_chunks"] += 1
         elif req.pending is None:
@@ -1021,6 +1430,7 @@ class DecodeEngine:
 
     def _rebuild_plans(self) -> None:
         t0 = time.perf_counter()
+        c0 = self.clock() if self.telemetry is not None else 0.0
         rows = self._active_rows()
         req_rows = {r: i for i, r in enumerate(rows)}
         ps = self.page_size
@@ -1042,6 +1452,11 @@ class DecodeEngine:
         self._plan_dirty = False
         self.stats["replans"] += 1
         self.stats["plan_time"] += time.perf_counter() - t0
+        if self.telemetry is not None:
+            c1 = self.clock()
+            self.telemetry.complete("plan_build", c0, c1,
+                                    args={"rows": len(rows)})
+            self.telemetry.observe("plan_build_s", c1 - c0)
 
     def _advance_qpos(self) -> None:
         """Per-step plan refresh: live queries moved one position; every
@@ -1068,9 +1483,18 @@ class DecodeEngine:
         append pending tokens (evicting under pressure) and decode one
         token per running request under the dispatch degradation ladder;
         then the cache sweep, streaming and stream closes.  Appends the
-        step's record to ``step_stats``."""
+        step's record to ``step_stats``; with telemetry, the step's span,
+        its histograms and the registry's sync."""
+        tm = self.telemetry
         snap = {k: self.stats[k]
                 for k in self._STEP_COUNTERS + self._FAULT_COUNTERS}
+        # the step's timing starts here: a flush run by the deadline sweep
+        # or by admission bills this step's flush_time, never the decode
+        # phase's dispatch/device split
+        self._decode_timing = {}
+        if tm is not None:
+            c_step0 = self.clock()
+            tm.begin("step", args={"step": len(self.step_stats)})
         if self.injector is not None:
             self.injector.tick(len(self.step_stats))
         self._enforce_deadlines()
@@ -1099,6 +1523,7 @@ class DecodeEngine:
         self.step_stats.append({
             "step": len(self.step_stats),
             "decoded": len(out),
+            **self._decode_timing,
             **{k: self.stats[k] - snap[k] for k in self._STEP_COUNTERS},
             "waiting": len(self.admission),
             "prefilling": len(self._prefilling),
@@ -1108,7 +1533,68 @@ class DecodeEngine:
             **{k: self.stats[k] - snap[k] for k in self._FAULT_COUNTERS},
             **cache_stats,
         })
+        if tm is not None:
+            tm.metrics["engine_steps"].inc()
+            t = self._decode_timing
+            if "dispatch_time" in t:
+                tm.observe("dispatch_s", t["dispatch_time"])
+            if t.get("profiled"):
+                tm.observe("profile_dispatch_s", t["dispatch_time"])
+                tm.observe("profile_device_s", t.get("compute_time", 0.0))
+                tm.observe("profile_host_s", t.get("host_time", 0.0))
+            self._publish_telemetry()
+            c_step1 = self.clock()
+            tm.observe("step_s", c_step1 - c_step0)
+            tm.end(args={"decoded": len(out)})            # "step"
         return out
+
+    def _publish_telemetry(self) -> None:
+        """Fold the cumulative engine and cache stats into the registry
+        (monotone counter deltas) and refresh the gauges; runs every step
+        and before any metrics export."""
+        tm = self.telemetry
+        if tm is None:
+            return
+        tm.sync_counters("engine", self.stats,
+                         telemetry_mod.ENGINE_STAT_COUNTERS)
+        gauges = {
+            "pool_occupancy": self.pool.occupancy(),
+            "pool_free_pages": self.pool.num_free,
+            "backoff_pages": self._backoff_pages,
+            "running": len(self._active_rows()),
+            "waiting": len(self.admission),
+            "prefilling": len(self._prefilling),
+        }
+        if self.cache is not None:
+            tm.sync_counters("cache", self.cache.stats,
+                             telemetry_mod.CACHE_STAT_COUNTERS)
+            resident = self.cache.resident_pages()
+            gauges.update(cache_hit_rate=self.cache.hit_rate,
+                          cache_resident_pages=resident,
+                          cache_resident_bytes=resident
+                          * self.pool.page_bytes)
+        if self.fused:
+            # step states kept, one a bucket signature: on the card the
+            # CUDA graphs captured (``repro``: jit cache entries)
+            gauges["compile_count"] = self.fused_cache_size
+        tm.set_gauges(gauges)
+
+    def publish_metrics(self):
+        """Sync point for registry readers: returns the up-to-date
+        ``core.metrics.MetricsRegistry``, or None when telemetry is
+        off."""
+        if self.telemetry is None:
+            return None
+        self._publish_telemetry()
+        return self.telemetry.metrics
+
+    def export_metrics(self, path: str, extra=None) -> None:
+        """Sync and write the schema-tagged metrics JSON."""
+        if self.telemetry is None:
+            raise RuntimeError(
+                "export_metrics needs DecodeEngine(telemetry=...)")
+        self._publish_telemetry()
+        self.telemetry.export_metrics(path, extra=extra)
 
     def _split_key(self) -> torch.Tensor:
         """Advance the engine's key in place (``repro``'s ``self.key, sk
@@ -1211,6 +1697,8 @@ class DecodeEngine:
             else:
                 self.forest.append_token(r, req.pending)
                 req.generated.append(req.pending)
+                if self.telemetry is not None:
+                    self._note_token(req)
             req.pending = None
             try:
                 self._grow_leaf_tail(r)
@@ -1233,6 +1721,8 @@ class DecodeEngine:
         if not rows0:
             return {}
         t0 = time.perf_counter()
+        c0 = self.clock() if self.telemetry is not None else 0.0
+        flush_before = self._decode_timing.get("flush_time", 0.0)
         dev = self.device
         # 1. append pending tokens to leaves
         self._append_pending(rows0)
@@ -1272,8 +1762,11 @@ class DecodeEngine:
                 logits[rows.index(target)] = float("nan")
                 self.stats["faults_injected"] += 1
         self.last_logits, self.last_rows = logits, list(rows)
-        toks = sampler.sample(logits, self._split_key(),
-                              self.temperature).cpu().numpy()
+        toks = sampler.sample(logits, self._split_key(), self.temperature)
+        t1 = time.perf_counter()
+        # the launches are done; the copy to the host waits for the device
+        toks = toks.cpu().numpy()
+        t2 = time.perf_counter()
         bad_rows: List[int] = []
         if self.nan_guard:
             # the eager path syncs every step anyway: the finite check
@@ -1296,7 +1789,20 @@ class DecodeEngine:
             self.stats["nan_rows"] += 1
             self._fail_request(r, "nan_logits", flush=False)
         self.stats["steps"] += 1
+        # a flush inside this phase (a preempting append) billed
+        # flush_time already; keep it out of the dispatch split
+        flush_in = self._decode_timing.get("flush_time", 0.0) \
+            - flush_before
+        self._decode_timing.update(
+            dispatch_time=max(0.0, t1 - t0 - flush_in),
+            compute_time=t2 - t1)
+        self.stats["decode_dispatch_time"] += \
+            self._decode_timing["dispatch_time"]
         self.stats["decode_time"] += time.perf_counter() - t0
+        if self.telemetry is not None:
+            self.telemetry.complete("decode", c0, self.clock(),
+                                    args={"mode": "eager",
+                                          "rows": len(rows)})
         return out
 
     def _attend(self, qb, k_pool, v_pool, window, tail_pages, tail_base,
@@ -1320,6 +1826,14 @@ class DecodeEngine:
         if not rows0:
             return {}
         t0 = time.perf_counter()
+        tm = self.telemetry
+        c0 = self.clock() if tm is not None else 0.0
+        flush_before = self._decode_timing.get("flush_time", 0.0)
+        # sampled profiling (telemetry.profile_every): this step waits for
+        # the device after its replay to split host preparation, launch
+        # and device time; the other steps are left as they are
+        profiled = tm is not None and tm.should_profile(
+            len(self.step_stats))
         # 1. append pending tokens (host ints after a sync or a prefill,
         #    otherwise placeholders for the in-flight step outputs)
         self._append_pending(rows0)
@@ -1367,7 +1881,12 @@ class DecodeEngine:
         #    sampling
         t_d0 = time.perf_counter()
         host, event = self.fused_step()
-        self.stats["decode_dispatch_time"] += time.perf_counter() - t_d0
+        t_d1 = time.perf_counter()
+        if profiled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t_d2 = time.perf_counter()
+        dispatch = t_d1 - t_d0
+        self.stats["decode_dispatch_time"] += dispatch
         self.last_logits = self.fused_step.logits[:len(rows)]
         self.last_rows = list(rows)
         ent = _Deferred(host, event, list(rows))
@@ -1386,6 +1905,13 @@ class DecodeEngine:
                 done_any = True
         self.stats["steps"] += 1
         self.stats["fused_calls"] += 1
+        flush_in = self._decode_timing.get("flush_time", 0.0) \
+            - flush_before
+        self._decode_timing.update(dispatch_time=dispatch)
+        if profiled:
+            self._decode_timing.update(
+                compute_time=t_d2 - t_d1, profiled=True,
+                host_time=max(0.0, t_d0 - t0 - flush_in))
         if done_any:
             # completion boundary: finished streams must be readable
             self.flush_tokens()
@@ -1393,6 +1919,10 @@ class DecodeEngine:
                 if self.requests[r].state == DONE:
                     out[r] = self.requests[r].pending
         self.stats["decode_time"] += time.perf_counter() - t0
+        if tm is not None:
+            tm.complete("decode", c0, self.clock(),
+                        args={"mode": "fused", "rows": len(rows),
+                              "profiled": bool(profiled)})
         return out
 
     def _fused_epoch(self, rows: List[int]) -> None:
@@ -1401,6 +1931,7 @@ class DecodeEngine:
         signature's fixed buffers (captured on first use)."""
         self.flush_tokens()
         t0 = time.perf_counter()
+        c0 = self.clock() if self.telemetry is not None else 0.0
         B = len(rows)
         bucket = plan_mod.bucket_pow2(B)
         req_rows = {r: i for i, r in enumerate(rows)}
@@ -1439,6 +1970,13 @@ class DecodeEngine:
         self._plan_key = plan_mod.plan_key(self.forest, rows)
         self._plan_dirty = False
         self.stats["replans"] += 1
+        if self.telemetry is not None:
+            # on the card a signature's first epoch includes its capture
+            c1 = self.clock()
+            self.telemetry.complete("plan_build", c0, c1,
+                                    args={"rows": len(rows),
+                                          "bucket": bucket})
+            self.telemetry.observe("plan_build_s", c1 - c0)
 
     # ------------------------------------------------------------------ #
     def run(self, max_steps: int = 64) -> Dict[int, List[int]]:
@@ -1543,6 +2081,24 @@ class DecodeEngine:
             return
         req.notified = True
         self.admission.remove(req.rid)   # drop the EDF bookkeeping
+        tm = self.telemetry
+        if tm is not None:
+            reason = req.finish_reason or "done"
+            tm.end_all(req.rid)
+            tm.instant(reason, track=req.rid,
+                       args={"tokens": len(req.generated)})
+            tm.metrics.counter("tokens_generated").inc(len(req.generated))
+            if reason == "done":
+                tm.metrics.counter("requests_done").inc()
+            if req.first_tok_t is not None:
+                tm.observe("ttft_s", req.first_tok_t - req.submit_t)
+                tm.observe("e2e_s",
+                           (req.last_tok_t or req.first_tok_t)
+                           - req.submit_t)
+                if req.last_tok_t is not None and len(req.generated) > 1:
+                    tm.observe("tpot_s",
+                               (req.last_tok_t - req.first_tok_t)
+                               / (len(req.generated) - 1))
         try:
             if self.injector is not None and req.on_done is not None:
                 spec = self.injector.take("callback", rid=req.rid)

@@ -647,3 +647,82 @@ def test_fused_nan_guard_quarantines_one_row_on_card():
         assert eng.stats["nan_rows"] == 1
         eng.check()
         assert eng.shutdown()["used_pages"] == 0
+
+
+# --------------------------------------------------------------------- #
+# telemetry's sampled profiling and cascade prefill
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_profiled_fused_step_captures_the_same_graphs_on_card():
+    """On an H100: with ``Telemetry(profile_every=2)`` the fused engine
+    captures as many graphs, each with the same PAC and epilogue
+    launches, and replays once a step as with telemetry off; the streams
+    are equal at f32, and only the sampled steps carry a device wait."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.telemetry import Telemetry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    runs = {}
+    for tm in (None, Telemetry(profile_every=2)):
+        eng = DecodeEngine(model.cfg, model, page_size=16, num_pages=256,
+                           max_q=8, fused=True, telemetry=tm, device="cuda")
+        streams = _crossing(eng)
+        step = eng.fused_step
+        runs[tm is None] = (streams, step.graphs, step.replays,
+                            [s.launches for s in step.slots.values()],
+                            sorted(eng.bucket_signatures, key=str))
+        if tm is not None:
+            decode = [s for s in eng.step_stats if "dispatch_time" in s]
+            sampled = [s for s in decode if s.get("profiled")]
+            assert sampled and len(sampled) < len(decode)
+            assert all(s["compute_time"] > 0 for s in sampled)
+            assert all("compute_time" not in s for s in decode
+                       if not s.get("profiled"))
+    assert runs[True] == runs[False]
+    assert runs[True][1] == len(runs[True][4]) >= 3
+
+
+@pytest.mark.cuda
+def test_batched_suffix_prefill_writes_the_sequential_slots_on_card():
+    """On an H100: cascade prefill's padded batch writes the same K/V into
+    the same pool slots as per-request prefill (f32, within 1e-5), and
+    the streams are equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    # the decoy takes the first four 32-token budgets while the questions
+    # queue; the 80-token document ends mid budget, so the suffixes batch
+    doc = list(range(10, 10 + 80))
+    decoy = list(range(300, 300 + 128))
+    prompts = [decoy] + [doc + [110 + 7 * i + j for j in range(3 + i)]
+                         for i in range(4)]
+    out = {}
+    for cascade in (False, True):
+        eng = DecodeEngine(model.cfg, model, page_size=16, num_pages=256,
+                           max_q=8, prefill_chunk=32, cascade=cascade,
+                           device="cuda")
+        rids = [eng.add_request(p, max_new=4) for p in prompts]
+        while any(eng.requests[r].state in ("waiting", "prefill")
+                  for r in rids):
+            eng.step()
+        # every prompt's K/V, read back through its forest path
+        kv = {}
+        for r in rids:
+            n = len(prompts[rids.index(r)])
+            path = eng.forest.path(r)
+            ks, vs = zip(*(eng._gather_prefix_upto(la, path, n)
+                           for la in range(model.cfg.num_layers)))
+            kv[r] = (torch.stack(ks), torch.stack(vs))
+        streams = eng.run(32)
+        out[cascade] = (kv, {r: list(streams[r]) for r in rids}, eng.stats)
+    (kv0, s0, _), (kv1, s1, st) = out[False], out[True]
+    assert st["cascade_batches"] >= 1 and st["cascade_groups"] >= 1, st
+    assert s1 == s0
+    for r in kv0:
+        for a, b in zip(kv0[r], kv1[r]):
+            assert torch.isfinite(b).all()
+            assert (a - b).abs().max().item() <= 1e-5, r

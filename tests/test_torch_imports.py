@@ -24,8 +24,11 @@ def test_port_imports_with_jax_blocked():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "for m in ('engine', 'step_fn', 'sampler', 'cache', 'faults'):\n"
+        "for m in ('engine', 'step_fn', 'sampler', 'cache', 'faults',"
+        " 'telemetry'):\n"
         "    assert 'repro_torch.serving.' + m in mods, mods\n"
+        "for m in ('metrics', 'tree', 'scheduler'):\n"
+        "    assert 'repro_torch.core.' + m in mods, mods\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
         " or k.startswith('repro.') for k, v in sys.modules.items()"
         " if v is not None)\n"
