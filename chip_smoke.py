@@ -38,8 +38,11 @@ Phases (any failure raises and the script exits non-zero):
    pool and plan): the engine's attention, the ``flash`` backend over a
    per-request plan and ``flash_decode`` over a dense copy of every
    request's context must agree; PAC under both plans, ``flash_decode``
-   and one SDPA call are timed against their bounds, and PAC once more
-   over the codec plan rebuilt at 32 lanes;
+   and SDPA are timed against their bounds (SDPA twice: the math path
+   with ``enable_gqa``, and the memory-efficient backend over K/V
+   expanded to the query heads outside the timed region; the faster is
+   the library time), and PAC once more over the codec plan rebuilt at
+   32 lanes;
 5. serve the same workload again through the ``flash`` backend (36
    layers), with the same launch counts, and print its TPOT beside
    ``codec-cuda``'s;
@@ -104,7 +107,22 @@ Phases (any failure raises and the script exits non-zero):
    fused and with the cache, and phase 8's pressured arrivals with
    cascade on and off; PAC and the epilogue launch (into the graphs) in
    every run, which leaks no page and passes ``check()``;
-11. print the ``kernels`` JSON line and the closing device line.
+11. tree-speculative decoding: (a) on phase 3's model, 8 questions over
+   a 2048-token document made of 32 copies of a seeded 64-token block, 64
+   greedy tokens each, ``SpecConfig()`` fused, speculative eager and
+   non-speculative fused in turns, twice: verify dispatches, drafts
+   proposed and accepted, committed tokens per dispatch, rows per verify
+   step, graphs captured and their seconds, each verify replay's device
+   time (CUDA events), TPOT per committed token beside non-speculative
+   fused, the bf16 streams equal as a count; PAC and the epilogue with no
+   tail once a layer and verify step (once a layer in each graph), and
+   both against their plain versions at the widest verify step's plan
+   (NaN in dead slots, four q/KV type pairs); (b) on phase 6's 4-layer
+   f32 model, speculative streams equal non-speculative ones for
+   ``codec-cuda``, ``flash`` and ``hydragen``, eager and fused, and under
+   phase 8's pressured arrivals with ``max_nodes=1``, with no page, node
+   or draft left and ``check()`` passing;
+12. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -755,7 +773,8 @@ def phase_serve(timer):
          "launches": launches["por"], "max_abs_err": por_err,
          "ms": por_ms, "plain_ms": por_plain_ms, "bound_ms": por_b,
          "bound_by": por_by, "library_ms": None},
-        {"name": "por_epilogue", "route": "cuda",
+        {"name": "por_epilogue (tail; tail=False in the verify step)",
+         "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/por.cu",
          "replaces": "src/repro/kernels/por.py:44, "
                      "src/repro/kernels/ops.py:80, "
@@ -864,6 +883,21 @@ def phase_compare(engine, timer):
 
     sdpa_err = max_err([sdpa()[:, :, 0]], [o_c])
     backend = sdpa_backend(sdpa)
+    # the same call on the memory-efficient backend, which takes no
+    # enable_gqa: K and V expanded to the query heads outside the timed
+    # region
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = cfg.num_heads // cfg.num_kv_heads
+    k_e = k_s.repeat_interleave(group, dim=1)
+    v_e = v_s.repeat_interleave(group, dim=1)
+
+    def sdpa_eff():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q_s, k_e, v_e, attn_mask=mask)
+
+    eff_err = max_err([sdpa_eff()[:, :, 0]], [o_c])
+    eff_backend = sdpa_backend(sdpa_eff)
 
     esize = k_pool.element_size()
     io_c = forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
@@ -888,6 +922,7 @@ def phase_compare(engine, timer):
             ("pac_flash", lambda: pac_mod.pac(q_bf, pa_f, k_pool, v_pool)),
             ("fd", lambda: fd.flash_decode(q_bf, kd, vd, kv_lens)),
             ("sdpa", sdpa),
+            ("sdpa_eff", sdpa_eff),
             ("pac_flash_plain", lambda: pac_mod.pac_torch(
                 q_bf[pa_f.q_gather.long()], pa_f.q_pos, k_pool, v_pool,
                 pa_f.task_pages, pa_f.task_kvlen, pa_f.task_pos)),
@@ -913,8 +948,12 @@ def phase_compare(engine, timer):
     log(f"  flash_decode     {t['fd']:.4f} ms/launch, mean of 20 (median "
         f"{med['fd']:.4f}; bound {b_fd:.4f} by {by_fd}; plain "
         f"{t['fd_plain']:.4f}); launches {fd_launches}")
-    log(f"  SDPA ({backend}) {t['sdpa']:.4f} ms/call, max|err| vs "
-        f"flash_decode {sdpa_err:.3e}")
+    log(f"  SDPA ({backend}) {t['sdpa']:.4f} ms/call (median "
+        f"{med['sdpa']:.4f}), max|err| vs flash_decode {sdpa_err:.3e}; SDPA "
+        f"under sdpa_kernel(EFFICIENT_ATTENTION), K/V expanded to {cfg.num_heads}"
+        f" heads ({eff_backend}) {t['sdpa_eff']:.4f} ms/call (median "
+        f"{med['sdpa_eff']:.4f}), max|err| {eff_err:.3e}; the faster is the "
+        f"library time")
     log(f"  flash plan / codec plan PAC time "
         f"{t['pac_flash'] / t['pac_codec']:.2f}x; flash_decode / "
         f"codec-plan PAC {t['fd'] / t['pac_codec']:.2f}x (medians "
@@ -926,7 +965,8 @@ def phase_compare(engine, timer):
             "replaces": "src/repro/kernels/flash_decode.py:91",
             "launches": fd_launches, "max_abs_err": fd_err,
             "ms": t["fd"], "plain_ms": t["fd_plain"], "bound_ms": b_fd,
-            "bound_by": by_fd, "library_ms": t["sdpa"]}
+            "bound_by": by_fd,
+            "library_ms": min(t["sdpa"], t["sdpa_eff"])}
 
 
 # --------------------------------------------------------------------- #
@@ -1152,8 +1192,8 @@ def pressured_serve(cfg, model, backend, fused, pages, top2=None,
 
     def on_step(eng):
         rows = eng.step_stats[-1]["decoded"]
-        if not rows:
-            return
+        if not rows or eng.spec is not None:   # verify rows are not
+            return                             # the requests' rows
         if widest[0] is None or rows > len(widest[0].request_ids):
             widest[0] = decode_shape(eng.forest, eng.last_rows)
         if fused:                  # the logits are read after a flush only
@@ -1177,18 +1217,22 @@ def pressured_serve(cfg, model, backend, fused, pages, top2=None,
         (tag, lens)
     assert all(finite), (tag, "non-finite logits")
     assert engine.stats["nonfinite_rows"] == 0, tag
+    n_pac = 0 if backend == "hydragen" else n_attn
     if fused:
-        step = engine.fused_step
+        step = engine.fused_step or engine.spec_step
         assert step.replays == res["steps"] == engine.stats["fused_calls"], \
             (tag, step.replays, res["steps"])
         assert step.graphs == len(engine.bucket_signatures) \
             == res["graphs"] == res["signatures"], tag
         held = [slot.launches for slot in step.slots.values()]
-        assert held == [(n_attn, n_attn)] * step.graphs, (tag, held)
+        assert held == [(n_pac, n_attn)] * step.graphs, (tag, held)
     else:
         expect = n_attn * res["steps"]
-        assert launches == {"pac": expect, "por_epilogue": expect,
+        assert launches == {"pac": n_pac * res["steps"],
+                            "por_epilogue": expect,
                             "por": 0}, (tag, launches, expect)
+    engine.check()
+    assert not engine._drafts, tag
     for rid in list(engine.requests):
         engine.release(rid)
     engine.pool.allocator.check()
@@ -1876,6 +1920,311 @@ def phase_cascade_telemetry_f32():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 11: tree-speculative decoding
+# --------------------------------------------------------------------- #
+P11_REQUESTS, P11_BLOCK, P11_DOC, P11_Q, P11_NEW = 8, 64, 2048, 64, 64
+# phase 11b's document runs: tokens a request (its pressured runs take
+# phase 8's P8_NEW)
+P11F_NEW = 32
+
+
+def spec_prompts(vocab):
+    """8 questions (64 tokens each, seed 11) over one shared 2048-token
+    document built by repeating a seeded 64-token block: text with the
+    repetition a self-drafting proposer feeds on."""
+    rng = np.random.default_rng(11)
+    block = rng.integers(1, vocab, P11_BLOCK).tolist()
+    doc = block * (P11_DOC // P11_BLOCK)
+    return [doc + rng.integers(1, vocab, P11_Q).tolist()
+            for _ in range(P11_REQUESTS)]
+
+
+def spec_serve(cfg, model, backend, mode, prompts, max_new, widest=None):
+    """Serve ``prompts`` through one engine in ``mode`` (``spec-fused``,
+    ``spec-eager``, ``fused`` or ``eager``; ``spec`` is ``SpecConfig()``);
+    checks the launches (PAC and the epilogue once a layer and verify
+    step eager, or once a layer in every captured graph), ``check()`` and
+    that no page, node or draft is left.  Returns ``serve``'s result with
+    the engine's stats, the graphs' capture seconds and, for
+    ``spec-fused``, each verify replay's device milliseconds (CUDA
+    events).  ``widest``: a dict that gets the verify plan (window 0) and
+    row count of the step with the most rows."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.speculation import SpecConfig
+    spec = mode.startswith("spec")
+    fused = mode.endswith("fused")
+    engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                          num_lanes=LANES, max_q=MAX_Q, backend=backend,
+                          fused=fused,
+                          speculative=SpecConfig() if spec else None,
+                          device="cuda")
+    rows = []                   # verify rows a step
+    if spec:
+        name = "_spec_verify_fused" if fused else "_spec_verify_eager"
+        verify = getattr(engine, name)
+
+        def record(tokens, q_pos, w_page, w_off, plans):
+            rows.append(len(tokens))
+            if widest is not None and len(tokens) > widest.get("rows", 0):
+                widest.update(rows=len(tokens), plan=plans[0],
+                              pages=engine.pool.num_pages + 1)
+            return verify(tokens, q_pos, w_page, w_off, plans)
+        setattr(engine, name, record)
+    if spec and fused:
+        engine.spec_step.replay_events = []
+    reset_launches()
+    res = serve(engine, prompts, max_new)
+    launches = read_launches()
+    tag = f"{backend} {mode} {cfg.num_layers} layers"
+    st = engine.stats
+    res["stats"] = dict(st)
+    lens = sorted({len(t) for t in res["streams"].values()})
+    assert lens == [max_new], (tag, lens)
+    n_attn = len(engine.attn_layer_idx)
+    n_pac = 0 if backend == "hydragen" else n_attn
+    step = engine.fused_step or engine.spec_step
+    assert launches["por_epilogue"] > 0 and (launches["pac"] > 0
+                                             or n_pac == 0), (tag, launches)
+    if fused:
+        held = [slot.launches for slot in step.slots.values()]
+        assert held == [(n_pac, n_attn)] * step.graphs, (tag, held)
+        assert step.replays == res["steps"] == st["fused_calls"], tag
+        assert 1 <= step.graphs == len(engine.bucket_signatures), tag
+    else:
+        assert launches == {"pac": n_pac * res["steps"],
+                            "por_epilogue": n_attn * res["steps"],
+                            "por": 0}, (tag, launches)
+    res["launches"] = launches
+    res["rows"] = rows
+    if spec:
+        assert st["spec_steps"] == res["steps"] and st["spec_proposed"] > 0, \
+            (tag, st)
+    if spec and fused:
+        torch.cuda.synchronize()
+        res["replay_ms"] = [a.elapsed_time(b)
+                            for a, b in step.replay_events]
+    release_all(tag, engine)
+    assert not engine._drafts, tag
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_verify(tag, widest, gen, timer=None):
+    """PAC and the no-tail epilogue against their plain versions at the
+    widest verify step's plan, bucketed as the fused step holds it: a
+    fresh pool of the engine's page count with NaN at every position no
+    valid plan step covers, PAC's outputs pre-filled with NaN, the
+    epilogue's output too; q and KV in each pair of types; padded rows
+    come out zero.  With ``timer``: PAC and the epilogue timed at f32 KV
+    and bf16 q (the engine's types).  Returns (PAC max|err| f32 KV,
+    epilogue max|err| f32 q, bf16 steps, timings)."""
+    from repro_torch.core.plan import bucket_plan, bucket_pow2
+    from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
+    rows = widest["rows"]
+    plan = bucket_plan(widest["plan"], bucket_pow2(rows))
+    pa = ops.upload(ops.PlanArrays, ops.plan_host_arrays(plan, padded=True),
+                    "cuda")
+    B = plan.num_queries
+    covered = torch.zeros(widest["pages"], PAGE, dtype=torch.bool,
+                          device="cuda")
+    valid = plan.step_valid.astype(bool)
+    for pg, n in zip(plan.step_page[valid], plan.step_kvlen[valid]):
+        covered[int(pg), :int(n)] = True
+    k = torch.randn(widest["pages"], PAGE, N_KV, D, generator=gen,
+                    device="cuda")
+    v = torch.randn(widest["pages"], PAGE, N_KV, D, generator=gen,
+                    device="cuda")
+    q = torch.randn(B, H_Q, D, generator=gen, device="cuda")
+    nan = float("nan")
+    k_nan = k.masked_fill(~covered[..., None, None], nan)
+    v_nan = v.masked_fill(~covered[..., None, None], nan)
+    live = live_slots(pa)
+    pac_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    o_err, ulps, timing = 0.0, 0, {}
+    for qdt, kvdt in EPI_TYPES:
+        qc, kc, vc = q.to(qdt), k_nan.to(kvdt), v_nan.to(kvdt)
+        Tp1, max_q = pa.q_gather.shape
+        raw = (torch.full((Tp1, max_q, H_Q, D), nan, device="cuda"),
+               torch.full((Tp1, max_q, H_Q), nan, device="cuda"),
+               torch.full((Tp1, max_q, H_Q), nan, device="cuda"))
+        o, m, l = pac_mod.pac(qc, pa, kc, vc, out=raw)
+        plain = pac_mod.pac_torch(qc[pa.q_gather.long()], pa.q_pos,
+                                  k.to(kvdt), v.to(kvdt), pa.task_pages,
+                                  pa.task_kvlen, pa.task_pos)
+        pac_err[kvdt] = max(pac_err[kvdt], assert_close(
+            f"pac {tag} q {qdt} kv {kvdt}", [x[live] for x in (o, m, l)],
+            [x[live] for x in plain], TOL[kvdt]))
+        parts = ops.Parts(o.view(-1, H_Q, D), m.view(-1, H_Q),
+                          l.view(-1, H_Q), pa.seg_offsets, pa.seg_rows)
+        out = torch.full_like(qc, nan)
+        got = por_mod.por_epilogue(qc, *parts, kc, None, None, None, None,
+                                   stats=True, out=out, tail=False)
+        want = por_mod.por_epilogue_torch(qc, *parts, None, None, None,
+                                          None, None, tail=False)
+        torch.cuda.synchronize()
+        etag = f"no-tail epilogue {tag} q {qdt} kv {kvdt}"
+        assert all(bool(torch.isfinite(g).all()) for g in got), etag
+        assert bool((got[0][rows:] == 0).all()), (etag, "padded rows")
+        assert_close(etag, got[1:], want[1:], EPI_TOL)
+        if qdt == torch.bfloat16:
+            ulps = max(ulps, bf16_ulps(got[0], want[0]))
+            assert ulps <= EPI_ULPS, (etag, ulps)
+        else:
+            o_err = max(o_err, assert_close(etag, got[:1], want[:1],
+                                            EPI_TOL))
+        if timer is not None and (qdt, kvdt) == (torch.bfloat16,
+                                                 torch.float32):
+            timing["pac"] = timer(lambda: pac_mod.pac(qc, pa, kc, vc))
+            timing["pac_med"] = timer.median
+            timing["pac_plain"] = timer(lambda: pac_mod.pac_torch(
+                qc[pa.q_gather.long()], pa.q_pos, kc, vc, pa.task_pages,
+                pa.task_kvlen, pa.task_pos))
+            timing["epi"] = timer(lambda: por_mod.por_epilogue(
+                qc, *parts, kc, None, None, None, None, tail=False))
+            timing["epi_med"] = timer.median
+            timing["epi_plain"] = timer(lambda: por_mod.por_epilogue_torch(
+                qc, *parts, None, None, None, None, None, tail=False))
+            timing["pac_bound"] = pac_bound(plan, pa, qc, kc)
+            no_tail = [torch.zeros(B, dtype=torch.long, device="cuda"),
+                       torch.zeros(B, dtype=torch.long, device="cuda"),
+                       torch.full((B,), -1, dtype=torch.long,
+                                  device="cuda")]
+            timing["epi_bound"] = epilogue_bound(qc, parts, kc, no_tail)
+    log(f"  {tag}: {rows} rows in bucket {B}, {plan.num_tasks} tasks, "
+        f"{int(valid.sum())} page steps ({int((plan.step_kvlen[valid] == 1).sum())}"
+        f" of one token), {int(pa.seg_offsets[-1])} live partial rows: PAC "
+        f"max|err| f32 KV {pac_err[torch.float32]:.3e}, bf16 KV "
+        f"{pac_err[torch.bfloat16]:.3e}; no-tail epilogue f32 o max|err| "
+        f"{o_err:.3e}, bf16 o within {ulps} step(s); padded rows zero")
+    return pac_err[torch.float32], o_err, ulps, timing
+
+
+def phase_speculation(cfg, model, timer):
+    """Phase 11a at full depth on phase 3's bf16 model: ``SpecConfig()``
+    fused, speculative eager and non-speculative fused in turns, twice,
+    over 8 questions on a repeated-block document; then PAC and the
+    no-tail epilogue against their plain versions at the widest verify
+    step's plan."""
+    prompts = spec_prompts(cfg.vocab_size)
+    log(f"  11a. {P11_REQUESTS} questions of {P11_Q} tokens over a "
+        f"{P11_DOC}-token document ({P11_DOC // P11_BLOCK} copies of a "
+        f"seeded {P11_BLOCK}-token block), {P11_NEW} greedy tokens each, "
+        f"SpecConfig() (depth 4, branch 2, 6 nodes)")
+    runs = {"spec-fused": [], "spec-eager": [], "fused": []}
+    widest = {}
+    for _ in range(2):
+        for mode in runs:
+            r = spec_serve(cfg, model, "codec-cuda", mode, prompts, P11_NEW,
+                           widest=widest if mode == "spec-fused" else None)
+            runs[mode].append(r)
+            st = r["stats"]
+            tokens = sum(len(t) for t in r["streams"].values())
+            decode_s = r["loop_s"] - r["capture_s"] - r["prefill_loop_s"]
+            per_tok = 1e3 * decode_s * P11_REQUESTS / tokens
+            with_cap = 1e3 * (r["loop_s"] - r["prefill_loop_s"]) \
+                * P11_REQUESTS / tokens
+            r["tpot_tok_ms"], r["tpot_tok_cap_ms"] = per_tok, with_cap
+            held = (f"{r['launches']['pac']} PAC and "
+                    f"{r['launches']['por_epilogue']} epilogue launches"
+                    if not mode.endswith("fused") else
+                    f"{cfg.num_layers} PAC and {cfg.num_layers} epilogue "
+                    f"launches in each graph")
+            line = (f"  {mode:<10}: {r['steps']} decode steps for {tokens} "
+                    f"tokens, {held}; TPOT per committed token {per_tok:.3f} ms "
+                    f"({with_cap:.3f} ms with the {r['capture_s']:.3f} s of "
+                    f"captures); {r['graphs']} graph(s) for "
+                    f"{r['signatures']} signature(s)")
+            if mode.startswith("spec"):
+                line += (f"; spec_steps {st['spec_steps']}, proposed "
+                         f"{st['spec_proposed']}, accepted "
+                         f"{st['spec_accepted']} "
+                         f"({st['spec_accepted'] / max(st['spec_proposed'], 1):.1%}),"
+                         f" draft stalls {st['spec_draft_stalls']}; "
+                         f"{tokens / st['spec_steps']:.2f} committed tokens "
+                         f"per verify dispatch "
+                         f"({tokens / st['spec_steps'] / P11_REQUESTS:.3f} a "
+                         f"request); rows per verify step "
+                         f"{statistics.mean(r['rows']):.1f} mean, "
+                         f"{max(r['rows'])} max")
+            if mode == "spec-fused":
+                ms = r["replay_ms"]
+                line += (f"; verify replay on the device {statistics.mean(ms):.3f}"
+                         f" ms mean (median {statistics.median(ms):.3f}, max "
+                         f"{max(ms):.3f}) over {len(ms)} replays; capture "
+                         f"{r['capture_s'] / max(r['graphs'], 1):.3f} s a "
+                         f"graph")
+            log(line)
+    base = runs["fused"]
+    for i in range(2):
+        sf, se = runs["spec-fused"][i], runs["spec-eager"][i]
+        n = len(base[i]["streams"])
+        eq_f = sum(sf["streams"][r] == base[i]["streams"][r]
+                   for r in base[i]["streams"])
+        eq_e = sum(se["streams"][r] == base[i]["streams"][r]
+                   for r in base[i]["streams"])
+        eq_fe = sum(sf["streams"][r] == se["streams"][r] for r in se["streams"])
+        log(f"  pair {i + 1}: TPOT per committed token spec-fused / fused "
+            f"{sf['tpot_tok_ms'] / base[i]['tpot_tok_ms']:.3f} "
+            f"(with captures {sf['tpot_tok_cap_ms'] / base[i]['tpot_tok_cap_ms']:.3f}),"
+            f" spec-eager / fused "
+            f"{se['tpot_tok_ms'] / base[i]['tpot_tok_ms']:.3f}; bf16 streams "
+            f"equal to non-speculative fused: spec-fused {eq_f} of {n}, "
+            f"spec-eager {eq_e} of {n}; spec-fused equal to spec-eager "
+            f"{eq_fe} of {n} (asserted at f32 in 11b)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pac_err, epi_err, ulps, t = check_verify("widest verify step", widest,
+                                             gen, timer)
+    pb, pby = t["pac_bound"]
+    eb, eby = t["epi_bound"]
+    log(f"  at the widest verify step: PAC {t['pac']:.4f} ms (median "
+        f"{t['pac_med']:.4f}; plain {t['pac_plain']:.4f}; bound {pb:.4f} by "
+        f"{pby}); no-tail epilogue {t['epi']:.4f} ms (median "
+        f"{t['epi_med']:.4f}; plain {t['epi_plain']:.4f}; bound {eb:.5f} "
+        f"by {eby}); means of 20")
+    return runs
+
+
+def phase_speculation_f32():
+    """Phase 11b on phase 6's 4-layer f32 model: speculative streams
+    equal non-speculative ones for ``codec-cuda``, ``flash`` and
+    ``hydragen``, eager and fused, on 11a's prompts and under phase 8's
+    pressured arrivals with ``SpecConfig(max_nodes=1)``; no page, node or
+    draft is left and ``check()`` passes in every run."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.speculation import SpecConfig
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    prompts = spec_prompts(cfg.vocab_size)
+    for backend in ("codec-cuda", "flash", "hydragen"):
+        want = spec_serve(cfg, model, backend, "eager", prompts,
+                          P11F_NEW)["streams"]
+        acc = []
+        for mode in ("spec-eager", "spec-fused"):
+            r = spec_serve(cfg, model, backend, mode, prompts, P11F_NEW)
+            diff = first_difference(want, r["streams"])
+            assert diff is None, (backend, mode, diff)
+            acc.append(r["stats"]["spec_accepted"])
+        ref = pressured_serve(cfg, model, backend, False, P8_FREE_PAGES)
+        for fused in (False, True):
+            r = pressured_serve(cfg, model, backend, fused, P8_PAGES,
+                                speculative=SpecConfig(max_nodes=1))
+            diff = first_difference(ref["streams"], r["streams"])
+            assert diff is None, (backend, fused, diff)
+            assert r["pressure"]["preempted"] >= 1, (backend, r["pressure"])
+        log(f"  {backend} {cfg.num_layers} layers f32: speculative streams "
+            f"equal non-speculative ones, eager and fused ({P11_REQUESTS} x "
+            f"{P11F_NEW} tokens, accepted {acc[0]} / {acc[1]}), and under "
+            f"phase 8's arrivals on {P8_PAGES} pages with max_nodes=1 "
+            f"({P8_REQUESTS} x {P8_NEW} tokens, preempted "
+            f"{r['pressure']['preempted']}); check() passed, nothing left")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1942,11 +2291,21 @@ def main() -> int:
 
     log("== 10. cascade prefill and telemetry")
     phase_cascade_telemetry(cfg, model)
+
+    log("== 11. tree-speculative decoding: self-drafted trees verified in "
+        "one dispatch, eager and fused")
+    t11 = time.perf_counter()
+    phase_speculation(cfg, model, timer)
+    t11a = time.perf_counter() - t11
     del model
     torch.cuda.empty_cache()
     phase_pressure_f32()
     phase_lifecycle_f32()
     phase_cascade_telemetry_f32()
+    t11 = time.perf_counter()
+    phase_speculation_f32()
+    log(f"  phase 11: 11a {t11a:.1f} s, 11b {time.perf_counter() - t11:.1f}"
+        f" s")
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

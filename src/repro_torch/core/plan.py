@@ -301,6 +301,39 @@ def build_plan(forest: PrefixForest,
         subtasks=list(subs))
 
 
+def build_verify_plan(forest: PrefixForest,
+                      cost_model: CostModel,
+                      query_rows: Dict[int, int],
+                      num_lanes: int = 2,
+                      max_q: int = 64,
+                      max_kv_per_task: Optional[int] = 4096,
+                      window: int = 0,
+                      kind: str = "codec") -> DecodePlan:
+    """Compile a multi-query *verification* plan (speculative decoding).
+
+    A verification step scores every branch head of every request's
+    draft tree in one dispatch: each draft node carries a virtual query
+    id attached to it (``PrefixForest.attach_request``), and
+    ``query_rows`` maps every query id — the request's committed-tail
+    base query plus one per draft node — to its row in the stacked
+    query tensor.  Sibling branches share all ancestor KV, so the plan's
+    shared-node tasks read the trunk once for all branch-head lanes
+    (the paper's §2.5 speculative-verification workload).
+
+    Unlike the engine's frozen decode plan, nothing is truncated: the
+    growing tail pages and the one-token draft nodes are all covered —
+    the verify dispatch writes their KV before attending, and the plan
+    is rebuilt every speculative step anyway (the draft tree changes),
+    so there is no frozen/tail split: the epilogue runs without a tail
+    (``por.por_epilogue(tail=False)``).  ``kind`` selects the planner
+    family the backend declares (``AttentionBackend.plan_kind``):
+    ``"codec"`` shares prefix tasks, ``"flash"`` clones per-query tasks.
+    """
+    build = flash_plan if kind == "flash" else build_plan
+    return build(forest, cost_model, num_lanes, max_q, max_kv_per_task,
+                 req_rows=query_rows, window=window)
+
+
 def bucket_pow2(n: int, floor: int = 1) -> int:
     """Smallest power of two >= ``n`` (at least ``floor``).
 

@@ -86,6 +86,14 @@ class AdmissionPolicy:
     below it, keeping headroom for decode growth of the running batch.
     ``max_running``: cap on admitted (prefilling + decoding) requests.
 
+    ``draft_reserve_pages``: extra per-running-request headroom the
+    speculative engine keeps for draft-tree pages (each draft node
+    occupies one page for the duration of a verify step).  Draft
+    allocation itself is best-effort — the engine skips proposing
+    rather than evicting to make room — so this watermark only shapes
+    *admission*, keeping the pool from being packed so tight that
+    speculation never gets to draft.
+
     ``cascade``: co-schedule waiting requests whose prompts share forest
     paths with a just-admitted request (group key = deepest shared node
     per ``tree.match_path``) so cascade prefill computes the shared span
@@ -99,14 +107,13 @@ class AdmissionPolicy:
     max_running: Optional[int] = None
     balance_ratio: float = 4.0
     max_auto_chunk: int = 16384
+    draft_reserve_pages: int = 0
     cascade: bool = False
     max_cascade_group: int = 8
 
     def admission_reserve(self, num_running: int) -> int:
-        """Free-page watermark admission must stay above (the same for
-        any batch size until speculation's per-request draft reserve is
-        ported)."""
-        return self.reserve_pages
+        """Free-page watermark admission must stay above."""
+        return self.reserve_pages + self.draft_reserve_pages * num_running
 
     def min_working_pages(self, seq_len: int, page_size: int) -> int:
         """Smallest page count that can ever make progress on a sequence.

@@ -16,7 +16,7 @@ nodes only at page boundaries.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -86,6 +86,33 @@ class PrefixForest:
         return self._new_node(parent, int(length),
                               self.nodes[parent].end_pos, tokens)
 
+    def add_draft(self, parent: int, token: int) -> Node:
+        """Grow a one-token *draft* node under ``parent``.
+
+        Draft nodes hold speculative continuations (serving/speculation):
+        sibling drafts share all ancestor KV, and each draft node is one
+        branch position a verification plan can query.  They are marked
+        ``meta["draft"] = True`` so engine invariants (eviction, release)
+        can tell them from committed nodes; remove them with
+        ``prune_leaf`` once verification accepts or rejects them.
+        """
+        node = self.add_node(parent, 1, np.asarray([token], np.int32))
+        node.meta["draft"] = True
+        return node
+
+    def add_chain(self, request_id: int, lengths: Sequence[int],
+                  parent: int = ROOT_ID) -> int:
+        """Append a chain of nodes under ``parent`` and attach a request.
+
+        Used by synthetic workload builders where only lengths matter.
+        Returns the leaf node id.
+        """
+        cur = self.nodes[parent]
+        for ln in lengths:
+            cur = self._new_node(cur.id, int(ln), cur.end_pos)
+        self.attach_request(request_id, cur.id)
+        return cur.id
+
     def attach_request(self, request_id: int, leaf_id: int) -> None:
         """Register ``request_id`` as owning the path root..leaf_id."""
         self.leaf_of[request_id] = leaf_id
@@ -123,6 +150,10 @@ class PrefixForest:
         for cid in cur.children:
             child = self.nodes[cid]
             if child.tokens is None or len(child.tokens) == 0:
+                continue
+            if child.meta.get("draft"):
+                # unverified speculative tokens may be rolled back after
+                # the verify step: never match new requests into them
                 continue
             if child.tokens[0] != remaining[0]:
                 continue

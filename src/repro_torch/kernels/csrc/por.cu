@@ -68,6 +68,15 @@
 //    It takes d = 64, 128 and 256, groups of 1 to 8 query heads per KV
 //    head, pages of 16 and 64 tokens, f32 or bf16 q and f32 or bf16 KV, and
 //    refuses anything else.
+//
+//    With tail = 0 (the speculative verify step, whose plan already covers
+//    every page: tail pages and one-token draft pages included) it does the
+//    segment and the cast only: o = o_f, m = m_f, l = l_f, the arithmetic of
+//    ops.combine_partials_stats and nothing more.  No tail page is staged or
+//    read (the pools, tail_pages, tail_base and q_pos may be null, and the
+//    page size is not checked) and no POR follows: merging an empty tail
+//    would divide o_f * l_f by l_f again and change the last bits.  A query
+//    with an empty segment (a padded row) comes out 0 with m = -1e30, l = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +143,7 @@ struct EpiArgs {
   float* out_m;                 // (B, h_q) or null
   float* out_l;                 // (B, h_q) or null
   int h_q, n_kv, page, window;
+  int tail;  // 0: segment and cast only (no tail page, no POR)
   float scale;
 };
 
@@ -258,14 +268,16 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
   const int lane = threadIdx.x & 31;
   const int h = g * (blockDim.x >> 5) + (threadIdx.x >> 5);
 
-  // 1. the tail page: visible tokens j0..j1, copied to shared memory
-  const long long qp = a.q_pos[b];
-  const long long base = a.tail_base[b];
-  const long long hi = qp - base;
-  const long long lo = a.window > 0 ? qp - a.window + 1 - base : 0;
-  const int j1 = (int)(hi < a.page - 1 ? hi : a.page - 1);
-  const int j0 = (int)(lo > 0 ? lo : 0);
-  {
+  // 1. the tail page (tail mode): visible tokens j0..j1, copied to shared
+  // memory
+  int j0 = 0, j1 = -1;
+  if (a.tail) {
+    const long long qp = a.q_pos[b];
+    const long long base = a.tail_base[b];
+    const long long hi = qp - base;
+    const long long lo = a.window > 0 ? qp - a.window + 1 - base : 0;
+    j1 = (int)(hi < a.page - 1 ? hi : a.page - 1);
+    j0 = (int)(lo > 0 ? lo : 0);
     const size_t row = (size_t)a.n_kv * D;
     const size_t first = ((size_t)a.tail_pages[b] * a.page * a.n_kv + g) * D;
     const KT* kp = static_cast<const KT*>(a.k_pool) + first;
@@ -350,6 +362,21 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
     }
   }
 
+  const size_t row = (size_t)b * a.h_q + h;
+  if (!a.tail) {
+    // the segment alone, as ops.combine_partials_stats leaves it
+    const float d_f = fmaxf(l_f, 1e-30f);
+    float o[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(num[c], d_f);
+    store_cols<C>(static_cast<QT*>(a.out) + row * D + lane * C, o);
+    if (lane == 0 && a.out_m != nullptr) {
+      a.out_m[row] = m_f;
+      a.out_l[row] = l_f;
+    }
+    return;
+  }
+
   // 3. the tail page's partial, once its rows have landed
   cp_async_wait<0>();
   __syncthreads();
@@ -411,7 +438,6 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
     const float o_t = __fdiv_rn(u[c], d_t);
     o[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o_f, a1), __fmul_rn(o_t, a2)), d);
   }
-  const size_t row = (size_t)b * a.h_q + h;
   store_cols<C>(static_cast<QT*>(a.out) + row * D + lane * C, o);
   if (lane == 0 && a.out_m != nullptr) {
     a.out_m[row] = m;
@@ -423,7 +449,7 @@ template <int D, typename QT, typename KT>
 cudaError_t launch_epilogue(const EpiArgs& a, int B, int group,
                             cudaStream_t stream) {
   static size_t allowed = 48 << 10;  // raised once past the default cap
-  const size_t smem = 2 * (size_t)a.page * D * sizeof(KT);
+  const size_t smem = a.tail ? 2 * (size_t)a.page * D * sizeof(KT) : 0;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         epilogue_kernel<D, QT, KT>,
@@ -467,7 +493,8 @@ extern "C" int codec_por(const void* o1, const void* m1, const void* l1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The epilogue over B queries; out_m / out_l may be null.  Returns the
+// The epilogue over B queries; out_m / out_l may be null, and with tail = 0
+// so may k_pool, v_pool, tail_pages, tail_base and q_pos.  Returns the
 // cudaError_t of the launch (0 = success), cudaErrorInvalidValue for a
 // shape it does not take.
 extern "C" int codec_por_epilogue(
@@ -476,11 +503,11 @@ extern "C" int codec_por_epilogue(
     const void* k_pool, const void* v_pool, int kv_bf16,
     const void* tail_pages, const void* tail_base, const void* q_pos,
     void* out, void* out_m, void* out_l, int B, int h_q, int n_kv, int d,
-    int page, int window, float scale, void* stream) {
+    int page, int window, int tail, float scale, void* stream) {
   const int group = n_kv > 0 ? h_q / n_kv : 0;
   if (n_kv <= 0 || h_q % n_kv || group < 1 || group > kMaxGroup ||
-      (d != 64 && d != 128 && d != 256) || (page != 16 && page != 64) ||
-      B < 0) {
+      (d != 64 && d != 128 && d != 256) ||
+      (tail && page != 16 && page != 64) || B < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return static_cast<int>(cudaGetLastError());
@@ -503,6 +530,7 @@ extern "C" int codec_por_epilogue(
   a.n_kv = n_kv;
   a.page = page;
   a.window = window;
+  a.tail = tail ? 1 : 0;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -12,7 +12,8 @@ partials (``ops.Parts``), the growing tail page's attention and their POR
 merge, written in q's type, in one launch of the kernel
 ``codec_por_epilogue`` for CUDA tensors and through
 ``por_epilogue_torch`` (the same composition as plain torch ops) for CPU
-tensors.
+tensors.  ``tail=False`` (the speculative verify step, whose plan covers
+every page) keeps the segment reduction and the cast only.
 """
 
 from __future__ import annotations
@@ -78,14 +79,18 @@ def por(o1: torch.Tensor, m1: torch.Tensor, l1: torch.Tensor,
 
 def por_epilogue_torch(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
                        k_pool, v_pool, tail_pages, tail_base, q_pos, *,
-                       window: int = 0):
+                       window: int = 0, tail: bool = True):
     """The epilogue as plain torch ops, in the engine's order before the
     kernel existed: the live select and segment reduction
     (``ops.combine_parts``), the tail page (``ops.single_page_attention``
     over the gathered pages), ``por_torch`` and the cast.  Returns
-    ``(o in q's type, m, l)``."""
+    ``(o in q's type, m, l)``.  ``tail=False`` stops after the segment
+    reduction (``repro``'s ``codec_partials_arrays`` arithmetic) and
+    casts."""
     o_f, m_f, l_f = ops.combine_parts(ops.Parts(o_parts, m_parts, l_parts,
                                                 seg_offsets, seg_rows))
+    if not tail:
+        return o_f.to(q.dtype), m_f, l_f
     o_t, m_t, l_t = ops.single_page_attention(
         q, k_pool[tail_pages], v_pool[tail_pages], tail_base, q_pos,
         window=window)
@@ -94,7 +99,8 @@ def por_epilogue_torch(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
 
 
 def _check_shapes(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
-                  k_pool, v_pool, tail_pages, tail_base, q_pos) -> None:
+                  k_pool, v_pool, tail_pages, tail_base, q_pos,
+                  tail: bool = True) -> None:
     if q.dim() != 3 or o_parts.dim() != 3:
         raise ValueError(f"por_epilogue: q {tuple(q.shape)} and o_parts "
                          f"{tuple(o_parts.shape)} must be 3-D")
@@ -107,10 +113,15 @@ def _check_shapes(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
     got = {"o_parts": o_parts, "m_parts": m_parts, "l_parts": l_parts,
            "seg_offsets": seg_offsets, "seg_rows": seg_rows,
            "tail_pages": tail_pages, "tail_base": tail_base, "q_pos": q_pos}
+    if not tail:        # nothing of the tail is read
+        for name in ("tail_pages", "tail_base", "q_pos"):
+            del got[name]
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"por_epilogue: {name} shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
+    if not tail:
+        return
     if (k_pool.dim() != 4 or v_pool.shape != k_pool.shape
             or k_pool.shape[3] != d or h_q % k_pool.shape[2]):
         raise ValueError(f"por_epilogue: pool shapes {tuple(k_pool.shape)} "
@@ -136,7 +147,7 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
                  tail_pages: torch.Tensor, tail_base: torch.Tensor,
                  q_pos: torch.Tensor, *, window: int = 0,
                  stats: bool = False,
-                 out: Optional[torch.Tensor] = None):
+                 out: Optional[torch.Tensor] = None, tail: bool = True):
     """Decode attention's epilogue: segment reduction + tail page + POR.
 
     q: (B, h_q, d) float32/bfloat16; o_parts (P, h_q, d), m_parts /
@@ -150,12 +161,17 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     ``stats``.  CPU tensors take the plain version; CUDA tensors launch
     the kernel (or raise).  ``out``: a (B, h_q, d) tensor of q's type for
     the kernel to write into.
+
+    ``tail=False``: the segment reduction and the cast only, for a plan
+    that already covers every page (the speculative verify step); the
+    pools and the tail arrays are not read and may be ``None``, and a
+    query with an empty segment comes out 0.
     """
     args = (q, o_parts, m_parts, l_parts, seg_offsets, seg_rows, k_pool,
             v_pool, tail_pages, tail_base, q_pos)
-    _check_shapes(*args)
+    _check_shapes(*args, tail=tail)
     if q.device.type == "cpu":
-        o, m, l = por_epilogue_torch(*args, window=window)
+        o, m, l = por_epilogue_torch(*args, window=window, tail=tail)
         if out is not None:
             out.copy_(o)
             o = out
@@ -165,19 +181,25 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     dev = q.device
     f32, bf16, i32, i64 = (torch.float32, torch.bfloat16, torch.int32,
                            torch.int64)
-    for name, t, dtypes in (
-            ("q", q, (f32, bf16)), ("o_parts", o_parts, (f32,)),
-            ("m_parts", m_parts, (f32,)), ("l_parts", l_parts, (f32,)),
-            ("seg_offsets", seg_offsets, (i32,)),
-            ("seg_rows", seg_rows, (i32,)), ("k_pool", k_pool, (f32, bf16)),
-            ("v_pool", v_pool, (k_pool.dtype,)),
-            ("tail_pages", tail_pages, (i64,)),
-            ("tail_base", tail_base, (i64,)), ("q_pos", q_pos, (i64,))):
+    checks = [("q", q, (f32, bf16)), ("o_parts", o_parts, (f32,)),
+              ("m_parts", m_parts, (f32,)), ("l_parts", l_parts, (f32,)),
+              ("seg_offsets", seg_offsets, (i32,)),
+              ("seg_rows", seg_rows, (i32,))]
+    if tail:
+        checks += [("k_pool", k_pool, (f32, bf16)),
+                   ("v_pool", v_pool, (k_pool.dtype,)),
+                   ("tail_pages", tail_pages, (i64,)),
+                   ("tail_base", tail_base, (i64,)), ("q_pos", q_pos, (i64,))]
+    for name, t, dtypes in checks:
         _check(name, t, dev, dtypes)
     B, h_q, d = q.shape
-    _, page, n_kv, _ = k_pool.shape
+    if tail:
+        _, page, n_kv, _ = k_pool.shape
+    else:       # only the head grouping matters: one KV head a block
+        page, n_kv = EPILOGUE_PAGES[0], (k_pool.shape[2] if k_pool is not None
+                                         else h_q)
     if (d not in EPILOGUE_HEAD_DIMS or page not in EPILOGUE_PAGES
-            or not 1 <= h_q // n_kv <= EPILOGUE_MAX_GROUP):
+            or h_q % n_kv or not 1 <= h_q // n_kv <= EPILOGUE_MAX_GROUP):
         raise ValueError(
             f"por_epilogue: the kernel takes d in {EPILOGUE_HEAD_DIMS}, "
             f"pages of {EPILOGUE_PAGES} and 1 to {EPILOGUE_MAX_GROUP} query "
@@ -189,8 +211,8 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     if out.shape != q.shape:
         raise ValueError(f"por_epilogue: out shape {tuple(out.shape)}, "
                          f"expected {tuple(q.shape)}")
-    for name, t in (("o_parts", o_parts), ("k_pool", k_pool),
-                    ("v_pool", v_pool), ("out", out)):
+    for name, t in (("o_parts", o_parts), ("out", out)) + (
+            (("k_pool", k_pool), ("v_pool", v_pool)) if tail else ()):
         if t.data_ptr() % 16:
             raise ValueError(f"por_epilogue: {name} must be 16-byte aligned "
                              f"(vector loads)")
@@ -200,15 +222,19 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
         l = torch.empty(B, h_q, dtype=f32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return t.data_ptr() if tail else None
     err = lib.codec_por_epilogue(
         q.data_ptr(), int(q.dtype == bf16), o_parts.data_ptr(),
         m_parts.data_ptr(), l_parts.data_ptr(), seg_offsets.data_ptr(),
-        seg_rows.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        int(k_pool.dtype == bf16), tail_pages.data_ptr(),
-        tail_base.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        seg_rows.data_ptr(), ptr(k_pool), ptr(v_pool),
+        int(tail and k_pool.dtype == bf16), ptr(tail_pages),
+        ptr(tail_base), ptr(q_pos), out.data_ptr(),
         None if m is None else m.data_ptr(),
         None if l is None else l.data_ptr(),
-        B, h_q, n_kv, d, page, int(window), 1.0 / math.sqrt(d), stream)
+        B, h_q, n_kv, d, page, int(window), int(tail), 1.0 / math.sqrt(d),
+        stream)
     build.check(err, "codec_por_epilogue")
     global epilogue_launches
     epilogue_launches += 1

@@ -64,6 +64,13 @@ unfilled prefix as one group (the shared span once, the suffixes in one
 batch) and prints the cascade counters.  ``serve()`` drives an engine
 its caller built: there both are the engine's keywords
 (``DecodeEngine(telemetry=, cascade=)``), off unless asked for.
+
+Tree-speculative decoding (``repro``'s DESIGN §10): ``--speculative``
+drafts token trees from each request's own history (``--spec-depth``,
+``--spec-branch``, ``--spec-nodes`` bound them) and verifies them in one
+dispatch a step (with ``--fused`` one CUDA-graph replay, a graph per
+verify signature); the run then prints its verify dispatches, committed
+tokens and drafts accepted.  Greedy only.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from ..models.transformer import build_model
 from ..serving.cache import CachePolicy
 from ..serving.engine import DecodeEngine
 from ..serving.faults import FaultPlan
+from ..serving.speculation import SpecConfig
 from ..serving.telemetry import Telemetry
 
 
@@ -321,7 +329,7 @@ def serve(engine: DecodeEngine, prompts: List[List[int]], max_new: int,
     tokens = sum(len(q.generated) for q in engine.requests.values()) \
         - tokens0
     timed = steps - traced_steps
-    fused = engine.fused_step
+    fused = engine.fused_step or engine.spec_step
     return {"streams": {r: q.generated for r, q in engine.requests.items()},
             "prefill_s": prefill_s, "loop_s": loop_s, "steps": steps,
             "loop_steps": i,
@@ -369,6 +377,10 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
                           reserve_pages=args.reserve_pages,
                           max_running=args.max_running, cache=cache,
                           cascade=args.cascade,
+                          speculative=(SpecConfig(
+                              depth=args.spec_depth, branch=args.spec_branch,
+                              max_nodes=args.spec_nodes)
+                              if args.speculative else None),
                           faults=(FaultPlan.parse(args.inject)
                                   if args.inject else None),
                           nan_guard=args.nan_guard,
@@ -423,11 +435,20 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
             f"{k} {engine.stats[k]}" for k in CASCADE_COUNTERS)
             + f"; prefill {engine.prefill_time():.3f} s of prefill work")
     if engine.fused:
-        print(f"fused step: graph replays {engine.fused_step.replays} over "
+        step = engine.fused_step or engine.spec_step
+        print(f"fused step: graph replays {step.replays} over "
               f"{engine.stats['fused_calls']} steps, graphs captured "
-              f"{engine.fused_step.graphs} for {len(engine.bucket_signatures)} "
+              f"{step.graphs} for {len(engine.bucket_signatures)} "
               f"bucket signatures, capture {res['capture_s']:.3f} s, token "
               f"flushes {engine.stats['token_flushes']}")
+    st = engine.stats
+    if engine.spec is not None:
+        committed = sum(len(q.generated) for q in engine.requests.values())
+        print(f"speculation: {st['spec_steps']} verify dispatches for "
+              f"{committed} committed tokens; {st['spec_accepted']}/"
+              f"{st['spec_proposed']} drafts accepted (+"
+              f"{st['spec_accepted'] / max(st['spec_steps'], 1):.2f} extra "
+              f"tokens/dispatch, {st['spec_draft_stalls']} page stalls)")
     if engine.cache is None:
         # with the cache on, finished requests have left the forest: the
         # line would count cached nodes against no request
@@ -450,7 +471,6 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               f"{prof['graph_launches_per_step']:.1f}")
         for kname, ms, count in prof["top"]:
             print(f"  {ms:9.4f} ms/step  {count:7.1f}/step  {kname}")
-    st = engine.stats
     if engine.injector is not None or args.nan_guard or args.deadline:
         fired = (dict(engine.injector.fired)
                  if engine.injector is not None else {})
@@ -557,6 +577,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--backend", default="codec-cuda")
     ap.add_argument("--fused", action="store_true",
                     help="one CUDA-graph replay per decode step")
+    ap.add_argument("--speculative", action="store_true",
+                    help="tree-speculative decoding: self-drafted token "
+                         "trees verified in one dispatch a step; greedy "
+                         "only")
+    ap.add_argument("--spec-depth", type=int, default=4,
+                    help="max draft chain length per branch")
+    ap.add_argument("--spec-branch", type=int, default=2,
+                    help="max sibling draft branches at the leaf")
+    ap.add_argument("--spec-nodes", type=int, default=6,
+                    help="total draft nodes per request per step")
     ap.add_argument("--compare", action="store_true",
                     help="serve through codec-cuda, then flash; exit 1 "
                          "when the streams differ")

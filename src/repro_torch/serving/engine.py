@@ -71,7 +71,19 @@ Telemetry and cascade prefill (``repro``'s DESIGN §13-§14):
   (ROADMAP A11) and the replica page lists (``meta["replicas"]``) for the
   mesh (A12).
 
-Left for later slices: speculation (A9).
+Tree-speculative decoding (``repro``'s DESIGN §10, ``speculation.py``):
+``speculative=True`` (or a ``speculation.SpecConfig``) turns each decode
+step into draft-propose / tree-verify / accept-rollback.  A self-drafting
+n-gram proposer grows a draft tree of one-token forest nodes under each
+request's leaf (one page each, best effort, never evicting), one verify
+dispatch scores every branch head through a plan that covers every page
+(``core.plan.build_verify_plan``: the backend's parts, then one epilogue
+launch with no tail a layer; on the fused path one CUDA-graph replay,
+``step_fn.SpecStep``), the host walks the tree greedily, the accepted
+tokens' KV moves from the draft pages to the leaf (``copy_slots``) and
+the rest rolls back.  Greedy streams are byte-identical to
+non-speculative decode.  Greedy only, attention only; sharded speculation
+waits for the mesh (A12).
 """
 
 from __future__ import annotations
@@ -93,6 +105,7 @@ from ..models import layers as L
 from ..models.transformer import Transformer
 from . import faults as faults_mod
 from . import sampler
+from . import speculation as spec_mod
 from . import step_fn as step_fn_mod
 from . import telemetry as telemetry_mod
 from .cache import CachePolicy, PrefixCache
@@ -175,7 +188,7 @@ class DecodeEngine:
                  prefill_chunk=None, reserve_pages: int = 0,
                  max_running: Optional[int] = None,
                  cascade: bool = False, max_cascade_group: int = 8,
-                 fused: bool = False, cache=None,
+                 fused: bool = False, speculative=None, cache=None,
                  faults=None, nan_guard: bool = False,
                  check_every: int = 0, clock=None,
                  max_dispatch_retries: int = 4,
@@ -191,6 +204,28 @@ class DecodeEngine:
             raise ValueError(f"backend {backend!r} cannot serve "
                              f"sliding-window layers")
         sampler.check_temperature(temperature)
+        # ---- tree-speculative decoding (``repro``'s DESIGN §10) ------- #
+        # speculative=True (defaults) or a SpecConfig: several tokens can
+        # commit a verify dispatch when the self-drafting proposer guesses
+        # right.  Greedy-only and attention-only (the port has no mesh)
+        if speculative is True:
+            speculative = spec_mod.SpecConfig()
+        self.spec: Optional[spec_mod.SpecConfig] = speculative or None
+        if self.spec is not None:
+            if temperature != 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only: acceptance "
+                    "compares draft tokens against the argmax (lossless "
+                    "speculative sampling is not implemented)")
+            if any(k.mixer == "mamba" for k in cfg.layer_pattern):
+                raise ValueError(
+                    "speculative decoding needs KV-cache rollback; "
+                    "recurrent (Mamba) state cannot be rolled back yet")
+        self.proposer = (spec_mod.NGramProposer(self.spec)
+                         if self.spec else None)
+        # live draft trees by request; virtual branch-head query ids
+        self._drafts: Dict[int, spec_mod.DraftState] = {}
+        self._next_virt = -2
         self.page_size = page_size
         self.num_lanes = num_lanes
         self.max_q = max_q
@@ -262,7 +297,10 @@ class DecodeEngine:
                                       reserve_pages=reserve_pages,
                                       max_running=max_running,
                                       cascade=bool(cascade),
-                                      max_cascade_group=max_cascade_group)
+                                      max_cascade_group=max_cascade_group,
+                                      draft_reserve_pages=(
+                                          self.spec.max_nodes if self.spec
+                                          else 0))
         self.admission = AdmissionController(self.policy, self.cost_model,
                                              page_size)
         self._prefilling: List[int] = []   # admitted, prompt not prefilled
@@ -295,7 +333,9 @@ class DecodeEngine:
                       "dispatch_recoveries": 0, "nan_rows": 0,
                       "invariant_checks": 0, "cascade_groups": 0,
                       "cascade_shared_tokens": 0,
-                      "cascade_suffix_tokens": 0, "cascade_batches": 0}
+                      "cascade_suffix_tokens": 0, "cascade_batches": 0,
+                      "spec_steps": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_draft_stalls": 0}
         # one record a step: what it decoded, admitted, preempted,
         # reclaimed and prefilled, the queue and pool it left, and its
         # timing (``_decode_timing``: dispatch_time and flush_time; on
@@ -310,7 +350,13 @@ class DecodeEngine:
         self.fused_step = (step_fn_mod.FusedStep(
             cfg, self.model, self.pool, self._backend, self._windows(),
             self.attn_layer_idx, self.device, temperature, self.key)
-            if self.fused else None)
+            if self.fused and self.spec is None else None)
+        # speculation replaces the per-token step with the fused verify
+        # step: one graph replay scores a whole draft tree
+        self.spec_step = (step_fn_mod.SpecStep(
+            cfg, self.model, self.pool, self._backend, self._windows(),
+            self.attn_layer_idx, self.device)
+            if self.fused and self.spec is not None else None)
         # async token plumbing
         self._deferred: List[_Deferred] = []
         self._pending_ref: Dict[int, Tuple[_Deferred, int]] = {}
@@ -410,10 +456,11 @@ class DecodeEngine:
         matched = self.forest.match_len(np.asarray(seq, np.int32))
         need = (-(-max(len(seq), 1) // self.page_size)
                 - matched // self.page_size)
-        # the watermark is the same at every batch size until
-        # speculation's per-request draft reserve is ported;
+        # the draft reserve scales with the requests running now, so an
+        # idle engine always admits its head-of-line request;
         # _backoff_pages is the degradation ladder's admission-shrink rung
-        reserve = self.policy.reserve_pages + self._backoff_pages
+        reserve = (self.policy.admission_reserve(len(self._active_rows()))
+                   + self._backoff_pages)
         return self.pool.num_free - reserve >= need
 
     def _admit_phase(self) -> None:
@@ -897,7 +944,8 @@ class DecodeEngine:
     def fused_cache_size(self) -> int:
         """Step states kept, one per bucket signature (on the card each
         holds one captured graph)."""
-        return 0 if self.fused_step is None else len(self.fused_step.slots)
+        step = self.fused_step or self.spec_step
+        return 0 if step is None else len(step.slots)
 
     # ------------------------------------------------------------------ #
     # eviction (evict phase) / reclamation
@@ -938,6 +986,7 @@ class DecodeEngine:
         with the cache on: its tail KV may be poisoned or half written, so
         no later prefix match may serve it.  Shared ancestors hold prompt
         KV written by prefill and stay retainable."""
+        self._rollback_drafts(rid)
         leaf_id = self.forest.leaf_of.get(rid)
         for node in reversed(self.forest.path(rid)):
             if node.id not in self.forest.nodes:
@@ -966,6 +1015,10 @@ class DecodeEngine:
         # again); the sync also retires every queued replay that reads
         # the pages about to be freed
         self.flush_tokens()
+        # a victim evicted mid-speculation sheds its draft tree first: its
+        # draft nodes and virtual queries would keep its leaf (and every
+        # ancestor) alive and leak the draft pages
+        self._rollback_drafts(rid)
         req = self.requests[rid]
         assert req.state in (PREFILL, RUNNING), req.state
         if len(req.generated) >= req.max_new:
@@ -1009,8 +1062,12 @@ class DecodeEngine:
         n = 0
         freeable: Set[int] = set()
         for node in reversed(self.forest.path(rid)):
-            others = [r for r in node.requests if r != rid]
-            kids = set(node.children) - freeable
+            # virtual branch-head queries (< 0) and draft children belong
+            # to a live draft tree, which preemption rolls back first: they
+            # do not disqualify the victim (draft pages are not counted)
+            others = [r for r in node.requests if r != rid and r >= 0]
+            kids = {c for c in set(node.children) - freeable
+                    if not self.forest.nodes[c].meta.get("draft")}
             if others or kids or node.meta.get("pins", 0) > 0:
                 continue
             freeable.add(node.id)
@@ -1127,6 +1184,7 @@ class DecodeEngine:
         for rid in done:
             if self.requests[rid].state != DONE:   # that flush failed it
                 continue
+            self._rollback_drafts(rid)
             path = self.forest.path(rid)
             self.forest.detach_request(rid)
             for node in reversed(path):
@@ -1191,8 +1249,10 @@ class DecodeEngine:
         more can be reclaimed, or when an injected ``alloc`` fault
         simulates exhaustion (callers then degrade as under real
         pressure: stall, or preempt and recompute)."""
-        if (self.injector is not None
+        if (self.injector is not None and self.spec is None
                 and self.injector.take("alloc") is not None):
+            # gated off under speculation, as in ``repro``: a failure in
+            # the middle of a commit has no clean unwind
             self.stats["faults_injected"] += 1
             return None
         while self.pool.num_free < n:
@@ -1477,6 +1537,7 @@ class DecodeEngine:
     _FAULT_COUNTERS = ("cancelled", "timed_out", "failed",
                        "callback_errors", "faults_injected",
                        "dispatch_failures", "dispatch_recoveries")
+    _SPEC_COUNTERS = ("spec_proposed", "spec_accepted")
 
     def step(self) -> Dict[int, int]:
         """One engine step: deadlines, admission + chunked prefill, then
@@ -1487,7 +1548,8 @@ class DecodeEngine:
         its histograms and the registry's sync."""
         tm = self.telemetry
         snap = {k: self.stats[k]
-                for k in self._STEP_COUNTERS + self._FAULT_COUNTERS}
+                for k in self._STEP_COUNTERS + self._FAULT_COUNTERS
+                + self._SPEC_COUNTERS}
         # the step's timing starts here: a flush run by the deadline sweep
         # or by admission bills this step's flush_time, never the decode
         # phase's dispatch/device split
@@ -1525,6 +1587,8 @@ class DecodeEngine:
             "decoded": len(out),
             **self._decode_timing,
             **{k: self.stats[k] - snap[k] for k in self._STEP_COUNTERS},
+            **({k: self.stats[k] - snap[k] for k in self._SPEC_COUNTERS}
+               if self.spec is not None else {}),
             "waiting": len(self.admission),
             "prefilling": len(self._prefilling),
             "running": len(self._active_rows()),
@@ -1656,6 +1720,8 @@ class DecodeEngine:
                     f"injected dispatch failure at step "
                     f"{len(self.step_stats)}: out of device memory "
                     f"(simulated)")
+        if self.spec is not None:
+            return self._decode_phase_spec()
         if self.fused:
             return self._decode_phase_fused()
         return self._decode_phase_eager()
@@ -1979,6 +2045,296 @@ class DecodeEngine:
             self.telemetry.observe("plan_build_s", c1 - c0)
 
     # ------------------------------------------------------------------ #
+    # speculative tree decoding (speculation.py, ``repro``'s DESIGN §10):
+    # draft-propose -> tree-verify (one multi-query dispatch) ->
+    # accept/commit (KV moves from draft pages to the leaf tail) ->
+    # rollback (draft pages released)
+    # ------------------------------------------------------------------ #
+    def _rollback_drafts(self, rid: int) -> None:
+        """Release a request's live draft tree: detach the virtual
+        branch-head queries, prune the draft nodes leaf-first, and return
+        their pages to the allocator.  A no-op when the request holds no
+        drafts.  On the card every replay that wrote those pages was read
+        back on the host before (the verify step's output), and later
+        writes to them run on the same stream, so a page may be handed
+        out again at once."""
+        st = self._drafts.pop(rid, None)
+        if st is None:
+            return
+        for virt in st.virts:
+            if virt in self.forest.leaf_of:
+                self.forest.detach_request(virt)
+        for nid in reversed(st.nodes):      # children before parents
+            if nid not in self.forest.nodes:
+                continue
+            pages = self.forest.prune_leaf(nid)
+            if pages:
+                self.pool.allocator.release(pages)
+
+    def _grow_drafts(self, rows: List[int]) -> None:
+        """Propose and materialise each running request's draft tree.
+
+        Draft pages are allocated best-effort: speculation never evicts to
+        make room (a wrong guess would have paid an eviction for nothing),
+        it drafts fewer nodes (``spec_draft_stalls``); committed progress
+        is unaffected because verification degenerates to normal decode.
+        """
+        reserve = self.policy.reserve_pages
+        for r in rows:
+            req = self.requests[r]
+            room = req.max_new - len(req.generated)
+            if room <= 0:        # only the done transition is left
+                continue
+            branches = self.proposer.propose(req.seq, max_tokens=room)
+            if not branches:
+                continue
+            leaf_id = self.forest.leaf_of[r]
+            st = spec_mod.DraftState(r)
+            stalled = False
+            for chain in branches:
+                parent = leaf_id
+                for tok in chain:
+                    if self.pool.num_free - reserve < 1:
+                        stalled = True
+                        break
+                    node = self.forest.add_draft(parent, int(tok))
+                    node.page_ids = self.pool.allocator.alloc(1)
+                    virt = self._next_virt
+                    self._next_virt -= 1
+                    self.forest.attach_request(virt, node.id)
+                    st.nodes.append(node.id)
+                    st.virts.append(virt)
+                    parent = node.id
+                if stalled:
+                    break
+            if stalled:
+                self.stats["spec_draft_stalls"] += 1
+            if st.nodes:
+                self._drafts[r] = st
+                self.stats["spec_proposed"] += len(st.nodes)
+
+    def _spec_layout(self, rows: List[int]):
+        """Stack the verification queries: per request its committed-tail
+        base query (the normal decode position), then one query per draft
+        node, each with its token, absolute position and the KV slot the
+        dispatch writes that token's K/V into."""
+        ps = self.page_size
+        tokens: List[int] = []
+        q_pos: List[int] = []
+        w_page: List[int] = []
+        w_off: List[int] = []
+        req_rows: Dict[int, int] = {}
+        head_rows: Dict[int, Dict[int, int]] = {}
+        for r in rows:
+            req = self.requests[r]
+            leaf = self.forest.nodes[self.forest.leaf_of[r]]
+            tp = (leaf.length - 1) // ps
+            head_rows[r] = {leaf.id: len(tokens)}
+            req_rows[r] = len(tokens)
+            tokens.append(req.generated[-1])
+            q_pos.append(leaf.end_pos - 1)
+            w_page.append(leaf.page_ids[tp])
+            w_off.append((leaf.length - 1) % ps)
+            st = self._drafts.get(r)
+            if st is None:
+                continue
+            for nid, virt in zip(st.nodes, st.virts):
+                node = self.forest.nodes[nid]
+                head_rows[r][nid] = len(tokens)
+                req_rows[virt] = len(tokens)
+                tokens.append(int(node.tokens[0]))
+                q_pos.append(node.end_pos - 1)
+                w_page.append(node.page_ids[0])
+                w_off.append(0)
+        return tokens, q_pos, w_page, w_off, req_rows, head_rows
+
+    @torch.no_grad()
+    def _decode_phase_spec(self) -> Dict[int, Optional[int]]:
+        rows0 = self._active_rows()
+        if not rows0:
+            return {}
+        t0 = time.perf_counter()
+        tm = self.telemetry
+        self._append_pending(rows0)        # host ints: spec never defers
+        rows = self._active_rows()
+        if not rows:
+            return {}
+        c0 = self.clock() if tm is not None else 0.0
+        self._grow_drafts(rows)
+        if tm is not None:
+            tm.complete("spec_propose", c0, self.clock(),
+                        args={"rows": len(rows),
+                              "drafts": sum(len(st.nodes) for st in
+                                            self._drafts.values())})
+        # injected NaN: poison a committed KV slot of the target's leaf so
+        # every verify row of that request (base query and draft heads)
+        # reads it through the verify plan
+        if self.injector is not None:
+            spec = self.injector.take("nan_logits")
+            if spec is not None:
+                target = spec.rid if spec.rid in rows else rows[0]
+                leaf = self.forest.nodes[self.forest.leaf_of[target]]
+                owners = [q for q in leaf.requests if q >= 0]
+                kids = [c for c in leaf.children
+                        if not self.forest.nodes[c].meta.get("draft")]
+                if leaf.length >= 2 and owners == [target] and not kids:
+                    slot = leaf.length - 2
+                    page = leaf.page_ids[slot // self.page_size]
+                    off = slot % self.page_size
+                    self.pool.k[:, page, off] = float("nan")
+                    self._nan_dirty.append((page, off))
+                    self.stats["faults_injected"] += 1
+                else:
+                    self.injector.requeue(spec)
+        tokens, q_pos, w_page, w_off, req_rows, head_rows = \
+            self._spec_layout(rows)
+        tp0 = time.perf_counter()
+        plans = {w: plan_mod.build_verify_plan(
+            self.forest, self.cost_model, req_rows, self.num_lanes,
+            self.max_q, self.max_kv_per_task, window=w,
+            kind=self._backend.plan_kind) for w in self._windows()}
+        self.stats["replans"] += 1
+        self.stats["plan_time"] += time.perf_counter() - tp0
+        t_d0 = time.perf_counter()
+        c_v0 = self.clock() if tm is not None else 0.0
+        verify = (self._spec_verify_fused if self.spec_step is not None
+                  else self._spec_verify_eager)
+        toks, ok = verify(tokens, q_pos, w_page, w_off, plans)
+        t_d1 = time.perf_counter()
+        if tm is not None:
+            tm.complete("spec_verify", c_v0, self.clock(),
+                        args={"queries": len(tokens)})
+        if self.nan_guard:
+            # quarantine before commit: a poisoned request's drafts roll
+            # back with it and nothing enters its committed stream
+            for r in list(rows):
+                if not bool(ok[req_rows[r]]):
+                    self.stats["nan_rows"] += 1
+                    self._fail_request(r, "nan_logits", flush=False)
+        c_a0 = self.clock() if tm is not None else 0.0
+        out = self._spec_commit(rows, toks, head_rows)
+        self.stats["steps"] += 1
+        self.stats["spec_steps"] += 1
+        self._decode_timing.update(
+            dispatch_time=t_d1 - t_d0,
+            compute_time=time.perf_counter() - t_d1)
+        self.stats["decode_dispatch_time"] += t_d1 - t_d0
+        self.stats["decode_time"] += time.perf_counter() - t0
+        if tm is not None:
+            tm.complete("spec_accept", c_a0, self.clock(),
+                        args={"accepted": sum(
+                            1 for v in out.values() if v is not None)})
+        return out
+
+    def _spec_verify_eager(self, tokens, q_pos, w_page, w_off, plans):
+        """Eager verification: ``step_fn.decode_stack`` over every row,
+        each layer's attention the backend's parts over the verify plan
+        and one epilogue launch with no tail; returns the greedy tokens
+        and the finite-logits flags on the host."""
+        dev = self.device
+        prepared = {w: self._backend.prepare(p, dev)
+                    for w, p in plans.items()}
+
+        def attend(qb, k_pool, v_pool, window, *_):
+            parts = self._backend.parts(qb, k_pool, v_pool, plans[window],
+                                        prepared[window], window=window)
+            return por_mod.por_epilogue(qb, *parts, k_pool, v_pool, None,
+                                        None, None, window=window,
+                                        tail=False)
+
+        tok, qp, wp, wo = torch.as_tensor(
+            np.asarray([tokens, q_pos, w_page, w_off], np.int64),
+            device=dev).unbind(0)
+        logits = step_fn_mod.decode_stack(
+            self.model, self.pool, self.attn_layer_idx, tok, qp, wp, qp, wo,
+            attend)
+        out = torch.stack([torch.argmax(logits, -1),
+                           torch.isfinite(logits).all(-1).long()]
+                          ).cpu().numpy()
+        return out[0], out[1]
+
+    def _spec_verify_fused(self, tokens, q_pos, w_page, w_off, plans):
+        """Fused verification: one replay of the signature's graph
+        (``step_fn.SpecStep``) scores every row, with the verify plan
+        bucketed (``plan.bucket_plan``) and loaded into the signature's
+        fixed buffers; the host reads the result once a verify step."""
+        B = len(tokens)
+        bucket = plan_mod.bucket_pow2(B)
+        host, sig = [], [("spec", bucket)]
+        for w in self._windows():
+            cls, arrs = self._backend.host_arrays(
+                plan_mod.bucket_plan(plans[w], bucket))
+            host.append((cls, arrs))
+            sig.append((w, cls.__name__, tuple(a.shape for a in arrs)))
+        sig = tuple(sig)
+        self.bucket_signatures.add(sig)
+        base = step_fn_mod.spec_base(tokens, q_pos, w_page, w_off, bucket,
+                                     self.pool.trash_page)
+        capture0 = self.spec_step.capture_time
+        out = self.spec_step(sig, host, base)
+        self.stats["capture_time"] += self.spec_step.capture_time - capture0
+        self.stats["fused_calls"] += 1
+        return out[0, :B].copy(), out[1, :B].copy()
+
+    def _spec_commit(self, rows: List[int], toks: np.ndarray,
+                     head_rows) -> Dict[int, Optional[int]]:
+        """Greedy accept/commit/rollback for every request.
+
+        Per request: walk the scored draft tree (``speculation.
+        accept_walk``), roll the whole tree back (freeing its pages), then
+        append the accepted tokens to the committed leaf, moving each
+        one's KV from its draft page to the leaf's tail slot in one
+        ``copy_slots`` (which reads every source before it writes, so a
+        freed draft page handed straight back as the leaf's new page is
+        safe), and carry the correction or bonus token as the next
+        ``pending``.  The committed forest afterwards is exactly what
+        non-speculative decode would have produced.
+        """
+        ps = self.page_size
+        out: Dict[int, Optional[int]] = {}
+        for r in rows:
+            req = self.requests[r]
+            if req.state != RUNNING:   # preempted committing earlier rows
+                continue
+            leaf_id = self.forest.leaf_of[r]
+            rowmap = head_rows[r]
+            room = req.max_new - len(req.generated)
+            accepted, final_tok = spec_mod.accept_walk(
+                self.forest, leaf_id, lambda nid: toks[rowmap[nid]], room)
+            # source KV slots and token values, read before the rollback
+            moves = [(self.forest.nodes[nid].page_ids[0],
+                      int(self.forest.nodes[nid].tokens[0]))
+                     for nid in accepted]
+            self._rollback_drafts(r)
+            copies = []
+            for src_page, tok in moves:
+                self.forest.append_token(r, tok)
+                req.generated.append(tok)
+                leaf = self._grow_leaf_tail(r)
+                # exclude={r} forbids self-preemption: r is still running,
+                # or the appended token would be left without its KV
+                assert req.state == RUNNING, (r, req.state)
+                tp = (leaf.length - 1) // ps
+                copies.append((src_page, 0, leaf.page_ids[tp],
+                               (leaf.length - 1) % ps))
+            if copies:
+                src_p, src_o, dst_p, dst_o = map(np.asarray, zip(*copies))
+                self.pool.copy_slots(src_p, src_o, dst_p, dst_o)
+                self.stats["spec_accepted"] += len(copies)
+                if self.telemetry is not None:
+                    self._note_token(req)
+            req.computed_hwm = max(req.computed_hwm,
+                                   self.forest.context_len(r))
+            if len(req.generated) >= req.max_new:
+                req.state = DONE
+                req.pending = None
+                out[r] = req.generated[-1]
+            else:
+                req.pending = final_tok
+                out[r] = final_tok
+        return out
+
+    # ------------------------------------------------------------------ #
     def run(self, max_steps: int = 64) -> Dict[int, List[int]]:
         for _ in range(max_steps):
             if not self.has_work():
@@ -2057,6 +2413,8 @@ class DecodeEngine:
         if flush:
             self.flush_tokens()
         if reason == "nan_logits":
+            # its draft tree goes first: the leaf is then its own again
+            self._rollback_drafts(rid)
             # scrub injected NaN slots before their pages return to the
             # free list: a later tenant must never read them
             for page, off in self._nan_dirty:
@@ -2209,10 +2567,14 @@ class DecodeEngine:
                     and rid in self.forest.leaf_of):
                 failures.append(
                     f"finished request {rid} still holds forest KV")
+        draft_virts = {v for st in self._drafts.values() for v in st.virts}
         for rid in self.forest.leaf_of:
-            if rid not in self.requests:
+            if rid >= 0 and rid not in self.requests:
                 failures.append(
                     f"forest request {rid} unknown to the engine")
+            if rid < 0 and rid not in draft_virts:
+                failures.append(
+                    f"virtual query {rid} without a draft tree")
         for rid in self._pending_ref:
             req = self.requests.get(rid)
             if req is None or req.pending is not PENDING_DEVICE:

@@ -128,6 +128,26 @@ class PagedKVPool:
         self.k[layer].index_put_((pg, of), k_new.to(self.k.dtype))
         self.v[layer].index_put_((pg, of), v_new.to(self.v.dtype))
 
+    def copy_slots(self, src_pages, src_offs, dst_pages, dst_offs) -> None:
+        """Copy token slots across pages, all layers at once, in place.
+
+        The speculative engine's commit path: an accepted draft token's
+        KV was computed into its draft node's page during verification;
+        committing moves it to the request's leaf tail slot so the draft
+        page can be released and the committed layout stays identical to
+        what non-speculative decode would have produced.  Every source is
+        gathered into a temporary before any write (as ``repro``'s
+        functional update reads them), so a destination that is also a
+        source cannot corrupt the copy.  The copies run on the current
+        stream, after whatever wrote the sources there.
+        """
+        sp, so = self._index(src_pages), self._index(src_offs)
+        dp, do = self._index(dst_pages), self._index(dst_offs)
+        k_src = self.k[:, sp, so]          # (n_layers, n, n_kv, d) copies
+        v_src = self.v[:, sp, so]
+        self.k[:, dp, do] = k_src
+        self.v[:, dp, do] = v_src
+
     def gather_context(self, layer: int, pages: List[int], length: int,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Dense (length, n_kv, hd) copy of a page run (prefill reuse)."""

@@ -41,6 +41,13 @@ then captures it; all graphs share one memory pool.  A failed capture or
 replay raises: there is no eager fallback on the card.  On the CPU the
 same step body runs eagerly over the same buffers, with the same
 semantics.
+
+``SpecStep`` is the speculative engine's counterpart (``repro``'s
+``make_spec_step_fn``): one replay scores a whole verify step's rows
+(base queries and draft-node queries) over a verify plan that covers
+every page, so each layer's epilogue runs with no tail; its plan and
+rows are reloaded in place every step, and the host reads its greedy
+tokens at once.
 """
 
 from __future__ import annotations
@@ -211,20 +218,10 @@ class FusedStep:
         """Warm the step up eagerly (tokens not fed forward), then capture
         it into ``slot.graph``; any failure raises."""
         t0 = time.perf_counter()
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._body(slot, feed=False)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        pac0, epi0 = pac_mod.launches, por_mod.epilogue_launches
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._mempool):
-            slot.logits = self._body(slot, feed=True)
-        slot.launches = (pac_mod.launches - pac0,
-                         por_mod.epilogue_launches - epi0)
-        slot.graph = graph
-        torch.cuda.synchronize(dev)
+        slot.graph, slot.launches, slot.logits = capture_graph(
+            self.device, self._mempool,
+            lambda: self._body(slot, feed=False),
+            lambda: self._body(slot, feed=True))
         self.graphs += 1
         self.capture_time += time.perf_counter() - t0
 
@@ -264,6 +261,188 @@ class FusedStep:
             if split:
                 self.key.copy_(key)
         return logits
+
+
+def capture_graph(device, mempool, warm_up, body):
+    """Run ``warm_up()`` eagerly on a side stream (it builds the kernel
+    library, sets the kernels' shared-memory attributes and warms
+    cuBLAS), then capture ``body()`` into a new ``torch.cuda.CUDAGraph``
+    in ``mempool``.  Returns the graph, the (PAC, epilogue) launches
+    recorded into it and ``body``'s result; any failure raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm_up()
+    torch.cuda.current_stream(device).wait_stream(side)
+    pac0, epi0 = pac_mod.launches, por_mod.epilogue_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=mempool):
+        out = body()
+    launches = (pac_mod.launches - pac0, por_mod.epilogue_launches - epi0)
+    torch.cuda.synchronize(device)
+    return graph, launches, out
+
+
+class SpecBase(NamedTuple):
+    """One verify step's rows at fixed addresses, int64 (bucket,) each:
+    every request's base query, then one query a draft node."""
+
+    tokens: torch.Tensor      # the token each row feeds in
+    q_pos: torch.Tensor       # its absolute position (-1 pads)
+    write_page: torch.Tensor  # page its K/V go to (pads: the trash page)
+    write_off: torch.Tensor   # slot in that page
+
+
+class _SpecSlot:
+    """The buffers of one verify signature, and its graph on the card."""
+
+    def __init__(self, plans, base, device, h_q: int, d: int):
+        self.plans = [ops.StaticArrays(cls, arrs, device)
+                      for cls, arrs in plans]
+        self.base = ops.StaticArrays(SpecBase, base, device)
+        self.pac_out = [ops.pac_outputs(p.arrays, h_q, d, device)
+                        if isinstance(p.arrays, ops.PlanArrays) else None
+                        for p in self.plans]
+        bucket = self.base.arrays.tokens.shape[0]
+        # (greedy tokens, row_ok) of the step, and their pinned host copy
+        self.out = torch.zeros((2, bucket), dtype=torch.int64, device=device)
+        cuda = torch.device(device).type == "cuda"
+        host = torch.zeros((2, bucket), dtype=torch.int64)
+        self.host = host.pin_memory() if cuda else host
+        self.event = torch.cuda.Event() if cuda else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        # (PAC, epilogue) launches recorded into the graph at its capture
+        self.launches: Optional[Tuple[int, int]] = None
+
+    def load(self, plans, base) -> None:
+        for static, (_, arrs) in zip(self.plans, plans):
+            static.load(arrs)
+        self.base.load(base)
+
+
+class SpecStep:
+    """The fused speculative verify step (port of ``repro``'s
+    ``make_spec_step_fn``): one graph replay scores every row of a verify
+    step — each request's committed-tail base query and one query per
+    draft node.
+
+    Per layer the graph projects q/k/v for all rows, writes K/V at each
+    row's ``(write_page, write_off)`` (padded rows write the pool's trash
+    page, which no plan reads), runs the backend's raw parts over the
+    bucketed verify plan and one epilogue launch with no tail, then
+    ``wo`` and the FFN; it ends with the argmax and the finite-logits
+    flag, copied to a pinned ``(2, bucket)`` buffer that the host reads
+    once a step for the acceptance walk (speculation never defers
+    tokens).  The verify plan changes every step, so each call ``load``s
+    the signature's plan and row buffers in place; a graph is captured
+    only for a new signature (``("spec", bucket)`` + the plan arrays'
+    shapes).  On the CPU the same body runs eagerly over the same
+    buffers.
+    """
+
+    def __init__(self, cfg: ModelConfig, model: Transformer,
+                 pool: PagedKVPool, backend, windows: Sequence[int],
+                 attn_layer_idx: Dict[int, int], device):
+        self.cfg = cfg
+        self.model = model
+        self.pool = pool
+        self.backend = backend
+        self.win_slot = {w: i for i, w in enumerate(windows)}
+        self.attn_layer_idx = attn_layer_idx
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.slots: Dict[tuple, _SpecSlot] = {}
+        self._mempool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self.graphs = 0            # graphs captured
+        self.replays = 0           # graph replays (eager calls on the CPU)
+        self.capture_time = 0.0    # host seconds of warm-ups and captures
+        # a list to time replays on the card: each appends its (start,
+        # end) CUDA events, recorded around the replay alone
+        self.replay_events: Optional[list] = None
+
+    def __call__(self, sig: tuple, plans, base) -> np.ndarray:
+        """Verify one step at signature ``sig`` with ``plans`` (``(cls,
+        arrays)`` per window) and ``base`` (``SpecBase``'s arrays);
+        returns the ``(2, bucket)`` int64 greedy tokens and finite flags
+        on the host."""
+        slot = self.slots.get(sig)
+        if slot is None:
+            slot = _SpecSlot(plans, base, self.device, self.cfg.num_heads,
+                             self.cfg.head_dim)
+            self.slots[sig] = slot
+        else:
+            slot.load(plans, base)
+        if self.cuda:
+            if slot.graph is None:
+                self._capture(slot)
+            if self.replay_events is not None:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                slot.graph.replay()
+                ev[1].record()
+                self.replay_events.append(ev)
+            else:
+                slot.graph.replay()
+        else:
+            self._body(slot)
+        self.replays += 1
+        slot.host.copy_(slot.out, non_blocking=True)
+        if slot.event is not None:
+            slot.event.record()
+            slot.event.synchronize()
+        return slot.host.numpy()
+
+    def _capture(self, slot: _SpecSlot) -> None:
+        """Warm the step up eagerly (it writes the K/V the replay will
+        write again), then capture it; any failure raises."""
+        t0 = time.perf_counter()
+        slot.graph, slot.launches, _ = capture_graph(
+            self.device, self._mempool, lambda: self._body(slot),
+            lambda: self._body(slot))
+        self.graphs += 1
+        self.capture_time += time.perf_counter() - t0
+
+    def _body(self, slot: _SpecSlot) -> None:
+        """One verify step over the slot's buffers: per layer the
+        backend's raw parts over the verify plan (every page, tail and
+        draft pages included), then one epilogue launch with no tail
+        (segment combine + cast); the argmax and finite flags to
+        ``slot.out``."""
+        base = slot.base.arrays
+        B = base.tokens.shape[0]
+
+        def attend(qb, k_pool, v_pool, window, *_):
+            w = self.win_slot[window]
+            parts = self.backend.parts_arrays(
+                qb, k_pool, v_pool, slot.plans[w].arrays, num_queries=B,
+                window=window, out=slot.pac_out[w])
+            return por_mod.por_epilogue(qb, *parts, k_pool, v_pool, None,
+                                        None, None, window=window,
+                                        tail=False)
+
+        logits = decode_stack(self.model, self.pool, self.attn_layer_idx,
+                              base.tokens, base.q_pos, base.write_page,
+                              base.q_pos, base.write_off, attend)
+        slot.out[0].copy_(torch.argmax(logits, -1))
+        slot.out[1].copy_(torch.isfinite(logits).all(-1))
+
+
+def spec_base(tokens: Sequence[int], q_pos: Sequence[int],
+              write_page: Sequence[int], write_off: Sequence[int],
+              bucket: int, trash_page: int) -> List[np.ndarray]:
+    """``SpecBase``'s arrays for the live rows, padded to ``bucket``:
+    padded rows take token 0, ``q_pos = -1`` and slot 0 of the pool's
+    trash page."""
+    B = len(tokens)
+    a = np.zeros((4, bucket), np.int64)
+    a[0, :B] = tokens
+    a[1] = -1
+    a[1, :B] = q_pos
+    a[2] = trash_page
+    a[2, :B] = write_page
+    a[3, :B] = write_off
+    return list(a)
 
 
 def decode_stack(model: Transformer, pool: PagedKVPool,

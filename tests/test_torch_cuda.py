@@ -726,3 +726,162 @@ def test_batched_suffix_prefill_writes_the_sequential_slots_on_card():
         for a, b in zip(kv0[r], kv1[r]):
             assert torch.isfinite(b).all()
             assert (a - b).abs().max().item() <= 1e-5, r
+
+
+# --------------------------------------------------------------------- #
+# tree-speculative decoding: the verify plan and the fused verify step
+# --------------------------------------------------------------------- #
+def _verify_forest(page=16, requests=8, doc=300, tail=37):
+    """A verify step's forest: ``requests`` requests over a shared
+    document, each with a partial private tail and a draft tree of six
+    one-token nodes (a chain of four and a sibling chain of two, so two
+    siblings share each of the first two positions), each draft node with
+    its virtual query; 8 x 7 = 56 query rows.  Returns (forest, rows)."""
+    f = tree.PrefixForest(page)
+    trunk = f.add_node(tree.ROOT_ID, doc)
+    rows, virt = {}, -2
+    for r in range(requests):
+        leaf = f.add_node(trunk.id, tail + r)
+        f.attach_request(r, leaf.id)
+        rows[r] = len(rows)
+        for chain in ([11, 12, 13, 14], [21, 22]):
+            parent = leaf.id
+            for tok in chain:
+                node = f.add_draft(parent, tok + r)
+                f.attach_request(virt, node.id)
+                rows[virt] = len(rows)
+                virt -= 1
+                parent = node.id
+    plan_mod.assign_dense_pages(f)
+    return f, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["codec", "flash"])
+def test_pac_and_epilogue_over_verify_plan_on_card(kind):
+    """On an H100: PAC over a verify plan (a shared-document task of 56
+    rows split into 32-row slices, partial tail pages read by the base
+    query and every draft query of their request, one-token draft pages
+    whose siblings share a position) against pac_torch, then the epilogue
+    with no tail against its plain version, in the fused step's form
+    (bucket 64: padded rows with empty segments and ``q_pos = -1`` come
+    out zero); q and KV types mixed, NaN in every dead slot of the pool
+    and of PAC's outputs and in the output the epilogue writes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    hq, hkv, d = 32, 8, 128
+    forest, rows = _verify_forest()
+    cm = cost_model.CostModel(hq, hkv, d, page_size=16)
+    plan = plan_mod.bucket_plan(plan_mod.build_verify_plan(
+        forest, cm, rows, num_lanes=16, max_q=32, kind=kind), 64)
+    assert len(rows) == 56 and plan.num_queries == 64
+    valid = plan.step_valid.astype(bool)
+    assert 1 in plan.step_kvlen[valid]           # one-token draft pages
+    if kind == "codec":     # the document's 56 rows, in slices of <= 32
+        assert 7 < plan.task_qnum.max() <= 32
+    pa = ops.upload(ops.PlanArrays, ops.plan_host_arrays(plan, padded=True),
+                    "cuda")
+    (k_nan, v_nan), (k0, v0) = _plan_pools(forest, plan, hkv, d, seed=31)
+    q = np.random.default_rng(32).standard_normal((64, hq, d)).astype(
+        np.float32)
+    live = (torch.arange(plan.max_q, device="cuda")[None, :]
+            < pa.task_qnum[:, None])
+    for qdt, kvdt in PAC_TYPES:
+        tol = 2e-3 if kvdt == torch.bfloat16 else 1e-5
+        qc = torch.from_numpy(q).to("cuda", qdt)
+        kn, vn, kz, vz = (torch.from_numpy(x).to("cuda", kvdt)
+                          for x in (k_nan, v_nan, k0, v0))
+        o, m, l = pac_mod.pac(qc, pa, kn, vn, out=_nan_outputs(pa, hq, d))
+        want = pac_mod.pac_torch(qc[pa.q_gather.long()], pa.q_pos, kz, vz,
+                                 pa.task_pages, pa.task_kvlen, pa.task_pos)
+        torch.cuda.synchronize()
+        for g, w in zip((o, m, l), want):
+            torch.testing.assert_close(g[live], w[live], rtol=tol, atol=tol)
+            assert torch.isnan(g[~live]).all(), "a dead slot was written"
+        parts = ops.Parts(o.view(-1, hq, d), m.view(-1, hq), l.view(-1, hq),
+                          pa.seg_offsets, pa.seg_rows)
+        out = torch.full_like(qc, float("nan"))
+        got = por_mod.por_epilogue(qc, *parts, kn, None, None, None, None,
+                                   stats=True, out=out, tail=False)
+        plain = por_mod.por_epilogue_torch(qc, *parts, None, None, None,
+                                           None, None, tail=False)
+        again = por_mod.por_epilogue(qc, *parts, kn, None, None, None, None,
+                                     stats=True, tail=False)
+        torch.cuda.synchronize()
+        assert got[0] is out and out.dtype == qdt
+        for g, w, a in zip(got, plain, again):
+            assert torch.isfinite(g).all()
+            assert torch.equal(g, a), "two launches differ"
+        assert torch.equal(got[0][56:], torch.zeros_like(got[0][56:]))
+        if qdt == torch.bfloat16:
+            assert _bf16_steps(got[0], plain[0]) <= 1
+        else:
+            torch.testing.assert_close(got[0], plain[0], rtol=1e-5,
+                                       atol=1e-5)
+        for g, w in zip(got[1:], plain[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    # the no-tail mode still refuses a head dim it does not take
+    q16 = torch.zeros(4, 4, 16, device="cuda")
+    idx = torch.arange(5, dtype=torch.int32, device="cuda")
+    p16 = ops.Parts(torch.zeros(4, 4, 16, device="cuda"),
+                    torch.zeros(4, 4, device="cuda"),
+                    torch.zeros(4, 4, device="cuda"), idx, idx[:4])
+    with pytest.raises(ValueError, match="the kernel takes"):
+        por_mod.por_epilogue(q16, *p16, None, None, None, None, None,
+                             tail=False)
+
+
+def _spec_model(layers):
+    """Phase 6's f32 qwen3-4b at the fused tests' small widths (head dim
+    64), ``layers`` deep."""
+    import dataclasses
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=layers,
+                              d_model=128, num_heads=4, num_kv_heads=2,
+                              head_dim=64, d_ff=192, vocab_size=509)
+    return build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["codec-cuda", "flash", "hydragen"])
+def test_spec_streams_and_verify_graphs_on_card(backend):
+    """On an H100, at full depth (36 layers, small widths, f32): greedy
+    streams of the speculative engine, eager and fused, equal plain
+    greedy decode; drafts are accepted; the fused engine replays one graph
+    a verify step and captures one a verify signature, each holding 36
+    PAC launches (codec backends) and 36 no-tail epilogue launches; no
+    page, node or draft is left."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _spec_model(36)
+    doc = ([5, 7, 11, 13] * 16)[:60]
+    prompts = [doc + [100 + i, 7 + i] for i in range(4)]
+    streams, engines = {}, {}
+    for mode in ("plain", "eager", "fused"):
+        eng = DecodeEngine(model.cfg, model, page_size=16, num_pages=256,
+                           max_q=8, backend=backend, fused=mode == "fused",
+                           speculative=mode != "plain", device="cuda")
+        rids = [eng.add_request(p, max_new=24) for p in prompts]
+        eng.run(80)
+        streams[mode] = [list(eng.requests[r].generated) for r in rids]
+        engines[mode] = eng
+        eng.check()
+        assert not eng._drafts
+    assert streams["eager"] == streams["plain"]
+    assert streams["fused"] == streams["plain"]
+    eng = engines["fused"]
+    st, step = eng.stats, eng.spec_step
+    assert st["spec_accepted"] >= 1 and st["spec_steps"] < 24
+    assert step.replays == st["spec_steps"] == st["fused_calls"]
+    assert step.graphs == len(eng.bucket_signatures) == eng.fused_cache_size
+    pac = 36 if backend != "hydragen" else 0
+    assert all(slot.launches == (pac, 36) for slot in step.slots.values())
+    for eng in engines.values():
+        for rid in list(eng.requests):
+            eng.release(rid)
+        eng.pool.allocator.check()
+        assert eng.pool.num_free == eng.pool.num_pages
+        assert set(eng.forest.nodes) == {0}

@@ -46,3 +46,23 @@ def test_no_jax_or_repro_import_in_sources():
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_speculation_module_stands_alone():
+    """``serving/speculation.py`` is the port's own copy of ``repro``'s
+    framework-free module: it loads with ``torch``, ``jax`` and ``repro``
+    all unimportable, and its proposer drafts."""
+    path = PORT / "serving" / "speculation.py"
+    code = (
+        "import sys, importlib.util\n"
+        "for m in ('torch', 'jax', 'repro', 'numpy'):\n"
+        "    sys.modules[m] = None\n"
+        f"s = importlib.util.spec_from_file_location('spec', {str(path)!r})\n"
+        "mod = sys.modules['spec'] = importlib.util.module_from_spec(s)\n"
+        "s.loader.exec_module(mod)\n"
+        "p = mod.NGramProposer(mod.SpecConfig())\n"
+        "print(p.propose([1, 2, 3, 1, 2, 3, 1, 2]))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[[3, 1, 2]]"
