@@ -122,7 +122,27 @@ Phases (any failure raises and the script exits non-zero):
    ``codec-cuda``, ``flash`` and ``hydragen``, eager and fused, and under
    phase 8's pressured arrivals with ``max_nodes=1``, with no page, node
    or draft left and ``check()`` passing;
-12. print the ``kernels`` JSON line and the closing device line.
+12. the model families beyond the dense subset: (a) gemma3-1b at full
+   width and depth (26 layers: 22 with a 512-token window, 4 global;
+   4 query heads over 1 KV head, head_dim 256, GeGLU, embed scale), bf16
+   weights from seed 0, phase 3's workload through ``codec-cuda`` eager
+   (PAC and the epilogue tallied by window: each window's layers x
+   decode steps) and fused, then ``flash`` fused: TPOT, device busy and
+   kernels a traced step, graphs and signatures (one plan slot a window
+   in each), the KV bytes PAC reads a step by window under the codec and
+   the flash plan, and PAC and the epilogue at the last decode state for
+   each window, against their plain versions and their bounds; (b)
+   llama4-scout-17b-a16e at full width (40 query heads over 8 KV heads,
+   16 experts top-1, untied head), depth cut to 4 of 48 layers, bf16: 8
+   questions over a 2048-token document, 32 tokens each, ``codec-cuda``
+   eager and fused: TPOT, the MoE's device time a step (CUDA events), the
+   token-choices dropped by capacity (a second eager run, counting, must
+   give the same streams), PAC and the epilogue at group 5; (c) at f32:
+   gemma3 at full width, 6 layers (one whole period), four backends
+   equal eager and fused, and speculative streams equal plain greedy,
+   eager and fused; llama4-scout at full width, 2 layers, fused equal to
+   eager with 8 rows in bucket 8;
+13. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -2225,6 +2245,484 @@ def phase_speculation_f32():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 12: the model families beyond the dense subset
+# --------------------------------------------------------------------- #
+P12_REQUESTS, P12_DOC, P12_Q, P12_NEW = 8, 4096, 64, 32
+# llama4-scout's depth cut to 4 of its 48 layers (~10.4 B parameters at
+# full width, ~21 GB of bf16 weights), its document to 2048 tokens
+P12B_LAYERS, P12B_DOC = 4, 2048
+# 12c: one whole gemma3 period (five 512-token windows, one global layer)
+# and two llama4-scout layers, f32 weights; a document of two windows
+P12C_GEMMA_LAYERS, P12C_SCOUT_LAYERS = 6, 2
+P12C_REQUESTS, P12C_DOC, P12C_Q, P12C_NEW = 4, 1024, 16, 16
+
+
+class WindowTally:
+    """While entered, counts the calls of PAC's and the epilogue's
+    wrappers by attention window (each wrapper still counts its own
+    launches); restores both on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels import pac as pac_mod, por as por_mod
+        self.pac, self.epi = {}, {}
+        self._orig = (pac_mod.pac, por_mod.por_epilogue)
+
+        def tally(counts, fn):
+            def call(*a, window=0, **kw):
+                counts[window] = counts.get(window, 0) + 1
+                return fn(*a, window=window, **kw)
+            return call
+        pac_mod.pac = tally(self.pac, self._orig[0])
+        por_mod.por_epilogue = tally(self.epi, self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import pac as pac_mod, por as por_mod
+        pac_mod.pac, por_mod.por_epilogue = self._orig
+
+
+def layers_by_window(engine):
+    """Attention layers of each window: ``{window: [layer, ...]}``."""
+    out = {}
+    for j, layer in enumerate(engine.layers):
+        out.setdefault(layer.window, []).append(j)
+    return out
+
+
+def family_serve(cfg, model, backend, fused, prompts, max_new,
+                 profile=True):
+    """``prompts`` served through one engine; checks every stream's length,
+    finite logits (eager: each step's; fused: the step's flag), the
+    launches (PAC, for the codec backends, and the epilogue once a layer
+    and decode step eager, once a layer in each captured graph fused) and
+    one replay a decode step.  Returns the engine (its requests kept, for
+    the last decode state) and ``serve``'s result with the launches."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import DecodeEngine
+    engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                          num_lanes=LANES, max_q=MAX_Q, backend=backend,
+                          fused=fused, device="cuda")
+    finite = []
+
+    def on_step(eng):
+        finite.append(bool(torch.isfinite(eng.last_logits).all()))
+
+    reset_launches()
+    res = serve(engine, prompts, max_new=max_new,
+                on_step=None if fused else on_step,
+                profile_steps=PROFILE_STEPS if profile else 0)
+    res["launches"] = launches = read_launches()
+    tag = f"{cfg.name} x{cfg.num_layers} {backend} " \
+          f"{'fused' if fused else 'eager'}"
+    lens = sorted({len(t) for t in res["streams"].values()})
+    assert lens == [max_new], (tag, lens)
+    n_attn = len(engine.attn_layer_idx)
+    n_pac = n_attn if backend in ("codec-cuda", "flash") else 0
+    if fused:
+        step = engine.fused_step
+        assert engine.stats["nonfinite_rows"] == 0, tag
+        assert step.replays == res["steps"] == engine.stats["fused_calls"], \
+            (tag, step.replays, res["steps"])
+        assert step.graphs == len(engine.bucket_signatures), tag
+        held = [slot.launches for slot in step.slots.values()]
+        assert held == [(n_pac, n_attn)] * step.graphs, (tag, held)
+    else:
+        assert finite and all(finite), (tag, "non-finite logits")
+        assert launches == {"pac": n_pac * res["steps"],
+                            "por_epilogue": n_attn * res["steps"],
+                            "por": 0}, (tag, launches)
+    return engine, res
+
+
+def log_family(tag, engine, r) -> None:
+    prof = r["profile"]
+    fused = engine.fused_step is not None
+    extra = ""
+    if fused:
+        extra = (f"; {engine.fused_step.graphs} graph(s) for "
+                 f"{r['signatures']} signature(s) in {r['capture_s']:.3f} "
+                 f"s, {engine.fused_step.replays} replays")
+    log(f"  {tag}: TPOT {r['tpot_ms']:.3f} ms per step of "
+        f"{P12_REQUESTS} tokens over {r['steps'] - PROFILE_STEPS} untraced "
+        f"steps; traced steps 2-{PROFILE_STEPS + 1}: device busy "
+        f"{prof['device_busy_ms']:.3f} ms/step of {prof['wall_ms']:.3f} "
+        f"(idle share {prof['idle_share']:.3f}), "
+        f"{prof['kernels_per_step']:.0f} kernels/step, host launches/step: "
+        f"kernels {prof['kernel_launches_per_step']:.1f}, graphs "
+        f"{prof['graph_launches_per_step']:.1f}; prefill "
+        f"{r['prefill_s'] * 1e3:.1f} ms{extra}")
+    if fused:
+        log("    top kernels by device time a step: " + "; ".join(
+            f"{name} {ms:.3f} ms x{n:g}" for name, ms, n in prof["top"][:6]))
+
+
+def kv_bytes_by_window(engine):
+    """KV bytes PAC reads a decode step at the engine's last state, by
+    window: the valid page steps of the engine's codec plan and of the
+    flash plan of the same forest, rows and leaf cut, times the window's
+    layers.  Returns ``{window: (layers, codec bytes, flash bytes)}``."""
+    from repro_torch.core import plan as plan_mod
+    cfg = engine.cfg
+    rows, truncate, _ = last_state(engine)
+    per_token = 2 * cfg.num_kv_heads * cfg.head_dim * \
+        engine.pool.k.element_size()
+    out = {}
+    for w, layers in layers_by_window(engine).items():
+        plan_f = plan_mod.flash_plan(
+            engine.forest, engine.cost_model, engine.num_lanes, engine.max_q,
+            engine.max_kv_per_task, req_rows={r: i for i, r in
+                                              enumerate(rows)},
+            window=w, truncate=truncate)
+        toks = [int(p.step_kvlen[p.step_valid.astype(bool)].sum())
+                for p in (engine._plans[w][0], plan_f)]
+        out[w] = (len(layers), *(n * per_token * len(layers) for n in toks))
+    return out
+
+
+def window_kernels(engine, window, name, timer, launches, gen):
+    """PAC and the epilogue at the engine's last decode state for one
+    window (the plan the engine built, the pool of the window's first
+    layer, the last step's tails, bf16 queries of the step's shape):
+    against their plain versions, timed, with their bounds.  Returns two
+    entries of the ``kernels`` line; ``launches``: (PAC, epilogue) calls
+    of this window in the serve."""
+    from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
+    cfg = engine.cfg
+    hq, d = cfg.num_heads, cfg.head_dim
+    plan, pa = engine._plans[window]
+    layer = layers_by_window(engine)[window][0]
+    k_pool, v_pool = engine.pool.layer_pools(engine.attn_layer_idx[layer])
+    _, _, tails = last_state(engine)
+    B = plan.num_queries
+    q = torch.randn(B, hq, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    live = live_slots(pa)
+    raw = pac_mod.pac(q, pa, k_pool, v_pool, window=window)
+    plain = pac_mod.pac_torch(q[pa.q_gather.long()], pa.q_pos, k_pool,
+                              v_pool, pa.task_pages, pa.task_kvlen,
+                              pa.task_pos, window=window)
+    torch.cuda.synchronize()
+    pac_err = assert_close(f"pac {name}", [x[live] for x in raw],
+                           [x[live] for x in plain], TOL[k_pool.dtype])
+    parts = ops.Parts(raw[0].view(-1, hq, d), raw[1].view(-1, hq),
+                      raw[2].view(-1, hq), pa.seg_offsets, pa.seg_rows)
+    epi = por_mod.por_epilogue(q, *parts, k_pool, v_pool, *tails,
+                               window=window, stats=True)
+    epi_plain = por_mod.por_epilogue_torch(q, *parts, k_pool, v_pool, *tails,
+                                           window=window)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(epi[0], epi_plain[0])
+    assert ulps <= EPI_ULPS, (f"epilogue {name}", ulps)
+    ml_err = assert_close(f"epilogue {name} m, l", epi[1:], epi_plain[1:],
+                          EPI_TOL)
+    epi_err = max_err([epi[0]], [epi_plain[0]])
+    t, med = {}, {}
+    for key, fn in (
+            ("pac", lambda: pac_mod.pac(q, pa, k_pool, v_pool,
+                                        window=window)),
+            ("pac_plain", lambda: pac_mod.pac_torch(
+                q[pa.q_gather.long()], pa.q_pos, k_pool, v_pool,
+                pa.task_pages, pa.task_kvlen, pa.task_pos, window=window)),
+            ("epi", lambda: por_mod.por_epilogue(
+                q, *parts, k_pool, v_pool, *tails, window=window)),
+            ("epi_plain", lambda: por_mod.por_epilogue_torch(
+                q, *parts, k_pool, v_pool, *tails, window=window))):
+        t[key] = timer(fn)
+        med[key] = timer.median
+    pac_b, pac_by = pac_bound(plan, pa, q, k_pool)
+    epi_b, epi_by = epilogue_bound(q, parts, k_pool, tails, window)
+    log(f"  {name}: plan {plan.num_tasks} tasks on {plan.num_lanes} lanes, "
+        f"{int(plan.step_valid.sum())} valid page steps, "
+        f"{parts.seg_rows.numel()} live partial rows; PAC grid "
+        f"{plan.num_lanes} lanes x {cfg.num_kv_heads} KV heads")
+    log(f"    PAC {t['pac']:.4f} ms/launch, mean of 20 (median "
+        f"{med['pac']:.4f}; plain {t['pac_plain']:.4f}; bound {pac_b:.4f} by "
+        f"{pac_by}, {pac_b / t['pac']:.1%} of it), max|err| {pac_err:.3e}; "
+        f"epilogue {t['epi']:.4f} ms/launch (median {med['epi']:.4f}; plain "
+        f"{t['epi_plain']:.4f}; bound {epi_b:.5f} by {epi_by}), bf16 output "
+        f"within {ulps} step(s), max|err| {epi_err:.3e} (m, l "
+        f"{ml_err:.3e}); launches in the serve: PAC {launches[0]}, "
+        f"epilogue {launches[1]}")
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": f"pac ({name})", **common,
+         "source": "src/repro_torch/kernels/csrc/pac.cu",
+         "replaces": "src/repro/kernels/pac.py:138",
+         "launches": launches[0], "max_abs_err": pac_err, "ms": t["pac"],
+         "plain_ms": t["pac_plain"], "bound_ms": pac_b, "bound_by": pac_by},
+        {"name": f"por_epilogue ({name})", **common,
+         "source": "src/repro_torch/kernels/csrc/por.cu",
+         "replaces": "src/repro/kernels/por.py:44, "
+                     "src/repro/kernels/ops.py:80, "
+                     "src/repro/kernels/ops.py:91",
+         "launches": launches[1], "max_abs_err": epi_err, "ms": t["epi"],
+         "plain_ms": t["epi_plain"], "bound_ms": epi_b, "bound_by": epi_by}]
+
+
+def phase_gemma3(timer):
+    """12a: gemma3-1b at full width and depth, bf16 weights from seed 0:
+    8 questions over one 4096-token document (8 windows), 32 greedy
+    tokens each, through ``codec-cuda`` eager (PAC and the epilogue
+    tallied by window) and fused, then ``flash`` fused; KV bytes a step by
+    window; PAC and the epilogue at the last decode state, per window."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models.transformer import build_model
+    cfg = get_config("gemma3-1b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  model {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} query heads over "
+        f"{cfg.num_kv_heads} KV head, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.mlp_act}, embed scale, "
+        f"window {cfg.sliding_window} on 5 of every 6 layers; "
+        f"{cfg.param_count() / 1e9:.2f} B params, bf16, seed 0, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = doc_prompts(P12_REQUESTS, P12_DOC, P12_Q, cfg.vocab_size,
+                          seed=0)
+    with WindowTally() as tally:
+        eng, r_e = family_serve(cfg, model, "codec-cuda", False, prompts,
+                                P12_NEW)
+    by_win = layers_by_window(eng)
+    assert sorted(by_win) == [0, cfg.sliding_window], sorted(by_win)
+    for w, layers in by_win.items():
+        want = len(layers) * r_e["steps"]
+        assert tally.pac[w] == tally.epi[w] == want, (w, tally.pac,
+                                                      tally.epi, want)
+    log(f"  windows: {len(by_win[0])} global layers, "
+        f"{len(by_win[cfg.sliding_window])} layers of window "
+        f"{cfg.sliding_window}; eager launches by window: PAC {tally.pac}, "
+        f"epilogue {tally.epi} ({r_e['steps']} decode steps)")
+    log_family("gemma3-1b codec-cuda eager", eng, r_e)
+    kv = kv_bytes_by_window(eng)
+    esize = eng.pool.k.element_size()
+    io_c = eng.forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
+    io_f = eng.forest.flash_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
+    tot_c = sum(c for _, c, _ in kv.values())
+    tot_f = sum(f for _, _, f in kv.values())
+    for w, (n, c, f) in sorted(kv.items()):
+        log(f"  KV bytes PAC reads a step, window {w:<4} ({n:>2} layers): "
+            f"codec {c / 1e6:.2f} MB, flash {f / 1e6:.2f} MB "
+            f"({f / max(c, 1):.2f}x)")
+    log(f"  KV bytes a step, all layers: codec {tot_c / 1e6:.2f} MB, flash "
+        f"{tot_f / 1e6:.2f} MB ({tot_f / tot_c:.2f}x); the window-free "
+        f"count (codec_io_bytes / flash_io_bytes, tails included) per "
+        f"layer {io_c / 1e6:.2f} / {io_f / 1e6:.2f} MB, x{cfg.num_layers} "
+        f"layers {io_f / io_c:.2f}x")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    kernels = []
+    for w in sorted(by_win):
+        kernels += window_kernels(
+            eng, w, f"gemma3-1b, window {w}, d {cfg.head_dim}, group "
+            f"{cfg.group}", timer, (tally.pac[w], tally.epi[w]), gen)
+    eager = r_e
+    del eng
+    torch.cuda.empty_cache()
+    tpot = {}
+    for backend in ("codec-cuda", "flash"):
+        eng, r = family_serve(cfg, model, backend, True, prompts, P12_NEW)
+        sigs = eng.bucket_signatures
+        assert all([w for w, *_ in sig[1:]] == [0, cfg.sliding_window]
+                   for sig in sigs), sigs
+        log_family(f"gemma3-1b {backend} fused", eng, r)
+        log(f"    signatures (bucket, then one plan slot a window): "
+            + "; ".join(str((s[0],) + tuple(x[:2] for x in s[1:]))
+                        for s in sorted(sigs)))
+        same = sum(r["streams"][q] == eager["streams"][q]
+                   for q in eager["streams"])
+        log(f"    {same} of {len(eager['streams'])} bf16 streams equal "
+            f"codec-cuda eager's")
+        tpot[backend] = r["tpot_ms"]
+        release_all(f"gemma3 {backend} fused", eng)
+        del eng
+        torch.cuda.empty_cache()
+    log(f"  gemma3-1b TPOT: codec-cuda eager {eager['tpot_ms']:.3f} ms, "
+        f"fused {tpot['codec-cuda']:.3f} ms "
+        f"({eager['tpot_ms'] / tpot['codec-cuda']:.2f}x), flash fused "
+        f"{tpot['flash']:.3f} ms (flash - codec-cuda "
+        f"{tpot['flash'] - tpot['codec-cuda']:.3f} ms a step)")
+    del model
+    torch.cuda.empty_cache()
+    return kernels
+
+
+class MoEDrops:
+    """While entered, counts the token-choices ``apply_moe`` drops by
+    capacity, decode calls (one token a row) apart from prefill calls, on
+    the device (no host sync until read); restores it on exit."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.acc = {"decode": [], "prefill": []}
+        self.choices = {"decode": 0, "prefill": 0}
+        self._orig = L.apply_moe
+
+        def counted(p, cfg, x):
+            B, T, _ = x.shape
+            _, _, _, pos, cap = L.moe_route(p, cfg, x.reshape(1, B * T, -1))
+            key = "decode" if T == 1 else "prefill"
+            self.acc[key].append((pos >= cap).sum())
+            self.choices[key] += pos.numel()
+            return self._orig(p, cfg, x)
+        L.apply_moe = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.apply_moe = self._orig
+
+    def read(self):
+        return {k: (int(sum(v).item()) if v else 0, self.choices[k])
+                for k, v in self.acc.items()}
+
+
+def phase_scout(timer):
+    """12b: llama4-scout-17b-a16e at full width, depth cut to 4 layers,
+    bf16 weights from seed 0: 8 questions over a 2048-token document, 32
+    greedy tokens each, ``codec-cuda`` eager (timed, then again counting
+    the token-choices dropped by capacity) and fused; the MoE's device
+    time a step; PAC and the epilogue at group 5."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              num_layers=P12B_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  model {cfg.name}: {cfg.num_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} query heads over "
+        f"{cfg.num_kv_heads} KV heads, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, untied head; {cfg.param_count() / 1e9:.2f} B "
+        f"params ({nbytes / 1e9:.1f} GB, router f32), bf16, seed 0, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    prompts = doc_prompts(P12_REQUESTS, P12B_DOC, P12_Q, cfg.vocab_size,
+                          seed=0)
+    eng, r_e = family_serve(cfg, model, "codec-cuda", False, prompts,
+                            P12_NEW)
+    log_family("llama4-scout codec-cuda eager", eng, r_e)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n_attn = len(eng.attn_layer_idx)
+    kernels = window_kernels(
+        eng, 0, f"llama4-scout, d {cfg.head_dim}, group {cfg.group}", timer,
+        (r_e["launches"]["pac"], r_e["launches"]["por_epilogue"]), gen)
+    # the MoE of one decode step: a layer's apply_moe on the step's shape
+    # (8 rows of one token), times the MoE layers
+    ffn = model.layers[0].ffn
+    x = torch.randn(P12_REQUESTS, 1, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    moe_ms = timer(lambda: L.apply_moe(ffn, cfg, x))
+    moe_med = timer.median
+    w_bytes = sum(t.numel() * t.element_size() for t in (ffn.wi, ffn.wo,
+                                                         ffn.router))
+    log(f"  MoE: apply_moe {moe_ms:.4f} ms a layer at {P12_REQUESTS} rows "
+        f"(median {moe_med:.4f}; cap {L.moe_capacity(cfg, P12_REQUESTS)} a "
+        f"expert), {moe_ms * n_attn:.3f} ms a decode step of "
+        f"{n_attn} layers; it streams every expert's weights, "
+        f"{w_bytes / 1e9:.2f} GB a layer: bound {1e3 * w_bytes / HBM_BW:.4f}"
+        f" ms by bytes")
+    release_all("llama4-scout eager", eng)
+    del eng
+    with MoEDrops() as drops:
+        eng, r_d = family_serve(cfg, model, "codec-cuda", False, prompts,
+                                P12_NEW, profile=False)
+    assert r_d["streams"] == r_e["streams"], "a counted run differs"
+    (dd, dn), (pd, pn) = drops.read()["decode"], drops.read()["prefill"]
+    log(f"  token-choices dropped by capacity (capacity_factor "
+        f"{cfg.capacity_factor}): decode {dd} of {dn} ({dd / dn:.1%}), "
+        f"prefill {pd} of {pn} ({pd / max(pn, 1):.1%}); the counted run's "
+        f"streams equal the timed one's")
+    release_all("llama4-scout counted", eng)
+    del eng
+    eng, r_f = family_serve(cfg, model, "codec-cuda", True, prompts, P12_NEW)
+    log_family("llama4-scout codec-cuda fused", eng, r_f)
+    same = sum(r_f["streams"][q] == r_e["streams"][q] for q in r_e["streams"])
+    log(f"  llama4-scout TPOT: eager {r_e['tpot_ms']:.3f} ms, fused "
+        f"{r_f['tpot_ms']:.3f} ms ({r_e['tpot_ms'] / r_f['tpot_ms']:.2f}x); "
+        f"MoE {moe_ms * n_attn:.3f} ms of it by CUDA events; {same} of "
+        f"{len(r_e['streams'])} bf16 streams equal eager's")
+    release_all("llama4-scout fused", eng)
+    del eng, model
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_families_f32():
+    """12c at f32 weights: gemma3 at full width, one whole period (6
+    layers), streams equal through ``codec-cuda``, ``codec-torch``,
+    ``flash`` and ``hydragen``, eager and fused, and speculative streams
+    (``SpecConfig()``) equal plain greedy, eager and fused;
+    llama4-scout at full width, 2 layers: fused equals eager with 8 rows
+    in bucket 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config("gemma3-1b"),
+                              num_layers=P12C_GEMMA_LAYERS)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    prompts = doc_prompts(P12C_REQUESTS, P12C_DOC, P12C_Q, cfg.vocab_size,
+                          seed=3)
+    want = None
+    for backend in BACKENDS:
+        for fused in (False, True):
+            eng, r = family_serve(cfg, model, backend, fused, prompts,
+                                  P12C_NEW, profile=False)
+            if want is None:
+                want = r["streams"]
+            diff = first_difference(want, r["streams"])
+            assert diff is None, (backend, fused, diff)
+            release_all(f"gemma3 f32 {backend}", eng)
+            del eng
+    log(f"  gemma3-1b x{cfg.num_layers} f32: {' == '.join(BACKENDS)}, eager "
+        f"and fused, on {len(want)} streams x {P12C_NEW} tokens over a "
+        f"{P12C_DOC}-token document")
+    rng = np.random.default_rng(12)
+    block = rng.integers(1, cfg.vocab_size, P11_BLOCK).tolist()
+    rep = [block * (P12C_DOC // P11_BLOCK)
+           + rng.integers(1, cfg.vocab_size, P12C_Q).tolist()
+           for _ in range(P12C_REQUESTS)]
+    base = spec_serve(cfg, model, "codec-cuda", "eager", rep, P12C_NEW)
+    acc = []
+    for mode in ("spec-eager", "spec-fused"):
+        r = spec_serve(cfg, model, "codec-cuda", mode, rep, P12C_NEW)
+        diff = first_difference(base["streams"], r["streams"])
+        assert diff is None, (mode, diff)
+        acc.append(r["stats"]["spec_accepted"])
+    log(f"  gemma3-1b x{cfg.num_layers} f32: speculative streams equal plain "
+        f"greedy, eager and fused ({P12C_REQUESTS} x {P12C_NEW} tokens over "
+        f"a repeated-block document; drafts accepted {acc[0]} / {acc[1]})")
+    del model
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              num_layers=P12C_SCOUT_LAYERS)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    prompts = doc_prompts(P12_REQUESTS, P12C_DOC, P12C_Q, cfg.vocab_size,
+                          seed=4)
+    streams = {}
+    for fused in (False, True):
+        eng, r = family_serve(cfg, model, "codec-cuda", fused, prompts,
+                              P12C_NEW, profile=False)
+        streams[fused] = r["streams"]
+        if fused:
+            assert {s[0] for s in eng.bucket_signatures} == {8}, \
+                eng.bucket_signatures
+        release_all(f"llama4-scout f32 fused={fused}", eng)
+        del eng
+    diff = first_difference(streams[False], streams[True])
+    assert diff is None, diff
+    log(f"  llama4-scout x{cfg.num_layers} f32: fused == eager on "
+        f"{len(streams[True])} streams x {P12C_NEW} tokens, {P12_REQUESTS} "
+        f"rows in bucket 8 (cap {cfg.capacity_factor} x 8 / "
+        f"{cfg.num_experts} -> 1 a expert, both modes)")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2306,6 +2804,18 @@ def main() -> int:
     phase_speculation_f32()
     log(f"  phase 11: 11a {t11a:.1f} s, 11b {time.perf_counter() - t11:.1f}"
         f" s")
+
+    log("== 12. the model families beyond the dense subset: gemma3-1b's "
+        "sliding-window decoder, llama4-scout's top-1 MoE")
+    t12 = [time.perf_counter()]
+    kernels += phase_gemma3(timer)
+    t12.append(time.perf_counter())
+    kernels += phase_scout(timer)
+    t12.append(time.perf_counter())
+    phase_families_f32()
+    t12.append(time.perf_counter())
+    log(f"  phase 12: 12a {t12[1] - t12[0]:.1f} s, 12b "
+        f"{t12[2] - t12[1]:.1f} s, 12c {t12[3] - t12[2]:.1f} s")
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,24 +1,40 @@
-"""Config registry: ``get_config(arch_id)`` + smoke-test reductions.
+"""Config registry: ``get_config(arch_id)`` + smoke-test reductions (the
+port's copy of ``repro.configs``).
 
-The port carries only the configurations it can serve; ``qwen3-4b`` is the
-paper's evaluation model and the first one ported.
+Every config of ``repro`` loads here.  The model builds all of them but
+the Mamba ones (``mamba2-2.7b``, ``jamba-v0.1-52b``), and the engine
+serves the decoder-only ones (not ``whisper-base``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import List
 
 from .base import LayerKind, ModelConfig
+from .shapes import SHAPES, InputShape
 
 _MODULES = {
+    "mamba2-2.7b": "mamba2_2_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "whisper-base": "whisper_base",
+    "gemma-2b": "gemma_2b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "gemma3-1b": "gemma3_1b",
+    "llava-next-34b": "llava_next_34b",
     "qwen3-4b": "qwen3_4b",
 }
 
+ASSIGNED_ARCHS: List[str] = [k for k in _MODULES if k != "qwen3-4b"]
 PAPER_ARCH = "qwen3-4b"
 
-__all__ = ["LayerKind", "ModelConfig", "PAPER_ARCH", "get_config",
-           "smoke_config"]
+__all__ = ["ASSIGNED_ARCHS", "InputShape", "LayerKind", "ModelConfig",
+           "PAPER_ARCH", "SHAPES", "get_config", "served_archs",
+           "shape_supported", "skip_reason", "smoke_config"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -26,6 +42,18 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     return mod.CONFIG
+
+
+def served_archs() -> List[str]:
+    """The configs the port's engine serves: decoder-only, no Mamba."""
+    out = []
+    for name in _MODULES:
+        cfg = get_config(name)
+        if cfg.encoder_layers or any(k.mixer == "mamba"
+                                     for k in cfg.layer_pattern):
+            continue
+        out.append(name)
+    return out
 
 
 def smoke_config(name: str) -> ModelConfig:
@@ -49,7 +77,7 @@ def smoke_config(name: str) -> ModelConfig:
         vocab_size=257,
         num_experts=min(cfg.num_experts, 4),
         num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
-        capacity_factor=0.0,
+        capacity_factor=0.0,  # no-drop: decode must match train exactly
         ssm_state=16 if cfg.ssm_state else 0,
         ssm_head_dim=8 if cfg.ssm_state else 64,
         ssm_chunk=16,
@@ -58,3 +86,14 @@ def smoke_config(name: str) -> ModelConfig:
         frontend_seq=min(cfg.frontend_seq, 12),
         dtype="float32",
     )
+
+
+def shape_supported(cfg: ModelConfig, shape: str) -> bool:
+    return shape not in {s for s, _ in cfg.skip_shapes}
+
+
+def skip_reason(cfg: ModelConfig, shape: str) -> str:
+    for s, r in cfg.skip_shapes:
+        if s == shape:
+            return r
+    return ""

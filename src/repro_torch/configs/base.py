@@ -1,9 +1,9 @@
 """Model/config schema (the port's own copy of ``repro.configs.base``).
 
 A config fully determines the model graph; ``layer_pattern`` describes one
-repeating *period* of heterogeneous layers.  The PyTorch port serves the
-dense attention subset (``LayerKind("attn", "mlp")``); the other fields
-are kept so a config reads the same in both packages.
+repeating *period* of heterogeneous layers.  The PyTorch port builds every
+decoder of attention (global or sliding-window) with a dense or MoE FFN,
+and whisper's encoder; Mamba mixers load as configs only.
 """
 
 from __future__ import annotations
@@ -141,3 +141,16 @@ class ModelConfig:
         if self.encoder_layers:
             total += self.encoder_layers * (attn + mlp + 2 * d)
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        gate = 2 if self.mlp_act in ("silu", "geglu") else 1
+        per_expert = d * ff * gate + ff * d
+        inactive = 0
+        for i in range(self.num_layers):
+            if self.layer_kind(i).ffn == "moe":
+                inactive += (self.num_experts - self.num_experts_per_tok) * per_expert
+        return self.param_count() - inactive

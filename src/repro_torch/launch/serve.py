@@ -84,7 +84,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..configs import get_config
+from ..configs import get_config, served_archs
 from ..core import metrics as metrics_mod
 from ..core.plan import bucket_pow2
 from ..kernels import pac as pac_mod, por as por_mod
@@ -549,7 +549,8 @@ def _chunk(v: str):
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b", choices=served_archs(),
+                    help="any decoder-only, non-Mamba config")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--doc-len", type=int, default=4096)

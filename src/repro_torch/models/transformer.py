@@ -1,17 +1,23 @@
-"""Decoder-only transformer, dense attention subset (port of
-``repro.models.transformer``).
+"""Decoder LM stack (port of ``repro.models.transformer``) for every
+attention config of ``repro``: dense, GQA and MQA attention with QKV bias,
+sliding-window layers and softcap; SwiGLU, GeGLU and GELU FFNs and top-k
+MoE; RMS or layer norm; embedding scale, absolute positions and untied
+heads; whisper's encoder with cross attention and a VLM's prefix
+embeddings.  Mamba mixers are refused (ROADMAP A11).
 
 ``Transformer`` holds the embedding, one ``DecoderLayer`` per layer in the
 order ``repro.serving.engine.flat_layers`` flattens them (period-major,
-then the remainder layers), the final norm and the tied unembedding.
-``forward`` is the full-sequence (prefill) pass; the decode engine calls
-``embed_tokens``, the layers and ``unembed`` itself.
+then the remainder layers), the final norm, the untied head where the
+config has one, and the encoder.  ``forward`` is the full-sequence
+(prefill) pass; the decode engine calls ``embed_tokens``, the layers and
+``unembed`` itself.  ``init_cache``, ``prefill`` and ``decode_step`` run a
+dense head-major KV cache: the oracle the paged engine is held to.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +26,7 @@ from ..configs.base import LayerKind, ModelConfig
 from . import layers as L
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Cache = List[Dict[str, torch.Tensor]]
 
 
 def torch_dtype(cfg: ModelConfig, override=None) -> torch.dtype:
@@ -29,25 +36,55 @@ def torch_dtype(cfg: ModelConfig, override=None) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if (kinds != {LayerKind("attn", "mlp")} or not cfg.tie_embeddings
-            or cfg.encoder_layers or cfg.cross_attention
-            or cfg.attn_logit_softcap or cfg.pos_embedding != "rope"):
+    if any(cfg.layer_kind(i).mixer == "mamba"
+           for i in range(cfg.num_layers)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attn+mlp decoders with tied "
-            f"embeddings and RoPE only")
+            f"{cfg.name}: Mamba mixers are not ported yet (ROADMAP A11)")
+
+
+def _is_attn(kind: LayerKind) -> bool:
+    return kind.mixer in ("attn", "attn_local")
 
 
 class DecoderLayer(nn.Module):
+    """One sub-layer: ``ln`` + attention (+ ``ln_x`` and ``xattn`` with
+    cross attention), then ``ln2`` + the FFN unless the kind has none."""
+
     def __init__(self, cfg: ModelConfig, kind: LayerKind, device=None,
                  dtype=None):
         super().__init__()
         self.kind = kind
+        self.window = (cfg.sliding_window if kind.mixer == "attn_local"
+                       else 0)
         kw = dict(device=device, dtype=dtype)
-        self.ln = L.RMSNorm(cfg.d_model, **kw)
-        self.attn = L.Attention(cfg, **kw)
-        self.ln2 = L.RMSNorm(cfg.d_model, **kw)
-        self.ffn = L.MLP(cfg, **kw)
+        self.ln = L.Norm(cfg.d_model, cfg, **kw)
+        if _is_attn(kind):
+            self.attn = L.Attention(cfg, **kw)
+            if cfg.cross_attention:
+                self.ln_x = L.Norm(cfg.d_model, cfg, **kw)
+                self.xattn = L.Attention(cfg, **kw)
+        if kind.ffn != "none":
+            self.ln2 = L.Norm(cfg.d_model, cfg, **kw)
+            self.ffn = (L.MoE(cfg, **kw) if kind.ffn == "moe"
+                        else L.MLP(cfg, **kw))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, LayerKind("attn", "mlp"), device=device,
+                         dtype=dtype)
+            for _ in range(cfg.encoder_layers))
+        self.final_norm = L.Norm(cfg.d_model, cfg, device=device,
+                                 dtype=dtype)
+
+
+def embed_multiplier(cfg: ModelConfig, dtype: torch.dtype) -> float:
+    """``sqrt(d_model)`` rounded to the weight dtype first, as ``repro``
+    multiplies by ``jnp.asarray(np.sqrt(d), x.dtype)`` (at bf16, d = 1152
+    gives 34.0, not 33.94)."""
+    return float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
 
 
 class Transformer(nn.Module):
@@ -56,84 +93,276 @@ class Transformer(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg, dtype)
-        self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, device=device,
-                        dtype=dtype), requires_grad=False)
+        kw = dict(device=device, dtype=dtype)
+        self.embed = L._param((cfg.vocab_size, cfg.d_model), device, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, cfg.layer_kind(i), device=device, dtype=dtype)
+            DecoderLayer(cfg, cfg.layer_kind(i), **kw)
             for i in range(cfg.num_layers))
-        self.final_norm = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.final_norm = L.Norm(cfg.d_model, cfg, **kw)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        L._param((cfg.d_model, cfg.vocab_size), device,
+                                 dtype))
+        self.encoder = (Encoder(cfg, **kw) if cfg.encoder_layers else None)
 
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig,
                         state: Dict[str, torch.Tensor]) -> "Transformer":
         """Wrap existing tensors (no copy): the model lives where they do."""
-        model = cls(cfg, device="meta",
-                    dtype=next(iter(state.values())).dtype)
+        model = cls(cfg, device="meta", dtype=state["embed"].dtype)
         model.load_state_dict(state, assign=True)
         return model
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+    def embed_tokens(self, tokens: torch.Tensor,
+                     positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Token embeddings, times ``sqrt(d_model)`` with ``embed_scale``,
+        plus sinusoidal positions with absolute position embeddings."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        if cfg.embed_scale:
+            x = x * embed_multiplier(cfg, x.dtype)
+        if cfg.pos_embedding == "absolute":
+            half = cfg.d_model // 2
+            freq = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                             device=x.device) / half)
+            ang = positions[..., None].float() * freq
+            pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+            x = x + pe.to(x.dtype)
+        return x
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm + tied unembedding -> float32 logits."""
+        """Final norm + the tied or untied head -> float32 logits."""
         x = L.apply_norm(self.final_norm, x, self.cfg)
-        return (x @ self.embed.T).float()
+        w = self.embed.T if self.lm_head is None else self.lm_head
+        return (x @ w).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal pass. tokens (B, T) -> logits (B, T, V)."""
+    def encode(self, encoder_embeds: torch.Tensor) -> torch.Tensor:
+        """Bidirectional encoder over stubbed frontend embeddings."""
+        cfg = self.cfg
+        x = encoder_embeds.to(self.embed.dtype)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        for lp in self.encoder.layers:
+            h = L.apply_norm(lp.ln, x, cfg)
+            y, _, _ = L.attn_full(lp.attn, cfg, h, positions, causal=False)
+            x = x + y
+            x = x + L.apply_mlp(lp.ffn, cfg, L.apply_norm(lp.ln2, x, cfg))
+        return L.apply_norm(self.encoder.final_norm, x, cfg)
+
+    def run(self, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            encoder_embeds: Optional[torch.Tensor] = None,
+            last_only: bool = False, collect_cache: bool = False,
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
+        """The full-sequence pass: ``(logits, moe_aux, cache | None)``.
+
+        ``prefix_embeds`` (VLM stub) are prepended; logits cover only the
+        token positions (``last_only``: the final position alone).
+        ``encoder_embeds`` (audio stub) feed the encoder for cross
+        attention.  ``cache``: per layer, its ``k``/``v`` (B, T, Hkv, hd)
+        and, with cross attention, ``xk``/``xv``."""
         cfg = self.cfg
         B, T = tokens.shape
-        positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-        x = self.embed_tokens(tokens)
+        n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        total = T + n_prefix
+        dev = tokens.device
+        positions = torch.arange(total, device=dev)[None].expand(B, total)
+        x = self.embed_tokens(tokens, positions[:, n_prefix:])
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
+        enc_out = (self.encode(encoder_embeds)
+                   if self.encoder is not None and encoder_embeds is not None
+                   else None)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        caches: Cache = []
         for layer in self.layers:
+            c: Dict[str, torch.Tensor] = {}
             h = L.apply_norm(layer.ln, x, cfg)
-            q, k, v = L.attn_project(layer.attn, cfg, h, positions)
-            o = L.mha(q, k, v, causal=True, q_positions=positions,
-                      kv_positions=positions)
-            x = x + L.dense(layer.attn.wo,
-                            o.reshape(B, T, cfg.num_heads * cfg.head_dim))
-            x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
-        return self.unembed(x)
+            y, c["k"], c["v"] = L.attn_full(layer.attn, cfg, h, positions,
+                                            causal=True, window=layer.window)
+            x = x + y
+            if cfg.cross_attention and enc_out is not None:
+                hx = L.apply_norm(layer.ln_x, x, cfg)
+                ek, ev = L.cross_kv(layer.xattn, cfg, enc_out)
+                x = x + L.cross_attn_full(layer.xattn, cfg, hx, ek, ev)
+                c["xk"], c["xv"] = ek, ev
+            x, a = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+            aux = aux + a
+            caches.append(c)
+        x_out = x[:, -1:] if last_only else x[:, n_prefix:]
+        return (self.unembed(x_out), aux,
+                caches if collect_cache else None)
+
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None,
+                encoder_embeds: Optional[torch.Tensor] = None,
+                last_only: bool = False) -> torch.Tensor:
+        """Full-sequence causal pass. tokens (B, T) -> logits (B, T, V)."""
+        return self.run(tokens, prefix_embeds, encoder_embeds,
+                        last_only)[0]
+
+
+# --------------------------------------------------------------------- #
+# dense decode cache (the paged engine's oracle)
+# --------------------------------------------------------------------- #
+def init_cache(model: Transformer, batch: int, max_len: int,
+               enc_len: int = 0) -> Cache:
+    """A zero dense cache in the weights' dtype, one dict a layer:
+    head-major ``k``/``v`` (B, Hkv, max_len, hd) and, with cross
+    attention, ``xk``/``xv``."""
+    cfg = model.cfg
+    dtype = model.embed.dtype
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    xshape = (batch, cfg.num_kv_heads, enc_len, cfg.head_dim)
+    kw = dict(dtype=dtype, device=model.embed.device)
+    cache: Cache = []
+    for _ in model.layers:
+        c = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        if cfg.cross_attention:
+            c["xk"] = torch.zeros(xshape, **kw)
+            c["xv"] = torch.zeros(xshape, **kw)
+        cache.append(c)
+    return cache
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
+            prefix_embeds=None, encoder_embeds=None,
+            ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+    """Process the full prompt; returns ``(last_logits, cache,
+    cache_len)``."""
+    B, T = tokens.shape
+    logits, _, col = model.run(tokens, prefix_embeds, encoder_embeds,
+                               collect_cache=True)
+    enc_len = encoder_embeds.shape[1] if encoder_embeds is not None else 0
+    cache = init_cache(model, B, max_len, enc_len)
+    total = T + (0 if prefix_embeds is None else prefix_embeds.shape[1])
+    for dst, src in zip(cache, col):
+        for key in ("k", "v"):
+            dst[key][:, :, :total] = src[key].transpose(1, 2).to(
+                dst[key].dtype)
+        for key in ("xk", "xv"):
+            if key in dst and key in src:
+                dst[key] = src[key].transpose(1, 2).to(dst[key].dtype)
+    cache_len = torch.full((B,), total, dtype=torch.int64,
+                           device=tokens.device)
+    return logits[:, -1], cache, cache_len
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
+                cache_len: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One decode step. tokens: (B, 1); cache_len: (B,) tokens already
+    cached (the new token's KV is written at index cache_len, in place).
+    Returns ``(logits (B, V), cache)``."""
+    cfg = model.cfg
+    B = tokens.shape[0]
+    pos = cache_len[:, None]
+    x = model.embed_tokens(tokens, pos)
+    bidx = torch.arange(B, device=tokens.device)
+    for layer, c in zip(model.layers, cache):
+        h = L.apply_norm(layer.ln, x, cfg)
+        q, k_new, v_new = L.attn_project(layer.attn, cfg, h, pos)
+        c["k"][bidx, :, cache_len] = k_new[:, 0].to(c["k"].dtype)
+        c["v"][bidx, :, cache_len] = v_new[:, 0].to(c["v"].dtype)
+        Lc = c["k"].shape[2]
+        kv_pos = torch.arange(Lc, device=x.device)[None].expand(B, Lc)
+        o = L.mha(q, c["k"], c["v"], causal=True, window=layer.window,
+                  softcap=cfg.attn_logit_softcap, q_positions=pos,
+                  kv_positions=kv_pos, kv_valid=kv_pos <= pos, q_chunk=1,
+                  kv_layout="bhld")
+        x = x + L.dense(layer.attn.wo,
+                        o.reshape(B, 1, cfg.num_heads * cfg.head_dim))
+        if cfg.cross_attention and "xk" in c:
+            hx = L.apply_norm(layer.ln_x, x, cfg)
+            x = x + L.cross_attn_full(layer.xattn, cfg, hx, c["xk"],
+                                      c["xv"], kv_layout="bhld")
+        x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+    return model.unembed(x)[:, 0], cache
+
+
+# --------------------------------------------------------------------- #
+# random weights
+# --------------------------------------------------------------------- #
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                      str]]:
+    """Every parameter's shape and initialiser, by state-dict name:
+    ``"normal"`` (``N(0, 1/fan_in)`` with fan_in = ``shape[0]``, as
+    ``repro``'s ``_init`` takes it, so E for the expert weights),
+    ``"embed"`` (``N(0, 1/d_model)``), ``"router"`` (normal, float32),
+    ``"ones"`` or ``"zeros"``."""
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    gate = L._gate(cfg)
+    E, ff = cfg.num_experts, cfg.d_ff
+    out: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+
+    def norm(pre):
+        out[pre + "scale"] = ((d,), "ones")
+        if cfg.norm == "layer":
+            out[pre + "bias"] = ((d,), "zeros")
+
+    def attn(pre):
+        for w, n_out in (("wq", hq * hd), ("wk", hkv * hd),
+                         ("wv", hkv * hd)):
+            out[pre + f"{w}.w"] = ((d, n_out), "normal")
+            if cfg.qkv_bias:
+                out[pre + f"{w}.b"] = ((n_out,), "zeros")
+        out[pre + "wo.w"] = ((hq * hd, d), "normal")
+
+    def sublayer(pre, kind):
+        norm(pre + "ln.")
+        if _is_attn(kind):
+            attn(pre + "attn.")
+            if cfg.cross_attention:
+                norm(pre + "ln_x.")
+                attn(pre + "xattn.")
+        if kind.ffn == "none":
+            return
+        norm(pre + "ln2.")
+        if kind.ffn == "moe":
+            out[pre + "ffn.router"] = ((d, E), "router")
+            out[pre + "ffn.wi"] = ((E, d, gate * ff), "normal")
+            out[pre + "ffn.wo"] = ((E, ff, d), "normal")
+        else:
+            out[pre + "ffn.wi.w"] = ((d, gate * ff), "normal")
+            out[pre + "ffn.wo.w"] = ((ff, d), "normal")
+
+    out["embed"] = ((cfg.vocab_size, d), "embed")
+    norm("final_norm.")
+    for i in range(cfg.num_layers):
+        sublayer(f"layers.{i}.", cfg.layer_kind(i))
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((d, cfg.vocab_size), "normal")
+    for i in range(cfg.encoder_layers):
+        sublayer(f"encoder.layers.{i}.", LayerKind("attn", "mlp"))
+    if cfg.encoder_layers:
+        norm("encoder.final_norm.")
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=None) -> Dict[str, torch.Tensor]:
     """Random weights with ``repro.models.transformer.init_params``'s
-    distributions: dense ``N(0, 1/fan_in)``, embedding ``N(0, 1/d_model)``,
-    norm scales 1, biases 0.  Drawn in float32 from ``generator`` (which
-    must live on ``device``), then cast.  The two packages draw different
-    numbers from one seed; tests share weights through ``weights.py``."""
+    distributions (``param_shapes``), drawn in float32 from ``generator``
+    (which must live on ``device``), then cast; the router stays float32.
+    The two packages draw different numbers from one seed; tests share
+    weights through ``weights.py``."""
     _check_supported(cfg)
     dtype = torch_dtype(cfg, dtype)
-
-    def normal(shape, scale):
+    state = {}
+    for name, (shape, kind) in param_shapes(cfg).items():
+        if kind in ("ones", "zeros"):
+            state[name] = (torch.ones if kind == "ones" else torch.zeros)(
+                shape, device=device, dtype=dtype)
+            continue
+        scale = (cfg.d_model ** -0.5 if kind == "embed"
+                 else 1.0 / math.sqrt(shape[0]))
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * scale).to(dtype)
-
-    def ones(n):
-        return torch.ones(n, device=device, dtype=dtype)
-
-    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.head_dim
-    state = {"embed": normal((cfg.vocab_size, d), d ** -0.5),
-             "final_norm.scale": ones(d)}
-    shapes = {"attn.wq.w": (d, hq * hd), "attn.wk.w": (d, hkv * hd),
-              "attn.wv.w": (d, hkv * hd), "attn.wo.w": (hq * hd, d),
-              "ffn.wi.w": (d, 2 * cfg.d_ff), "ffn.wo.w": (cfg.d_ff, d)}
-    for i in range(cfg.num_layers):
-        pre = f"layers.{i}."
-        state[pre + "ln.scale"] = ones(d)
-        state[pre + "ln2.scale"] = ones(d)
-        for name, shape in shapes.items():
-            state[pre + name] = normal(shape, 1.0 / math.sqrt(shape[0]))
-        if cfg.qkv_bias:
-            for w, n in (("wq", hq * hd), ("wk", hkv * hd),
-                         ("wv", hkv * hd)):
-                state[pre + f"attn.{w}.b"] = torch.zeros(
-                    n, device=device, dtype=dtype)
+        x.mul_(scale)
+        state[name] = x if kind == "router" else x.to(dtype)
+        del x
     return state
 
 

@@ -193,6 +193,9 @@ class DecodeEngine:
                  check_every: int = 0, clock=None,
                  max_dispatch_retries: int = 4,
                  telemetry=None, device="cuda"):
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.name}: the engine serves decoder-only "
+                             f"archs")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -748,13 +751,12 @@ class DecodeEngine:
                 off += node.length
             segments[req.rid] = segs
 
-        x = self.model.embed_tokens(torch.as_tensor(tok, device=dev))
+        x = self.model.embed_tokens(torch.as_tensor(tok, device=dev), qpos_t)
         new_kv = []  # (layer_attn, k (B_pad, T_pad, kv, hd), v)
         for j, layer in enumerate(self.layers):
             h = L.apply_norm(layer.ln, x, cfg)
             la = self.attn_layer_idx[j]
-            window = (cfg.sliding_window if layer.kind.mixer == "attn_local"
-                      else 0)
+            window = layer.window
             q, k_new, v_new = L.attn_project(layer.attn, cfg, h, qpos_t)
             k_all = k_new.new_zeros((B_pad, S_pad) + k_new.shape[2:])
             v_all = v_new.new_zeros((B_pad, S_pad) + v_new.shape[2:])
@@ -771,7 +773,7 @@ class DecodeEngine:
                             o.reshape(B_pad, T_pad,
                                       cfg.num_heads * cfg.head_dim))
             new_kv.append((la, k_new, v_new))
-            x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+            x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
 
         # write each row's new KV into its own nodes' unfilled slots
         ps = self.page_size
@@ -1413,13 +1415,12 @@ class DecodeEngine:
                 segments.append((node, lo, hi))
             off += node.length
 
-        x = self.model.embed_tokens(tokens[None])
+        x = self.model.embed_tokens(tokens[None], positions)
         new_kv = []  # (layer_attn, k (Tn,kv,hd), v)
         for j, layer in enumerate(self.layers):
             h = L.apply_norm(layer.ln, x, cfg)
             la = self.attn_layer_idx[j]
-            window = (cfg.sliding_window if layer.kind.mixer == "attn_local"
-                      else 0)
+            window = layer.window
             q, k_new, v_new = L.attn_project(layer.attn, cfg, h, positions)
             pk, pv = self._gather_prefix_upto(la, path, start)
             k_all = torch.cat([pk.to(k_new.dtype)[None], k_new], 1)
@@ -1430,7 +1431,7 @@ class DecodeEngine:
             x = x + L.dense(layer.attn.wo,
                             o.reshape(1, Tn, cfg.num_heads * cfg.head_dim))
             new_kv.append((la, k_new[0], v_new[0]))
-            x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+            x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
 
         # write new KV into unfilled page slots only
         offs, pages, kv_rows = [], [], []
@@ -1476,13 +1477,7 @@ class DecodeEngine:
     # plan management
     # ------------------------------------------------------------------ #
     def _windows(self) -> List[int]:
-        ws = set()
-        for layer in self.layers:
-            if layer.kind.mixer == "attn":
-                ws.add(0)
-            elif layer.kind.mixer == "attn_local":
-                ws.add(self.cfg.sliding_window)
-        return sorted(ws)
+        return sorted({layer.window for layer in self.layers})
 
     @property
     def plan_rebuilds(self) -> int:

@@ -458,12 +458,11 @@ def decode_stack(model: Transformer, pool: PagedKVPool,
     differ only in ``attend`` and in where their inputs live."""
     cfg = model.cfg
     B = tokens.shape[0]
-    x = model.embed_tokens(tokens[:, None])                    # (B, 1, d)
+    x = model.embed_tokens(tokens[:, None], q_pos[:, None])    # (B, 1, d)
     for j, layer in enumerate(model.layers):
         h = L.apply_norm(layer.ln, x, cfg)
         la = attn_layer_idx[j]
-        window = (cfg.sliding_window if layer.kind.mixer == "attn_local"
-                  else 0)
+        window = layer.window
         q, k_new, v_new = L.attn_project(layer.attn, cfg, h, q_pos[:, None])
         pool.write_tokens(la, tail_page, tail_off, k_new[:, 0], v_new[:, 0])
         k_pool, v_pool = pool.layer_pools(la)
@@ -471,7 +470,7 @@ def decode_stack(model: Transformer, pool: PagedKVPool,
                    q_pos)
         x = x + L.dense(layer.attn.wo,
                         o.reshape(B, 1, cfg.num_heads * cfg.head_dim))
-        x = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+        x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
     return model.unembed(x)[:, 0]
 
 

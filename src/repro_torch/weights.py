@@ -7,8 +7,12 @@ params)``), and returns the state dict of ``models.transformer.Transformer``
 — so both packages compute the same function on the same weights.  It
 imports neither ``jax`` nor ``repro``.
 
-Layer order follows ``repro.serving.engine.flat_layers``: period-major over
-the stacked ``blocks``, then the unrolled remainder ``rem``.
+A sub-layer's subtree flattens by its keys (``ln.scale``, ``ln.bias``,
+``attn.wq.w``, ``attn.wq.b``, ``ln_x.*``, ``xattn.*``, ``ffn.wi.w`` for an
+MLP, ``ffn.router`` / ``ffn.wi`` / ``ffn.wo`` for an MoE).  Layer order
+follows ``repro.serving.engine.flat_layers``: period-major over the stacked
+``blocks``, then the unrolled remainder ``rem``.  ``lm_head`` and the
+``encoder`` tree (its layers, then its final norm) come across as they are.
 """
 
 from __future__ import annotations
@@ -28,32 +32,33 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def _sublayer(p: Dict[str, Any], pre: str, out: Dict[str, torch.Tensor]):
-    out[pre + "ln.scale"] = _tensor(p["ln"]["scale"])
-    for w in ("wq", "wk", "wv", "wo"):
-        for leaf in p["attn"][w]:
-            out[pre + f"attn.{w}.{leaf}"] = _tensor(p["attn"][w][leaf])
-    out[pre + "ln2.scale"] = _tensor(p["ln2"]["scale"])
-    for w in ("wi", "wo"):
-        out[pre + f"ffn.{w}.w"] = _tensor(p["ffn"][w]["w"])
+def _flatten(tree, pre: str, out: Dict[str, torch.Tensor]) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{pre}{k}.", out)
+    else:
+        out[pre[:-1]] = _tensor(tree)
 
 
 def from_jax_params(cfg: ModelConfig,
                     params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    out: Dict[str, torch.Tensor] = {
-        "embed": _tensor(params["embed"]),
-        "final_norm.scale": _tensor(params["final_norm"]["scale"]),
-    }
+    out: Dict[str, torch.Tensor] = {"embed": _tensor(params["embed"])}
+    _flatten(params["final_norm"], "final_norm.", out)
     i = 0
     for pi in range(cfg.num_periods):
         for s in range(cfg.period):
-            sub = params["blocks"][f"sub{s}"]
-            period = _index(sub, pi)
-            _sublayer(period, f"layers.{i}.", out)
+            _flatten(_index(params["blocks"][f"sub{s}"], pi),
+                     f"layers.{i}.", out)
             i += 1
     for r in range(cfg.remainder_layers):
-        _sublayer(params["rem"][r], f"layers.{i}.", out)
+        _flatten(params["rem"][r], f"layers.{i}.", out)
         i += 1
+    if "lm_head" in params:
+        out["lm_head"] = _tensor(params["lm_head"])
+    if "encoder" in params:
+        for j, lp in enumerate(params["encoder"]["layers"]):
+            _flatten(lp, f"encoder.layers.{j}.", out)
+        _flatten(params["encoder"]["final_norm"], "encoder.final_norm.", out)
     return out
 
 

@@ -132,10 +132,17 @@ def _nan_outputs(pa, h_q, d):
 def _forest_plan(case):
     page = 64 if case == "page64" else 16
     hq, hkv, d = {"g1": (8, 8, 128), "g8": (32, 4, 128), "d64": (8, 8, 64),
-                  "d256": (8, 1, 256)}.get(case, (32, 8, 128))
+                  "d256": (8, 1, 256), "gemma3-global": (4, 1, 256),
+                  "gemma3-local": (4, 1, 256),
+                  "g5": (40, 8, 128)}.get(case, (32, 8, 128))
     forest = {
         "padding-lanes": lambda: tree.two_level(2, 40, 9, block_size=page),
         "window24": lambda: tree.two_level(4, 100, 30, block_size=page),
+        # gemma3's layers: a shared document past the 512-token window
+        "gemma3-global": lambda: tree.two_level(6, 1200, 70,
+                                                block_size=page),
+        "gemma3-local": lambda: tree.two_level(6, 1200, 70,
+                                               block_size=page),
         "rows-over-chunks": lambda: tree.two_level(24, 100, 20,
                                                    block_size=page),
         "page64": lambda: tree.two_level(8, 300, 70, block_size=page),
@@ -144,7 +151,7 @@ def _forest_plan(case):
     plan_mod.assign_dense_pages(forest)
     cm = cost_model.CostModel(hq, hkv, d, page_size=page)
     lanes = 64 if case == "padding-lanes" else 16
-    window = 24 if case == "window24" else 0
+    window = {"window24": 24, "gemma3-local": 512}.get(case, 0)
     make = plan_mod.flash_plan if case == "flash" else plan_mod.build_plan
     plan = plan_mod.pad_plan(make(forest, cm, num_lanes=lanes, max_q=32,
                                   window=window))
@@ -152,7 +159,10 @@ def _forest_plan(case):
 
 
 PAC_CASES = ("codec", "flash", "padding-lanes", "window24", "g1", "g8",
-             "page64", "rows-over-chunks", "d64", "d256", "kary")
+             "page64", "rows-over-chunks", "d64", "d256", "kary",
+             # gemma3-1b (4 query heads over 1 KV head, d 256, global and
+             # 512-token window) and llama4-scout (40 over 8: group 5)
+             "gemma3-global", "gemma3-local", "g5")
 PAC_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
 
@@ -885,3 +895,85 @@ def test_spec_streams_and_verify_graphs_on_card(backend):
         eng.pool.allocator.check()
         assert eng.pool.num_free == eng.pool.num_pages
         assert set(eng.forest.nodes) == {0}
+
+
+# --------------------------------------------------------------------- #
+# the model families beyond the dense subset
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_gemma3_full_width_fused_equals_eager_on_card():
+    """On an H100: gemma3-1b at full width (4 query heads over 1 KV head,
+    head dim 256, GeGLU, embed scale), 6 layers (five 512-token windows
+    and one global layer), f32 weights: fused streams equal eager ones
+    over a document past the window; each graph holds 6 PAC and 6
+    epilogue launches and one plan slot a window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=6)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    doc = rng.integers(0, cfg.vocab_size, 700).tolist()
+    prompts = [doc + rng.integers(0, cfg.vocab_size, 9).tolist()
+               for _ in range(3)]
+    streams = {}
+    for fused in (False, True):
+        eng = DecodeEngine(cfg, model, page_size=16, num_pages=256,
+                           max_q=8, backend="codec-cuda", fused=fused,
+                           device="cuda")
+        rids = [eng.add_request(p, max_new=20) for p in prompts]
+        eng.run(40)
+        streams[fused] = [list(eng.requests[r].generated) for r in rids]
+    assert streams[True] == streams[False]
+    assert all(len(s) == 20 for s in streams[True])
+    assert eng._windows() == [0, 512]
+    assert all(slot.launches == (6, 6)
+               for slot in eng.fused_step.slots.values())
+    assert all([w for w, *_ in sig[1:]] == [0, 512]
+               for sig in eng.bucket_signatures)
+
+
+@pytest.mark.cuda
+def test_apply_moe_replays_in_a_cuda_graph_on_card():
+    """On an H100: ``apply_moe`` (16 experts, top-1, capacity 1.25, bf16
+    weights) captured in a CUDA graph and replayed on new inputs equals
+    the eager call bit for bit, drops included: nothing in it syncs the
+    host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              d_model=512, d_ff=1024)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ffn = L.MoE(cfg, device="cuda", dtype=torch.bfloat16)
+    for name, p in ffn.named_parameters():
+        p.data = (torch.randn(p.shape, generator=gen, device="cuda")
+                  * p.shape[0] ** -0.5).to(p.dtype)
+    x = torch.randn(8, 1, cfg.d_model, generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        L.apply_moe(ffn, cfg, x)                      # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, aux = L.apply_moe(ffn, cfg, x)
+    dropped = 0
+    for seed in (1, 2, 3):
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        graph.replay()
+        want, want_aux = L.apply_moe(ffn, cfg, x)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16 and torch.equal(y, want), seed
+        assert torch.equal(aux, want_aux), seed
+        _, _, _, pos, cap = L.moe_route(ffn, cfg, x.reshape(1, 8, -1))
+        assert cap == 1, cap
+        dropped += int((pos >= cap).sum())
+    assert dropped > 0     # 8 tokens over 16 one-slot queues collide

@@ -14,6 +14,7 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.serving.engine import DecodeEngine
 from repro_torch.serving.kv_cache import PagedKVPool
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(page_size=16, num_pages=512, max_q=8, temperature=0.0)
 

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops, por as por_mod
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving.engine import PENDING_DEVICE, DecodeEngine
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 FUSED_BACKENDS = ["codec-cuda", "codec-torch", "flash", "hydragen"]
 PAGE = 8

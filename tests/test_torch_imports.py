@@ -29,6 +29,11 @@ def test_port_imports_with_jax_blocked():
         "    assert 'repro_torch.serving.' + m in mods, mods\n"
         "for m in ('metrics', 'tree', 'scheduler'):\n"
         "    assert 'repro_torch.core.' + m in mods, mods\n"
+        "from repro_torch import configs\n"
+        "for arch, m in configs._MODULES.items():\n"
+        "    assert 'repro_torch.configs.' + m in mods, mods\n"
+        "    assert configs.get_config(arch).name == arch\n"
+        "assert 'repro_torch.configs.shapes' in mods, mods\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
         " or k.startswith('repro.') for k, v in sys.modules.items()"
         " if v is not None)\n"

@@ -36,6 +36,7 @@ from repro_torch.launch.serve import build_schedule, serve
 from repro_torch.models.transformer import Transformer, build_model
 from repro_torch.serving.engine import DecodeEngine
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = smoke_config(PAPER_ARCH)
 PAGE = 8

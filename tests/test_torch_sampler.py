@@ -20,6 +20,7 @@ import torch
 
 from repro.serving import sampler as jsampler
 from repro_torch.serving import sampler
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = [0, 1, 42, 2**31 - 1, -1, 2**32 + 5]
 

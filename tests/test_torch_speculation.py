@@ -26,8 +26,9 @@ inputs and weights.
 ``repro`` runs once per workload (module fixture): its engine compiles
 every new shape, which takes most of this file's time.  Widths are
 ``smoke_config("qwen3-4b")`` (2 layers, d_model 64).  The sliding-window
-case (``test_spec_sliding_window_arch``) waits for a windowed config in
-the port.
+case (``test_spec_sliding_window_arch``, gemma3's smoke config) holds
+speculative streams to the port's own plain greedy ones, which
+``tests/test_torch_windowed.py`` holds to ``repro``.
 """
 
 import dataclasses
@@ -54,6 +55,7 @@ from repro_torch.serving import engine, faults, speculation as spec
 from repro_torch.serving import telemetry
 from repro_torch.serving.kv_cache import PagedKVPool
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = smoke_config(PAPER_ARCH)
 PAGE = 8
@@ -479,6 +481,39 @@ def test_spec_gates_and_exact_max_new_cap(shared):
             got.append(drive(eng, [REP_PROMPT], max_new))
         assert got[0] == got[1], max_new
         assert [len(s) for s in got[0]["streams"]] == [max_new]
+
+
+@pytest.fixture(scope="module")
+def gemma3_plain():
+    """gemma3's smoke model (5 local : 1 global layers) on ``repro``'s
+    weights, and a function serving ``REP_PROMPT`` through it; its plain
+    greedy stream (eager) is computed once."""
+    cfg = smoke_config("gemma3-1b")
+    params = JT.init_params(cfg, jax.random.PRNGKey(0))
+    model = Transformer.from_state_dict(
+        cfg, from_jax_params(cfg, jax.tree.map(np.asarray, params)))
+
+    def serve(speculative, fused):
+        eng = engine.DecodeEngine(cfg, model, backend="codec-cuda",
+                                  fused=fused, device="cpu",
+                                  speculative=speculative, **_kw({}))
+        assert eng._windows() == [0, cfg.sliding_window]
+        obs = drive(eng, [REP_PROMPT], REP_MAX_NEW)
+        return obs["streams"][0], obs["stats"]
+    return serve, serve(None, False)[0]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_spec_sliding_window_arch(gemma3_plain, fused):
+    """``test_speculation.py::test_spec_sliding_window_arch`` on the port:
+    sliding-window layers route through per-window verify plans (window
+    pruning in ``build_verify_plan``, one plan slot a window in the fused
+    verify step); streams equal plain greedy and drafts are accepted."""
+    serve, base = gemma3_plain
+    got, stats = serve(spec.SpecConfig(), fused)
+    assert got == base
+    assert stats["spec_accepted"] > 0
+    assert stats["spec_steps"] < len(got), "window arch must accept drafts"
 
 
 def chaos(make, pkg):

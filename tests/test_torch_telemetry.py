@@ -44,6 +44,7 @@ from repro_torch.core import metrics as M
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving import cache, engine, telemetry
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = smoke_config(PAPER_ARCH)
 PAGE = 8
