@@ -142,7 +142,32 @@ Phases (any failure raises and the script exits non-zero):
    equal eager and fused, and speculative streams equal plain greedy,
    eager and fused; llama4-scout at full width, 2 layers, fused equal to
    eager with 8 rows in bucket 8;
-13. print the ``kernels`` JSON line and the closing device line.
+13. Mamba-2 and the hybrid jamba (bf16 weights from seed 0): (a)
+   mamba2-2.7b at full width and depth (64 layers, d_model 2560, d_inner
+   5120, 80 heads of 64, state 128; attention-free), one dense prefill of
+   a 4160-token prompt (seconds, peak memory above the weights), then
+   phase 3's workload through ``codec-cuda`` eager and fused: no PAC or
+   epilogue launch, the document's node carrying every layer's SSM state,
+   the prefill tokens computed against 8 x 4160, TPOT, device busy,
+   kernels a step, graphs and signatures, and the SSM state bytes a step
+   against the weight bytes; then phase 10's burst with cascade on,
+   where the document is prefilled once; (b) jamba-v0.1-52b at full width, depth cut
+   to one period (8 of 32 layers: 7 Mamba, 1 attention, 4 MoE of 16
+   experts top-2 at capacity 1.25, 4 MLP; 13.3 B params), 8 questions
+   over a 2048-token document, 32 tokens each, ``codec-cuda`` eager and
+   fused: PAC and the epilogue once a decode step, held to their plain
+   versions at the last decode state, the KV bytes PAC reads a step
+   (codec against flash plan), the MoE's device ms a step, the decode
+   token-choices dropped by capacity in each mode; (c) at f32, a 1024-wide
+   jamba period at capacity 0 and mamba2 at full width x4: ``codec-cuda``
+   == ``flash`` == ``hydragen``, eager and fused; phase 8's pressured
+   arrivals (preemption, recompute from ``meta["ssm"]``) equal
+   unconstrained; phase 10's burst equal with cascade on and off; phase
+   9's waves equal with and without the prefix cache; (d) ROADMAP C1:
+   gemma3-1b x6 at f32, two requests at unequal positions over one
+   1024-token document, ``codec-cuda`` eager and fused equal the dense
+   ``prefill`` + ``decode_step`` decode;
+14. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -1773,10 +1798,12 @@ def cascade_burst(cfg, model, cascade, fused=True, **kw):
     p0 = engine.prefill_time()
     res = serve(engine, qs[-1:], P10_NEW)
     launches = read_launches()
-    assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
-        (tag, launches)
+    n_attn = len(engine.attn_layer_idx)
+    assert (launches["pac"] > 0 and launches["por_epilogue"] > 0) \
+        == (n_attn > 0), (tag, launches)
     res["burst_prefill_s"] = engine.prefill_time() - p0
     res["cascade"] = {k: engine.stats[k] for k in CASCADE_COUNTERS}
+    res["prefill_tokens"] = engine.stats["prefill_tokens"]
     res["streams"] = {r: list(g) for r, g in res["streams"].items()}
     assert sorted({len(g) for g in res["streams"].values()}) == [P10_NEW]
     assert engine.stats["nonfinite_rows"] == 0, tag
@@ -2285,8 +2312,8 @@ class WindowTally:
 def layers_by_window(engine):
     """Attention layers of each window: ``{window: [layer, ...]}``."""
     out = {}
-    for j, layer in enumerate(engine.layers):
-        out.setdefault(layer.window, []).append(j)
+    for j in engine.attn_layer_idx:
+        out.setdefault(engine.layers[j].window, []).append(j)
     return out
 
 
@@ -2722,6 +2749,402 @@ def phase_families_f32():
     del model
     torch.cuda.empty_cache()
 
+# --------------------------------------------------------------------- #
+# phase 13: Mamba-2 and the hybrid jamba
+# --------------------------------------------------------------------- #
+P13_REQUESTS, P13_DOC, P13_Q, P13_NEW = 8, 4096, 64, 32
+P13B_LAYERS, P13B_DOC = 8, 2048
+# 13c: the narrow f32 models
+P13C_MAMBA_LAYERS = 4
+P13C_REQUESTS, P13C_DOC, P13C_Q, P13C_NEW = 4, 1024, 16, 16
+P13C_WIDTH = dict(d_model=1024, num_heads=8, num_kv_heads=2, head_dim=128,
+                  d_ff=2048, capacity_factor=0.0)
+# 13d: C1's recipe at gemma3-1b's full width
+P13D_LAYERS, P13D_DOC, P13D_NEW = 6, 1024, 16
+P13D_TAILS = (1, 300)
+
+
+def ssm_step_bytes(cfg, rows):
+    """SSM state bytes a decode step reads and writes: each Mamba layer's
+    float32 conv and ssm state of every row, read once and written
+    once."""
+    from repro_torch.models import mamba as M
+    cs, ss = M.state_shapes(cfg)
+    n_mamba = sum(cfg.layer_kind(i).mixer == "mamba"
+                  for i in range(cfg.num_layers))
+    return 2 * 4 * rows * n_mamba * (int(np.prod(cs)) + int(np.prod(ss)))
+
+
+def weight_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def check_ssm_sharing(tag, engine, n_requests, doc):
+    """The shared document node carries every Mamba layer's boundary
+    state; returns the prefill tokens the engine computed."""
+    n_mamba = sum(layer.kind.mixer == "mamba" for layer in engine.layers)
+    shared = [n for n in engine.forest.real_nodes()
+              if len(n.requests) == n_requests]
+    assert shared and sum(n.length for n in shared) == doc, \
+        (tag, [(n.length, len(n.requests)) for n in shared])
+    assert len(shared[-1].meta.get("ssm", {})) == n_mamba, tag
+    return engine.stats["prefill_tokens"]
+
+
+def phase_mamba2(timer):
+    """13a: mamba2-2.7b at full width and depth (64 Mamba-2 layers, d_model
+    2560, d_inner 5120, 80 heads of 64, state 128; attention-free), bf16
+    weights from seed 0: phase 3's workload through ``codec-cuda`` eager
+    and fused.  No attention layer: PAC and the epilogue never launch; the
+    shared document's node carries every layer's SSM state, so requests
+    2-7 prefill their questions only.  Then phase 10's burst with cascade
+    on: the document is prefilled once."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models.transformer import build_model
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    w_bytes = weight_bytes(model)
+    log(f"  model {cfg.name}: {cfg.num_layers} Mamba-2 layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, tied head; "
+        f"{cfg.param_count() / 1e9:.2f} B params ({w_bytes / 1e9:.2f} GB), "
+        f"bf16, seed 0, built in {time.perf_counter() - t0:.1f} s")
+    prompts = doc_prompts(P13_REQUESTS, P13_DOC, P13_Q, cfg.vocab_size,
+                          seed=0)
+    total = P13_DOC + P13_Q
+    # one dense prefill of a whole prompt: its seconds and peak memory
+    tok = torch.tensor([prompts[0]], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model(tok, last_only=True)
+    torch.cuda.synchronize()
+    pf_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    assert bool(torch.isfinite(logits).all())
+    del logits
+    log(f"  dense prefill of one {total}-token prompt: {pf_s:.3f} s (first "
+        f"call, host clock), peak memory {peak / 1e9:.3f} GB above the "
+        f"weights (max_memory_allocated)")
+    with WindowTally() as tally:
+        eng, r_e = family_serve(cfg, model, "codec-cuda", False, prompts,
+                                P13_NEW)
+    assert r_e["launches"] == {"pac": 0, "por_epilogue": 0, "por": 0}, \
+        r_e["launches"]
+    assert not tally.pac and not tally.epi and not eng.attn_layer_idx
+    pt = check_ssm_sharing("mamba2 eager", eng, P13_REQUESTS, P13_DOC)
+    # request 0 prefills its prompt as one node; request 1's insertion
+    # splits it at the document's end, where no state was kept, so it
+    # recomputes the document and caches its boundary; 2-7 resume there
+    assert pt == 2 * total + (P13_REQUESTS - 2) * P13_Q, pt
+    log(f"  prefill tokens computed: {pt} of {P13_REQUESTS} x {total} = "
+        f"{P13_REQUESTS * total} ({pt / (P13_REQUESTS * total):.1%}); the "
+        f"document node carries {len(eng.layers)} layers' SSM state; "
+        f"prefill {r_e['prefill_s']:.3f} s (host clock around the 8 "
+        f"add_request calls)")
+    log_family("mamba2-2.7b codec-cuda eager", eng, r_e)
+    release_all("mamba2 eager", eng)
+    del eng
+    torch.cuda.empty_cache()
+    eng, r_f = family_serve(cfg, model, "codec-cuda", True, prompts, P13_NEW)
+    assert all(len(sig) == 1 for sig in eng.bucket_signatures), \
+        eng.bucket_signatures
+    check_ssm_sharing("mamba2 fused", eng, P13_REQUESTS, P13_DOC)
+    log_family("mamba2-2.7b codec-cuda fused", eng, r_f)
+    sigs = sorted(eng.bucket_signatures)
+    release_all("mamba2 fused", eng)
+    del eng
+    torch.cuda.empty_cache()
+    # phase 10's burst, cascade on: the shared span once through the lead,
+    # its boundary state cached, every question resumes there
+    r_c = cascade_burst(cfg, model, True)
+    want = P10_DECOY + P10_DOC + P10_REQUESTS * P10_Q
+    assert r_c["prefill_tokens"] == want, (r_c["prefill_tokens"], want)
+    log(f"  cascade burst (phase 10's: {P10_REQUESTS} questions over an "
+        f"uncached {P10_DOC}-token document behind a {P10_DECOY}-token "
+        f"decoy, fused): prefill tokens {r_c['prefill_tokens']} = decoy + "
+        f"the document once + the questions, burst prefill "
+        f"{r_c['burst_prefill_s']:.3f} s (CUDA events), TPOT "
+        f"{r_c['tpot_ms']:.3f} ms; {r_c['cascade']}")
+    same = sum(r_f["streams"][q] == r_e["streams"][q] for q in r_e["streams"])
+    sb = ssm_step_bytes(cfg, P13_REQUESTS)
+    log(f"  mamba2-2.7b TPOT: eager {r_e['tpot_ms']:.3f} ms, fused "
+        f"{r_f['tpot_ms']:.3f} ms ({r_e['tpot_ms'] / r_f['tpot_ms']:.2f}x); "
+        f"{same} of {len(r_e['streams'])} bf16 streams equal eager's; "
+        f"signatures {sigs}")
+    log(f"  bytes a decode step: SSM state read + written {sb / 1e9:.3f} GB "
+        f"({sb / 2 / P13_REQUESTS / 1e6:.1f} MB a request each way), "
+        f"weights {w_bytes / 1e9:.3f} GB; bound "
+        f"{1e3 * (sb + w_bytes) / HBM_BW:.3f} ms a step by bytes")
+    del model
+    torch.cuda.empty_cache()
+
+
+class MoEDropCounter:
+    """While entered, counts on the device the token-choices
+    ``apply_moe`` drops by capacity in decode calls (one token a row),
+    inside captured graphs too; the fused step's warm-ups before capture
+    are left out.  Restores everything on exit."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        from repro_torch.serving import step_fn
+        self.dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.choices = torch.zeros((), dtype=torch.int64, device="cuda")
+        self._orig = (L.apply_moe, step_fn.FusedStep._capture)
+        orig_moe, orig_cap = self._orig
+        me = self
+
+        def counted(p, cfg, x):
+            B, T, _ = x.shape
+            if T == 1:
+                _, _, _, pos, cap = L.moe_route(p, cfg,
+                                                x.reshape(1, B * T, -1))
+                me.dropped.add_((pos >= cap).sum())
+                me.choices.add_(pos.numel())
+            return orig_moe(p, cfg, x)
+
+        def capture(step, slot):
+            d0, c0 = me.dropped.clone(), me.choices.clone()
+            orig_cap(step, slot)
+            # the warm-up ran once eagerly; the capture ran nothing
+            me.dropped.copy_(d0)
+            me.choices.copy_(c0)
+        L.apply_moe = counted
+        step_fn.FusedStep._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        from repro_torch.serving import step_fn
+        L.apply_moe, step_fn.FusedStep._capture = self._orig
+
+    def read(self):
+        return int(self.dropped.item()), int(self.choices.item())
+
+
+def phase_jamba(timer):
+    """13b: jamba-v0.1-52b at full width (d_model 4096; Mamba-2 mixers of
+    64 heads of 64, state 16; 32 query heads over 8 KV heads, head_dim
+    128; 16 experts top-2 at capacity 1.25, d_ff 14336; untied head),
+    depth cut to one period of its 32 layers (8: 7 Mamba + 1 attention, 4
+    MoE + 4 MLP), bf16 weights from seed 0: 8 questions over a 2048-token
+    document, 32 tokens each, ``codec-cuda`` eager and fused; PAC and the
+    epilogue once a decode step, held to their plain versions at the last
+    decode state."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              num_layers=P13B_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    w_bytes = weight_bytes(model)
+    log(f"  model {cfg.name}: {cfg.num_layers} of 32 layers (one period: "
+        f"attention at slot 4, MoE on odd slots), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} at "
+        f"capacity {cfg.capacity_factor}, d_ff {cfg.d_ff}, Mamba {cfg.ssm_heads}"
+        f" heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}; "
+        f"{cfg.param_count() / 1e9:.2f} B params ({w_bytes / 1e9:.1f} GB), "
+        f"bf16, seed 0, built in {time.perf_counter() - t0:.1f} s")
+    prompts = doc_prompts(P13_REQUESTS, P13B_DOC, P13_Q, cfg.vocab_size,
+                          seed=0)
+    eng, r_e = family_serve(cfg, model, "codec-cuda", False, prompts,
+                            P13_NEW)
+    assert len(eng.attn_layer_idx) == 1
+    assert r_e["launches"]["pac"] == r_e["launches"]["por_epilogue"] \
+        == r_e["steps"], r_e["launches"]
+    check_ssm_sharing("jamba eager", eng, P13_REQUESTS, P13B_DOC)
+    log_family("jamba codec-cuda eager", eng, r_e)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    kernels = window_kernels(
+        eng, 0, f"jamba, d {cfg.head_dim}, group {cfg.group}", timer,
+        (r_e["launches"]["pac"], r_e["launches"]["por_epilogue"]), gen)
+    (n, c, f), = kv_bytes_by_window(eng).values()
+    log(f"  KV bytes PAC reads a step ({n} attention layer): codec "
+        f"{c / 1e6:.2f} MB, flash {f / 1e6:.2f} MB ({f / max(c, 1):.2f}x)")
+    moe_js = [j for j, layer in enumerate(model.layers)
+              if layer.kind.ffn == "moe"]
+    ffn = model.layers[moe_js[0]].ffn
+    x = torch.randn(P13_REQUESTS, 1, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    moe_ms = timer(lambda: L.apply_moe(ffn, cfg, x))
+    moe_med = timer.median
+    log(f"  MoE: apply_moe {moe_ms:.4f} ms a layer at {P13_REQUESTS} rows "
+        f"(median {moe_med:.4f}), {moe_ms * len(moe_js):.3f} ms a decode "
+        f"step of {len(moe_js)} MoE layers (CUDA events)")
+    sb = ssm_step_bytes(cfg, P13_REQUESTS)
+    log(f"  bytes a decode step: SSM state read + written {sb / 1e6:.1f} MB,"
+        f" weights {w_bytes / 1e9:.2f} GB (every expert's: 8 rows x top-2 "
+        f"touch most of 16)")
+    release_all("jamba eager", eng)
+    del eng
+    torch.cuda.empty_cache()
+    eng, r_f = family_serve(cfg, model, "codec-cuda", True, prompts, P13_NEW)
+    log_family("jamba codec-cuda fused", eng, r_f)
+    release_all("jamba fused", eng)
+    del eng
+    drops = {}
+    for fused in (False, True):
+        with MoEDropCounter() as cnt:
+            eng, r = family_serve(cfg, model, "codec-cuda", fused, prompts,
+                                  P13_NEW, profile=False)
+            torch.cuda.synchronize()
+            drops[fused] = cnt.read()
+        ref = r_f if fused else r_e
+        assert r["streams"] == ref["streams"], ("a counted run differs",
+                                                fused)
+        release_all("jamba counted", eng)
+        del eng
+    (de, ne), (df, nf) = drops[False], drops[True]
+    same = sum(r_f["streams"][q] == r_e["streams"][q] for q in r_e["streams"])
+    log(f"  token-choices dropped by capacity in decode: eager {de} of {ne} "
+        f"({de / max(ne, 1):.1%}), fused {df} of {nf} ({df / max(nf, 1):.1%};"
+        f" padded rows route too); the counted runs' streams equal the "
+        f"timed ones'")
+    log(f"  jamba TPOT: eager {r_e['tpot_ms']:.3f} ms, fused "
+        f"{r_f['tpot_ms']:.3f} ms ({r_e['tpot_ms'] / r_f['tpot_ms']:.2f}x); "
+        f"{same} of {len(r_e['streams'])} bf16 streams equal eager's (MoE "
+        f"capacity follows each mode's token count)")
+    del model
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def narrow_models():
+    """13c's f32 models: jamba at 1024 wide (8 query heads over 2 KV heads
+    of 128), one period, capacity 0; mamba2 at full width, 4 layers."""
+    from repro_torch.configs import get_config
+    return [dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                num_layers=P13B_LAYERS, **P13C_WIDTH),
+            dataclasses.replace(get_config("mamba2-2.7b"),
+                                num_layers=P13C_MAMBA_LAYERS)]
+
+
+def phase_mamba_f32():
+    """13c at f32: for the narrow jamba and mamba2, streams equal through
+    ``codec-cuda``, ``flash`` and ``hydragen``, eager and fused; phase 8's
+    pressured arrivals (preemption, recompute from ``meta["ssm"]``) equal
+    unconstrained, eager and fused; phase 10's burst equal with cascade on
+    and off; phase 9's waves equal with and without the prefix cache; no
+    page left and ``check()`` passing after each."""
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models.transformer import build_model
+    for cfg in narrow_models():
+        model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+        tag = f"{cfg.name} x{cfg.num_layers} d{cfg.d_model} f32"
+        prompts = doc_prompts(P13C_REQUESTS, P13C_DOC, P13C_Q,
+                              cfg.vocab_size, seed=5)
+        want = None
+        for backend in ("codec-cuda", "flash", "hydragen"):
+            for fused in (False, True):
+                eng, r = family_serve(cfg, model, backend, fused, prompts,
+                                      P13C_NEW, profile=False)
+                if want is None:
+                    want = r["streams"]
+                diff = first_difference(want, r["streams"])
+                assert diff is None, (tag, backend, fused, diff)
+                release_all(f"{tag} {backend}", eng)
+                del eng
+        log(f"  {tag}: codec-cuda == flash == hydragen, eager and fused, "
+            f"{len(want)} streams x {P13C_NEW} tokens")
+        runs = {}
+        for mode, pages in (("eager", P8_FREE_PAGES), ("eager", P8_PAGES),
+                            ("fused", P8_PAGES)):
+            runs[mode, pages] = pressured_serve(cfg, model, "codec-cuda",
+                                                mode == "fused", pages)
+        base = runs["eager", P8_FREE_PAGES]["streams"]
+        for key, r in runs.items():
+            diff = first_difference(base, r["streams"])
+            assert diff is None, (tag, key, diff)
+        check_pressure(f"{tag} pressured", runs["eager", P8_PAGES], P8_PAGES)
+        p = runs["fused", P8_PAGES]["pressure"]
+        log(f"  {tag}: phase 8's {P8_REQUESTS} arrivals equal pressured "
+            f"({P8_PAGES} pages: preempted {p['preempted']}, "
+            f"recompute_tokens {p['recompute_tokens']}) and unconstrained, "
+            f"eager and fused")
+        cas = {c: cascade_burst(cfg, model, c) for c in (False, True)}
+        diff = first_difference(cas[False]["streams"], cas[True]["streams"])
+        assert diff is None, (tag, "cascade", diff)
+        assert cas[True]["cascade"]["cascade_groups"] >= 1, cas[True]
+        log(f"  {tag}: phase 10's burst equal with cascade on and off "
+            f"(fused; cascade {cas[True]['cascade']})")
+        waves = {c: serve_waves(cfg, model, cache=c or None, fused=True)
+                 for c in (False, True)}
+        for w in ("A", "B"):
+            diff = first_difference(waves[False][w]["streams"],
+                                    waves[True][w]["streams"])
+            assert diff is None, (tag, "cache", w, diff)
+        hit = waves[True]["B"]["hit_tokens"]
+        assert hit > 0, waves[True]["B"]
+        log(f"  {tag}: phase 9's waves equal with and without the prefix "
+            f"cache (fused; wave B took {hit} prompt tokens from it)")
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_window_c1():
+    """13d: ROADMAP C1 on the card: gemma3-1b at full width, one period
+    (6 layers: 5 of window 512, 1 global), f32, two requests over one
+    1024-token document at unequal positions (a 1-token and a 300-token
+    tail), 16 greedy tokens each: ``codec-cuda`` eager and fused equal
+    the dense ``prefill`` + ``decode_step`` decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (build_model, decode_step,
+                                                prefill)
+    from repro_torch.serving.engine import DecodeEngine
+    cfg = dataclasses.replace(get_config("gemma3-1b"),
+                              num_layers=P13D_LAYERS)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(13)
+    doc = rng.integers(1, cfg.vocab_size, P13D_DOC).tolist()
+    prompts = [doc + rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in P13D_TAILS]
+    dense = {}
+    for i, p in enumerate(prompts):
+        logits, cache, clen = prefill(model, torch.tensor([p], device="cuda"),
+                                      len(p) + P13D_NEW)
+        out = []
+        for _ in range(P13D_NEW):
+            nxt = int(torch.argmax(logits[0]))
+            out.append(nxt)
+            logits, cache = decode_step(
+                model, torch.tensor([[nxt]], device="cuda"), cache, clen)
+            clen = clen + 1
+        dense[i] = out
+        del cache
+    for fused in (False, True):
+        eng = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                           num_lanes=LANES, max_q=MAX_Q, fused=fused,
+                           device="cuda")
+        reset_launches()
+        for p in prompts:
+            eng.add_request(p, max_new=P13D_NEW)
+        got = eng.run(P13D_NEW + 4)
+        launches = read_launches()
+        assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
+            launches
+        diff = first_difference(dense, {i: got[i] for i in dense})
+        assert diff is None, ("C1", fused, diff)
+        release_all(f"C1 fused={fused}", eng)
+        del eng
+    log(f"  gemma3-1b x{cfg.num_layers} f32, window {cfg.sliding_window}: "
+        f"two requests at positions {[len(p) for p in prompts]} over one "
+        f"{P13D_DOC}-token document; codec-cuda eager and fused equal the "
+        f"dense decode ({P13D_NEW} tokens each)")
+    del model
+    torch.cuda.empty_cache()
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2816,6 +3239,20 @@ def main() -> int:
     t12.append(time.perf_counter())
     log(f"  phase 12: 12a {t12[1] - t12[0]:.1f} s, 12b "
         f"{t12[2] - t12[1]:.1f} s, 12c {t12[3] - t12[2]:.1f} s")
+
+    log("== 13. Mamba-2 and the hybrid jamba: the SSD mixer, per-request "
+        "SSM state with node-boundary caching, eager and fused")
+    t13 = [time.perf_counter()]
+    phase_mamba2(timer)
+    t13.append(time.perf_counter())
+    kernels += phase_jamba(timer)
+    t13.append(time.perf_counter())
+    phase_mamba_f32()
+    t13.append(time.perf_counter())
+    phase_window_c1()
+    t13.append(time.perf_counter())
+    log("  phase 13: " + ", ".join(
+        f"13{c} {b - a:.1f} s" for c, a, b in zip("abcd", t13, t13[1:])))
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

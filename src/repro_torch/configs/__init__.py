@@ -1,9 +1,8 @@
 """Config registry: ``get_config(arch_id)`` + smoke-test reductions (the
 port's copy of ``repro.configs``).
 
-Every config of ``repro`` loads here.  The model builds all of them but
-the Mamba ones (``mamba2-2.7b``, ``jamba-v0.1-52b``), and the engine
-serves the decoder-only ones (not ``whisper-base``).
+Every config of ``repro`` loads here and the model builds every one; the
+engine serves the decoder-only ones (all but ``whisper-base``).
 """
 
 from __future__ import annotations
@@ -45,15 +44,8 @@ def get_config(name: str) -> ModelConfig:
 
 
 def served_archs() -> List[str]:
-    """The configs the port's engine serves: decoder-only, no Mamba."""
-    out = []
-    for name in _MODULES:
-        cfg = get_config(name)
-        if cfg.encoder_layers or any(k.mixer == "mamba"
-                                     for k in cfg.layer_pattern):
-            continue
-        out.append(name)
-    return out
+    """The configs the port's engine serves: the decoder-only ones."""
+    return [name for name in _MODULES if not get_config(name).encoder_layers]
 
 
 def smoke_config(name: str) -> ModelConfig:

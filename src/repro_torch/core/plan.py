@@ -194,9 +194,13 @@ def build_plan(forest: PrefixForest,
         for s in subs:
             node = node_by_id[s.node_id]
             qs = _node_queries(node, active)[s.q_lo:s.q_hi]
-            # a kv position p is visible to query at pos qp iff p > qp-window
-            max_qpos = max(forest.context_len(r) - 1 for r in qs)
-            lo_vis = max_qpos - window + 1
+            # a kv position p is visible to query at pos qp iff p > qp-window,
+            # so a page is invisible to every query of the task only below
+            # the smallest query's window.  (``repro`` prunes against the
+            # largest position, which drops KV that a shorter query of the
+            # same task still sees.)
+            min_qpos = min(forest.context_len(r) - 1 for r in qs)
+            lo_vis = min_qpos - window + 1
             task_lo = node.start_pos + s.kv_lo
             task_hi = node.start_pos + s.kv_hi
             if task_hi <= lo_vis:

@@ -259,11 +259,14 @@ class PrefixForest:
         node.length = at
         node.children = [lower.id]
         self.nodes[lower.id] = lower
-        # filled counts split at the boundary
+        # filled counts split at the boundary; a cached end-of-node SSM
+        # state belongs to the lower half's end
         filled = node.meta.get("filled")
         if filled is not None:
             lower.meta["filled"] = max(0, filled - at)
             node.meta["filled"] = min(filled, at)
+        if "ssm" in node.meta:
+            lower.meta["ssm"] = node.meta.pop("ssm")
         # pins guard the whole pinned span: a waiting request that pinned
         # this node counted all its pages toward its admission estimate,
         # so both halves stay protected (and LRU recency travels too)

@@ -449,9 +449,10 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               f"{st['spec_proposed']} drafts accepted (+"
               f"{st['spec_accepted'] / max(st['spec_steps'], 1):.2f} extra "
               f"tokens/dispatch, {st['spec_draft_stalls']} page stalls)")
-    if engine.cache is None:
+    if engine.cache is None and engine.attn_layer_idx:
         # with the cache on, finished requests have left the forest: the
-        # line would count cached nodes against no request
+        # line would count cached nodes against no request (and an
+        # attention-free model reads no KV)
         esize = engine.pool.k.element_size()
         io_c = engine.forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim,
                                             esize)
@@ -550,7 +551,7 @@ def _chunk(v: str):
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-4b", choices=served_archs(),
-                    help="any decoder-only, non-Mamba config")
+                    help="any decoder-only config (Mamba and hybrid too)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--doc-len", type=int, default=4096)

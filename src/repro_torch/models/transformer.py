@@ -3,7 +3,8 @@ attention config of ``repro``: dense, GQA and MQA attention with QKV bias,
 sliding-window layers and softcap; SwiGLU, GeGLU and GELU FFNs and top-k
 MoE; RMS or layer norm; embedding scale, absolute positions and untied
 heads; whisper's encoder with cross attention and a VLM's prefix
-embeddings.  Mamba mixers are refused (ROADMAP A11).
+embeddings; Mamba-2 mixers (``models/mamba.py``) alone (mamba2) or
+interleaved with attention and MoE (jamba).
 
 ``Transformer`` holds the embedding, one ``DecoderLayer`` per layer in the
 order ``repro.serving.engine.flat_layers`` flattens them (period-major,
@@ -11,7 +12,8 @@ then the remainder layers), the final norm, the untied head where the
 config has one, and the encoder.  ``forward`` is the full-sequence
 (prefill) pass; the decode engine calls ``embed_tokens``, the layers and
 ``unembed`` itself.  ``init_cache``, ``prefill`` and ``decode_step`` run a
-dense head-major KV cache: the oracle the paged engine is held to.
+dense head-major KV cache (and a Mamba layer's ``conv``/``ssm`` states):
+the oracle the paged engine is held to.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..configs.base import LayerKind, ModelConfig
 from . import layers as L
+from . import mamba as M
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 Cache = List[Dict[str, torch.Tensor]]
@@ -35,20 +38,14 @@ def torch_dtype(cfg: ModelConfig, override=None) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if any(cfg.layer_kind(i).mixer == "mamba"
-           for i in range(cfg.num_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba mixers are not ported yet (ROADMAP A11)")
-
-
 def _is_attn(kind: LayerKind) -> bool:
     return kind.mixer in ("attn", "attn_local")
 
 
 class DecoderLayer(nn.Module):
     """One sub-layer: ``ln`` + attention (+ ``ln_x`` and ``xattn`` with
-    cross attention), then ``ln2`` + the FFN unless the kind has none."""
+    cross attention) or the Mamba-2 mixer ``mamba``, then ``ln2`` + the
+    FFN unless the kind has none."""
 
     def __init__(self, cfg: ModelConfig, kind: LayerKind, device=None,
                  dtype=None):
@@ -63,6 +60,8 @@ class DecoderLayer(nn.Module):
             if cfg.cross_attention:
                 self.ln_x = L.Norm(cfg.d_model, cfg, **kw)
                 self.xattn = L.Attention(cfg, **kw)
+        elif kind.mixer == "mamba":
+            self.mamba = M.Mamba2(cfg, **kw)
         if kind.ffn != "none":
             self.ln2 = L.Norm(cfg.d_model, cfg, **kw)
             self.ffn = (L.MoE(cfg, **kw) if kind.ffn == "moe"
@@ -90,7 +89,6 @@ def embed_multiplier(cfg: ModelConfig, dtype: torch.dtype) -> float:
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg, dtype)
         kw = dict(device=device, dtype=dtype)
@@ -160,7 +158,8 @@ class Transformer(nn.Module):
         token positions (``last_only``: the final position alone).
         ``encoder_embeds`` (audio stub) feed the encoder for cross
         attention.  ``cache``: per layer, its ``k``/``v`` (B, T, Hkv, hd)
-        and, with cross attention, ``xk``/``xv``."""
+        and, with cross attention, ``xk``/``xv``; a Mamba layer's
+        ``conv``/``ssm`` states."""
         cfg = self.cfg
         B, T = tokens.shape
         n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
@@ -178,10 +177,16 @@ class Transformer(nn.Module):
         for layer in self.layers:
             c: Dict[str, torch.Tensor] = {}
             h = L.apply_norm(layer.ln, x, cfg)
-            y, c["k"], c["v"] = L.attn_full(layer.attn, cfg, h, positions,
-                                            causal=True, window=layer.window)
+            if layer.kind.mixer == "mamba":
+                y, (c["conv"], c["ssm"]) = M.mamba_forward(layer.mamba, cfg,
+                                                           h)
+            else:
+                y, c["k"], c["v"] = L.attn_full(layer.attn, cfg, h,
+                                                positions, causal=True,
+                                                window=layer.window)
             x = x + y
-            if cfg.cross_attention and enc_out is not None:
+            if (_is_attn(layer.kind) and cfg.cross_attention
+                    and enc_out is not None):
                 hx = L.apply_norm(layer.ln_x, x, cfg)
                 ek, ev = L.cross_kv(layer.xattn, cfg, enc_out)
                 x = x + L.cross_attn_full(layer.xattn, cfg, hx, ek, ev)
@@ -209,14 +214,19 @@ def init_cache(model: Transformer, batch: int, max_len: int,
                enc_len: int = 0) -> Cache:
     """A zero dense cache in the weights' dtype, one dict a layer:
     head-major ``k``/``v`` (B, Hkv, max_len, hd) and, with cross
-    attention, ``xk``/``xv``."""
+    attention, ``xk``/``xv``; a Mamba layer's float32 ``conv`` (B, K-1,
+    conv_dim) and ``ssm`` (B, H, P, S) instead."""
     cfg = model.cfg
     dtype = model.embed.dtype
     shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     xshape = (batch, cfg.num_kv_heads, enc_len, cfg.head_dim)
     kw = dict(dtype=dtype, device=model.embed.device)
     cache: Cache = []
-    for _ in model.layers:
+    for layer in model.layers:
+        if layer.kind.mixer == "mamba":
+            conv, ssm = M.zero_state(cfg, batch, model.embed.device)
+            cache.append({"conv": conv, "ssm": ssm})
+            continue
         c = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
         if cfg.cross_attention:
             c["xk"] = torch.zeros(xshape, **kw)
@@ -238,6 +248,10 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
     cache = init_cache(model, B, max_len, enc_len)
     total = T + (0 if prefix_embeds is None else prefix_embeds.shape[1])
     for dst, src in zip(cache, col):
+        if "ssm" in dst:
+            for key in ("conv", "ssm"):
+                dst[key] = src[key].to(dst[key].dtype)
+            continue
         for key in ("k", "v"):
             dst[key][:, :, :total] = src[key].transpose(1, 2).to(
                 dst[key].dtype)
@@ -253,7 +267,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
 def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
                 cache_len: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step. tokens: (B, 1); cache_len: (B,) tokens already
-    cached (the new token's KV is written at index cache_len, in place).
+    cached (the new token's KV is written at index cache_len, in place;
+    a Mamba layer's states are replaced by the stepped ones).
     Returns ``(logits (B, V), cache)``."""
     cfg = model.cfg
     B = tokens.shape[0]
@@ -262,6 +277,11 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
     bidx = torch.arange(B, device=tokens.device)
     for layer, c in zip(model.layers, cache):
         h = L.apply_norm(layer.ln, x, cfg)
+        if layer.kind.mixer == "mamba":
+            y, (c["conv"], c["ssm"]) = M.mamba_decode(
+                layer.mamba, cfg, h, c["conv"], c["ssm"])
+            x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x + y)
+            continue
         q, k_new, v_new = L.attn_project(layer.attn, cfg, h, pos)
         c["k"][bidx, :, cache_len] = k_new[:, 0].to(c["k"].dtype)
         c["v"][bidx, :, cache_len] = v_new[:, 0].to(c["v"].dtype)
@@ -290,7 +310,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
     ``"normal"`` (``N(0, 1/fan_in)`` with fan_in = ``shape[0]``, as
     ``repro``'s ``_init`` takes it, so E for the expert weights),
     ``"embed"`` (``N(0, 1/d_model)``), ``"router"`` (normal, float32),
-    ``"ones"`` or ``"zeros"``."""
+    ``"ones"`` or ``"zeros"`` (``"ones32"``/``"zeros32"``: float32 at
+    any weight dtype, a Mamba mixer's ``A_log``, ``D`` and ``dt_bias``)."""
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
     gate = L._gate(cfg)
@@ -310,8 +331,22 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
                 out[pre + f"{w}.b"] = ((n_out,), "zeros")
         out[pre + "wo.w"] = ((hq * hd, d), "normal")
 
+    def mamba(pre):
+        d_in, S, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        conv_dim = d_in + 2 * S
+        out[pre + "in_proj.w"] = ((d, 2 * d_in + 2 * S + H), "normal")
+        out[pre + "conv_w"] = ((cfg.ssm_conv, conv_dim), "normal")
+        out[pre + "conv_b"] = ((conv_dim,), "zeros")
+        out[pre + "A_log"] = ((H,), "zeros32")
+        out[pre + "D"] = ((H,), "ones32")
+        out[pre + "dt_bias"] = ((H,), "zeros32")
+        out[pre + "norm"] = ((d_in,), "ones")
+        out[pre + "out_proj.w"] = ((d_in, d), "normal")
+
     def sublayer(pre, kind):
         norm(pre + "ln.")
+        if kind.mixer == "mamba":
+            mamba(pre + "mamba.")
         if _is_attn(kind):
             attn(pre + "attn.")
             if cfg.cross_attention:
@@ -348,13 +383,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (which must live on ``device``), then cast; the router stays float32.
     The two packages draw different numbers from one seed; tests share
     weights through ``weights.py``."""
-    _check_supported(cfg)
     dtype = torch_dtype(cfg, dtype)
     state = {}
     for name, (shape, kind) in param_shapes(cfg).items():
-        if kind in ("ones", "zeros"):
-            state[name] = (torch.ones if kind == "ones" else torch.zeros)(
-                shape, device=device, dtype=dtype)
+        if kind in ("ones", "zeros", "ones32", "zeros32"):
+            fill = torch.ones if kind.startswith("ones") else torch.zeros
+            state[name] = fill(shape, device=device,
+                               dtype=(torch.float32 if kind.endswith("32")
+                                      else dtype))
             continue
         scale = (cfg.d_model ** -0.5 if kind == "embed"
                  else 1.0 / math.sqrt(shape[0]))

@@ -66,10 +66,26 @@ Telemetry and cascade prefill (``repro``'s DESIGN §13-§14):
 * ``cascade=True`` prefills requests that share an unfilled forest node as
   one group: the shared span once, through the group's lead, then the
   members' suffix chunks in one padded batch; admitting a head-of-line
-  request pulls its cascade partners out of the queue.  ``repro``'s
-  Mamba hand-off (its ``has_mamba`` branches) waits for the Mamba models
-  (ROADMAP A11) and the replica page lists (``meta["replicas"]``) for the
+  request pulls its cascade partners out of the queue.  With Mamba
+  layers the lead hands its carried mid-node SSM state to every member,
+  and the suffixes take the per-request path (``repro``'s ``has_mamba``
+  branches); the replica page lists (``meta["replicas"]``) wait for the
   mesh (A12).
+
+Mamba-2 and hybrid models (``repro``'s SSM paths, ``models/mamba.py``): a
+Mamba layer keeps no KV.  Each request carries its own float32 ``conv`` /
+``ssm`` state per Mamba layer (``mamba_state[layer][rid]``; ``_mamba_pos``
+for a request part-way through its prefill), and prefill caches the state
+at every shared node end it reaches (``node.meta["ssm"]``), so a sibling
+or a preempted request resumes at the deepest cached node boundary instead
+of recomputing the shared document.  Attention layers of a hybrid still
+share pages through PAC.  Eager decode steps the rows' states together and
+writes them back per row; the fused step carries them in fixed buffers of
+its bucket slot (``step_fn.FusedStep``), gathered at each plan epoch and
+synced back at the next.  An attention-free model (mamba2) keeps
+``repro``'s one placeholder pool layer, so the forest and the page
+accounting behave as they do for attention: no plan is consumed and PAC is
+never launched.
 
 Tree-speculative decoding (``repro``'s DESIGN §10, ``speculation.py``):
 ``speculative=True`` (or a ``speculation.SpecConfig``) turns each decode
@@ -102,6 +118,7 @@ from ..core.cost_model import CostModel
 from ..core.scheduler import AdmissionController, AdmissionPolicy
 from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
+from ..models import mamba as M
 from ..models.transformer import Transformer
 from . import faults as faults_mod
 from . import sampler
@@ -272,6 +289,17 @@ class DecodeEngine:
         self.attn_layer_idx = {j: a for a, j in enumerate(
             j for j, layer in enumerate(self.layers)
             if layer.kind.mixer in ("attn", "attn_local"))}
+        self._has_mamba = any(layer.kind.mixer == "mamba"
+                              for layer in self.layers)
+        # per-request Mamba state, keyed by layer index then request:
+        # (conv (1, K-1, conv_dim), ssm (1, H, P, S)) float32
+        self.mamba_state: Dict[int, Dict[int, M.State]] = {}
+        # position the carried state of a request part-way through its
+        # prefill is valid at
+        self._mamba_pos: Dict[int, int] = {}
+        # the fused path's rows of the current epoch (None: a row whose
+        # request left, so its carry row is never synced back)
+        self._fused_rows: Optional[List[Optional[int]]] = None
         self.pool = PagedKVPool(max(len(self.attn_layer_idx), 1), num_pages,
                                 page_size, max(cfg.num_kv_heads, 1),
                                 max(cfg.head_dim, 1), device=self.device)
@@ -623,11 +651,14 @@ class DecodeEngine:
 
         Phase A computes the group's shared unfilled span once, through
         the lead member (``_prefill_step(stop_at=)``), writing the shared
-        nodes' KV as the sequential path does.  Phase B batches the
-        members' suffix chunks into one padded forward
-        (``_batched_suffix_prefill``); members whose next unfilled node is
-        shared with another member recurse as a deeper subgroup, and a
-        fully cached prompt takes the per-request path.  A member stalling
+        nodes' KV and caching their SSM boundary states
+        (``node.meta["ssm"]``) as the sequential path does, then hands
+        every sibling the lead's carried mid-node SSM state so all of them
+        resume at the chunk boundary.  Phase B batches the members' suffix
+        chunks into one padded forward (``_batched_suffix_prefill``);
+        members whose next unfilled node is shared with another member
+        recurse as a deeper subgroup, and recurrent (Mamba) suffixes and a
+        fully cached prompt take the per-request path.  A member stalling
         on pages is skipped while its siblings go on; a stall on the
         shared span stalls the group (the span is on every member's
         path)."""
@@ -654,6 +685,16 @@ class DecodeEngine:
                         # prefill span, not the lead's only
                         tm.complete("prefill_chunk", c0, c1, track=rid,
                                     args={"tokens": n, "shared": True})
+            # hand each sibling the carried mid-node SSM state, so hybrid
+            # archs resume at the cascaded chunk boundary instead of
+            # recomputing from the last node-aligned ``meta["ssm"]``
+            pos = self._mamba_pos.get(lead.rid)
+            if pos is not None and pos <= frontier:
+                for rid in alive[1:]:
+                    self._mamba_pos[rid] = pos
+                    for st in self.mamba_state.values():
+                        if lead.rid in st:
+                            st[rid] = st[lead.rid]
             if n == 0:
                 self.stats["prefill_stalls"] += len(alive) - 1
                 return spent       # the shared span stalled: group waits
@@ -664,6 +705,7 @@ class DecodeEngine:
 
         # ---- phase B: the members' suffix chunks, one batch ------------ #
         alive = [r for r in alive if self.requests[r].state == PREFILL]
+        has_mamba = self._has_mamba
         by_key: Dict[int, List[int]] = {}
         for rid in alive:
             key = self._cascade_key(rid)
@@ -683,9 +725,10 @@ class DecodeEngine:
                 continue           # preempted by a sibling's allocation
             total = len(req.seq)
             start = self._filled_front(req.rid)
-            if start >= total:
-                # fully cached prompt: the per-request path recomputes its
-                # last position and promotes it
+            if has_mamba or start >= total:
+                # a recurrent suffix, or a fully cached prompt: the
+                # per-request path (it resumes SSM state; it recomputes a
+                # cached prompt's last position and promotes it)
                 spent += self._prefill_step(req, left)
                 continue
             end = total if left is None else min(total, start + left)
@@ -997,6 +1040,17 @@ class DecodeEngine:
             self._maybe_free_node(node,
                                   force=force_leaf and node.id == leaf_id)
         del self.forest.leaf_of[rid]
+        self._drop_mamba(rid)
+
+    def _drop_mamba(self, rid: int) -> None:
+        """Forget a request's SSM state and carried prefill position
+        (released, preempted or detached); its row of the fused carry is
+        never synced back."""
+        for st in self.mamba_state.values():
+            st.pop(rid, None)
+        self._mamba_pos.pop(rid, None)
+        if self._fused_rows is not None and rid in self._fused_rows:
+            self._fused_rows[self._fused_rows.index(rid)] = None
 
     def _unpin(self, req: Request) -> None:
         """Drop the pins a waiting request holds, freeing the nodes only
@@ -1045,6 +1099,7 @@ class DecodeEngine:
             else:
                 self._drop_node(node)
         del self.forest.leaf_of[rid]
+        self._drop_mamba(rid)
         if rid in self._prefilling:
             self._prefilling.remove(rid)
         req.pinned = pinned
@@ -1192,6 +1247,7 @@ class DecodeEngine:
             for node in reversed(path):
                 if node.id in self.forest.nodes:
                     self._maybe_free_node(node)
+            self._drop_mamba(rid)
             self.requests[rid].kv_freed = True
 
     def _cache_sweep(self) -> None:
@@ -1321,6 +1377,7 @@ class DecodeEngine:
         req.state = RUNNING
         if req.rid in self._prefilling:
             self._prefilling.remove(req.rid)
+        self._mamba_pos.pop(req.rid, None)
         if self.telemetry is not None:
             self.telemetry.end(track=req.rid)         # "prefill"
             self.telemetry.begin("decode", track=req.rid)
@@ -1368,10 +1425,14 @@ class DecodeEngine:
         the group's shared frontier.
 
         Attention KV of the cached prefix is reused (gathered from the
-        paged pool).  A fully cached prompt recomputes only its final
-        position so its logits exist.  When the sequence completes, the
-        request joins the decode batch; ``pending`` is sampled only if it
-        did not survive a preemption.  The chunk's seconds: on the card a
+        paged pool); SSM layers resume from the deepest cached boundary —
+        the carried chunk state, else a node-boundary ``meta["ssm"]`` —
+        and their states are cached at every shared node end inside the
+        span, so later siblings resume exactly.  The span starts at the
+        earlier of the two.  A fully cached prompt recomputes only its
+        final position so its logits exist.  When the sequence completes,
+        the request joins the decode batch; ``pending`` is sampled only if
+        it did not survive a preemption.  The chunk's seconds: on the card a
         pair of CUDA events around its work (read by ``prefill_time``), on
         the CPU the host clock.
         """
@@ -1381,13 +1442,43 @@ class DecodeEngine:
         total = len(seq)
         path = self.forest.path(rid)
         kv_filled = self._filled_front(rid)
+        has_mamba = self._has_mamba
         if kv_filled < total:
-            start = kv_filled
+            attn_start = kv_filled
         elif req.pending is None:
-            start = total - 1
+            # fully cached prompt: recompute the final position for its
+            # logits; recurrent archs still rewind to the deepest cached
+            # SSM boundary (mamba_start below)
+            attn_start = total - 1
         else:
+            attn_start = total
+        mamba_init: Dict[int, M.State] = {}
+        mamba_start = 0
+        if has_mamba:
+            carried = self._mamba_pos.get(rid)
+            if carried is not None and carried == attn_start:
+                mamba_start = carried
+                mamba_init = {j: st[rid]
+                              for j, st in self.mamba_state.items()
+                              if rid in st}
+            else:
+                pos = 0
+                for node in path:
+                    f = min(node.meta.get("filled", 0), node.length)
+                    pos += node.length
+                    if f < node.length or pos > attn_start:
+                        break
+                    if "ssm" in node.meta:
+                        mamba_start, mamba_init = pos, node.meta["ssm"]
+        if attn_start >= total and (not has_mamba or mamba_start >= total):
+            # every position is cached, the SSM state at the sequence's end
+            # too (a shared node ends there): decode resumes from it
+            # (``repro`` promotes without it)
+            for j, state in mamba_init.items():
+                self.mamba_state.setdefault(j, {})[rid] = state
             self._promote(req)
             return 0
+        start = min(attn_start, mamba_start) if has_mamba else attn_start
         # a chunk of the budget, never below one new token of progress
         end = total if budget is None else min(
             total, max(start + max(budget, 1), kv_filled + 1))
@@ -1416,9 +1507,26 @@ class DecodeEngine:
             off += node.length
 
         x = self.model.embed_tokens(tokens[None], positions)
+        leaf_id = self.forest.leaf_of[rid]
         new_kv = []  # (layer_attn, k (Tn,kv,hd), v)
         for j, layer in enumerate(self.layers):
             h = L.apply_norm(layer.ln, x, cfg)
+            if layer.kind.mixer == "mamba":
+                state = mamba_init.get(j)
+                ys = []
+                for node, lo, hi in segments:
+                    y_seg, state = M.mamba_prefill(layer.mamba, cfg,
+                                                   h[:, lo:hi], state)
+                    ys.append(y_seg)
+                    # cache the end-of-node state (shared nodes only, and
+                    # only when the chunk reaches the node's end; a leaf's
+                    # state keeps moving, carried per request below)
+                    if node.id != leaf_id and start + hi == node.end_pos:
+                        node.meta.setdefault("ssm", {})[j] = state
+                self.mamba_state.setdefault(j, {})[rid] = state
+                x = x + torch.cat(ys, 1)
+                x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+                continue
             la = self.attn_layer_idx[j]
             window = layer.window
             q, k_new, v_new = L.attn_project(layer.attn, cfg, h, positions)
@@ -1464,6 +1572,8 @@ class DecodeEngine:
             self.telemetry.observe("prefill_chunk_s", c1 - c0)
         if end < total:
             self.stats["prefill_chunks"] += 1
+            if has_mamba:
+                self._mamba_pos[rid] = end
         elif req.pending is None:
             logits = self.model.unembed(x[:, -1])               # (1, V)
             req.pending = int(sampler.sample(logits, self._split_key(),
@@ -1477,7 +1587,8 @@ class DecodeEngine:
     # plan management
     # ------------------------------------------------------------------ #
     def _windows(self) -> List[int]:
-        return sorted({layer.window for layer in self.layers})
+        """The attention windows, one plan each (none without attention)."""
+        return sorted({self.layers[j].window for j in self.attn_layer_idx})
 
     @property
     def plan_rebuilds(self) -> int:
@@ -1813,9 +1924,21 @@ class DecodeEngine:
         tail_pages, tail_base, tail_off, q_pos = \
             torch.as_tensor(tail, device=dev).unbind(0)
         tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+
+        def mix(j, mixer, h):
+            # the rows' states stepped together, written back per row
+            states = self.mamba_state[j]
+            conv = torch.cat([states[r][0] for r in rows], 0)
+            ssm = torch.cat([states[r][1] for r in rows], 0)
+            y, (conv_n, ssm_n) = M.mamba_decode(mixer, self.cfg, h, conv,
+                                                ssm)
+            for i, r in enumerate(rows):
+                states[r] = (conv_n[i:i + 1], ssm_n[i:i + 1])
+            return y
+
         logits = step_fn_mod.decode_stack(
             self.model, self.pool, self.attn_layer_idx, tok, q_pos,
-            tail_pages, tail_base, tail_off, self._attend)        # (B, V)
+            tail_pages, tail_base, tail_off, self._attend, mix)   # (B, V)
         if self.injector is not None:
             spec = self.injector.take("nan_logits")
             if spec is not None:
@@ -1989,8 +2112,10 @@ class DecodeEngine:
     def _fused_epoch(self, rows: List[int]) -> None:
         """Start a new plan epoch (the fused path's one sync point): plans
         bucketed to the row bucket, loaded with the step's base into the
-        signature's fixed buffers (captured on first use)."""
+        signature's fixed buffers (captured on first use); the previous
+        epoch's SSM carry synced back, the new rows' gathered."""
         self.flush_tokens()
+        self._sync_mamba_state()
         t0 = time.perf_counter()
         c0 = self.clock() if self.telemetry is not None else 0.0
         B = len(rows)
@@ -2026,6 +2151,7 @@ class DecodeEngine:
         capture0 = self.fused_step.capture_time
         prepared = self.fused_step.epoch(sig, host, base)
         self.stats["capture_time"] += self.fused_step.capture_time - capture0
+        self._gather_mamba_state(rows)
         self._plans = {w: (p, pa) for w, p, pa in
                        zip(self._windows(), plans, prepared)}
         self._plan_key = plan_mod.plan_key(self.forest, rows)
@@ -2038,6 +2164,39 @@ class DecodeEngine:
                                     args={"rows": len(rows),
                                           "bucket": bucket})
             self.telemetry.observe("plan_build_s", c1 - c0)
+
+    def _sync_mamba_state(self) -> None:
+        """Copy the fused SSM carry of the ending epoch back into the
+        per-request store, for the rows still running (one device copy of
+        the carry; each row keeps views of it).  The carry is read only
+        here: no host-side path reads a running request's state before
+        the next epoch, and a row whose request left (``_drop_mamba``) is
+        skipped."""
+        rows, self._fused_rows = self._fused_rows, None
+        if not self._has_mamba or rows is None:
+            return
+        conv_all, ssm_all = (t.clone() for t in self.fused_step.carry)
+        for j, li in self.fused_step.mamba_idx.items():
+            st = self.mamba_state.setdefault(j, {})
+            for i, r in enumerate(rows):
+                req = self.requests.get(r)
+                if req is not None and req.state == RUNNING:
+                    st[r] = (conv_all[li, i:i + 1], ssm_all[li, i:i + 1])
+
+    def _gather_mamba_state(self, rows: List[int]) -> None:
+        """Load the new epoch's rows' SSM states into the slot's carry
+        (padded rows zero)."""
+        self._fused_rows = list(rows)
+        if not self._has_mamba:
+            return
+        conv_all, ssm_all = self.fused_step.carry
+        B = len(rows)
+        for j, li in self.fused_step.mamba_idx.items():
+            st = self.mamba_state[j]
+            torch.cat([st[r][0] for r in rows], 0, out=conv_all[li, :B])
+            torch.cat([st[r][1] for r in rows], 0, out=ssm_all[li, :B])
+        conv_all[:, B:].zero_()
+        ssm_all[:, B:].zero_()
 
     # ------------------------------------------------------------------ #
     # speculative tree decoding (speculation.py, ``repro``'s DESIGN §10):

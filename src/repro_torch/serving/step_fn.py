@@ -28,7 +28,14 @@ collapses the step into one replay of a captured ``torch.cuda.CUDAGraph``:
   ``core.plan.bucket_plan``), so arrivals and completions reuse a graph
   while their buckets hold: one ``_Slot`` (buffers and graph) per bucket
   signature.  Padded rows carry ``q_pos = -1`` and write their tail KV to
-  the pool's trash page.
+  the pool's trash page;
+* a model with Mamba layers carries the rows' float32 SSM states in the
+  slot's fixed ``conv`` (n_mamba, bucket, K-1, conv_dim) and ``ssm``
+  (n_mamba, bucket, H, P, S) buffers (``repro``'s donated ``StepState``):
+  the engine gathers them from its per-request store at each plan epoch
+  and syncs them back at the next, and the graph steps them in place
+  (``copy_``).  Every row is its own recurrence, so a padded row never
+  touches a live one.
 
 After each step the tokens and flags go to the host by one asynchronous
 copy into a slice of a pinned ring, with an event recorded after it; the
@@ -61,6 +68,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops, pac as pac_mod, por as por_mod
 from ..models import layers as L
+from ..models import mamba as M
 from ..models.transformer import Transformer
 from . import sampler
 from .kv_cache import PagedKVPool
@@ -88,7 +96,8 @@ class StepBase(NamedTuple):
 class _Slot:
     """The buffers of one bucket signature, and its graph on the card."""
 
-    def __init__(self, plans, base, device, h_q: int, d: int):
+    def __init__(self, plans, base, device, h_q: int, d: int,
+                 cfg: ModelConfig, n_mamba: int = 0):
         self.plans = [ops.StaticArrays(cls, arrs, device)
                       for cls, arrs in plans]
         self.base = ops.StaticArrays(StepBase, base, device)
@@ -96,6 +105,12 @@ class _Slot:
                         if isinstance(p.arrays, ops.PlanArrays) else None
                         for p in self.plans]
         bucket = self.base.arrays.tokens.shape[0]
+        # the Mamba layers' carried states, (n_mamba, bucket, ...) float32
+        self.conv = self.ssm = None
+        if n_mamba:
+            conv, ssm = M.zero_state(cfg, n_mamba * bucket, device)
+            self.conv = conv.view((n_mamba, bucket) + conv.shape[1:])
+            self.ssm = ssm.view((n_mamba, bucket) + ssm.shape[1:])
         # (tokens, row_ok) of the last step, the source of the host copy
         self.out = torch.zeros((2, bucket), dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
@@ -140,6 +155,10 @@ class FusedStep:
         self.backend = backend
         self.win_slot = {w: i for i, w in enumerate(windows)}
         self.attn_layer_idx = attn_layer_idx
+        # Mamba layer index -> its row of the carry buffers
+        self.mamba_idx = {j: i for i, j in enumerate(
+            j for j, layer in enumerate(model.layers)
+            if layer.kind.mixer == "mamba")}
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.slots: Dict[tuple, _Slot] = {}
@@ -156,12 +175,14 @@ class FusedStep:
     # ------------------------------------------------------------------ #
     def epoch(self, sig: tuple, plans, base) -> List:
         """Start a plan epoch at signature ``sig``; returns the prepared
-        plan arrays (one per window) at their fixed addresses."""
+        plan arrays (one per window) at their fixed addresses.  The
+        caller then loads the slot's SSM ``carry`` (the graph reads it only
+        when replayed)."""
         self._cur = None
         slot = self.slots.get(sig)
         if slot is None:
             slot = _Slot(plans, base, self.device, self.cfg.num_heads,
-                         self.cfg.head_dim)
+                         self.cfg.head_dim, self.cfg, len(self.mamba_idx))
             self.slots[sig] = slot
         else:
             slot.load(plans, base)
@@ -170,6 +191,12 @@ class FusedStep:
             self._capture(slot)
         self._cur = slot
         return [p.arrays for p in slot.plans]
+
+    @property
+    def carry(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """The current signature's SSM carry buffers ``(conv, ssm)``
+        (``(None, None)`` without Mamba layers)."""
+        return self._cur.conv, self._cur.ssm
 
     @property
     def logits(self) -> Optional[torch.Tensor]:
@@ -227,8 +254,9 @@ class FusedStep:
 
     def _body(self, slot: _Slot, feed: bool) -> torch.Tensor:
         """One decode step over the slot's buffers; returns the logits.
-        ``feed``: write the sampled tokens into the input buffer and
-        advance ``delta`` (off only for the warm-up before a capture)."""
+        ``feed``: write the sampled tokens into the input buffer, advance
+        ``delta`` and step the SSM carry in place (off only for the
+        warm-up before a capture)."""
         base = slot.base.arrays
         dlt = base.delta * base.row_valid
         q_pos = base.q_pos0 + dlt
@@ -245,9 +273,19 @@ class FusedStep:
                                         tail_page, tail_base, q_pos,
                                         window=window)
 
+        def mix(j, mixer, h):
+            i = self.mamba_idx[j]
+            y, (conv, ssm) = M.mamba_decode(mixer, self.cfg, h,
+                                            slot.conv[i], slot.ssm[i])
+            if feed:
+                slot.conv[i].copy_(conv)
+                slot.ssm[i].copy_(ssm)
+            return y
+
         logits = decode_stack(self.model, self.pool, self.attn_layer_idx,
                               base.tokens, q_pos, base.tail_page,
-                              base.tail_base, base.tail_off0 + dlt, attend)
+                              base.tail_base, base.tail_off0 + dlt, attend,
+                              mix)
         # greedy draws no bits, so its key is never split (the key's
         # state cannot show in any stream)
         split = self.temperature > 0
@@ -449,18 +487,25 @@ def decode_stack(model: Transformer, pool: PagedKVPool,
                  attn_layer_idx: Dict[int, int], tokens: torch.Tensor,
                  q_pos: torch.Tensor, tail_page: torch.Tensor,
                  tail_base: torch.Tensor, tail_off: torch.Tensor,
-                 attend) -> torch.Tensor:
+                 attend, mix=None) -> torch.Tensor:
     """The model over one decode token a row: the embedding, every
-    layer's norm, projections and RoPE, its KV write to slot ``tail_off``
-    of page ``tail_page``, ``attend(q, k_pool, v_pool, window, tail_page,
-    tail_base, q_pos)`` and its FFN, then the unembedding; returns the
-    (B, V) logits.  The eager engine step and the fused step share it and
-    differ only in ``attend`` and in where their inputs live."""
+    layer's norm, then for an attention layer its projections and RoPE,
+    its KV write to slot ``tail_off`` of page ``tail_page`` and
+    ``attend(q, k_pool, v_pool, window, tail_page, tail_base, q_pos)``,
+    for a Mamba layer ``mix(j, mixer, h)`` (the mixer's output; it steps
+    the rows' SSM states wherever the caller keeps them), then its FFN,
+    then the unembedding; returns the (B, V) logits.  The eager engine
+    step and the fused step share it and differ only in ``attend``,
+    ``mix`` and where their inputs live."""
     cfg = model.cfg
     B = tokens.shape[0]
     x = model.embed_tokens(tokens[:, None], q_pos[:, None])    # (B, 1, d)
     for j, layer in enumerate(model.layers):
         h = L.apply_norm(layer.ln, x, cfg)
+        if layer.kind.mixer == "mamba":
+            x = x + mix(j, layer.mamba, h)
+            x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+            continue
         la = attn_layer_idx[j]
         window = layer.window
         q, k_new, v_new = L.attn_project(layer.attn, cfg, h, q_pos[:, None])

@@ -13,7 +13,8 @@ after every request is released.  Seeds 0-2 eager, 0-1 fused and 0-1
 with the prefix cache; ``test_differential.py``'s fixed workload on its
 9-page pool, where a member is preempted mid cascade.  Then
 ``test_cascade.py``'s dense cases on the port alone (its two recurrent
-cases wait for the Mamba models), and the scheduler and forest pieces
+cases are in ``test_torch_hybrid.py`` and ``test_torch_mamba2_engine.py``),
+and the scheduler and forest pieces
 cascade adds against ``repro``'s.
 
 ``repro`` runs once per record (cached in a module fixture): its engine

@@ -977,3 +977,93 @@ def test_apply_moe_replays_in_a_cuda_graph_on_card():
         assert cap == 1, cap
         dropped += int((pos >= cap).sum())
     assert dropped > 0     # 8 tokens over 16 one-slot queues collide
+
+
+@pytest.mark.cuda
+def test_window_pruning_keeps_shorter_querys_pages_on_card():
+    """On an H100: gemma3-1b at full width, 6 layers, f32 weights; two
+    requests over one 700-token document at unequal positions (a 1-token
+    and a 300-token tail) share the document's tasks under the 512-token
+    window.  ``codec-cuda`` eager and fused give the dense ``prefill`` +
+    ``decode_step`` streams (a plan pruned against the larger position
+    drops pages the shorter request still sees)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (build_model, decode_step,
+                                                prefill)
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=6)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(21)
+    doc = rng.integers(1, cfg.vocab_size, 700).tolist()
+    prompts = [doc + rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (1, 300)]
+    new = 12
+    dense = []
+    for p in prompts:
+        logits, cache, clen = prefill(model, torch.tensor([p], device="cuda"),
+                                      len(p) + new)
+        out = []
+        for _ in range(new):
+            out.append(int(torch.argmax(logits[0])))
+            logits, cache = decode_step(
+                model, torch.tensor([[out[-1]]], device="cuda"), cache, clen)
+            clen = clen + 1
+        dense.append(out)
+    for fused in (False, True):
+        eng = DecodeEngine(cfg, model, page_size=16, num_pages=256,
+                           max_q=8, num_lanes=4, backend="codec-cuda",
+                           fused=fused, device="cuda")
+        rids = [eng.add_request(p, max_new=new) for p in prompts]
+        eng.run(new + 4)
+        assert [list(eng.requests[r].generated) for r in rids] == dense, \
+            fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_mamba_fused_carry_equals_eager_on_card(arch):
+    """On an H100, f32 weights, 2 Mamba-2 layers at mamba2's width (or one
+    jamba period at 1024 wide): five requests over a shared document,
+    finishing apart so the fused step crosses buckets 8 -> 4 -> 2 -> 1;
+    the graphs step the SSM carry in place and give eager's streams; the
+    shared node carries the SSM state; jamba's graphs hold one PAC and
+    one epilogue launch, mamba2's none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    if arch == "mamba2-2.7b":
+        cfg, n_attn = dataclasses.replace(cfg, num_layers=2), 0
+    else:
+        cfg, n_attn = dataclasses.replace(
+            cfg, num_layers=8, d_model=1024, num_heads=8, num_kv_heads=2,
+            d_ff=2048, capacity_factor=0.0), 1
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    doc = rng.integers(1, cfg.vocab_size, 300).tolist()
+    prompts = [doc + rng.integers(1, cfg.vocab_size, 5).tolist()
+               for _ in range(5)]
+    streams = {}
+    for fused in (False, True):
+        eng = DecodeEngine(cfg, model, page_size=16, num_pages=256,
+                           max_q=8, backend="codec-cuda", fused=fused,
+                           device="cuda")
+        rids = [eng.add_request(p, max_new=6 + 3 * i)
+                for i, p in enumerate(prompts)]
+        eng.run(40)
+        streams[fused] = [list(eng.requests[r].generated) for r in rids]
+        assert any("ssm" in n.meta for n in eng.forest.real_nodes()
+                   if len(n.requests) == len(prompts))
+    assert streams[True] == streams[False]
+    step = eng.fused_step
+    assert step.graphs == len(eng.bucket_signatures) >= 3
+    assert all(slot.launches == (n_attn, n_attn)
+               for slot in step.slots.values())

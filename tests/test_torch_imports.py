@@ -29,6 +29,8 @@ def test_port_imports_with_jax_blocked():
         "    assert 'repro_torch.serving.' + m in mods, mods\n"
         "for m in ('metrics', 'tree', 'scheduler'):\n"
         "    assert 'repro_torch.core.' + m in mods, mods\n"
+        "for m in ('mamba', 'transformer', 'layers'):\n"
+        "    assert 'repro_torch.models.' + m in mods, mods\n"
         "from repro_torch import configs\n"
         "for arch, m in configs._MODULES.items():\n"
         "    assert 'repro_torch.configs.' + m in mods, mods\n"
