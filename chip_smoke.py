@@ -167,7 +167,27 @@ Phases (any failure raises and the script exits non-zero):
    gemma3-1b x6 at f32, two requests at unequal positions over one
    1024-token document, ``codec-cuda`` eager and fused equal the dense
    ``prefill`` + ``decode_step`` decode;
-14. print the ``kernels`` JSON line and the closing device line.
+14. the mesh on one card (every shard of a ``(data, model)`` mesh on the
+   one H100): (a) phase 3's model (rebuilt from seed 0) and traffic,
+   fused: a single-device reference that keeps its top-2 logits, then
+   1x1, 2x1 and 2x2 meshes with the document split across the data
+   shards, and 2x1 with ``replicate``, each traced: TPOT, device busy
+   and kernels a step beside phase 7's, the launches each graph holds
+   (PAC and the epilogue 36 x D x M, ``codec_por`` 36 x log2 D where
+   rows span shards), the merged rows Bm, the sequence-split nodes, the
+   replica promotions, the plan's KV bytes each shard reads a step;
+   bf16 streams may part from the reference only at near-ties (its
+   top-2 logits within 2 bf16 steps at the first differing token); (c)
+   the epilogue's mesh mode (tail-owner flags, float32 ``o``) at shard
+   (0, 0) of the 2x2 run's last step and ``codec_por`` over the
+   butterfly's partials, against their plain versions and bounds; (b)
+   phase 6's 4-layer f32 model: 1x1, 2x1, 1x2 and 2x2, greedy and at
+   temperature 0.7, byte-identical to the single-device eager engine,
+   with replication at 2x1 and 2x2, and 2x2 under pressure, no page
+   leaked on any shard; (d) ``calibrate=True`` at 2x2: what
+   ``recalibrate`` fits (to shards that run one after another on one
+   card: not the H100's coefficients);
+15. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -1135,13 +1155,14 @@ def phase_fused(cfg, model, eager):
     the eager serves of phases 3 and 5 (``eager``: their results, by
     backend) in the same process: replays, captures and the launches
     inside each graph are checked; a traced steady-state window must show
-    one graph launch a step and no kernel launch from the host."""
+    one graph launch a step and no kernel launch from the host.  Returns
+    the fused serves' results by backend."""
     from repro_torch.launch.serve import doc_prompts, serve
     from repro_torch.serving.engine import DecodeEngine
 
     prompts = doc_prompts(8, 4096, 64, cfg.vocab_size, seed=0)
     n_attn = cfg.num_layers
-    tpot = {}
+    tpot, results = {}, {}
     for backend in ("codec-cuda", "flash"):
         engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
                               num_lanes=LANES, max_q=MAX_Q, backend=backend,
@@ -1178,10 +1199,12 @@ def phase_fused(cfg, model, eager):
             f"{r['tpot_ms']:.3f} ms ({e['tpot_ms'] / r['tpot_ms']:.2f}x); "
             f"{same} of {len(e['streams'])} bf16 streams equal eager's")
         tpot[backend] = r["tpot_ms"]
+        results[backend] = r
         del engine
         torch.cuda.empty_cache()
     log(f"  fused TPOT flash - codec-cuda: "
         f"{tpot['flash'] - tpot['codec-cuda']:.3f} ms a step")
+    return results
 
 
 # --------------------------------------------------------------------- #
@@ -3145,6 +3168,413 @@ def phase_window_c1():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the mesh on one card
+# --------------------------------------------------------------------- #
+P14_DOC, P14_Q = 4096, 64
+P14_MESHES = ((1, 1), (2, 1), (2, 2))
+# pages a node keeps on one data shard: half of the 4096-token document,
+# so it spans both data shards
+P14_SPLIT = 128
+P14F_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
+P14F_TEMPERATURE = 0.7
+# the JAX package's TPU priors, set on a 4-layer engine's cost model to
+# make replication pay (the H100's priors do not, at these shapes)
+P14_REPLICATE_HW = dict(peak_flops=197e12, hbm_bw=819e9, ici_bw=50e9,
+                        grid_step_overhead=1e-6, launch_overhead=5e-6)
+P14D_NEW = [8 + 3 * i for i in range(8)]
+# 14b's pressured pool: one request's 262 pages fit, the batch's 304 do
+# not
+P14_PAGES, P14_CHUNK = 288, 512
+
+
+def mesh_engine(cfg, model, d, m, **kw):
+    from repro_torch.distributed import decode_mesh
+    from repro_torch.serving.engine import DecodeEngine
+    kw.setdefault("num_pages", 1024)
+    return DecodeEngine(cfg, model, page_size=PAGE, num_lanes=LANES,
+                        max_q=MAX_Q, fused=True, mesh=decode_mesh(d, m),
+                        seq_split_pages=P14_SPLIT, device="cuda", **kw)
+
+
+def check_mesh_graphs(tag, engine, res, d, m):
+    """Replays equal steps, one graph a signature, and in each graph D x M
+    PAC and epilogue launches a layer and log2(D) ``codec_por`` launches a
+    layer where rows span shards; returns the merge widths Bm by
+    signature."""
+    n_attn = len(engine.attn_layer_idx)
+    step = engine.fused_step
+    assert step.replays == res["steps"] == engine.stats["fused_calls"], \
+        (tag, step.replays, res["steps"])
+    assert step.graphs == len(engine.bucket_signatures) \
+        == engine.fused_cache_size, (tag, step.graphs)
+    widths = []
+    for sig, slot in step.slots.items():
+        bm = sig[-1][1]
+        widths.append(bm)
+        assert slot.launches == (n_attn * d * m,) * 2, (tag, sig,
+                                                        slot.launches)
+        assert slot.por_launches == (
+            n_attn * (d - 1).bit_length() if bm else 0), (tag, sig,
+                                                           slot.por_launches)
+    return widths
+
+
+def mesh_kv_bytes(engine):
+    """Plan-covered KV bytes each shard ``(d, m)`` reads a step in the
+    last epoch (K and V of its pages and heads, over the attention
+    layers), by data shard."""
+    cfg = engine.cfg
+    per_head = 2 * cfg.head_dim * engine.pool.k.element_size() \
+        * (cfg.num_kv_heads // engine.mesh.shape["model"])
+    n_attn_w = {}
+    for j in engine.attn_layer_idx:
+        w = engine.layers[j].window
+        n_attn_w[w] = n_attn_w.get(w, 0) + 1
+    out = [0] * engine.pool.num_shards
+    for w, sp in engine._sharded_plans.items():
+        for d, p in enumerate(sp.shards):
+            out[d] += n_attn_w[w] * per_head * sum(s.n for s in p.subtasks)
+    return out
+
+
+def top2_recorder(store):
+    """An ``on_step`` that keeps, on the device, the top-2 logits of every
+    token a fused step sampled, by request and token index (read after
+    the run: no synchronize in the loop)."""
+    def on_step(eng):
+        if not eng.step_stats[-1]["decoded"]:
+            return
+        idx = [(r, len(eng.requests[r].generated)) for r in eng.last_rows]
+        store.append((idx, torch.topk(eng.last_logits, 2).values))
+    return on_step
+
+
+def bf16_steps(x: float) -> float:
+    """One bf16 step (ulp) at the magnitude of ``x``."""
+    return 2.0 ** (int(np.floor(np.log2(max(abs(x), 1e-30)))) - 7)
+
+
+def check_near_ties(tag, ref, ref_top2, got):
+    """Where ``got``'s bf16 streams part from ``ref``'s: the reference's
+    top-2 logits at the first differing token must lie within 2 bf16
+    steps of each other (the ROADMAP's near-tie trap).  Returns the
+    equal streams and the largest gap in bf16 steps."""
+    same, worst = 0, 0.0
+    for rid in sorted(ref):
+        diff = first_difference({rid: ref[rid]}, {rid: got[rid]})
+        if diff is None:
+            same += 1
+            continue
+        _, i, x, y = diff
+        v = ref_top2.get((rid, i))
+        assert v is not None, (tag, "parted at a prefill token", rid, i)
+        gap = (v[0] - v[1]) / bf16_steps(v[0])
+        worst = max(worst, gap)
+        log(f"  {tag}: request {rid} first differs at token {i}: {x} vs "
+            f"{y}; reference top-2 {v[0]:.4f}, {v[1]:.4f} ({gap:.2f} bf16 "
+            f"steps apart)")
+        assert gap <= 2.0, (tag, rid, i, v)
+    return same, worst
+
+
+def mesh_epilogue_bound(q, parts, k_pool, tails, owner, window=0):
+    """Least time for the mesh's epilogue on these inputs: as
+    ``epilogue_bound``, with the tail tokens of the owned rows only (a
+    non-owner reads none), q in its type, ``o`` written in float32 and
+    ``m``, ``l`` and the owner flags counted."""
+    B, h_q, d = q.shape
+    _, page, n_kv, _ = k_pool.shape
+    tail_pages, tail_base, q_pos = tails
+    hi = torch.clamp(q_pos - tail_base, max=page - 1)
+    lo = (torch.clamp(q_pos - window + 1 - tail_base, min=0) if window > 0
+          else torch.zeros_like(hi))
+    tokens = int((torch.clamp(hi - lo + 1, min=0) * (owner != 0)).sum())
+    nnz = parts.seg_rows.numel()
+    nbytes = (nnz * h_q * (d + 2) * 4
+              + 2 * tokens * n_kv * d * k_pool.element_size()
+              + q.numel() * q.element_size() + B * h_q * (d + 2) * 4
+              + (B + 1 + nnz) * 4 + 4 * B * 8)
+    flops = 4.0 * tokens * h_q * d + 3.0 * nnz * h_q * d
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def mesh_kernels(engine, timer, launches):
+    """14c: the epilogue's mesh mode and the butterfly's ``codec_por`` at
+    the last 2x2 epoch's shapes, each against its plain version, timed
+    with CUDA events.  Shard (0, 0) of layer 0: its plan, its slab of the
+    pool, its query head block (bf16, from a seed), its tail pages and
+    owner flags; the butterfly's partials (D, M, Bm rows, h/M heads) from
+    a seed in the value ranges a merge sees."""
+    from repro_torch.kernels import por as por_mod
+    from repro_torch.kernels.ref import MASK_VALUE
+    cfg = engine.cfg
+    D, M = engine.mesh.shape["data"], engine.mesh.shape["model"]
+    slot = engine.fused_step._cur
+    base = slot.base.arrays
+    B = base.tokens.shape[0]
+    Bm = base.merge_gather.shape[0]
+    h_loc = cfg.num_heads // M
+    pa = slot.plans[0][0].arrays
+    k_pool, v_pool = engine.pool.shard_pools(0, 0, 0)
+    q_pos = base.q_pos0 + base.delta * base.row_valid
+    tails = (base.tail_page[0], base.tail_base, q_pos)
+    owner = base.tail_owner[0]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q = torch.randn(B, h_loc, cfg.head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    parts = engine._backend.parts_arrays(q, k_pool, v_pool, pa,
+                                         num_queries=B)
+    kw = dict(stats=True, owner=owner, o_f32=True)
+    got = por_mod.por_epilogue(q, *parts, k_pool, v_pool, *tails, **kw)
+    want = por_mod.por_epilogue_torch(q, *parts, k_pool, v_pool, *tails,
+                                      owner=owner, o_f32=True)
+    torch.cuda.synchronize()
+    epi_err = assert_close("mesh epilogue", got, want, EPI_TOL)
+    epi_ms = timer(lambda: por_mod.por_epilogue(q, *parts, k_pool, v_pool,
+                                                *tails, **kw))
+    epi_med = timer.median
+    epi_plain = timer(lambda: por_mod.por_epilogue_torch(
+        q, *parts, k_pool, v_pool, *tails, owner=owner, o_f32=True))
+    epi_b, epi_by = mesh_epilogue_bound(q, parts, k_pool, tails, owner)
+    rows = max(Bm, 1)
+    shape = (D, M, rows, h_loc, cfg.head_dim)
+    o = torch.randn(shape, generator=gen, device="cuda")
+    m = 3 * torch.randn(shape[:-1], generator=gen, device="cuda")
+    l = 0.5 + 3.5 * torch.rand(shape[:-1], generator=gen, device="cuda")
+    o[1:, :, ::2], m[1:, :, ::2], l[1:, :, ::2] = 0.0, MASK_VALUE, 0.0
+    half = [t.reshape(-1, *t.shape[3:]).contiguous() for t in (o, m, l)]
+    other = [t.flip(0).reshape(-1, *t.shape[3:]).contiguous()
+             for t in (o, m, l)]
+    merged = por_mod.por(*half, *other)
+    plain = por_mod.por_torch(*half, *other)
+    torch.cuda.synchronize()
+    por_err = assert_close("butterfly por", merged, plain, POR_TOL)
+    por_ms = timer(lambda: por_mod.por(*half, *other))
+    por_med = timer.median
+    por_plain = timer(lambda: por_mod.por_torch(*half, *other))
+    por_b, por_by = por_bound(half[0])
+    log(f"  14c. the epilogue's mesh mode at shard (0, 0) of layer 0 "
+        f"({B} rows in the bucket, {h_loc} query heads over "
+        f"{cfg.num_kv_heads // M} KV heads, {int((owner != 0).sum())} rows "
+        f"own their tail here, f32 o): {epi_ms:.4f} ms/launch, mean of 20 "
+        f"(median {epi_med:.4f}; plain {epi_plain:.4f}; bound "
+        f"{epi_b:.5f} by {epi_by}), max|err| {epi_err:.3e}")
+    log(f"  14c. codec_por on the butterfly ({D} x {M} x {rows} rows x "
+        f"{h_loc} heads x d {cfg.head_dim}, f32): {por_ms:.4f} ms/launch, "
+        f"mean of 20 (median {por_med:.4f}; plain {por_plain:.4f}; bound "
+        f"{por_b:.5f} by {por_by}), max|err| {por_err:.3e}")
+    return [
+        {"name": "por_epilogue (mesh: tail owner, f32 o)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/por.cu",
+         "replaces": "src/repro/kernels/por.py:44, "
+                     "src/repro/kernels/ops.py:80, "
+                     "src/repro/kernels/ops.py:91",
+         "launches": launches["por_epilogue"], "max_abs_err": epi_err,
+         "ms": epi_ms, "plain_ms": epi_plain, "bound_ms": epi_b,
+         "bound_by": epi_by, "library_ms": None},
+        {"name": "por (mesh butterfly)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/por.cu",
+         "replaces": "src/repro/kernels/por.py:44",
+         "launches": launches["por"], "max_abs_err": por_err,
+         "ms": por_ms, "plain_ms": por_plain, "bound_ms": por_b,
+         "bound_by": por_by, "library_ms": None},
+    ]
+
+
+def phase_mesh(timer, fused7):
+    """14a-c on qwen3-4b at full width and depth (phase 3's model, rebuilt
+    from seed 0) and phase 3's traffic: a single-device fused reference
+    that records its top-2 logits, then 1x1, 2x1 and 2x2 meshes (the
+    document split across the data shards) and 2x1 with ``replicate``,
+    each fused and traced; beside phase 7's fused numbers (``fused7``).
+    Returns the ``kernels`` entries of 14c."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.launch.serve import doc_prompts, serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+
+    cfg = get_config(PAPER_ARCH)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    prompts = doc_prompts(8, P14_DOC, P14_Q, cfg.vocab_size, seed=0)
+    n_attn = cfg.num_layers
+    engine = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                          num_lanes=LANES, max_q=MAX_Q, fused=True,
+                          device="cuda")
+    store = []
+    ref = serve(engine, prompts, max_new=32, on_step=top2_recorder(store))
+    ref_top2 = {}
+    for idx, vals in store:
+        for key, v in zip(idx, vals.cpu().tolist()):
+            ref_top2[key] = v
+    del engine, store
+    torch.cuda.empty_cache()
+    r7 = fused7["codec-cuda"]
+    p7 = r7["profile"]
+    log(f"  single device, fused (phase 7): TPOT {r7['tpot_ms']:.3f} ms, "
+        f"device busy {p7['device_busy_ms']:.3f} ms a traced step, "
+        f"{p7['kernels_per_step']:.0f} kernels a step; reference run "
+        f"(top-2 logits kept on the device): {ref['steps']} steps")
+    kernels = []
+    runs = [(d, m, False) for d, m in P14_MESHES] + [(2, 1, True)]
+    for d, m, replicate in runs:
+        tag = f"{d}x{m}" + (" replicate" if replicate else "")
+        engine = mesh_engine(cfg, model, d, m, replicate=replicate)
+        reset_launches()
+        r = serve(engine, prompts, max_new=32, profile_steps=PROFILE_STEPS)
+        launches = read_launches()
+        lens = sorted({len(t) for t in r["streams"].values()})
+        assert lens == [32], (tag, lens)
+        assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
+            (tag, launches)
+        if d > 1:
+            assert launches["por"] > 0, (tag, launches)
+        widths = check_mesh_graphs(tag, engine, r, d, m)
+        prof = r["profile"]
+        splits = max(sp.seq_splits for sp in engine._sharded_plans.values())
+        nbytes = mesh_kv_bytes(engine)
+        same, worst = check_near_ties(tag, ref["streams"], ref_top2,
+                                      r["streams"])
+        log(f"  {tag}: TPOT {r['tpot_ms']:.3f} ms "
+            f"({r['tpot_ms'] / r7['tpot_ms']:.2f}x phase 7's), device busy "
+            f"{prof['device_busy_ms']:.3f} ms a traced step (idle share "
+            f"{prof['idle_share']:.3f}), {prof['kernels_per_step']:.0f} "
+            f"kernels a step; a graph holds PAC x {n_attn * d * m}, "
+            f"epilogue x {n_attn * d * m}, codec_por x "
+            f"{n_attn * (d - 1).bit_length()} (where Bm > 0); Bm by "
+            f"signature {widths}; {splits} seq-split node(s); replica "
+            f"promotions {engine.stats['replica_promotions']}; plan KV a "
+            f"step by data shard (each of {m} model shard(s)) "
+            f"{[round(b / 1e6, 2) for b in nbytes]} MB; {r['steps']} "
+            f"replays, {engine.fused_step.graphs} graph(s) for "
+            f"{len(engine.bucket_signatures)} signature(s), capture "
+            f"{r['capture_s']:.3f} s; launches in the run: {launches}; "
+            f"{same} of {len(r['streams'])} bf16 streams equal the "
+            f"reference's (largest top-2 gap at a first difference "
+            f"{worst:.2f} bf16 steps)")
+        if (d, m) == (2, 2):
+            kernels = mesh_kernels(engine, timer, launches)
+        engine.check()
+        for rid in list(engine.requests):
+            engine.release(rid)
+        engine.pool.allocator.check()
+        assert engine.pool.num_free == engine.pool.num_pages, (tag, "leak")
+        del engine
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_mesh_f32():
+    """14b on phase 6's 4-layer f32 model: every mesh's streams, greedy
+    and at temperature 0.7, equal the single-device eager engine's
+    byte for byte; replication at 2x1 and 2x2 (under the TPU priors, so
+    nodes are promoted: the document's leaves with phase 6's prompts,
+    every node with a one-page document); the 2x2 mesh under pressure; no
+    page leaked on any shard."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.core.cost_model import HardwareSpec
+    from repro_torch.launch.serve import doc_prompts, serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    long_doc = doc_prompts(8, P14_DOC, P14_Q, cfg.vocab_size, seed=1)
+    short_doc = doc_prompts(8, 16, 8, cfg.vocab_size, seed=2)
+    refs = {}
+    for name, prompts in (("long", long_doc), ("short", short_doc)):
+        for t in (0.0, P14F_TEMPERATURE):
+            eng = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                               num_lanes=LANES, max_q=MAX_Q,
+                               temperature=t, device="cuda")
+            refs[name, t] = serve(eng, prompts, max_new=32)["streams"]
+            del eng
+
+    def check(tag, prompts_name, d, m, temperature=0.0, replicate=False,
+              **kw):
+        eng = mesh_engine(cfg, model, d, m, temperature=temperature,
+                          replicate=replicate, **kw)
+        if replicate:
+            eng.cost_model.hw = HardwareSpec(**P14_REPLICATE_HW)
+        prompts = long_doc if prompts_name == "long" else short_doc
+        r = serve(eng, prompts, max_new=32)
+        want = refs[prompts_name, temperature]
+        diff = first_difference(want, r["streams"])
+        assert diff is None, (tag, diff)
+        check_mesh_graphs(tag, eng, r, d, m)
+        st = dict(eng.stats)
+        eng.check()
+        for rid in list(eng.requests):
+            eng.release(rid)
+        eng.pool.allocator.check()
+        assert all(s.num_free == s.num_pages
+                   for s in eng.pool.allocator.shards), (tag, "leak")
+        del eng
+        return st
+
+    for d, m in P14F_MESHES:
+        for t in (0.0, P14F_TEMPERATURE):
+            check(f"{d}x{m} t={t}", "long", d, m, t)
+    promoted = {}
+    for d, m in ((2, 1), (2, 2)):
+        for name in ("long", "short"):
+            st = check(f"{d}x{m} replicate {name}", name, d, m,
+                       replicate=True)
+            assert st["replica_promotions"] >= 1, (d, m, name, st)
+            promoted[d, m, name] = st["replica_promotions"]
+    st = check("2x2 pressured", "long", 2, 2, num_pages=P14_PAGES,
+               prefill_chunk=P14_CHUNK)
+    assert st["preempted"] >= 1, st
+    log(f"  14b. {cfg.num_layers} layers f32: meshes "
+        f"{['%dx%d' % x for x in P14F_MESHES]}, greedy and at temperature "
+        f"{P14F_TEMPERATURE}, give the single-device eager streams byte "
+        f"for byte ({len(long_doc)} requests x 32 tokens over a "
+        f"{P14_DOC}-token document); replication (TPU priors) promoted "
+        f"{promoted} nodes with equal streams; 2x2 on {P14_PAGES} pages "
+        f"with {P14_CHUNK}-token chunks: {st['preempted']} preemption(s), "
+        f"equal streams; no page leaked on any shard")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_calibrate():
+    """14d: a calibrating 2x2 mesh on phase 6's 4-layer f32 model (every
+    step waits for the card and is timed; the requests stop at 8..29
+    tokens, so the batch and the merged rows shrink and the features
+    vary); prints what ``recalibrate`` fitted."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    prompts = doc_prompts(8, P14_DOC, P14_Q, cfg.vocab_size, seed=1)
+    eng = mesh_engine(cfg, model, 2, 2, calibrate=True)
+    prior = dataclasses.asdict(eng.cost_model.hw)
+    for p, n in zip(prompts, P14D_NEW):
+        eng.add_request(p, max_new=n)
+    eng.run(64)
+    fitted = eng.recalibrate()
+    hw = eng.cost_model.hw
+    rows = [s for s in eng.step_stats if s.get("hbm_bytes")]
+    log(f"  14d. calibrate=True at 2x2 ({len(rows)} timed mesh steps, "
+        f"{eng.stats['calibrations']} fits installed): fitted {fitted}; "
+        f"hbm {hw.hbm_bw / 1e9:.6g} GB/s (prior "
+        f"{prior['hbm_bw'] / 1e9:.6g}), ici {hw.ici_bw / 1e9:.6g} GB/s "
+        f"(prior {prior['ici_bw'] / 1e9:.6g}), page step "
+        f"{hw.grid_step_overhead * 1e6:.6g} us, merge round "
+        f"{hw.launch_overhead * 1e6:.6g} us.  Fitted to a mesh whose "
+        f"shards run one after another on one card while the features "
+        f"charge the heaviest shard: not the H100's coefficients")
+    eng.pool.allocator.check()
+    del eng, model
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3200,7 +3630,8 @@ def main() -> int:
     phase_backends()
 
     log("== 7. the fused decode step at full depth, beside eager")
-    phase_fused(cfg, model, {"codec-cuda": codec_res, "flash": flash_res})
+    fused7 = phase_fused(cfg, model, {"codec-cuda": codec_res,
+                                      "flash": flash_res})
 
     log("== 8. serving under memory pressure: Poisson arrivals, chunked "
         "prefill, preempt-and-recompute")
@@ -3253,6 +3684,18 @@ def main() -> int:
     t13.append(time.perf_counter())
     log("  phase 13: " + ", ".join(
         f"13{c} {b - a:.1f} s" for c, a, b in zip("abcd", t13, t13[1:])))
+
+    log("== 14. the mesh on one card: sharded KV pool, per-shard plans, "
+        "the cross-shard POR butterfly, head-parallel attention")
+    t14 = [time.perf_counter()]
+    kernels += phase_mesh(timer, fused7)
+    t14.append(time.perf_counter())
+    phase_mesh_f32()
+    t14.append(time.perf_counter())
+    phase_calibrate()
+    t14.append(time.perf_counter())
+    log(f"  phase 14: 14a-c {t14[1] - t14[0]:.1f} s, 14b "
+        f"{t14[2] - t14[1]:.1f} s, 14d {t14[3] - t14[2]:.1f} s")
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

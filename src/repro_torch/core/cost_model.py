@@ -9,28 +9,37 @@ target GPU and interpolates.  Two sources, as in ``repro.core.cost_model``:
   dense bf16, 3.35 TB/s HBM3) plus a per-step overhead — the default;
 * an optional **profiled table** measured by ``profile()`` with bilinear
   interpolation in (log2 n_q, log2 n), the paper's scheme.
+
+The mesh's terms (``merge_cost``, ``replicate_gain``) charge the
+cross-shard POR merge at ``HardwareSpec.ici_bw``, and ``fit`` refits the
+coefficients from measured mesh steps (``DecodeEngine.recalibrate``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 # NVIDIA H100 SXM datasheet figures (dense, no sparsity).
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s
 HBM_BW = 3.35e12                  # B/s
+# NVLink 4 between H100 SXM cards: 900 GB/s all to all, 450 GB/s each way
+ICI_BW = 450e9                    # B/s
 
 
 @dataclasses.dataclass
 class HardwareSpec:
     peak_flops: float = PEAK_FLOPS_BF16
     hbm_bw: float = HBM_BW
-    # Uncalibrated: no per-step or per-launch overhead of the CUDA PAC
-    # kernel has been fitted on the card yet, so the analytic model charges
-    # none (``CostModel.calibrated`` stays False until a table is profiled).
+    # Uncalibrated: the NVLink datasheet figure as the merge's wire rate
+    # (the mesh's shards share one card today, so no link has been
+    # measured), and no per-step or per-launch overhead of the CUDA
+    # kernels, so the analytic model charges none (``CostModel.calibrated``
+    # stays False until a table is profiled or ``fit`` installs a fit).
+    ici_bw: float = ICI_BW
     grid_step_overhead: float = 0.0
     launch_overhead: float = 0.0
 
@@ -122,6 +131,89 @@ class CostModel:
         if self._grid is not None:
             return self._interp(n_q, n)
         return self.analytic(n_q, n)
+
+    # ------------------------------------------------------------------ #
+    # cross-shard merge term (the mesh's POR butterfly)
+    # ------------------------------------------------------------------ #
+    def merge_cost(self, n_splits: int, n_q: int) -> float:
+        """Estimated seconds to POR-merge ``n_splits`` sequence-split
+        partials of ``n_q`` queries across shards.
+
+        The merge (``kernels.por.por_subgroup_merge``) packs the ``(o, m,
+        l)`` partials of the ``n_q`` rows that span shards into one
+        ``(n_q, h_q, d + 2)`` float32 buffer and runs ``ceil(log2
+        n_splits)`` rounds of one exchange each: one launch and one wire
+        move a round.  Rows whose KV is replicated are packed out and cost
+        nothing (``n_q == 0`` skips the merge).  The scheduler charges
+        this once a step on top of the slowest shard.
+        """
+        if n_splits <= 1 or n_q <= 0:
+            return 0.0
+        rounds = int(np.ceil(np.log2(n_splits)))
+        wire = n_q * self.h_q * (self.d + 2) * 4  # packed f32 o/m/l buffer
+        return rounds * (wire / self.hw.ici_bw + self.hw.launch_overhead)
+
+    def replicate_gain(self, n_q: int, n: int, num_shards: int) -> float:
+        """Per-step seconds saved by replicating a node on every shard
+        instead of sequence-splitting it across ``num_shards``: the merge
+        its rows no longer pay, less the ``(D-1)/D`` of the node's cost
+        that each shard then reads on top.  Positive: replicate (short hot
+        prefixes); negative: split (long documents).  Callers still gate
+        on free pages: this is a time trade, not a memory one."""
+        if num_shards <= 1:
+            return 0.0
+        extra = self(n_q, n) * (num_shards - 1) / num_shards
+        return self.merge_cost(num_shards, n_q) - extra
+
+    def fit(self, samples: Sequence[Dict[str, float]],
+            min_samples: int = 8) -> bool:
+        """Refit the hardware coefficients from measured step timings.
+
+        ``samples`` are per-step feature dicts (``hbm_bytes``,
+        ``grid_steps``, ``merge_bytes``, ``merge_rounds``, ``seconds``) as
+        the engine's ``step_stats`` record them.  Solves the least squares
+        ``seconds ~= hbm_bytes/bw + grid_steps*step_ovh +
+        merge_bytes/ici_bw + merge_rounds*launch + const`` with the
+        coefficients clipped at zero, and installs the fitted
+        :class:`HardwareSpec`.  A column that varies by less than 30% of
+        its largest value is collinear with the constant, so its
+        coefficient keeps the current value.  Returns True when a fit was
+        installed.
+        """
+        rows = [s for s in samples
+                if s.get("seconds", 0.0) > 0.0 and s.get("hbm_bytes", 0) > 0]
+        if len(rows) < min_samples:
+            return False
+        feats = ["hbm_bytes", "grid_steps", "merge_bytes", "merge_rounds"]
+        A = np.array([[float(s.get(f, 0.0)) for f in feats] + [1.0]
+                      for s in rows])
+        b = np.array([float(s["seconds"]) for s in rows])
+        # normalise columns so lstsq conditioning survives byte counts
+        scale = np.maximum(np.abs(A).max(axis=0), 1e-30)
+        coef, *_ = np.linalg.lstsq(A / scale, b, rcond=None)
+        coef = np.maximum(coef / scale, 0.0)
+        hw = self.hw
+        varies = (np.abs(A - A.mean(axis=0)).max(axis=0)
+                  > 0.3 * np.maximum(np.abs(A).max(axis=0), 1e-30))
+        self.hw = HardwareSpec(
+            peak_flops=hw.peak_flops,
+            hbm_bw=(1.0 / coef[0] if varies[0] and coef[0] > 0
+                    else hw.hbm_bw),
+            ici_bw=(1.0 / coef[2] if varies[2] and coef[2] > 0
+                    else hw.ici_bw),
+            grid_step_overhead=(float(coef[1]) if varies[1]
+                                else hw.grid_step_overhead),
+            launch_overhead=(float(coef[3]) if varies[3] and coef[3] > 0
+                             else hw.launch_overhead))
+        self.calibrated = True
+        return True
+
+    def bound(self, n_q: int, n: int) -> str:
+        """Whether a task is ``"compute"``- or ``"memory"``-bound under the
+        analytic model."""
+        t_flop = self.flops(n_q, n) / self.hw.peak_flops
+        t_mem = self.hbm_bytes(n_q, n) / self.hw.hbm_bw
+        return "compute" if t_flop > t_mem else "memory"
 
 
 def profile(cost_model: CostModel,

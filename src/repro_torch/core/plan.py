@@ -1,6 +1,7 @@
 """Decode-plan compiler: forest + schedule -> static-shape kernel arrays.
 
-The port's copy of ``repro.core.plan`` (single-device plans).  It runs on
+The port's copy of ``repro.core.plan``: single-device plans and the
+mesh's per-shard plans (``build_sharded_plan``).  It runs on
 the host every few decoding steps, not every step, and its output — a
 ``DecodePlan`` of flat int32 arrays — drives both the CUDA PAC kernel
 (which reads the step arrays from global memory) and the plain PyTorch
@@ -350,7 +351,9 @@ def bucket_pow2(n: int, floor: int = 1) -> int:
     return max(floor, 1 << (n - 1).bit_length())
 
 
-def bucket_plan(plan: DecodePlan, num_rows: int) -> DecodePlan:
+def bucket_plan(plan: DecodePlan, num_rows: int,
+                steps: Optional[int] = None, tasks: Optional[int] = None,
+                pages: Optional[int] = None) -> DecodePlan:
     """Bucket every plan shape the fused decode step sees.
 
     ``pad_plan`` already buckets the step axis; this additionally buckets
@@ -365,13 +368,19 @@ def bucket_plan(plan: DecodePlan, num_rows: int) -> DecodePlan:
     ``seg_ids`` entries pointing at the old trash segment
     (``plan.num_queries``) are re-pointed at ``num_rows``; real query
     rows are below the live batch size and therefore below ``num_rows``.
+
+    Explicit ``steps`` / ``tasks`` / ``pages`` targets override the
+    per-axis powers of two: the sharded planner buckets every shard to
+    the common maxima, so the shards' arrays share one shape.
     """
     if num_rows < plan.num_queries:
         raise ValueError(
             f"bucketed rows {num_rows} < live queries {plan.num_queries}")
-    p = pad_plan(plan, steps=bucket_pow2(plan.max_steps),
-                 tasks=bucket_pow2(plan.task_qnum.shape[0]))
-    pages = bucket_pow2(p.max_pages)
+    p = pad_plan(plan, steps=steps or bucket_pow2(plan.max_steps),
+                 tasks=tasks or bucket_pow2(plan.task_qnum.shape[0]))
+    pages = pages or bucket_pow2(p.max_pages)
+    if pages < p.max_pages:
+        raise ValueError("page bucket target smaller than plan")
     task_pages = np.zeros((p.task_qnum.shape[0], pages), np.int32)
     task_pages[:, :p.max_pages] = p.task_pages
     seg = p.seg_ids.copy()
@@ -415,6 +424,190 @@ def pad_plan(plan: DecodePlan, steps: Optional[int] = None,
         task_pages=pad_task(plan.task_pages),
         q_gather=pad_task(plan.q_gather), q_pos=pad_task(plan.q_pos),
         seg_ids=seg)
+
+
+# --------------------------------------------------------------------- #
+# mesh-aware plan partitioning
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class ShardedPlan:
+    """One ``DecodePlan`` per data shard, bucketed to common shapes.
+
+    Every shard's arrays share the same (steps, tasks, pages, rows)
+    buckets, so one step signature serves them all; page ids inside each
+    shard's arrays are local (rows of that shard's pool block, its trash
+    row included).  Queries are shared: every shard's ``seg_ids`` target
+    the global query rows, and the cross-shard POR merge folds the
+    shards' partials.
+    """
+
+    shards: List[DecodePlan]
+    num_shards: int
+    makespan: float            # slowest shard + merge term
+    merge_cost: float          # cross-shard POR merge estimate (s)
+    seq_splits: int            # nodes cut at a shard boundary
+    # merge_rows[r]: row r's partials differ across shards and must be
+    # merged; row_shards[s, r]: shard s computes a shard-local
+    # (non-replicated) contribution to row r.  The engine ORs tail
+    # ownership into row_shards and derives the packed gather / scatter
+    # indices and the contributor vector from these.
+    merge_rows: Optional[np.ndarray] = None
+    row_shards: Optional[np.ndarray] = None
+    replicated: Optional[set] = None   # node ids planned from replicas
+
+    def stats(self) -> Dict[str, float]:
+        local = [p.makespan for p in self.shards]
+        occ = [p.stats()["grid_occupancy"] for p in self.shards]
+        return dict(num_shards=self.num_shards, makespan=self.makespan,
+                    merge_cost=self.merge_cost, seq_splits=self.seq_splits,
+                    shard_makespans=local,
+                    shard_imbalance=(max(local) / (sum(local) / len(local))
+                                     if local and sum(local) > 0 else 1.0),
+                    mean_grid_occupancy=sum(occ) / max(len(occ), 1),
+                    replicated_nodes=len(self.replicated or ()),
+                    merge_row_count=(int(self.merge_rows.sum())
+                                     if self.merge_rows is not None else 0))
+
+
+def replicated_node_set(forest: PrefixForest, num_shards: int,
+                        req_rows: Dict[int, int]) -> tuple:
+    """Nodes plannable from replicas, and per request whether its whole
+    path is replicated.
+
+    A node is a candidate when it holds a complete replica set
+    (``node.meta["replicas"]``, one page list per shard).  A candidate is
+    usable only if every query row it serves has its entire path (and so
+    its leaf tail) replicated: a row with a shard-local contribution must
+    be merged across shards, and the merge would count a contribution
+    computed alike on every shard once per shard.  So a fixpoint drops
+    candidates that serve a row not fully replicated, recomputes the row
+    flags and repeats; the dropped candidates are planned from their
+    primary pages (their replicas stay resident).  Returns ``(node_ids,
+    {request_id: fully_replicated})``.
+    """
+    active = set(req_rows)
+    R = {n.id for n in forest.real_nodes()
+         if len(n.meta.get("replicas", {})) == num_shards}
+    full: Dict[int, bool] = {r: False for r in active}
+    if not R:
+        return set(), full
+    while True:
+        for r in active:
+            path = forest.path(r)
+            full[r] = bool(path) and all(n.id in R for n in path)
+        r2 = set()
+        for n in forest.real_nodes():
+            if n.id in R:
+                qs = _node_queries(n, active)
+                if qs and all(full[q] for q in qs):
+                    r2.add(n.id)
+        if r2 == R:
+            return R, full
+        R = r2
+
+
+def build_sharded_plan(forest: PrefixForest,
+                       cost_model: CostModel,
+                       num_shards: int,
+                       page_stride: int,
+                       num_lanes: int = 2,
+                       max_q: int = 64,
+                       max_kv_per_task: Optional[int] = 4096,
+                       req_rows: Optional[Dict[int, int]] = None,
+                       window: int = 0,
+                       truncate: Optional[Dict[int, int]] = None,
+                       num_rows: Optional[int] = None) -> ShardedPlan:
+    """Compile a forest into one DecodePlan per data shard.
+
+    ``page_stride`` is a shard's block of pool rows (``pages_per_shard +
+    1``: the block's last row is the shard's trash page), so global page
+    row ``g`` lives on shard ``g // page_stride`` as local row ``g %
+    page_stride``.  Division runs over ``num_shards * num_lanes`` lanes;
+    subtasks are cut at shard boundaries (a sequence split of the node,
+    whose partials meet again in the cross-shard POR merge); each shard's
+    subtasks are then LPT-balanced over its own ``num_lanes`` lanes and
+    compiled as single-device plans.
+
+    Replicated nodes (``replicated_node_set``) are planned once and put
+    first, alike, in every shard's schedule; each shard's page arrays map
+    them to its own replica rows.  Rows whose whole path is replicated are
+    computed alike on every shard and stay out of the merge; the others
+    are listed in ``merge_rows`` / ``row_shards``, and the merge term is
+    sized by their count.
+    """
+    from .scheduler import divide_and_schedule_sharded
+
+    if req_rows is None:
+        req_rows = {r: i for i, r in enumerate(forest.request_ids)}
+    active = set(req_rows)
+    tasks = tasks_from_forest(forest, truncate, active)
+    node_by_id = {n.id: n for n in forest.real_nodes()}
+    rows = num_rows if num_rows is not None else len(req_rows)
+
+    rep_nodes, full_rep = replicated_node_set(forest, num_shards, req_rows)
+    merge_mask = np.zeros(max(rows, 1), dtype=bool)
+    for rid, row in req_rows.items():
+        if row < rows and not full_rep.get(rid, False):
+            merge_mask[row] = True
+
+    sched = divide_and_schedule_sharded(
+        tasks, cost_model, num_shards, num_lanes, forest.block_size,
+        node_pages=lambda nid: node_by_id[nid].page_ids,
+        shard_of_page=lambda g: g // page_stride,
+        num_queries=len(req_rows),
+        max_kv_per_task=max_kv_per_task, max_q_per_task=max_q,
+        replicated=rep_nodes,
+        num_merge_queries=int(merge_mask.sum()))
+
+    # shard-local contributors per row (the engine ORs in tail owners);
+    # listing a shard that contributes only the identity is harmless
+    row_shards = np.zeros((num_shards, max(rows, 1)), dtype=bool)
+    for s, sh in enumerate(sched.shards):
+        for sub in sh.subtasks:
+            if sub.node_id in rep_nodes:
+                continue
+            node = node_by_id[sub.node_id]
+            for rid in _node_queries(node, active)[sub.q_lo:sub.q_hi]:
+                row = req_rows[rid]
+                if row < rows:
+                    row_shards[s, row] = True
+
+    shards = [build_plan(forest, cost_model, num_lanes, max_q,
+                         max_kv_per_task, schedule=s, req_rows=req_rows,
+                         window=window, truncate=truncate)
+              for s in sched.shards]
+
+    # per-shard page localisation, global row -> the shard's local row:
+    # g % page_stride, but a replicated node's rows (``page_ids`` holds
+    # the primary's) map to the shard's own replica rows
+    remaps = []
+    for s in range(num_shards):
+        remap = (np.arange(num_shards * page_stride, dtype=np.int32)
+                 % page_stride)
+        for nid in rep_nodes:
+            node = node_by_id[nid]
+            rep = node.meta["replicas"][s]
+            remap[np.asarray(node.page_ids, dtype=np.int64)] = (
+                np.asarray(rep, dtype=np.int32) % page_stride)
+        remaps.append(remap)
+
+    # common buckets, so every shard's arrays take one shape
+    steps_t = bucket_pow2(max(p.max_steps for p in shards))
+    tasks_t = bucket_pow2(max(p.task_qnum.shape[0] for p in shards))
+    pages_t = bucket_pow2(max(p.max_pages for p in shards))
+    out = []
+    for s, p in enumerate(shards):
+        p = bucket_plan(p, rows, steps=steps_t, tasks=tasks_t,
+                        pages=pages_t)
+        # padding and other shards' entries fold into [0, stride) too:
+        # they are masked (step_valid = 0, kvlen bounds), so reading a
+        # wrong but resident local page is harmless
+        p.step_page = remaps[s][p.step_page]
+        p.task_pages = remaps[s][p.task_pages]
+        out.append(p)
+    return ShardedPlan(out, num_shards, sched.makespan, sched.merge_cost,
+                       sched.seq_splits, merge_rows=merge_mask,
+                       row_shards=row_shards, replicated=rep_nodes)
 
 
 def _relane(subs: Sequence[SubTask], schedule: Schedule, num_lanes: int):

@@ -1,7 +1,8 @@
 """Task division + scheduling (paper §5.1) and admission control.
 
-The port's copy of the parts of ``repro.core.scheduler`` that the
-single-GPU decode path runs.  The optimisation problem — choose per-node
+The port's copy of ``repro.core.scheduler``: the single-device solver,
+its mesh-aware form (``divide_and_schedule_sharded``) and admission
+control.  The optimisation problem — choose per-node
 division counts ``b_k[i]`` and an assignment of subtasks to ``m`` parallel
 lanes minimising the makespan — is NP-hard.  The paper's solver:
 
@@ -15,7 +16,10 @@ lanes minimising the makespan — is NP-hard.  The paper's solver:
 On the H100 a lane is one group of thread blocks of the PAC kernel (one
 block per KV head), so ``num_lanes`` is sized to fill the SMs.
 ``max_kv_per_task`` bounds the per-task page run and ``max_q_per_task``
-the query tile (the kernel's shared-memory Q block).
+the query tile (the kernel's shared-memory Q block).  On a mesh each data
+shard walks its own lanes over the pages it holds, and a node whose pages
+span shards is cut at the shard boundaries (a sequence split, merged
+again by the cross-shard POR butterfly).
 """
 
 from __future__ import annotations
@@ -288,6 +292,15 @@ def divide_task(task: TaskSpec, b_k: int, cost: CostModel,
     return out
 
 
+def naive_divide(tasks: Sequence[TaskSpec], k: int, cost: CostModel,
+                 page_size: int, max_q: Optional[int] = None) -> List[SubTask]:
+    """Fixed division count for every task (paper Fig. 10 baseline)."""
+    out: List[SubTask] = []
+    for t in tasks:
+        out.extend(divide_task(t, k, cost, page_size, max_q))
+    return out
+
+
 # --------------------------------------------------------------------- #
 # LPT scheduling
 # --------------------------------------------------------------------- #
@@ -301,6 +314,119 @@ def lpt(subtasks: Sequence[SubTask],
         lane_of[i] = lane
         lane_cost[lane] += subtasks[i].cost
     return lane_of, lane_cost
+
+
+# --------------------------------------------------------------------- #
+# sharded scheduling: each data shard runs its own lanes
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class ShardedSchedule:
+    """Per-data-shard schedules and the merge term of sequence splits.
+
+    ``shards[s]`` is the lane schedule data shard ``s`` runs;
+    ``seq_splits`` counts nodes whose KV was cut at a shard boundary
+    (their partials meet in the cross-shard POR merge); ``merge_cost`` is
+    that merge's estimate, charged once on top of the slowest shard.
+    """
+
+    shards: List[Schedule]
+    seq_splits: int
+    merge_cost: float
+
+    @property
+    def makespan(self) -> float:
+        local = max((s.makespan for s in self.shards), default=0.0)
+        return local + self.merge_cost
+
+
+def split_at_shard_boundaries(subs: Sequence[SubTask], node_pages,
+                              shard_of_page, page_size: int,
+                              cost: CostModel,
+                              ) -> Tuple[List[List[SubTask]], int]:
+    """Cut each subtask where its page run crosses a data-shard boundary.
+
+    ``node_pages(node_id)`` returns the node's page-id list,
+    ``shard_of_page(page_id)`` its owning shard.  Returns per-shard
+    subtask lists and the number of nodes whose KV landed on more than one
+    shard (sequence splits).  Pieces carry only their local compute cost:
+    the caller charges the merge once a step
+    (``ShardedSchedule.merge_cost``).
+    """
+    ps = page_size
+    out: Dict[int, List[SubTask]] = {}
+    node_shards: Dict[int, set] = {}
+    for s in subs:
+        pages = node_pages(s.node_id)
+        p_lo = s.kv_lo // ps
+        p_hi = -(-s.kv_hi // ps)
+        runs: List[Tuple[int, int, int]] = []   # (shard, page_a, page_b)
+        for pi in range(p_lo, p_hi):
+            sh = shard_of_page(pages[pi])
+            node_shards.setdefault(s.node_id, set()).add(sh)
+            if runs and runs[-1][0] == sh:
+                runs[-1] = (sh, runs[-1][1], pi + 1)
+            else:
+                runs.append((sh, pi, pi + 1))
+        for sh, pa, pb in runs:
+            lo = max(s.kv_lo, pa * ps)
+            hi = min(s.kv_hi, pb * ps)
+            out.setdefault(sh, []).append(
+                SubTask(s.node_id, s.q_lo, s.q_hi, lo, hi,
+                        cost(s.n_q, hi - lo)))
+    seq_splits = sum(1 for shards in node_shards.values() if len(shards) > 1)
+    shards = [out.get(sh, []) for sh in range(max(out, default=0) + 1)]
+    return shards, seq_splits
+
+
+def divide_and_schedule_sharded(tasks: Sequence[TaskSpec], cost: CostModel,
+                                num_shards: int, lanes_per_shard: int,
+                                page_size: int, node_pages, shard_of_page,
+                                num_queries: int,
+                                max_kv_per_task: Optional[int] = None,
+                                max_q_per_task: Optional[int] = None,
+                                replicated: Optional[set] = None,
+                                num_merge_queries: Optional[int] = None,
+                                ) -> ShardedSchedule:
+    """Mesh-aware §5.1 solver: divide over ``num_shards *
+    lanes_per_shard`` lanes, assign each subtask to the shard that holds
+    its pages (cutting sequence splits at shard boundaries), then LPT
+    each shard's subtasks over its own lanes.
+
+    ``replicated`` names nodes whose KV every shard holds a copy of:
+    their tasks are divided over one shard's lanes and the same subtask
+    list is put first in every shard's schedule, so each shard computes
+    those partials alike and they never enter the merge.  The makespan
+    charges the merge once on top of the slowest shard, sized by
+    ``num_merge_queries`` (the rows whose KV spans shards; default
+    ``num_queries``).
+    """
+    replicated = replicated or set()
+    rep_tasks = [t for t in tasks if t.node_id in replicated]
+    loc_tasks = [t for t in tasks if t.node_id not in replicated]
+    rep_subs: List[SubTask] = []
+    if rep_tasks:
+        # divided for one shard's lanes: every shard runs the same copy
+        rep_subs = divide_and_schedule(
+            rep_tasks, cost, lanes_per_shard, page_size,
+            max_kv_per_task=max_kv_per_task,
+            max_q_per_task=max_q_per_task).subtasks
+    base = divide_and_schedule(loc_tasks, cost,
+                               num_shards * lanes_per_shard,
+                               page_size, max_kv_per_task=max_kv_per_task,
+                               max_q_per_task=max_q_per_task)
+    per_shard, seq_splits = split_at_shard_boundaries(
+        base.subtasks, node_pages, shard_of_page, page_size, cost)
+    per_shard += [[] for _ in range(num_shards - len(per_shard))]
+    shards = []
+    for subs in per_shard[:num_shards]:
+        allsubs = list(rep_subs) + subs
+        lane_of, lane_cost = lpt(allsubs, lanes_per_shard)
+        shards.append(Schedule(allsubs, lane_of, lane_cost,
+                               base.cost_lower_bound))
+    n_merge = num_queries if num_merge_queries is None else num_merge_queries
+    merge = (cost.merge_cost(num_shards, n_merge)
+             if num_shards > 1 else 0.0)
+    return ShardedSchedule(shards, seq_splits, merge)
 
 
 # --------------------------------------------------------------------- #

@@ -324,6 +324,12 @@ class PrefixForest:
     def total_context(self) -> int:
         return sum(self.context_len(r) for r in self.request_ids)
 
+    def mean_sharing_degree(self) -> float:
+        """n̄_q from §4.3: Σ n_i·n_q_i / Σ n_i — the predicted IO ratio."""
+        num = sum(n.length * len(n.requests) for n in self.real_nodes())
+        den = self.total_tokens()
+        return num / max(den, 1)
+
     # Analytic global-memory-access counts (paper Fig. 6 metric): bytes of
     # KV read from HBM by decode attention, ignoring Q/O traffic.  Callers
     # on the card pass the pool's element size as ``bytes_per``.
@@ -391,3 +397,36 @@ def full_kary(depth: int, arity: int, node_len: int,
     for r, leaf in enumerate(frontier):
         f.attach_request(r, leaf.id)
     return f
+
+
+def degenerate(depth: int, node_len: int,
+               block_size: int = 64) -> PrefixForest:
+    """Left-spine tree (the paper's 'DT'): at each level one request
+    leaves."""
+    f = PrefixForest(block_size)
+    spine = f.add_node(ROOT_ID, node_len)
+    rid = 0
+    for _ in range(depth - 1):
+        leaf = f.add_node(spine.id, node_len)
+        f.attach_request(rid, leaf.id)
+        rid += 1
+        spine = f.add_node(spine.id, node_len)
+    f.attach_request(rid, spine.id)
+    return f
+
+
+def shared_ratio(num_requests: int, total_context: int, ratio: float,
+                 block_size: int = 64) -> PrefixForest:
+    """Two-level tree whose shared tokens are about ``ratio`` of the
+    tree's tokens: with ``S`` shared and ``U`` unique tokens a request,
+    ``ratio = S / (S + B·U)``; ``S`` is the context less one request's
+    unique part, and ``U = S (1 - ratio) / (ratio B)``."""
+    b = num_requests
+    # (the JAX package's expression, ``* b / b`` included: the float
+    # rounding of the first guess feeds ``s``)
+    u = max(1, int(round((total_context * (1 - ratio))
+                         / (1 - ratio + ratio * b) * b / b)))
+    s = max(block_size, total_context - u)
+    if ratio > 0:
+        u = max(1, int(round(s * (1 - ratio) / (ratio * b))))
+    return two_level(b, s, u, block_size)

@@ -118,8 +118,8 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.codec_pac_blocks_per_sm.restype = I
     lib.codec_por.argtypes = [P] * 9 + [ctypes.c_longlong, I, P]
     lib.codec_por.restype = I
-    lib.codec_por_epilogue.argtypes = ([P, I] + [P] * 7 + [I] + [P] * 6
-                                       + [I] * 7 + [F, P])
+    lib.codec_por_epilogue.argtypes = ([P, I] + [P] * 7 + [I] + [P] * 5
+                                       + [I] + [P] * 2 + [I] * 7 + [F, P])
     lib.codec_por_epilogue.restype = I
     lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 7
                                        + [F, P])

@@ -69,6 +69,18 @@
 //    head, pages of 16 and 64 tokens, f32 or bf16 q and f32 or bf16 KV, and
 //    refuses anything else.
 //
+//    The mesh's two options (the sharded step runs the epilogue once per
+//    shard and then merges the shards' partials across the data axis):
+//      - owner (B,) int64, may be null: a query whose owner flag is 0 does
+//        not have its tail page on this shard.  Its tail partial is the POR
+//        identity (o_t = 0, m_t = -1e30, l_t = 0), no tail slot is staged
+//        or read, and the POR below runs as for any query: the arithmetic
+//        of the JAX package's sharded step, which selects the identity
+//        after computing the tail over its trash page.
+//      - out_f32: o is written in float32 whatever q's type, so the
+//        cross-shard merge sees the unrounded partial; the cast comes
+//        after it.
+//
 //    With tail = 0 (the speculative verify step, whose plan already covers
 //    every page: tail pages and one-token draft pages included) it does the
 //    segment and the cast only: o = o_f, m = m_f, l = l_f, the arithmetic of
@@ -139,11 +151,13 @@ struct EpiArgs {
   const long long* tail_pages;  // (B,) each query's tail page
   const long long* tail_base;   // (B,) absolute position of its token 0
   const long long* q_pos;       // (B,) the query's position
-  void* out;                    // (B, h_q, d) in q's type
+  const long long* owner;       // (B,) or null: 0 = tail not on this shard
+  void* out;                    // (B, h_q, d) in q's type, or float32
   float* out_m;                 // (B, h_q) or null
   float* out_l;                 // (B, h_q) or null
   int h_q, n_kv, page, window;
   int tail;  // 0: segment and cast only (no tail page, no POR)
+  int out_f32;  // 1: out is float32 whatever q's type
   float scale;
 };
 
@@ -233,6 +247,19 @@ __device__ __forceinline__ void store_cols(__nv_bfloat16* p,
   }
 }
 
+// o of one query head: columns lane*C.. of row `row`, in q's type or
+// float32
+template <int C, typename QT>
+__device__ __forceinline__ void store_out(const EpiArgs& a, size_t row,
+                                          int lane, const float (&o)[C]) {
+  constexpr int D = 32 * C;
+  if (a.out_f32) {
+    store_cols<C>(static_cast<float*>(a.out) + row * D + lane * C, o);
+  } else {
+    store_cols<C>(static_cast<QT*>(a.out) + row * D + lane * C, o);
+  }
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -268,10 +295,11 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
   const int lane = threadIdx.x & 31;
   const int h = g * (blockDim.x >> 5) + (threadIdx.x >> 5);
 
-  // 1. the tail page (tail mode): visible tokens j0..j1, copied to shared
-  // memory
+  // 1. the tail page (tail mode, on the shard that holds it): visible
+  // tokens j0..j1, copied to shared memory.  A non-owner keeps j0 > j1:
+  // its tail partial comes out as the POR identity.
   int j0 = 0, j1 = -1;
-  if (a.tail) {
+  if (a.tail && (a.owner == nullptr || a.owner[b] != 0)) {
     const long long qp = a.q_pos[b];
     const long long base = a.tail_base[b];
     const long long hi = qp - base;
@@ -289,8 +317,8 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
       cp_async16(ks + j * D + c, kp + j * row + c, 16);
       cp_async16(vs + j * D + c, vp + j * row + c, 16);
     }
-    cp_async_commit();
   }
+  if (a.tail) cp_async_commit();
 
   float qv[C];
   {
@@ -369,7 +397,7 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
     float o[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(num[c], d_f);
-    store_cols<C>(static_cast<QT*>(a.out) + row * D + lane * C, o);
+    store_out<C, QT>(a, row, lane, o);
     if (lane == 0 && a.out_m != nullptr) {
       a.out_m[row] = m_f;
       a.out_l[row] = l_f;
@@ -438,7 +466,7 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
     const float o_t = __fdiv_rn(u[c], d_t);
     o[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o_f, a1), __fmul_rn(o_t, a2)), d);
   }
-  store_cols<C>(static_cast<QT*>(a.out) + row * D + lane * C, o);
+  store_out<C, QT>(a, row, lane, o);
   if (lane == 0 && a.out_m != nullptr) {
     a.out_m[row] = m;
     a.out_l[row] = l;
@@ -493,8 +521,9 @@ extern "C" int codec_por(const void* o1, const void* m1, const void* l1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The epilogue over B queries; out_m / out_l may be null, and with tail = 0
-// so may k_pool, v_pool, tail_pages, tail_base and q_pos.  Returns the
+// The epilogue over B queries; out_m / out_l and owner may be null, and with
+// tail = 0 so may k_pool, v_pool, tail_pages, tail_base and q_pos.  out is
+// float32 when out_f32 is 1, else of q's type.  Returns the
 // cudaError_t of the launch (0 = success), cudaErrorInvalidValue for a
 // shape it does not take.
 extern "C" int codec_por_epilogue(
@@ -502,7 +531,8 @@ extern "C" int codec_por_epilogue(
     const void* l_parts, const void* seg_offsets, const void* seg_rows,
     const void* k_pool, const void* v_pool, int kv_bf16,
     const void* tail_pages, const void* tail_base, const void* q_pos,
-    void* out, void* out_m, void* out_l, int B, int h_q, int n_kv, int d,
+    const void* owner, void* out, int out_f32, void* out_m, void* out_l,
+    int B, int h_q, int n_kv, int d,
     int page, int window, int tail, float scale, void* stream) {
   const int group = n_kv > 0 ? h_q / n_kv : 0;
   if (n_kv <= 0 || h_q % n_kv || group < 1 || group > kMaxGroup ||
@@ -523,7 +553,9 @@ extern "C" int codec_por_epilogue(
   a.tail_pages = static_cast<const long long*>(tail_pages);
   a.tail_base = static_cast<const long long*>(tail_base);
   a.q_pos = static_cast<const long long*>(q_pos);
+  a.owner = static_cast<const long long*>(owner);
   a.out = out;
+  a.out_f32 = out_f32 ? 1 : 0;
   a.out_m = static_cast<float*>(out_m);
   a.out_l = static_cast<float*>(out_l);
   a.h_q = h_q;

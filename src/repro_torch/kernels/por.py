@@ -13,7 +13,18 @@ merge, written in q's type, in one launch of the kernel
 ``codec_por_epilogue`` for CUDA tensors and through
 ``por_epilogue_torch`` (the same composition as plain torch ops) for CPU
 tensors.  ``tail=False`` (the speculative verify step, whose plan covers
-every page) keeps the segment reduction and the cast only.
+every page) keeps the segment reduction and the cast only.  The mesh's
+step runs it once per shard in stats mode with ``owner=`` (a shard that
+does not hold a row's tail contributes the POR identity) and
+``o_f32=True``
+(float32 ``o``, so the cross-shard merge sees unrounded partials).
+
+``por_allmerge`` and ``por_subgroup_merge`` merge partials stacked over a
+leading data-shard axis ``(D, ...)``, the counterparts of ``repro``'s
+cross-device merges under ``shard_map``: a round's ``ppermute`` is
+``exchange`` (shard ``i`` receives shard ``i ^ shift``'s buffer) and a
+merge round runs the pairwise ``por`` (the CUDA ``codec_por`` kernel on
+the card) over every shard at once.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ops
-from .ref import por_ref
+from .ref import MASK_VALUE, por_ref
 
 # launches of the CUDA kernels in this process (plain-path calls are not
 # counted); chip_smoke.py resets them before driving the serving path
@@ -79,28 +90,38 @@ def por(o1: torch.Tensor, m1: torch.Tensor, l1: torch.Tensor,
 
 def por_epilogue_torch(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
                        k_pool, v_pool, tail_pages, tail_base, q_pos, *,
-                       window: int = 0, tail: bool = True):
+                       window: int = 0, tail: bool = True, owner=None,
+                       o_f32: bool = False):
     """The epilogue as plain torch ops, in the engine's order before the
     kernel existed: the live select and segment reduction
     (``ops.combine_parts``), the tail page (``ops.single_page_attention``
     over the gathered pages), ``por_torch`` and the cast.  Returns
-    ``(o in q's type, m, l)``.  ``tail=False`` stops after the segment
-    reduction (``repro``'s ``codec_partials_arrays`` arithmetic) and
-    casts."""
+    ``(o in q's type, m, l)``, ``o`` in float32 with ``o_f32``.
+    ``tail=False`` stops after the segment reduction (``repro``'s
+    ``codec_partials_arrays`` arithmetic) and casts.  ``owner`` (B,):
+    rows where it is 0 take the POR identity (``o = 0``, ``m =
+    MASK_VALUE``, ``l = 0``) as their tail partial, as ``repro``'s
+    sharded step selects it."""
+    dtype = torch.float32 if o_f32 else q.dtype
     o_f, m_f, l_f = ops.combine_parts(ops.Parts(o_parts, m_parts, l_parts,
                                                 seg_offsets, seg_rows))
     if not tail:
-        return o_f.to(q.dtype), m_f, l_f
+        return o_f.to(dtype), m_f, l_f
     o_t, m_t, l_t = ops.single_page_attention(
         q, k_pool[tail_pages], v_pool[tail_pages], tail_base, q_pos,
         window=window)
+    if owner is not None:
+        own = owner.bool()
+        m_t = torch.where(own[:, None], m_t, MASK_VALUE)
+        l_t = torch.where(own[:, None], l_t, 0.0)
+        o_t = torch.where(own[:, None, None], o_t, 0.0)
     o, m, l = por_torch(o_f, m_f, l_f, o_t, m_t, l_t)
-    return o.to(q.dtype), m, l
+    return o.to(dtype), m, l
 
 
 def _check_shapes(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
                   k_pool, v_pool, tail_pages, tail_base, q_pos,
-                  tail: bool = True) -> None:
+                  tail: bool = True, owner=None) -> None:
     if q.dim() != 3 or o_parts.dim() != 3:
         raise ValueError(f"por_epilogue: q {tuple(q.shape)} and o_parts "
                          f"{tuple(o_parts.shape)} must be 3-D")
@@ -113,9 +134,11 @@ def _check_shapes(q, o_parts, m_parts, l_parts, seg_offsets, seg_rows,
     got = {"o_parts": o_parts, "m_parts": m_parts, "l_parts": l_parts,
            "seg_offsets": seg_offsets, "seg_rows": seg_rows,
            "tail_pages": tail_pages, "tail_base": tail_base, "q_pos": q_pos}
+    if owner is not None:
+        want["owner"], got["owner"] = (B,), owner
     if not tail:        # nothing of the tail is read
-        for name in ("tail_pages", "tail_base", "q_pos"):
-            del got[name]
+        for name in ("tail_pages", "tail_base", "q_pos", "owner"):
+            got.pop(name, None)
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"por_epilogue: {name} shape {tuple(t.shape)}, "
@@ -147,7 +170,8 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
                  tail_pages: torch.Tensor, tail_base: torch.Tensor,
                  q_pos: torch.Tensor, *, window: int = 0,
                  stats: bool = False,
-                 out: Optional[torch.Tensor] = None, tail: bool = True):
+                 out: Optional[torch.Tensor] = None, tail: bool = True,
+                 owner: Optional[torch.Tensor] = None, o_f32: bool = False):
     """Decode attention's epilogue: segment reduction + tail page + POR.
 
     q: (B, h_q, d) float32/bfloat16; o_parts (P, h_q, d), m_parts /
@@ -166,12 +190,18 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     that already covers every page (the speculative verify step); the
     pools and the tail arrays are not read and may be ``None``, and a
     query with an empty segment comes out 0.
+
+    The mesh's options: ``owner`` (B,) int64, where 0 marks a row whose
+    tail page this shard does not hold (its tail partial is the POR
+    identity and no tail slot is read); ``o_f32`` writes ``o`` (and takes
+    ``out``) in float32 whatever q's type.
     """
     args = (q, o_parts, m_parts, l_parts, seg_offsets, seg_rows, k_pool,
             v_pool, tail_pages, tail_base, q_pos)
-    _check_shapes(*args, tail=tail)
+    _check_shapes(*args, tail=tail, owner=owner)
     if q.device.type == "cpu":
-        o, m, l = por_epilogue_torch(*args, window=window, tail=tail)
+        o, m, l = por_epilogue_torch(*args, window=window, tail=tail,
+                                     owner=owner, o_f32=o_f32)
         if out is not None:
             out.copy_(o)
             o = out
@@ -190,6 +220,8 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
                    ("v_pool", v_pool, (k_pool.dtype,)),
                    ("tail_pages", tail_pages, (i64,)),
                    ("tail_base", tail_base, (i64,)), ("q_pos", q_pos, (i64,))]
+        if owner is not None:
+            checks.append(("owner", owner, (i64,)))
     for name, t, dtypes in checks:
         _check(name, t, dev, dtypes)
     B, h_q, d = q.shape
@@ -205,9 +237,10 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
             f"pages of {EPILOGUE_PAGES} and 1 to {EPILOGUE_MAX_GROUP} query "
             f"heads per KV head, got d={d} page={page} h_q={h_q} "
             f"n_kv={n_kv}")
+    out_dtype = f32 if o_f32 else q.dtype
     if out is None:
-        out = torch.empty_like(q)
-    _check("out", out, dev, (q.dtype,))
+        out = torch.empty_like(q, dtype=out_dtype)
+    _check("out", out, dev, (out_dtype,))
     if out.shape != q.shape:
         raise ValueError(f"por_epilogue: out shape {tuple(out.shape)}, "
                          f"expected {tuple(q.shape)}")
@@ -230,7 +263,9 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
         m_parts.data_ptr(), l_parts.data_ptr(), seg_offsets.data_ptr(),
         seg_rows.data_ptr(), ptr(k_pool), ptr(v_pool),
         int(tail and k_pool.dtype == bf16), ptr(tail_pages),
-        ptr(tail_base), ptr(q_pos), out.data_ptr(),
+        ptr(tail_base), ptr(q_pos),
+        None if owner is None or not tail else owner.data_ptr(),
+        out.data_ptr(), int(o_f32),
         None if m is None else m.data_ptr(),
         None if l is None else l.data_ptr(),
         B, h_q, n_kv, d, page, int(window), int(tail), 1.0 / math.sqrt(d),
@@ -239,3 +274,106 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     global epilogue_launches
     epilogue_launches += 1
     return (out, m, l) if stats else out
+
+
+# --------------------------------------------------------------------- #
+# the cross-shard merge of the mesh: partials stacked (D, ...) over the
+# data-shard axis
+# --------------------------------------------------------------------- #
+def exchange(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """One round's transfer: shard ``i`` receives shard ``i ^ shift``'s
+    buffer (``repro``'s ``ppermute`` with the XOR permutation), for ``x``
+    stacked over a leading shard axis of a power-of-two size.  The
+    shards of a mesh share one device, so the transfer is a copy."""
+    D = x.shape[0]
+    pairs = x.reshape((D // (2 * shift), 2, shift) + tuple(x.shape[1:]))
+    return pairs.flip(1).reshape(x.shape)
+
+
+def _por_stacked(o1, m1, l1, o2, m2, l2):
+    """``por`` over stacked partials: every leading axis folds into rows,
+    so one launch merges every shard's rows."""
+    h, d = o1.shape[-2:]
+
+    def rows(t, *tail):
+        return t.reshape((-1,) + tail).contiguous()
+    o, m, l = por(rows(o1, h, d), rows(m1, h), rows(l1, h),
+                  rows(o2, h, d), rows(m2, h), rows(l2, h))
+    return o.view(o1.shape), m.view(m1.shape), l.view(l1.shape)
+
+
+def _check_axis(name: str, D: int) -> None:
+    if D & (D - 1):
+        raise ValueError(f"{name} needs a power-of-two shard axis, got {D}")
+
+
+def por_allmerge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All-reduce partials stacked ``(D, ...)`` over the shard axis with
+    POR only (port of ``repro``'s ``por_allmerge``): ``log2 D``
+    recursive-doubling rounds, each an ``exchange`` of ``o``, ``m`` and
+    ``l`` and one pairwise merge, local partials first.  Afterwards every
+    shard holds the full merge, alike in ``m`` and to one rounding in
+    ``o`` / ``l`` (XOR partners merge in swapped order)."""
+    D = o.shape[0]
+    if D <= 1:
+        return o, m, l
+    _check_axis("por_allmerge", D)
+    shift = 1
+    while shift < D:
+        o, m, l = _por_stacked(o, m, l, exchange(o, shift),
+                               exchange(m, shift), exchange(l, shift))
+        shift *= 2
+    return o, m, l
+
+
+def _pack(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    return torch.cat([o, m[..., None], l[..., None]], dim=-1)
+
+
+def _unpack(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    return p[..., :-2], p[..., -2], p[..., -1]
+
+
+def por_subgroup_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                       contrib: torch.Tensor,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sparse merge over the smallest aligned subgroup of contributing
+    shards (port of ``repro``'s ``por_subgroup_merge``), on partials
+    stacked ``(D, rows, ..., h, d)`` / ``(D, rows, ..., h)`` over the
+    shard axis.
+
+    ``contrib`` (D,) marks the shards that hold non-identity partials for
+    these rows.  ``(o, m, l)`` travel as one packed ``(..., d + 2)``
+    buffer, one ``exchange`` a round.  With the contributors inside an
+    aligned block of ``2^k`` shards, the first ``k`` rounds merge (one
+    ``por`` launch over every shard's rows) and the rest copy: the
+    block's finished result is forwarded by a select, no arithmetic, so a
+    single contributor's partials reach every shard bitwise unchanged.
+    The round structure is chosen on the device (anchor = first
+    contributor, ``xall`` = the OR-fold of ``id ^ anchor`` over the
+    contributors; round ``s`` merges iff ``xall >= s``), so one captured
+    step serves every contributor pattern.
+    """
+    D = o.shape[0]
+    if D <= 1:
+        return o, m, l
+    _check_axis("por_subgroup_merge", D)
+    c = contrib.to(torch.int64)
+    ids = torch.arange(D, device=o.device)
+    anchor = torch.argmax(c)             # first contributor (0 if none)
+    xall = torch.where(c > 0, ids ^ anchor, 0).max()
+    packed = _pack(o, m, l)
+    bshape = (D,) + (1,) * (packed.dim() - 1)
+    shift = 1
+    while shift < D:
+        recv = exchange(packed, shift)
+        merged = _pack(*_por_stacked(*_unpack(packed), *_unpack(recv)))
+        # a copy round: the anchor's aligned block of ``shift`` shards
+        # already holds the finished merge; its XOR partners take it
+        have = ((ids // shift) == (anchor // shift)).view(bshape)
+        copied = torch.where(have, packed, recv)
+        packed = torch.where(xall >= shift, merged, copied)
+        shift *= 2
+    return _unpack(packed)

@@ -63,7 +63,9 @@ class AttentionBackend:
     they let the fused step (``serving/step_fn.py``) keep one set of
     prepared arrays at fixed device addresses for a whole plan epoch.
     ``shardable`` marks backends whose partials are valid over one
-    device's slice of the pool (none yet in this port).
+    shard's slice of the pool, so the mesh can run them per shard
+    (``codec-cuda`` and ``codec-torch``, as ``repro``'s ``codec-pallas``
+    and ``codec-xla``).
     """
 
     name: str
@@ -220,6 +222,7 @@ register(AttentionBackend(
     parts_arrays_fn=_codec_parts_arrays("cuda"),
     advance_fn=ops.advance_plan_arrays,
     host_arrays=_codec_host_arrays,
+    shardable=True,
     description="CoDec PAC CUDA kernel over the lane-scheduled plan "
                 "(its plain torch version for CPU tensors)"))
 
@@ -230,6 +233,7 @@ register(AttentionBackend(
     parts_arrays_fn=_codec_parts_arrays("torch"),
     advance_fn=ops.advance_plan_arrays,
     host_arrays=_codec_host_arrays,
+    shardable=True,
     description="CoDec plan semantics as dense torch ops"))
 
 register(AttentionBackend(

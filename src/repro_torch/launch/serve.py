@@ -71,6 +71,18 @@ drafts token trees from each request's own history (``--spec-depth``,
 dispatch a step (with ``--fused`` one CUDA-graph replay, a graph per
 verify signature); the run then prints its verify dispatches, committed
 tokens and drafts accepted.  Greedy only.
+
+Mesh serving (``repro``'s DESIGN §9): ``--mesh DxM`` (e.g. ``2x2``)
+serves over ``D`` data shards (KV pages) by ``M`` model shards (KV
+heads), every shard on the one device, fused (it implies ``--fused``) and
+through a shardable backend; ``--seq-split-pages`` is the pages a node
+keeps on one data shard before moving on to the next, ``--replicate``
+copies hot short prefix nodes onto every data shard, ``--calibrate``
+times every mesh step and refits the cost model from them.  The run then
+prints the shards' occupancy, the sequence-split and replicated nodes,
+the merged rows, the replica promotions and, when calibrated, the fitted
+coefficients.  ``--compare`` on a mesh compares ``codec-cuda`` with
+``codec-torch`` (``flash`` does not shard).
 """
 
 from __future__ import annotations
@@ -87,6 +99,7 @@ import torch
 from ..configs import get_config, served_archs
 from ..core import metrics as metrics_mod
 from ..core.plan import bucket_pow2
+from ..distributed.mesh import decode_mesh, parse_mesh
 from ..kernels import pac as pac_mod, por as por_mod
 from ..models.transformer import build_model
 from ..serving.cache import CachePolicy
@@ -370,9 +383,16 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
              if args.cache else None)
     telemetry = (None if args.no_telemetry
                  else Telemetry(profile_every=args.profile_every))
+    mesh_d, mesh_m = parse_mesh(args.mesh)
+    mesh = (decode_mesh(mesh_d, mesh_m, device=device)
+            if mesh_d * mesh_m > 1 else None)
     engine = DecodeEngine(cfg, model, page_size=args.page_size,
                           num_pages=args.max_pages, backend=backend,
-                          num_lanes=args.num_lanes, fused=args.fused,
+                          num_lanes=args.num_lanes,
+                          fused=args.fused or mesh is not None, mesh=mesh,
+                          seq_split_pages=args.seq_split_pages,
+                          replicate=args.replicate,
+                          calibrate=args.calibrate,
                           prefill_chunk=args.prefill_chunk,
                           reserve_pages=args.reserve_pages,
                           max_running=args.max_running, cache=cache,
@@ -413,7 +433,8 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     print(f"device {name}: {cfg.name} x{cfg.num_layers} layers, "
           f"{args.requests} requests, doc {args.doc_len} + q {args.q_len}, "
           f"{args.max_new} new tokens, backend {backend}, "
-          f"{args.num_lanes} lanes, {'fused' if engine.fused else 'eager'}")
+          f"{args.num_lanes} lanes, {'fused' if engine.fused else 'eager'}"
+          + (f", mesh {args.mesh}" if mesh is not None else ""))
     print(f"prefill {res['prefill_s']:.3f} s, TPOT {res['tpot_ms']:.3f} ms "
           f"over {res['steps']} steps (decode loop {res['loop_s']:.3f} s, "
           f"less traced {res['traced_s']:.3f} s, capture "
@@ -442,6 +463,28 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               f"bucket signatures, capture {res['capture_s']:.3f} s, token "
               f"flushes {engine.stats['token_flushes']}")
     st = engine.stats
+    if mesh is not None:
+        occ = "/".join(f"{o:.0%}" for o in engine.pool.shard_occupancy())
+        # max over the per-window plans of the last epoch (a node split
+        # across shards appears in every window's plan)
+        splits = max((sp.seq_splits
+                      for sp in engine._sharded_plans.values()), default=0)
+        last = next(iter(engine._sharded_plans.values()), None)
+        ls = last.stats() if last is not None else {}
+        line = (f"mesh {args.mesh}: shard occupancy {occ}, {splits} "
+                f"seq-split nodes, {ls.get('replicated_nodes', 0)} "
+                f"replicated nodes / {ls.get('merge_row_count', 0)} merge "
+                f"rows (last plan); replica promotions "
+                f"{st['replica_promotions']}, demotions "
+                f"{st['replica_demotions']}")
+        if engine.cost_model.calibrated:
+            hw = engine.cost_model.hw
+            line += (f" | calibrated ({st['calibrations']} fits; shards "
+                     f"run in turn on one device): hbm "
+                     f"{hw.hbm_bw / 1e9:.1f} GB/s, ici {hw.ici_bw / 1e9:.1f}"
+                     f" GB/s, page step {hw.grid_step_overhead * 1e6:.3f} "
+                     f"us, merge round {hw.launch_overhead * 1e6:.3f} us")
+        print(line)
     if engine.spec is not None:
         committed = sum(len(q.generated) for q in engine.requests.values())
         print(f"speculation: {st['spec_steps']} verify dispatches for "
@@ -589,6 +632,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="max sibling draft branches at the leaf")
     ap.add_argument("--spec-nodes", type=int, default=6,
                     help="total draft nodes per request per step")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL shards for mesh serving, all on "
+                         "--device (implies --fused, needs a shardable "
+                         "backend)")
+    ap.add_argument("--seq-split-pages", type=int, default=0,
+                    help="pages a node keeps on one data shard before it "
+                         "moves on to the next (0: only when one fills)")
+    ap.add_argument("--replicate", action="store_true",
+                    help="copy hot short prefix nodes onto every data "
+                         "shard when the saved merge outweighs the extra "
+                         "reads")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="time every mesh step (waits for the device) and "
+                         "refit the cost model's coefficients from them")
     ap.add_argument("--compare", action="store_true",
                     help="serve through codec-cuda, then flash; exit 1 "
                          "when the streams differ")
@@ -662,12 +719,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = build_model(cfg, seed=args.seed, device=torch.device(args.device),
                         dtype=torch.bfloat16)
     if args.compare:
+        # flash does not shard: on a mesh the pair is the two shardable
+        # codec backends
+        d, m = parse_mesh(args.mesh)
+        other = "codec-torch" if d * m > 1 else "flash"
         codec = run(args, cfg, model, "codec-cuda")
-        flash = run(args, cfg, model, "flash")
-        match = codec["streams"] == flash["streams"]
-        print(f"TPOT codec-cuda {codec['tpot_ms']:.3f} ms, flash "
-              f"{flash['tpot_ms']:.3f} ms")
-        print(f"outputs codec == flash: {match}")
+        base = run(args, cfg, model, other)
+        match = codec["streams"] == base["streams"]
+        print(f"TPOT codec-cuda {codec['tpot_ms']:.3f} ms, {other} "
+              f"{base['tpot_ms']:.3f} ms")
+        print(f"outputs codec == {other}: {match}")
         return 0 if match else 1
     run(args, cfg, model, args.backend)
     return 0

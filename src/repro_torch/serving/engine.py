@@ -69,8 +69,7 @@ Telemetry and cascade prefill (``repro``'s DESIGN §13-§14):
   request pulls its cascade partners out of the queue.  With Mamba
   layers the lead hands its carried mid-node SSM state to every member,
   and the suffixes take the per-request path (``repro``'s ``has_mamba``
-  branches); the replica page lists (``meta["replicas"]``) wait for the
-  mesh (A12).
+  branches); a replicated node's KV lands in every replica's pages.
 
 Mamba-2 and hybrid models (``repro``'s SSM paths, ``models/mamba.py``): a
 Mamba layer keeps no KV.  Each request carries its own float32 ``conv`` /
@@ -98,8 +97,25 @@ launch with no tail a layer; on the fused path one CUDA-graph replay,
 ``step_fn.SpecStep``), the host walks the tree greedily, the accepted
 tokens' KV moves from the draft pages to the leaf (``copy_slots``) and
 the rest rolls back.  Greedy streams are byte-identical to
-non-speculative decode.  Greedy only, attention only; sharded speculation
-waits for the mesh (A12).
+non-speculative decode.  Greedy only, attention only, one shard (as in
+``repro``, a mesh refuses it).
+
+Mesh serving (``repro``'s DESIGN §9, ``distributed/``): ``mesh=`` (a
+``distributed.decode_mesh(data, model)``) serves over a ``(data, model)``
+grid of shards, fused only, through a shardable backend.  The pool shards
+pages over ``data`` and KV heads over ``model``
+(``distributed.ShardedKVPool``, one allocator a data shard; a node's pages
+move to the next shard after ``seq_split_pages``), each data shard runs
+its own plan (``core.plan.build_sharded_plan``: sequence splits cut at
+shard boundaries), and the step (``distributed.ShardedStep``) merges the
+rows that span shards with the POR butterfly and sums the head-parallel
+output projection.  ``replicate=True`` copies hot short prefix nodes onto
+every data shard when ``CostModel.replicate_gain`` says the saved merge
+outweighs the extra reads (demoted first under pressure); ``calibrate=True``
+synchronizes every mesh step to time it and refits the cost model's
+coefficients from those steps at each plan epoch (``recalibrate``).  The
+port places every shard on the engine's one device, so the shards run one
+after another: the fitted coefficients describe that, not a mesh of cards.
 """
 
 from __future__ import annotations
@@ -116,6 +132,8 @@ from ..core import plan as plan_mod
 from ..core import tree as tree_mod
 from ..core.cost_model import CostModel
 from ..core.scheduler import AdmissionController, AdmissionPolicy
+from ..distributed.kv_pool import ShardedKVPool
+from ..distributed.step_fn import ShardedStep, sharded_step_base
 from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
 from ..models import mamba as M
@@ -205,7 +223,9 @@ class DecodeEngine:
                  prefill_chunk=None, reserve_pages: int = 0,
                  max_running: Optional[int] = None,
                  cascade: bool = False, max_cascade_group: int = 8,
-                 fused: bool = False, speculative=None, cache=None,
+                 fused: bool = False, mesh=None, seq_split_pages: int = 0,
+                 replicate: bool = False, calibrate: bool = False,
+                 speculative=None, cache=None,
                  faults=None, nan_guard: bool = False,
                  check_every: int = 0, clock=None,
                  max_dispatch_retries: int = 4,
@@ -223,11 +243,34 @@ class DecodeEngine:
                         for k in cfg.layer_pattern)):
             raise ValueError(f"backend {backend!r} cannot serve "
                              f"sliding-window layers")
+        # ---- mesh serving (``repro``'s DESIGN §9, distributed/) -------- #
+        # mesh != None serves over a (data, model) grid of shards: sharded
+        # KV pool, per-shard plans, the sharded fused step
+        self.mesh = mesh
+        if mesh is not None:
+            if not fused:
+                raise ValueError("mesh serving runs only the fused step; "
+                                 "pass fused=True")
+            if not (self._backend.jit_safe and self._backend.shardable):
+                raise ValueError(
+                    f"backend {backend!r} is not shardable; choose one of "
+                    f"{registry_mod.names(shardable=True)}")
+            D, Mx = mesh.shape["data"], mesh.shape["model"]
+            if D & (D - 1):
+                raise ValueError(f"data axis must be a power of two "
+                                 f"(POR butterfly), got {D}")
+            if Mx > 1 and (cfg.num_heads % Mx or cfg.num_kv_heads % Mx):
+                raise ValueError(
+                    f"model axis {Mx} must divide heads "
+                    f"({cfg.num_heads} q / {cfg.num_kv_heads} kv)")
+            if torch.device(mesh.device) != self.device:
+                raise ValueError(f"mesh on {mesh.device}, engine on "
+                                 f"{self.device}")
         sampler.check_temperature(temperature)
         # ---- tree-speculative decoding (``repro``'s DESIGN §10) ------- #
         # speculative=True (defaults) or a SpecConfig: several tokens can
         # commit a verify dispatch when the self-drafting proposer guesses
-        # right.  Greedy-only and attention-only (the port has no mesh)
+        # right.  Greedy-only, attention-only and one shard
         if speculative is True:
             speculative = spec_mod.SpecConfig()
         self.spec: Optional[spec_mod.SpecConfig] = speculative or None
@@ -241,6 +284,10 @@ class DecodeEngine:
                 raise ValueError(
                     "speculative decoding needs KV-cache rollback; "
                     "recurrent (Mamba) state cannot be rolled back yet")
+            if mesh is not None:
+                raise ValueError(
+                    "sharded speculation is not implemented; drop mesh= "
+                    "or speculative=")
         self.proposer = (spec_mod.NGramProposer(self.spec)
                          if self.spec else None)
         # live draft trees by request; virtual branch-head query ids
@@ -270,8 +317,11 @@ class DecodeEngine:
         if self.telemetry is not None:
             self.telemetry.bind_clock(self.clock)
         # nan_guard: quarantine a request whose logits turn non-finite
-        # (``repro`` rejects it only with a mesh, which the port lacks)
         self.nan_guard = bool(nan_guard)
+        if self.nan_guard and mesh is not None:
+            raise ValueError(
+                "nan_guard is not supported with mesh serving: the "
+                "sharded step does not check its rows' logits")
         self.check_every = int(check_every)
         self.max_dispatch_retries = int(max_dispatch_retries)
         if faults is not None and not isinstance(faults,
@@ -300,9 +350,30 @@ class DecodeEngine:
         # the fused path's rows of the current epoch (None: a row whose
         # request left, so its carry row is never synced back)
         self._fused_rows: Optional[List[Optional[int]]] = None
-        self.pool = PagedKVPool(max(len(self.attn_layer_idx), 1), num_pages,
-                                page_size, max(cfg.num_kv_heads, 1),
-                                max(cfg.head_dim, 1), device=self.device)
+        if mesh is not None:
+            self.pool = ShardedKVPool(
+                max(len(self.attn_layer_idx), 1), num_pages, page_size,
+                max(cfg.num_kv_heads, 1), max(cfg.head_dim, 1), mesh=mesh,
+                seq_split_pages=seq_split_pages, device=self.device)
+        else:
+            self.pool = PagedKVPool(
+                max(len(self.attn_layer_idx), 1), num_pages, page_size,
+                max(cfg.num_kv_heads, 1), max(cfg.head_dim, 1),
+                device=self.device)
+        # replicate=True lets a mesh epoch copy hot short prefix nodes onto
+        # every data shard (extra pages instead of merge work;
+        # CostModel.replicate_gain decides each node); calibrate=True
+        # times every mesh step and refits the cost model's coefficients
+        # from step_stats at each plan epoch
+        self.replicate = (bool(replicate) and mesh is not None
+                          and mesh.shape["data"] > 1)
+        self.calibrate = bool(calibrate)
+        # the current epoch's cost features (every step record carries
+        # them), and per shard (profiled steps only)
+        self._epoch_features: Dict[str, float] = {}
+        self._epoch_shard_features: Dict[str, List[float]] = {}
+        # the last mesh epoch's ShardedPlan per window
+        self._sharded_plans: Dict[int, plan_mod.ShardedPlan] = {}
         self.forest = tree_mod.PrefixForest(page_size)
         # splitting a pinned node must extend each waiting holder's pin
         # list over the new lower half (see _on_split_pins)
@@ -366,7 +437,9 @@ class DecodeEngine:
                       "cascade_shared_tokens": 0,
                       "cascade_suffix_tokens": 0, "cascade_batches": 0,
                       "spec_steps": 0, "spec_proposed": 0,
-                      "spec_accepted": 0, "spec_draft_stalls": 0}
+                      "spec_accepted": 0, "spec_draft_stalls": 0,
+                      "calibrations": 0, "replica_promotions": 0,
+                      "replica_demotions": 0}
         # one record a step: what it decoded, admitted, preempted,
         # reclaimed and prefilled, the queue and pool it left, and its
         # timing (``_decode_timing``: dispatch_time and flush_time; on
@@ -378,10 +451,16 @@ class DecodeEngine:
         # active only for backends with the jit-safe contract (``ref``
         # decodes eagerly)
         self.fused = bool(fused) and self._backend.jit_safe
-        self.fused_step = (step_fn_mod.FusedStep(
-            cfg, self.model, self.pool, self._backend, self._windows(),
-            self.attn_layer_idx, self.device, temperature, self.key)
-            if self.fused and self.spec is None else None)
+        self.fused_step = None
+        if self.fused and mesh is not None:
+            self.fused_step = ShardedStep(
+                cfg, self.model, self.pool, self._backend, self._windows(),
+                self.attn_layer_idx, self.device, temperature, self.key,
+                mesh=mesh)
+        elif self.fused and self.spec is None:
+            self.fused_step = step_fn_mod.FusedStep(
+                cfg, self.model, self.pool, self._backend, self._windows(),
+                self.attn_layer_idx, self.device, temperature, self.key)
         # speculation replaces the per-token step with the fused verify
         # step: one graph replay scores a whole draft tree
         self.spec_step = (step_fn_mod.SpecStep(
@@ -826,11 +905,16 @@ class DecodeEngine:
                 filled = node.meta.get("filled", 0)
                 base = node.start_pos - start
                 t_hi = hi - base
+                # a replicated node's KV lands in every replica's pages
+                reps = node.meta.get("replicas")
+                page_lists = (list(reps.values()) if reps
+                              else [node.page_ids])
                 for t in range(max(filled, lo - base), t_hi):
-                    pages.append(node.page_ids[t // ps])
-                    offs.append(t % ps)
-                    rows_b.append(i)
-                    rows_t.append(base + t)
+                    for pl in page_lists:
+                        pages.append(pl[t // ps])
+                        offs.append(t % ps)
+                        rows_b.append(i)
+                        rows_t.append(base + t)
                 if t_hi > filled:
                     node.meta["filled"] = t_hi
         if pages:
@@ -996,10 +1080,9 @@ class DecodeEngine:
     # eviction (evict phase) / reclamation
     # ------------------------------------------------------------------ #
     def _drop_node(self, node) -> None:
-        """Release a node's pages and unlink it from the forest."""
-        if node.page_ids:
-            self.pool.allocator.release(node.page_ids)
-            node.page_ids = []
+        """Release a node's pages (every replica's) and unlink it from the
+        forest."""
+        self._release_node_pages(node)
         self.forest.nodes[node.parent].children.remove(node.id)
         del self.forest.nodes[node.id]
 
@@ -1128,7 +1211,7 @@ class DecodeEngine:
             if others or kids or node.meta.get("pins", 0) > 0:
                 continue
             freeable.add(node.id)
-            n += len(node.page_ids)
+            n += self._node_total_pages(node)
         return n
 
     def _reclaim_one(self, exclude: Set[int],
@@ -1176,6 +1259,15 @@ class DecodeEngine:
                     if nid not in self.forest.nodes:
                         self.stats["reclaimed"] += 1
                         return True
+        # demote a replicated node (widest first): frees (D-1)/D of its
+        # pages without touching any request, cheaper than preemption;
+        # the plan rebuild re-derives the merge rows
+        repl = [n for n in self.forest.nodes.values()
+                if "replicas" in n.meta]
+        if repl:
+            self._demote_replicas(max(repl, key=lambda n: len(n.page_ids)))
+            self.stats["reclaimed"] += 1
+            return True
         if not allow_preempt:
             return False
         victims = [r for r in sorted(self.requests)
@@ -1193,7 +1285,21 @@ class DecodeEngine:
         """Forest split observer: ``tree._split`` copies the pin refcount
         to the lower half; the per-request pin lists must follow, or
         un-pinning at re-admission would strand the lower half pinned
-        forever."""
+        forever.  A replicated node's replica runs split at the same page
+        (``tree._split`` cut ``page_ids``, the primary's rows; the other
+        shards' runs must follow, or the lower half would alias the
+        upper's replica pages)."""
+        reps = upper.meta.get("replicas")
+        if reps is not None:
+            cut = len(upper.page_ids)
+            prim = upper.meta["replica_primary"]
+            lower.meta["replicas"] = {s: lst[cut:]
+                                      for s, lst in reps.items()}
+            upper.meta["replicas"] = {s: lst[:cut]
+                                      for s, lst in reps.items()}
+            lower.meta["replica_primary"] = prim
+            upper.page_ids = list(upper.meta["replicas"][prim])
+            lower.page_ids = list(lower.meta["replicas"][prim])
         if upper.meta.get("pins", 0) <= 0:
             return
         for req in self.requests.values():
@@ -1207,7 +1313,7 @@ class DecodeEngine:
         """Evict one cached leaf: release its pages and unlink it (the
         parent becomes a future candidate under its own touch stamp)."""
         self.cache.stats["evicted_nodes"] += 1
-        self.cache.stats["evicted_pages"] += len(node.page_ids)
+        self.cache.stats["evicted_pages"] += self._node_total_pages(node)
         parent = self.forest.nodes[node.parent]
         self._drop_node(node)
         self._maybe_free_node(parent)   # frees empty husks, keeps cache
@@ -1301,12 +1407,14 @@ class DecodeEngine:
                     break
 
     def _alloc_pages(self, n: int, exclude: Set[int],
-                     allow_preempt: bool = True) -> Optional[List[int]]:
+                     allow_preempt: bool = True,
+                     hint: Optional[int] = None) -> Optional[List[int]]:
         """Allocate ``n`` pages, reclaiming (and preempting, unless
         ``allow_preempt`` is off) under pressure; ``None`` when nothing
         more can be reclaimed, or when an injected ``alloc`` fault
         simulates exhaustion (callers then degrade as under real
-        pressure: stall, or preempt and recompute)."""
+        pressure: stall, or preempt and recompute).  ``hint`` (a node id)
+        is the mesh pool's placement affinity."""
         if (self.injector is not None and self.spec is None
                 and self.injector.take("alloc") is not None):
             # gated off under speculation, as in ``repro``: a failure in
@@ -1316,14 +1424,161 @@ class DecodeEngine:
         while self.pool.num_free < n:
             if not self._reclaim_one(exclude, allow_preempt):
                 return None
-        return self.pool.allocator.alloc(n)
+        return self.pool.allocator.alloc(n, hint=hint)
+
+    # ------------------------------------------------------------------ #
+    # replication-aware placement (mesh): hot short prefix nodes are
+    # copied onto every data shard so their rows skip the cross-shard
+    # merge (core.plan.replicated_node_set decides which rows may: a row
+    # must be replicated along its whole path, or the merge would count
+    # the shared partials once per shard)
+    # ------------------------------------------------------------------ #
+    def _node_total_pages(self, node) -> int:
+        """Pool pages the node holds across all shards."""
+        reps = node.meta.get("replicas")
+        if reps is not None:
+            return sum(len(v) for v in reps.values())
+        return len(node.page_ids)
+
+    def _release_node_pages(self, node) -> None:
+        """Release every page the node holds (all replicas, or its single
+        placement).  ``page_ids`` aliases the primary replica run, so a
+        replicated node does not release it separately."""
+        reps = node.meta.pop("replicas", None)
+        node.meta.pop("replica_primary", None)
+        if reps is not None:
+            for rws in reps.values():
+                self.pool.allocator.release(rws)
+        elif node.page_ids:
+            self.pool.allocator.release(node.page_ids)
+        node.page_ids = []
+
+    def _promote_replicas(self, node) -> bool:
+        """Copy a node's KV onto every shard and free its old placement
+        (its pages have refcount 1: only the node holds them).  The copy
+        runs on the stream after the work that wrote the sources."""
+        alloc = self.pool.allocator
+        D = self.pool.num_shards
+        n = len(node.page_ids)
+        # the tie-break of alloc_replicas' affinity pin
+        primary = max(range(D),
+                      key=lambda i: (alloc.shards[i].num_free, -i))
+        try:
+            reps = alloc.alloc_replicas(n, hint=node.id)
+        except MemoryError:
+            return False
+        dst = [g for s in range(D) for g in reps[s]]
+        self.pool.copy_pages(dst, list(node.page_ids) * D)
+        alloc.release(node.page_ids)
+        node.meta["replicas"] = reps
+        node.meta["replica_primary"] = primary
+        node.page_ids = list(reps[primary])
+        self.stats["replica_promotions"] += 1
+        self._plan_dirty = True
+        return True
+
+    def _demote_replicas(self, node) -> None:
+        """Back to one placement: keep the primary run, free the rest.
+        The running plan reads the freed rows, so it is marked dirty and
+        rebuilt before the next dispatch (replays already queued read them
+        before any later write: one stream orders both)."""
+        reps = node.meta.pop("replicas", None)
+        if reps is None:
+            return
+        primary = node.meta.pop("replica_primary")
+        for s, rws in reps.items():
+            if s != primary:
+                self.pool.allocator.release(rws)
+        node.page_ids = list(reps[primary])
+        self.stats["replica_demotions"] += 1
+        self._plan_dirty = True
+
+    def _replication_sweep(self, rows: List[int]) -> None:
+        """Promote the nodes whose saved merge beats their extra reads
+        (``CostModel.replicate_gain``), headroom permitting: every shard
+        must fit the node and a page of tail growth a running row."""
+        alloc = self.pool.allocator
+        D = self.pool.num_shards
+        rowset = set(rows)
+        seen: Set[int] = set()
+        for r in rows:
+            for node in self.forest.path(r):
+                if node.id in seen:
+                    continue
+                seen.add(node.id)
+                if (not node.page_ids or "replicas" in node.meta
+                        or node.meta.get("draft")):
+                    continue
+                n_q = sum(1 for q in node.requests if q in rowset)
+                if n_q == 0:
+                    continue
+                if self.cost_model.replicate_gain(n_q, node.length, D) <= 0:
+                    continue
+                n = len(node.page_ids)
+                if min(s.num_free for s in alloc.shards) < n + len(rows):
+                    continue
+                self._promote_replicas(node)
 
     def _grow_node_pages(self, node, k: int,
                          exclude: Set[int]) -> Optional[List[int]]:
-        got = self._alloc_pages(k, exclude)
+        """Grow a node by ``k`` pages.  A replicated node grows on every
+        shard (all or nothing), or is demoted to its primary placement
+        when a shard cannot fit them; the reclaiming allocator then takes
+        over.  Returns the (primary's) new rows."""
+        reps = node.meta.get("replicas")
+        if reps is not None:
+            try:
+                new = self.pool.allocator.alloc_replicas(k, hint=node.id)
+            except MemoryError:
+                self._demote_replicas(node)
+            else:
+                for s, rws in new.items():
+                    reps[s].extend(rws)
+                primary = node.meta["replica_primary"]
+                node.page_ids = list(reps[primary])
+                return new[primary]
+        got = self._alloc_pages(k, exclude, hint=node.id)
         if got is not None:
             node.page_ids += got
         return got
+
+    # ------------------------------------------------------------------ #
+    # measured-cost calibration: refit the cost model's coefficients from
+    # the step timings in ``step_stats``
+    # ------------------------------------------------------------------ #
+    def recalibrate(self, min_samples: int = 8) -> bool:
+        """Fit ``CostModel`` coefficients from measured mesh steps.
+
+        Mesh steps record their epoch's features (``hbm_bytes``,
+        ``grid_steps``, ``merge_bytes``, ``merge_rounds``) beside the
+        measured ``dispatch_time``, which under ``calibrate=True`` waits
+        for the device and so is the step's time.  Steps that hit a
+        capture or a plan epoch lie far above the steady state, so
+        samples beyond 5x the median are dropped first.  Sampled
+        profiling rows (``telemetry.profile_every``) carry a device time
+        even with ``calibrate`` off and are preferred when any exist.
+        Returns True when a fit was installed.
+
+        On this port every shard of a mesh runs on one device, in turn,
+        while the features charge the heaviest shard (a real mesh's
+        makespan): a fit here describes that serial run, not a mesh of
+        cards."""
+        rows = [s for s in self.step_stats if s.get("hbm_bytes")]
+        profiled = [s for s in rows if s.get("profiled")]
+        pool = profiled or [s for s in rows
+                            if s.get("dispatch_time", 0) > 0]
+        samples = [{**s, "seconds": s["dispatch_time"]
+                    + (s.get("compute_time", 0.0)
+                       if s.get("profiled") else 0.0)}
+                   for s in pool if s.get("dispatch_time", 0) > 0
+                   or s.get("compute_time", 0) > 0]
+        if samples:
+            med = float(np.median([s["seconds"] for s in samples]))
+            samples = [s for s in samples if s["seconds"] <= 5.0 * med]
+        if self.cost_model.fit(samples, min_samples=min_samples):
+            self.stats["calibrations"] += 1
+            return True
+        return False
 
     # ------------------------------------------------------------------ #
     # prefill with prefix reuse
@@ -1359,7 +1614,7 @@ class DecodeEngine:
             vs.append(v)
             pos += take
         if not ks:
-            z = self.pool.k.new_zeros((0,) + tuple(self.pool.k.shape[3:]))
+            z = self.pool.k.new_zeros((0,) + self.pool.kv_shape)
             return z, z
         return torch.cat(ks, 0), torch.cat(vs, 0)
 
@@ -1548,10 +1803,15 @@ class DecodeEngine:
             filled = node.meta.get("filled", 0)
             base = node.start_pos - start   # span-local index of token 0
             t_hi = hi - base
+            # a replicated node's KV lands in every replica's pages (the
+            # same source row scattered to each), keeping them in step
+            reps = node.meta.get("replicas")
+            page_lists = list(reps.values()) if reps else [node.page_ids]
             for t in range(max(filled, lo - base), t_hi):
-                pages.append(node.page_ids[t // ps])
-                offs.append(t % ps)
-                kv_rows.append(base + t)
+                for pl in page_lists:
+                    pages.append(pl[t // ps])
+                    offs.append(t % ps)
+                    kv_rows.append(base + t)
             if t_hi > filled:
                 node.meta["filled"] = t_hi
         if kv_rows:
@@ -1660,6 +1920,7 @@ class DecodeEngine:
         # or by admission bills this step's flush_time, never the decode
         # phase's dispatch/device split
         self._decode_timing = {}
+        snap_steps = self.stats["steps"]
         if tm is not None:
             c_step0 = self.clock()
             tm.begin("step", args={"step": len(self.step_stats)})
@@ -1705,6 +1966,12 @@ class DecodeEngine:
         })
         if tm is not None:
             tm.metrics["engine_steps"].inc()
+            if self.mesh is not None and self._epoch_features \
+                    and self.stats["steps"] > snap_steps:
+                tm.metrics["merge_bytes"].inc(
+                    self._epoch_features["merge_bytes"])
+                tm.metrics["merge_rounds"].inc(
+                    self._epoch_features["merge_rounds"])
             t = self._decode_timing
             if "dispatch_time" in t:
                 tm.observe("dispatch_s", t["dispatch_time"])
@@ -1780,11 +2047,10 @@ class DecodeEngine:
     def _decode_with_recovery(self) -> Dict[int, Optional[int]]:
         """The decode phase under the degradation ladder: a recoverable
         dispatch failure (``ResourceExhausted``, from a backend or the
-        fault injector) walks one rung per retry (evict cached nodes,
-        then reclaim or preempt, then shrink admission), each followed by
-        a full ``check()``; past ``max_dispatch_retries`` it propagates.
-        (``repro``'s first rung, demoting replicated nodes, has nothing
-        to act on with one device.)"""
+        fault injector) walks one rung per retry (demote a replicated
+        node, evict cached nodes, then reclaim or preempt, then shrink
+        admission), each followed by a full ``check()``; past
+        ``max_dispatch_retries`` it propagates."""
         for attempt in range(self.max_dispatch_retries + 1):
             try:
                 return self._decode_phase()
@@ -1800,6 +2066,12 @@ class DecodeEngine:
 
     def _recover_dispatch(self) -> bool:
         """One rung of the degradation ladder; ``True`` if anything gave."""
+        repl = [n for n in self.forest.nodes.values()
+                if "replicas" in n.meta]
+        if repl:
+            self._demote_replicas(max(repl,
+                                      key=lambda n: len(n.page_ids)))
+            return True
         if self.cache is not None and self._evict_cached(1) > 0:
             return True
         if self._reclaim_one(set(), allow_preempt=True):
@@ -2056,7 +2328,7 @@ class DecodeEngine:
                     slot = leaf.length - 2
                     page = leaf.page_ids[slot // self.page_size]
                     off = slot % self.page_size
-                    self.pool.k[:, page, off] = float("nan")
+                    self.pool.fill_slot(page, off, float("nan"))
                     self._nan_dirty.append((page, off))
                     self.stats["faults_injected"] += 1
                 else:       # leaf shared or too short: try again later
@@ -2066,10 +2338,13 @@ class DecodeEngine:
         t_d0 = time.perf_counter()
         host, event = self.fused_step()
         t_d1 = time.perf_counter()
-        if profiled and self.device.type == "cuda":
+        # calibration fits against the step's true time, so a calibrating
+        # mesh waits for every step (sampled profiling for its steps only)
+        calibrating = self.calibrate and self.mesh is not None
+        if (profiled or calibrating) and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_d2 = time.perf_counter()
-        dispatch = t_d1 - t_d0
+        dispatch = (t_d2 if calibrating else t_d1) - t_d0
         self.stats["decode_dispatch_time"] += dispatch
         self.last_logits = self.fused_step.logits[:len(rows)]
         self.last_rows = list(rows)
@@ -2092,10 +2367,14 @@ class DecodeEngine:
         flush_in = self._decode_timing.get("flush_time", 0.0) \
             - flush_before
         self._decode_timing.update(dispatch_time=dispatch)
-        if profiled:
+        if profiled and not calibrating:
             self._decode_timing.update(
                 compute_time=t_d2 - t_d1, profiled=True,
                 host_time=max(0.0, t_d0 - t0 - flush_in))
+        if self.mesh is not None and self._epoch_features:
+            self._decode_timing.update(self._epoch_features)
+            if profiled and self._epoch_shard_features:
+                self._decode_timing.update(self._epoch_shard_features)
         if done_any:
             # completion boundary: finished streams must be readable
             self.flush_tokens()
@@ -2130,28 +2409,35 @@ class DecodeEngine:
             tail.append((leaf.page_ids[tp], leaf.start_pos + tp * ps,
                          (leaf.length - 1) % ps))
             q_pos0.append(self.forest.context_len(r) - 1)
-        build = (plan_mod.flash_plan if self._backend.plan_kind == "flash"
-                 else plan_mod.build_plan)
-        plans, host, sig = [], [], [bucket]
-        for w in self._windows():
-            p = build(self.forest, self.cost_model, self.num_lanes,
-                      self.max_q, self.max_kv_per_task, req_rows=req_rows,
-                      window=w, truncate=truncate)
-            p = plan_mod.bucket_plan(p, bucket)
-            cls, arrs = self._backend.host_arrays(p)
-            plans.append(p)
-            host.append((cls, arrs))
-            sig.append((w, cls.__name__, tuple(a.shape for a in arrs)))
+        plans: List = []
+        if self.mesh is not None:
+            sig, host, base = self._sharded_epoch(rows, bucket, req_rows,
+                                                  truncate, q_pos0)
+        else:
+            build = (plan_mod.flash_plan
+                     if self._backend.plan_kind == "flash"
+                     else plan_mod.build_plan)
+            host, sig = [], [bucket]
+            for w in self._windows():
+                p = build(self.forest, self.cost_model, self.num_lanes,
+                          self.max_q, self.max_kv_per_task,
+                          req_rows=req_rows, window=w, truncate=truncate)
+                p = plan_mod.bucket_plan(p, bucket)
+                cls, arrs = self._backend.host_arrays(p)
+                plans.append(p)
+                host.append((cls, arrs))
+                sig.append((w, cls.__name__, tuple(a.shape for a in arrs)))
+            base = step_fn_mod.step_base(
+                [self.requests[r].generated[-1] for r in rows], q_pos0,
+                tail, bucket, self.pool.trash_page)
         sig = tuple(sig)
         self.bucket_signatures.add(sig)
-        base = step_fn_mod.step_base(
-            [self.requests[r].generated[-1] for r in rows], q_pos0, tail,
-            bucket, self.pool.trash_page)
         self.stats["plan_time"] += time.perf_counter() - t0
         capture0 = self.fused_step.capture_time
         prepared = self.fused_step.epoch(sig, host, base)
         self.stats["capture_time"] += self.fused_step.capture_time - capture0
         self._gather_mamba_state(rows)
+        # (a mesh epoch keeps its per-shard plans in _sharded_plans)
         self._plans = {w: (p, pa) for w, p, pa in
                        zip(self._windows(), plans, prepared)}
         self._plan_key = plan_mod.plan_key(self.forest, rows)
@@ -2164,6 +2450,157 @@ class DecodeEngine:
                                     args={"rows": len(rows),
                                           "bucket": bucket})
             self.telemetry.observe("plan_build_s", c1 - c0)
+
+    def _sharded_epoch(self, rows: List[int], bucket: int,
+                       req_rows: Dict[int, int], truncate: Dict[int, int],
+                       q_pos0: List[int]):
+        """A mesh epoch: the replication sweep and the recalibration when
+        on, one plan a data shard per window (subtasks on the shard that
+        holds their pages, sequence splits cut at shard boundaries:
+        ``core.plan.build_sharded_plan``) bucketed to common shapes, the
+        tail layout as each shard's local page rows (non-owners at their
+        trash page), and the rows the merge packs.  Returns the
+        signature, the plans' host arrays (per window, one a shard) and
+        ``ShardedStepBase``'s arrays."""
+        ps = self.page_size
+        D = self.pool.num_shards
+        if self.replicate:
+            self._replication_sweep(rows)
+        if self.calibrate:
+            # refit from the measured steps, so the plans built below
+            # divide, balance and replicate on measured costs
+            self.recalibrate()
+        host: List = []
+        sig: List = [("mesh", D, self.mesh.shape["model"], bucket)]
+        self._sharded_plans = {}
+        for w in self._windows():
+            sp = plan_mod.build_sharded_plan(
+                self.forest, self.cost_model, D, self.pool.page_stride,
+                self.num_lanes, self.max_q, self.max_kv_per_task,
+                req_rows=req_rows, window=w, truncate=truncate,
+                num_rows=bucket)
+            self._sharded_plans[w] = sp
+            shards = [self._backend.host_arrays(p) for p in sp.shards]
+            cls, arrs = shards[0]
+            host.append(shards)
+            sig.append((w, cls.__name__, tuple(a.shape for a in arrs)))
+
+        # which rows the merge packs, and which shards hold a shard-local
+        # contribution to them (every window ORed: one contributor vector
+        # serves every layer)
+        row_sh = np.zeros((D, bucket), bool)
+        merge_mask = np.zeros(bucket, bool)
+        rep_set: Set[int] = set()
+        for sp in self._sharded_plans.values():
+            row_sh |= sp.row_shards
+            merge_mask |= sp.merge_rows
+            rep_set |= sp.replicated
+        B = len(rows)
+        tail_page = np.zeros((D, B), np.int64)
+        tail_owner = np.zeros((D, B), bool)
+        tail_base, tail_off0 = [], []
+        for i, r in enumerate(rows):
+            leaf = self.forest.nodes[self.forest.leaf_of[r]]
+            tp = (leaf.length - 1) // ps
+            tail_page[:, i] = self.pool.local_trash
+            reps = leaf.meta.get("replicas")
+            if reps is not None:
+                # every shard writes the row's new KV into its own replica
+                # tail page, keeping the replicas alike; a fully
+                # replicated row owns its tail everywhere (alike results),
+                # a merged row only on the primary (one contribution)
+                for sh in range(D):
+                    tail_page[sh, i] = self.pool.local_of(reps[sh][tp])
+                if leaf.id in rep_set:
+                    tail_owner[:, i] = True
+                else:
+                    sh = self.pool.shard_of(leaf.page_ids[tp])
+                    tail_owner[sh, i] = True
+                    row_sh[sh, i] = True
+            else:
+                g = leaf.page_ids[tp]
+                sh = self.pool.shard_of(g)
+                tail_page[sh, i] = self.pool.local_of(g)
+                tail_owner[sh, i] = True
+                row_sh[sh, i] = True
+            tail_base.append(leaf.start_pos + tp * ps)
+            tail_off0.append((leaf.length - 1) % ps)
+        # Bm (a power of two, or 0: no merge) is part of the signature;
+        # which rows and shards are not
+        mrows = np.nonzero(merge_mask)[0] if D > 1 else np.zeros(0, int)
+        contrib = (row_sh[:, merge_mask].any(axis=1) if len(mrows)
+                   else np.zeros(D, bool))
+        base = sharded_step_base(
+            [self.requests[r].generated[-1] for r in rows], q_pos0,
+            tail_page, tail_base, tail_off0, tail_owner, mrows, contrib,
+            bucket, self.pool.local_trash)
+        Bm = base[7].shape[0]
+        sig.append(("merge", Bm))
+        self._record_epoch_features(Bm)
+        return sig, host, base
+
+    def _record_epoch_features(self, merge_bucket: int) -> None:
+        """The new epoch's per-step cost-model features, attached to every
+        step record until the next epoch (``recalibrate`` fits against
+        them).  Compute terms take the heaviest shard's totals over its
+        lanes: the makespan the scheduler minimises on a real mesh."""
+        ps = self.page_size
+        lanes = max(self.num_lanes, 1)
+        n_attn_w = {w: 0 for w in self._windows()}
+        for j in self.attn_layer_idx:
+            n_attn_w[self.layers[j].window] += 1
+        hbm = steps = 0.0
+        shard_hbm: List[float] = []
+        shard_steps: List[float] = []
+        for w, sp in self._sharded_plans.items():
+            per_shard = [sum(self.cost_model.hbm_bytes(s.n_q, s.n)
+                             for s in p.subtasks) for p in sp.shards]
+            per_steps = [sum(max(1, -(-s.n // ps)) for s in p.subtasks)
+                         for p in sp.shards]
+            if not per_shard:
+                continue
+            if not shard_hbm:
+                shard_hbm = [0.0] * len(per_shard)
+                shard_steps = [0.0] * len(per_steps)
+            for i, (b, g) in enumerate(zip(per_shard, per_steps)):
+                shard_hbm[i] += n_attn_w[w] * b / lanes
+                shard_steps[i] += n_attn_w[w] * g / lanes
+            k = int(np.argmax(per_shard))
+            hbm += n_attn_w[w] * per_shard[k] / lanes
+            steps += n_attn_w[w] * per_steps[k] / lanes
+        D = self.pool.num_shards
+        rounds = (int(np.ceil(np.log2(D)))
+                  if D > 1 and merge_bucket > 0 else 0)
+        n_attn = sum(n_attn_w.values())
+        wire = (merge_bucket * self.cfg.num_heads
+                * (self.cfg.head_dim + 2) * 4)
+        self._epoch_features = {
+            "hbm_bytes": hbm, "grid_steps": steps,
+            "merge_bytes": n_attn * rounds * wire,
+            "merge_rounds": n_attn * rounds,
+        }
+        # per-shard vectors ride on profiled rows only
+        self._epoch_shard_features = {
+            "shard_hbm_bytes": shard_hbm,
+            "shard_grid_steps": shard_steps,
+        } if shard_hbm else {}
+
+    def predicted_step_seconds(self, hw=None) -> float:
+        """The cost model's attention and merge seconds a step for the
+        current epoch on a real mesh: the heaviest shard's bytes and page
+        steps plus the merge's wire and launch terms, under ``hw`` (by
+        default the current, possibly recalibrated, coefficients; pass a
+        fixed ``HardwareSpec`` to compare engines).  Leaves out the dense
+        part of the step (FFN, unembedding, launch), which does not depend
+        on the mesh."""
+        f = self._epoch_features
+        if not f:
+            return 0.0
+        hw = hw or self.cost_model.hw
+        return (f["hbm_bytes"] / hw.hbm_bw
+                + f["grid_steps"] * hw.grid_step_overhead
+                + f["merge_bytes"] / hw.ici_bw
+                + f["merge_rounds"] * hw.launch_overhead)
 
     def _sync_mamba_state(self) -> None:
         """Copy the fused SSM carry of the ending epoch back into the
@@ -2335,7 +2772,7 @@ class DecodeEngine:
                     slot = leaf.length - 2
                     page = leaf.page_ids[slot // self.page_size]
                     off = slot % self.page_size
-                    self.pool.k[:, page, off] = float("nan")
+                    self.pool.fill_slot(page, off, float("nan"))
                     self._nan_dirty.append((page, off))
                     self.stats["faults_injected"] += 1
                 else:
@@ -2572,7 +3009,7 @@ class DecodeEngine:
             # scrub injected NaN slots before their pages return to the
             # free list: a later tenant must never read them
             for page, off in self._nan_dirty:
-                self.pool.k[:, page, off] = 0.0
+                self.pool.fill_slot(page, off, 0.0)
             self._nan_dirty = []
             # the poisoned row kept decoding until its flag was read, so
             # its private leaf holds non-finite KV past the injected slot
@@ -2582,9 +3019,7 @@ class DecodeEngine:
             leaf = self.forest.nodes.get(self.forest.leaf_of.get(rid))
             if leaf is not None and leaf.requests == [rid] \
                     and leaf.page_ids:
-                idx = torch.as_tensor(leaf.page_ids, device=self.device)
-                self.pool.k[:, idx] = 0.0
-                self.pool.v[:, idx] = 0.0
+                self.pool.zero_pages(leaf.page_ids)
         self._finish(req, FAILED, reason)
 
     def _fire_on_done(self, req: Request) -> None:
@@ -2665,8 +3100,9 @@ class DecodeEngine:
         ``EngineInvariantError`` listing every violation.
 
         The allocator's structural check, plus: every allocated page is
-        owned by exactly one forest node, pin refcounts equal the waiting
-        holders' pin lists, ``leaf_of`` agrees with request states,
+        owned by exactly one forest node (replicas included), pin
+        refcounts equal the waiting holders' pin lists, ``leaf_of``
+        agrees with request states,
         deferred-token refs point at live requests, and cache residency
         fits the pool.  Runs after every dispatch recovery and every
         ``check_every`` steps."""
@@ -2684,7 +3120,10 @@ class DecodeEngine:
         for node in self.forest.nodes.values():
             if node.id == tree_mod.ROOT_ID:
                 continue
-            for p in node.page_ids:
+            reps = node.meta.get("replicas")
+            pages = ([p for run in reps.values() for p in run]
+                     if reps is not None else node.page_ids)
+            for p in pages:
                 owned[p] = owned.get(p, 0) + 1
         for p, n in owned.items():
             if n != 1:

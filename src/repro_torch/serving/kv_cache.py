@@ -11,7 +11,7 @@ layout.  Unlike the JAX pool, writes update the device tensors in place.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -40,7 +40,10 @@ class PageAllocator:
         """Allocated page id -> refcount (the engine's leak check)."""
         return dict(self._refs)
 
-    def alloc(self, n: int) -> List[int]:
+    def alloc(self, n: int, hint: Optional[int] = None) -> List[int]:
+        """``hint`` (a forest node id) is a placement affinity key: one
+        allocator ignores it, the mesh's (``distributed.kv_pool``) keeps a
+        node's pages together or sequence-splits them."""
         if n > len(self._free):
             raise MemoryError(
                 f"KV pool exhausted: need {n}, have {len(self._free)}")
@@ -50,6 +53,12 @@ class PageAllocator:
         self.total_allocs += n
         self.peak_used = max(self.peak_used, self.num_used)
         return pages
+
+    def retain(self, pages: List[int]) -> None:
+        for p in pages:
+            if p not in self._refs:
+                raise ValueError(f"retain of unallocated page id {p}")
+            self._refs[p] += 1
 
     def release(self, pages: List[int]) -> None:
         for p in pages:
@@ -111,8 +120,24 @@ class PagedKVPool:
             * self.k.shape[4]
         return 2 * per * self.k.element_size()
 
+    @property
+    def kv_shape(self) -> Tuple[int, int]:
+        """(n_kv, head_dim) of one token's K or V."""
+        return tuple(self.k.shape[3:])
+
     def layer_pools(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.k[layer], self.v[layer]
+
+    def fill_slot(self, page: int, off: int, value: float) -> None:
+        """Set K at one token slot of every layer (fault injection and its
+        scrub)."""
+        self.k[:, page, off] = value
+
+    def zero_pages(self, pages: List[int]) -> None:
+        """Zero K and V of whole pages in every layer."""
+        idx = self._index(pages)
+        self.k[:, idx] = 0.0
+        self.v[:, idx] = 0.0
 
     def _index(self, idx) -> torch.Tensor:
         return torch.as_tensor(idx, dtype=torch.int64).to(self.device)

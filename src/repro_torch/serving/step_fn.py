@@ -96,11 +96,13 @@ class StepBase(NamedTuple):
 class _Slot:
     """The buffers of one bucket signature, and its graph on the card."""
 
+    base_cls = StepBase
+
     def __init__(self, plans, base, device, h_q: int, d: int,
                  cfg: ModelConfig, n_mamba: int = 0):
         self.plans = [ops.StaticArrays(cls, arrs, device)
                       for cls, arrs in plans]
-        self.base = ops.StaticArrays(StepBase, base, device)
+        self.base = ops.StaticArrays(self.base_cls, base, device)
         self.pac_out = [ops.pac_outputs(p.arrays, h_q, d, device)
                         if isinstance(p.arrays, ops.PlanArrays) else None
                         for p in self.plans]
@@ -115,8 +117,10 @@ class _Slot:
         self.out = torch.zeros((2, bucket), dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # (PAC, epilogue) launches recorded into the graph at its capture
+        # (PAC, epilogue) and pairwise POR launches recorded into the graph
+        # at its capture
         self.launches: Optional[Tuple[int, int]] = None
+        self.por_launches: Optional[int] = None
 
     def load(self, plans, base) -> None:
         for static, (_, arrs) in zip(self.plans, plans):
@@ -181,8 +185,7 @@ class FusedStep:
         self._cur = None
         slot = self.slots.get(sig)
         if slot is None:
-            slot = _Slot(plans, base, self.device, self.cfg.num_heads,
-                         self.cfg.head_dim, self.cfg, len(self.mamba_idx))
+            slot = self._new_slot(plans, base)
             self.slots[sig] = slot
         else:
             slot.load(plans, base)
@@ -190,7 +193,15 @@ class FusedStep:
         if self.cuda and slot.graph is None:
             self._capture(slot)
         self._cur = slot
+        return self._arrays(slot)
+
+    @staticmethod
+    def _arrays(slot) -> List:
         return [p.arrays for p in slot.plans]
+
+    def _new_slot(self, plans, base) -> "_Slot":
+        return _Slot(plans, base, self.device, self.cfg.num_heads,
+                     self.cfg.head_dim, self.cfg, len(self.mamba_idx))
 
     @property
     def carry(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -245,10 +256,11 @@ class FusedStep:
         """Warm the step up eagerly (tokens not fed forward), then capture
         it into ``slot.graph``; any failure raises."""
         t0 = time.perf_counter()
-        slot.graph, slot.launches, slot.logits = capture_graph(
+        slot.graph, launches, slot.logits = capture_graph(
             self.device, self._mempool,
             lambda: self._body(slot, feed=False),
             lambda: self._body(slot, feed=True))
+        slot.launches, slot.por_launches = launches[:2], launches[2]
         self.graphs += 1
         self.capture_time += time.perf_counter() - t0
 
@@ -260,32 +272,7 @@ class FusedStep:
         base = slot.base.arrays
         dlt = base.delta * base.row_valid
         q_pos = base.q_pos0 + dlt
-        prepared = [self.backend.advance_fn(p.arrays, base.delta)
-                    for p in slot.plans]
-        B = q_pos.shape[0]
-
-        def attend(qb, k_pool, v_pool, window, tail_page, tail_base, q_pos):
-            w = self.win_slot[window]
-            parts = self.backend.parts_arrays(
-                qb, k_pool, v_pool, prepared[w], num_queries=B,
-                window=window, out=slot.pac_out[w])
-            return por_mod.por_epilogue(qb, *parts, k_pool, v_pool,
-                                        tail_page, tail_base, q_pos,
-                                        window=window)
-
-        def mix(j, mixer, h):
-            i = self.mamba_idx[j]
-            y, (conv, ssm) = M.mamba_decode(mixer, self.cfg, h,
-                                            slot.conv[i], slot.ssm[i])
-            if feed:
-                slot.conv[i].copy_(conv)
-                slot.ssm[i].copy_(ssm)
-            return y
-
-        logits = decode_stack(self.model, self.pool, self.attn_layer_idx,
-                              base.tokens, q_pos, base.tail_page,
-                              base.tail_base, base.tail_off0 + dlt, attend,
-                              mix)
+        logits = self._logits(slot, base, q_pos, dlt, self._mix(slot, feed))
         # greedy draws no bits, so its key is never split (the key's
         # state cannot show in any stream)
         split = self.temperature > 0
@@ -300,23 +287,60 @@ class FusedStep:
                 self.key.copy_(key)
         return logits
 
+    def _mix(self, slot: _Slot, feed: bool):
+        """The Mamba layers' step over the slot's carry (in place when
+        ``feed``)."""
+        def mix(j, mixer, h):
+            i = self.mamba_idx[j]
+            y, (conv, ssm) = M.mamba_decode(mixer, self.cfg, h,
+                                            slot.conv[i], slot.ssm[i])
+            if feed:
+                slot.conv[i].copy_(conv)
+                slot.ssm[i].copy_(ssm)
+            return y
+        return mix
+
+    def _logits(self, slot: _Slot, base, q_pos, dlt, mix) -> torch.Tensor:
+        """The layer stack of one step: the backend's raw partials over
+        the frozen plan and one epilogue a layer."""
+        prepared = [self.backend.advance_fn(p.arrays, base.delta)
+                    for p in slot.plans]
+        B = q_pos.shape[0]
+
+        def attend(qb, k_pool, v_pool, window, tail_page, tail_base, q_pos):
+            w = self.win_slot[window]
+            parts = self.backend.parts_arrays(
+                qb, k_pool, v_pool, prepared[w], num_queries=B,
+                window=window, out=slot.pac_out[w])
+            return por_mod.por_epilogue(qb, *parts, k_pool, v_pool,
+                                        tail_page, tail_base, q_pos,
+                                        window=window)
+
+        return decode_stack(self.model, self.pool, self.attn_layer_idx,
+                            base.tokens, q_pos, base.tail_page,
+                            base.tail_base, base.tail_off0 + dlt, attend,
+                            mix)
+
 
 def capture_graph(device, mempool, warm_up, body):
     """Run ``warm_up()`` eagerly on a side stream (it builds the kernel
     library, sets the kernels' shared-memory attributes and warms
     cuBLAS), then capture ``body()`` into a new ``torch.cuda.CUDAGraph``
-    in ``mempool``.  Returns the graph, the (PAC, epilogue) launches
-    recorded into it and ``body``'s result; any failure raises."""
+    in ``mempool``.  Returns the graph, the (PAC, epilogue, pairwise POR)
+    launches recorded into it and ``body``'s result; any failure
+    raises."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         warm_up()
     torch.cuda.current_stream(device).wait_stream(side)
-    pac0, epi0 = pac_mod.launches, por_mod.epilogue_launches
+    pac0, epi0, por0 = (pac_mod.launches, por_mod.epilogue_launches,
+                        por_mod.launches)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=mempool):
         out = body()
-    launches = (pac_mod.launches - pac0, por_mod.epilogue_launches - epi0)
+    launches = (pac_mod.launches - pac0, por_mod.epilogue_launches - epi0,
+                por_mod.launches - por0)
     torch.cuda.synchronize(device)
     return graph, launches, out
 
@@ -435,9 +459,10 @@ class SpecStep:
         """Warm the step up eagerly (it writes the K/V the replay will
         write again), then capture it; any failure raises."""
         t0 = time.perf_counter()
-        slot.graph, slot.launches, _ = capture_graph(
+        slot.graph, launches, _ = capture_graph(
             self.device, self._mempool, lambda: self._body(slot),
             lambda: self._body(slot))
+        slot.launches = launches[:2]
         self.graphs += 1
         self.capture_time += time.perf_counter() - t0
 
@@ -487,7 +512,7 @@ def decode_stack(model: Transformer, pool: PagedKVPool,
                  attn_layer_idx: Dict[int, int], tokens: torch.Tensor,
                  q_pos: torch.Tensor, tail_page: torch.Tensor,
                  tail_base: torch.Tensor, tail_off: torch.Tensor,
-                 attend, mix=None) -> torch.Tensor:
+                 attend, mix=None, write=None, project=None) -> torch.Tensor:
     """The model over one decode token a row: the embedding, every
     layer's norm, then for an attention layer its projections and RoPE,
     its KV write to slot ``tail_off`` of page ``tail_page`` and
@@ -496,7 +521,9 @@ def decode_stack(model: Transformer, pool: PagedKVPool,
     the rows' SSM states wherever the caller keeps them), then its FFN,
     then the unembedding; returns the (B, V) logits.  The eager engine
     step and the fused step share it and differ only in ``attend``,
-    ``mix`` and where their inputs live."""
+    ``mix`` and where their inputs live.  The mesh's step also replaces
+    the tail write (``write(layer, k_new, v_new)``, returning the pools
+    ``attend`` gets) and the output projection (``project(layer, o)``)."""
     cfg = model.cfg
     B = tokens.shape[0]
     x = model.embed_tokens(tokens[:, None], q_pos[:, None])    # (B, 1, d)
@@ -509,12 +536,19 @@ def decode_stack(model: Transformer, pool: PagedKVPool,
         la = attn_layer_idx[j]
         window = layer.window
         q, k_new, v_new = L.attn_project(layer.attn, cfg, h, q_pos[:, None])
-        pool.write_tokens(la, tail_page, tail_off, k_new[:, 0], v_new[:, 0])
-        k_pool, v_pool = pool.layer_pools(la)
+        if write is None:
+            pool.write_tokens(la, tail_page, tail_off, k_new[:, 0],
+                              v_new[:, 0])
+            k_pool, v_pool = pool.layer_pools(la)
+        else:
+            k_pool, v_pool = write(la, k_new[:, 0], v_new[:, 0])
         o = attend(q[:, 0], k_pool, v_pool, window, tail_page, tail_base,
                    q_pos)
-        x = x + L.dense(layer.attn.wo,
-                        o.reshape(B, 1, cfg.num_heads * cfg.head_dim))
+        if project is None:
+            x = x + L.dense(layer.attn.wo,
+                            o.reshape(B, 1, cfg.num_heads * cfg.head_dim))
+        else:
+            x = x + project(layer, o)
         x, _ = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
     return model.unembed(x)[:, 0]
 

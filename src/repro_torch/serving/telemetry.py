@@ -21,9 +21,10 @@ a fake stepped clock yields byte-identical traces across runs.  All of
 this layer only *reads* engine state — token streams are byte-identical
 with telemetry on or off (asserted by tests/test_torch_telemetry.py).
 
-The ``merge_*``, ``replica_*`` and ``calibrations`` counters of the
-catalog read 0 until the mesh is ported: ``sync_counters`` reads a
-missing stat as 0, as ``repro``'s does with those features off.  The
+On a mesh the engine adds each decode step's epoch ``merge_bytes`` and
+``merge_rounds`` to their counters, and ``replica_promotions``,
+``replica_demotions`` and ``calibrations`` follow its stats (0 on one
+shard, as in ``repro``).  The
 ``spec_*`` counters follow the speculative engine's stats, and its
 decode steps emit the ``spec_propose``, ``spec_verify`` and
 ``spec_accept`` spans.
