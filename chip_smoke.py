@@ -187,7 +187,25 @@ Phases (any failure raises and the script exits non-zero):
    leaked on any shard; (d) ``calibrate=True`` at 2x2: what
    ``recalibrate`` fits (to shards that run one after another on one
    card: not the H100's coefficients);
-15. print the ``kernels`` JSON line and the closing device line.
+15. training on the card (no Pallas kernel is on this path: gradients
+   come from autograd through the plain-torch model): (a) qwen3-4b at
+   full width and depth, bf16 weights from seed 0, AdamW with float32
+   moments, remat, 4 x 512 tokens a step: the memory reckoning from
+   ``abstract_state`` on the meta device, eight steps over two cycled
+   ``SyntheticLM`` batches (every loss finite, the last two below the
+   first), the step time (median of steps 2-8), tokens/s, peak memory,
+   MFU, a traced step's device busy, idle share and kernels by kind,
+   and a step by phase (forward, backward, clip, optimizer); (b) qwen3-4b
+   at full width, 2 layers, f32, 2 x 64 tokens: one step on the card
+   equals the same port code on the CPU from the same weights (loss and
+   grad norm within 1e-5 relative, every gradient within 1e-5 of
+   max|g|), remat equals no remat, 2 microbatches equal 1 in loss; (c)
+   ``launch.train.main`` in-process on ``--smoke``: a straight run, a
+   run resumed from its checkpoint with the same loss trace, and a data
+   axis of 2 that restarts elastically at step 3; (d) (b)'s trained
+   weights served through ``codec-cuda`` eager and fused: streams equal
+   the dense decode, PAC and the epilogue launch, no autograd graph;
+16. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -196,6 +214,7 @@ false; it imports neither ``jax`` nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import shutil
 import statistics
@@ -3576,6 +3595,361 @@ def phase_calibrate():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 15: training on the card
+# --------------------------------------------------------------------- #
+P15_BATCH, P15_SEQ, P15_STEPS, P15_LR, P15_WARMUP = 4, 512, 8, 1e-3, 5
+P15B_LAYERS, P15B_BATCH, P15B_SEQ = 2, 2, 64
+P15C_STEPS = 8
+# device kernels of a training step by kind, by name
+P15_KINDS = (
+    ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_",
+              "ampere_")),
+    ("softmax (mha's materialised scores, the CE)", ("softmax",)),
+    ("embedding scatter / gather backward", ("embedding", "index_put",
+                                             "indexing_backward",
+                                             "scatter", "gather")),
+    ("reductions", ("reduce", "norm", "sum_", "logsumexp")),
+    ("elementwise (norms, RoPE, SwiGLU, optimizer, casts)",
+     ("elementwise", "vectorized", "unrolled", "fill", "copy", "cat")),
+)
+
+
+def kernel_kinds(top):
+    """Device ms a step by kind, from ``profile_summary``'s full list."""
+    out = {name: [0.0, 0.0] for name, _ in P15_KINDS}
+    out["other"] = [0.0, 0.0]
+    for key, ms, count in top:
+        low = key.lower()
+        kind = next((name for name, pats in P15_KINDS
+                     if any(p in low for p in pats)), "other")
+        out[kind][0] += ms
+        out[kind][1] += count
+    return out
+
+
+def train_state_on(cfg, params, opt, device):
+    """A training state on ``device`` from a copy of CPU ``params``."""
+    from repro_torch.training import trainer
+    moved = {k: v.to(device, copy=True) for k, v in params.items()}
+    return trainer.make_state(cfg, moved, opt.init(moved))
+
+
+def loss_and_grads(state, loss_fn, batch):
+    names = list(state.params)
+    loss, _ = loss_fn(state.model, *batch)
+    grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def assert_grads_close(tag, got, want, tol=1e-5):
+    """``|got - want| <= tol * max|want| + 1e-7``, max over the whole
+    gradient; returns the largest error over max|want|."""
+    gmax = max(float(g.abs().max()) for g in want.values())
+    worst = 0.0
+    for k, g in want.items():
+        err = float((got[k].float().cpu() - g.float().cpu()).abs().max())
+        assert err <= tol * gmax + 1e-7, (tag, k, err, gmax)
+        worst = max(worst, err / gmax)
+    return worst
+
+
+def phase_train_full():
+    """15a: qwen3-4b at full width and depth, bf16 weights from seed 0,
+    AdamW with float32 moments, remat, 4 x 512 tokens a step: the memory
+    reckoning from ``abstract_state``, eight steps over two cycled
+    batches (finite loss that falls), step time, tokens/s, peak memory,
+    MFU, a traced step's device busy and idle share by kernel kind, and a
+    step timed by phase with CUDA events."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.launch.serve import profile_summary
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import trainer
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    cfg = get_config(PAPER_ARCH)
+    opt = O.adamw(O.cosine_schedule(P15_LR, P15_WARMUP,
+                                    max(P15_STEPS, 10)))
+    nb = trainer.state_bytes(trainer.abstract_state(cfg, opt))
+    tokens = P15_BATCH * P15_SEQ
+    n = nb["n_params"]
+    carries = cfg.num_layers * tokens * cfg.d_model * 2
+    logits = tokens * cfg.vocab_size * 4
+    biggest = max(int(np.prod(shape)) for shape, _ in
+                  param_shapes(cfg).values())
+    resident = nb["params"] * 2 + nb["opt_state"]
+    log(f"  15a. {cfg.name} x{cfg.num_layers} bf16, AdamW f32 moments, "
+        f"remat, {P15_BATCH} x {P15_SEQ} tokens a step; reckoning "
+        f"(abstract_state, meta device): {n / 1e9:.3f} B params, weights "
+        f"{nb['params'] / 1e9:.2f} GB, bf16 gradients "
+        f"{nb['params'] / 1e9:.2f} GB, Adam moments "
+        f"{nb['opt_state'] / 1e9:.2f} GB: {resident / 1e9:.2f} GB "
+        f"resident; + remat carries {carries / 1e9:.3f} GB, f32 logits "
+        f"{logits / 1e9:.2f} GB (x2-3 with their gradient and the CE), "
+        f"the clipped gradient and the updates {nb['params'] / 1e9:.2f} "
+        f"GB each, the optimizer's f32 temporaries {biggest * 4 / 1e9:.2f}"
+        f" GB each on the largest leaf; memory in use before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = trainer.init_state(cfg, opt, gen, device="cuda")
+    step = trainer.make_train_step(cfg, opt, remat=True)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, P15_SEQ, P15_BATCH))
+    batches = [tuple(torch.from_numpy(a).cuda() for a in data.batch(i))
+               for i in range(2)]
+    losses, times = [], []
+    for i in range(P15_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batches[i % 2])
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-2:]) < losses[0], losses
+    step_s = statistics.median(times[1:])
+    mfu = 6 * n * tokens / (step_s * PEAK_FLOPS[torch.bfloat16])
+    log(f"  losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(t, 4) for t in times]}: first {times[0]:.3f} s, median "
+        f"of steps 2-{P15_STEPS} {1e3 * step_s:.1f} ms, "
+        f"{tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} (6 N tokens / "
+        f"(step s x 989e12), N = {n / 1e9:.3f} B); peak memory "
+        f"(max_memory_allocated) {peak / 1e9:.2f} GB")
+    # one traced step: device busy, idle share, kernels by kind
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, met = step(state, batches[0])
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    p = profile_summary(prof, wall, 1, top=0)
+    busy = p["device_busy_ms"]
+    log(f"  traced step: wall {p['wall_ms']:.1f} ms (profiler on), device "
+        f"busy {busy:.1f} ms, {p['kernels_per_step']:.0f} kernels; idle "
+        f"share against the untraced median step "
+        f"{1 - busy / (1e3 * step_s):.3f} (against the traced wall "
+        f"{p['idle_share']:.3f})")
+    kinds = kernel_kinds(p["top"])
+    for kind, (ms, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {kind}: {ms:.1f} ms in {count:.0f} kernels")
+    for key, ms, count in p["top"][:16]:
+        log(f"    {ms:8.2f} ms {count:5.0f}x  {key}")
+    others = [t for t in p["top"] if not any(
+        pat in t[0].lower() for _, pats in P15_KINDS for pat in pats)]
+    for key, ms, count in others[:6]:
+        log(f"    other: {ms:8.2f} ms {count:5.0f}x  {key}")
+    # one step by phase (the train step's own pieces, CUDA events)
+    loss_fn = trainer.make_loss_fn(cfg, remat=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    loss, _ = loss_fn(state.model, *batches[1])
+    ev[1].record()
+    grads = dict(zip(state.params, torch.autograd.grad(
+        loss, list(state.params.values()))))
+    ev[2].record()
+    grads, _ = O.clip_by_global_norm(grads, 1.0)
+    ev[3].record()
+    updates, state.opt_state = opt.update(grads, state.opt_state,
+                                          state.params)
+    del grads
+    with torch.no_grad():
+        for k, w in state.params.items():
+            w.add_(updates.pop(k))
+    ev[4].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    log(f"  a step by phase (CUDA events): forward {ms[0]:.1f} ms, "
+        f"backward (with the remat recompute) {ms[1]:.1f} ms, clip "
+        f"{ms[2]:.1f} ms, optimizer + apply {ms[3]:.1f} ms")
+    del state, step, updates, batches
+    torch.cuda.empty_cache()
+    return {"step_ms": 1e3 * step_s, "mfu": mfu, "peak_gb": peak / 1e9,
+            "busy_ms": busy, "phases_ms": ms}
+
+
+def phase_train_parity():
+    """15b: qwen3-4b at full width, 2 layers, f32, 2 x 64 tokens: a step
+    on the card equals the same port code on the CPU from the same
+    weights (loss, grad norm, every gradient, the weights after it);
+    remat equals no remat and 2 microbatches equal 1 in loss, on the
+    card.  Returns the card's trained state (its weights require
+    gradients) for 15d."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import trainer
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    cfg = dataclasses.replace(get_config(PAPER_ARCH),
+                              num_layers=P15B_LAYERS, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    sched = O.cosine_schedule(P15_LR, P15_WARMUP, 10)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, P15B_SEQ, P15B_BATCH))
+    batch = [torch.from_numpy(a) for a in data.batch(0)]
+    t0 = time.perf_counter()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = O.adamw(sched)
+        st = train_state_on(cfg, params, opt, dev)
+        b = tuple(x.to(dev) for x in batch)
+        loss, grads = loss_and_grads(
+            st, trainer.make_loss_fn(cfg, remat=False), b)
+        st, met = trainer.make_train_step(cfg, opt, remat=False)(st, b)
+        out[dev] = (loss, grads, st, met)
+    cpu_s = time.perf_counter() - t0
+    (l_c, g_c, s_c, m_c), (l_g, g_g, s_g, m_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c), (l_g, l_c)
+    for k in ("loss", "grad_norm"):
+        a, b = float(m_g[k]), float(m_c[k])
+        assert abs(a - b) <= 1e-5 * abs(b), (k, a, b)
+    worst = assert_grads_close("card vs cpu", g_g, g_c)
+    # weights after Adam's first step: each moves by ~lr sign(g); where a
+    # gradient is within its tolerance of zero the sign is noise (2 lr)
+    lr1 = float(sched(1))
+    off = n_el = 0
+    for k, w in s_c.params.items():
+        d = (s_g.params[k].detach().cpu() - w.detach()).abs()
+        assert float(d.max()) <= 2 * lr1 * (1 + 1e-5), (k, float(d.max()))
+        off += int((d > 1e-5 * w.detach().abs() + 1e-6 * lr1).sum())
+        n_el += d.numel()
+    assert off <= 1e-3 * n_el, (off, n_el)
+    # on the card: remat == no remat, microbatches 2 == 1 in loss
+    opt = O.adamw(sched)
+    st = train_state_on(cfg, params, opt, "cuda")
+    b = tuple(x.cuda() for x in batch)
+    l_r, g_r = loss_and_grads(st, trainer.make_loss_fn(cfg, remat=True), b)
+    assert abs(l_r - l_g) <= 1e-6 * abs(l_g), (l_r, l_g)
+    worst_r = assert_grads_close("remat", g_r, g_g, tol=1e-6)
+    del g_r
+    _, m2 = trainer.make_train_step(cfg, opt, microbatches=2,
+                                    remat=False)(st, b)
+    assert abs(float(m2["loss"]) - l_g) <= 1e-5 * abs(l_g)
+    log(f"  15b. {cfg.name} x{cfg.num_layers} f32 at full width "
+        f"({sum(v.numel() for v in params.values()) / 1e9:.3f} B params), "
+        f"{P15B_BATCH} x {P15B_SEQ} tokens: card == CPU: loss {l_g:.7f} / "
+        f"{l_c:.7f}, grad norm {float(m_g['grad_norm']):.6f} / "
+        f"{float(m_c['grad_norm']):.6f}, gradients within "
+        f"{worst:.2e} of max|g| (tol 1e-5), weights after the step: "
+        f"{off} of {n_el} elements beyond f32 rounding (all within 2 lr); "
+        f"remat == no remat ({worst_r:.1e} of max|g|), 2 microbatches "
+        f"loss {float(m2['loss']):.7f}; both sides {cpu_s:.1f} s")
+    del out, g_c, g_g, s_c, st, params
+    torch.cuda.empty_cache()
+    return cfg, s_g
+
+
+def phase_train_cli():
+    """15c: ``launch.train.main`` in-process on the card (``--smoke``): a
+    straight run; a run stopped at half way and resumed from its
+    checkpoint, whose loss trace equals the straight run's; and a data
+    axis of 2 that loses half of itself at step 3 and completes."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import train as train_cli
+
+    def run(argv):
+        hist, buf = [], io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv + ["--smoke", "--device", "cuda",
+                                        "--global-batch", "8",
+                                        "--seq-len", "64"], history=hist)
+        assert rc == 0, buf.getvalue()
+        return hist, buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as d:
+        straight, out = run(["--steps", str(P15C_STEPS), "--ckpt-dir",
+                             f"{d}/a", "--ckpt-every", "4"])
+        assert "done: 8 steps" in out, out
+        first, _ = run(["--steps", "4", "--ckpt-dir", f"{d}/b"])
+        resumed, out_r = run(["--steps", str(P15C_STEPS), "--ckpt-dir",
+                              f"{d}/b"])
+        assert "[resume] step 4" in out_r, out_r
+        trace = first + resumed
+        assert [s for s, _, _ in trace] == [s for s, _, _ in straight]
+        for (s, a, _), (_, b, _) in zip(trace, straight):
+            assert abs(a - b) <= 1e-5 * abs(b), (s, a, b)
+        elastic, out_e = run(["--steps", "6", "--ckpt-dir", f"{d}/c",
+                              "--data", "2", "--fail-at-step", "3"])
+        assert "[elastic] step 3" in out_e and "done: 6 steps" in out_e, \
+            out_e
+        assert all(np.isfinite(x) for _, x, _ in elastic)
+    log(f"  15c. launch.train on the card (--smoke): straight losses "
+        f"{[round(x, 5) for _, x, _ in straight]}; stopped at 4 and "
+        f"resumed: max rel diff "
+        f"{max(abs(a - b) / abs(b) for (_, a, _), (_, b, _) in zip(trace, straight)):.1e}"
+        f"; --data 2 --fail-at-step 3: [elastic] then done, losses "
+        f"{[round(x, 5) for _, x, _ in elastic]}")
+    for line in out_e.splitlines():
+        if line.startswith(("[elastic]", "[ckpt]", "done")):
+            log(f"    {line}")
+
+
+def phase_train_serve(cfg, state):
+    """15d: 15b's trained weights (still requiring gradients) served
+    through ``codec-cuda``, eager and fused: greedy streams equal the
+    dense ``prefill`` + ``decode_step`` decode of the same weights, PAC
+    and the epilogue launch, and no engine path records an autograd
+    graph (no tensor saved for a backward, no pool requiring grad)."""
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.serving.engine import DecodeEngine
+    model = state.model
+    assert all(p.requires_grad for p in model.parameters())
+    rng = np.random.default_rng(15)
+    doc = rng.integers(1, cfg.vocab_size, 512).tolist()
+    prompts = [doc + rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (8, 40, 72)]
+    new = 16
+    dense = {}
+    for i, p in enumerate(prompts):
+        logits, cache, clen = prefill(model, torch.tensor([p],
+                                                          device="cuda"),
+                                      len(p) + new)
+        out = []
+        for _ in range(new):
+            nxt = int(torch.argmax(logits[0]))
+            out.append(nxt)
+            logits, cache = decode_step(
+                model, torch.tensor([[nxt]], device="cuda"), cache, clen)
+            clen = clen + 1
+        assert logits.grad_fn is None
+        dense[i] = out
+        del cache
+    for fused in (False, True):
+        saved = []
+        eng = DecodeEngine(cfg, model, page_size=PAGE, num_pages=512,
+                           num_lanes=LANES, max_q=MAX_Q, fused=fused,
+                           device="cuda")
+        reset_launches()
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+            for p in prompts:
+                eng.add_request(p, max_new=new)
+            got = eng.run(new + 4)
+        launches = read_launches()
+        assert not saved, saved[:4]
+        assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
+            launches
+        pools = [t for t in vars(eng.pool).values() if torch.is_tensor(t)]
+        assert pools and not any(t.requires_grad for t in pools)
+        diff = first_difference(dense, {i: got[i] for i in dense})
+        assert diff is None, ("15d", fused, diff)
+        release_all(f"15d fused={fused}", eng)
+        log(f"  15d. trained weights served {'fused' if fused else 'eager'}"
+            f" through codec-cuda: streams equal the dense decode "
+            f"({len(prompts)} requests x {new} tokens), launches "
+            f"{launches}, no tensor saved for a backward, pools without "
+            f"grad")
+        del eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3696,6 +4070,24 @@ def main() -> int:
     t14.append(time.perf_counter())
     log(f"  phase 14: 14a-c {t14[1] - t14[0]:.1f} s, 14b "
         f"{t14[2] - t14[1]:.1f} s, 14d {t14[3] - t14[2]:.1f} s")
+
+    log("== 15. training on the card: qwen3-4b at full width and depth, "
+        "the step against the CPU, the launcher, train then serve")
+    del fused7, codec_res, flash_res
+    gc.collect()            # engines and their graphs' pools sit in cycles
+    torch.cuda.empty_cache()
+    t15 = [time.perf_counter()]
+    phase_train_full()
+    t15.append(time.perf_counter())
+    cfg15, state15 = phase_train_parity()
+    t15.append(time.perf_counter())
+    phase_train_cli()
+    t15.append(time.perf_counter())
+    phase_train_serve(cfg15, state15)
+    del state15
+    t15.append(time.perf_counter())
+    log("  phase 15: " + ", ".join(
+        f"15{c} {b - a:.1f} s" for c, a, b in zip("abcd", t15, t15[1:])))
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -286,10 +286,14 @@ def apply_ffn_block(layer, cfg: ModelConfig, ffn: str, x: torch.Tensor,
 def _expert_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, N, k) @ (E, k, n) -> float32: the products of activation-dtype
     inputs accumulated and returned in float32 (``repro``'s
-    ``preferred_element_type=f32``), never rounded to bf16 between."""
+    ``preferred_element_type=f32``), never rounded to bf16 between.
+    While autograd records (training) it takes the float32 product of
+    the upcast inputs: ``bmm``'s ``out_dtype`` form has no derivative."""
     if a.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.bmm(a, w)
-    if a.is_cuda:
+    recording = torch.is_grad_enabled() and (a.requires_grad
+                                             or w.requires_grad)
+    if a.is_cuda and not recording:
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.float(), w.float())
 

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerKind, ModelConfig
 from . import layers as L
@@ -151,6 +152,7 @@ class Transformer(nn.Module):
             prefix_embeds: Optional[torch.Tensor] = None,
             encoder_embeds: Optional[torch.Tensor] = None,
             last_only: bool = False, collect_cache: bool = False,
+            remat: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
         """The full-sequence pass: ``(logits, moe_aux, cache | None)``.
 
@@ -159,7 +161,10 @@ class Transformer(nn.Module):
         ``encoder_embeds`` (audio stub) feed the encoder for cross
         attention.  ``cache``: per layer, its ``k``/``v`` (B, T, Hkv, hd)
         and, with cross attention, ``xk``/``xv``; a Mamba layer's
-        ``conv``/``ssm`` states."""
+        ``conv``/``ssm`` states.  ``remat`` (training) recomputes each
+        period of layers in the backward pass instead of keeping its
+        activations, as ``repro`` checkpoints its scanned period; the
+        remainder layers keep theirs."""
         cfg = self.cfg
         B, T = tokens.shape
         n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
@@ -174,29 +179,50 @@ class Transformer(nn.Module):
                    else None)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
         caches: Cache = []
-        for layer in self.layers:
-            c: Dict[str, torch.Tensor] = {}
-            h = L.apply_norm(layer.ln, x, cfg)
-            if layer.kind.mixer == "mamba":
-                y, (c["conv"], c["ssm"]) = M.mamba_forward(layer.mamba, cfg,
-                                                           h)
+
+        def period(x, aux, lo, hi):
+            for layer in self.layers[lo:hi]:
+                x, a, c = self._layer(layer, x, positions, enc_out)
+                aux = aux + a
+                if collect_cache:
+                    caches.append(c)
+            return x, aux
+
+        P = cfg.period
+        stacked = cfg.num_periods * P
+        assert not (remat and collect_cache)
+        for lo in range(0, stacked, P):
+            if remat:
+                x, aux = checkpoint(period, x, aux, lo, lo + P,
+                                    use_reentrant=False)
             else:
-                y, c["k"], c["v"] = L.attn_full(layer.attn, cfg, h,
-                                                positions, causal=True,
-                                                window=layer.window)
-            x = x + y
-            if (_is_attn(layer.kind) and cfg.cross_attention
-                    and enc_out is not None):
-                hx = L.apply_norm(layer.ln_x, x, cfg)
-                ek, ev = L.cross_kv(layer.xattn, cfg, enc_out)
-                x = x + L.cross_attn_full(layer.xattn, cfg, hx, ek, ev)
-                c["xk"], c["xv"] = ek, ev
-            x, a = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
-            aux = aux + a
-            caches.append(c)
+                x, aux = period(x, aux, lo, lo + P)
+        x, aux = period(x, aux, stacked, len(self.layers))
         x_out = x[:, -1:] if last_only else x[:, n_prefix:]
         return (self.unembed(x_out), aux,
                 caches if collect_cache else None)
+
+    def _layer(self, layer: DecoderLayer, x: torch.Tensor,
+               positions: torch.Tensor, enc_out: Optional[torch.Tensor],
+               ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """One sub-layer over the full sequence: ``(x, moe_aux, cache)``."""
+        cfg = self.cfg
+        c: Dict[str, torch.Tensor] = {}
+        h = L.apply_norm(layer.ln, x, cfg)
+        if layer.kind.mixer == "mamba":
+            y, (c["conv"], c["ssm"]) = M.mamba_forward(layer.mamba, cfg, h)
+        else:
+            y, c["k"], c["v"] = L.attn_full(layer.attn, cfg, h, positions,
+                                            causal=True, window=layer.window)
+        x = x + y
+        if (_is_attn(layer.kind) and cfg.cross_attention
+                and enc_out is not None):
+            hx = L.apply_norm(layer.ln_x, x, cfg)
+            ek, ev = L.cross_kv(layer.xattn, cfg, enc_out)
+            x = x + L.cross_attn_full(layer.xattn, cfg, hx, ek, ev)
+            c["xk"], c["xv"] = ek, ev
+        x, a = L.apply_ffn_block(layer, cfg, layer.kind.ffn, x)
+        return x, a, c
 
     def forward(self, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,

@@ -13,6 +13,9 @@ MLP, ``ffn.router`` / ``ffn.wi`` / ``ffn.wo`` for an MoE).  Layer order
 follows ``repro.serving.engine.flat_layers``: period-major over the stacked
 ``blocks``, then the unrolled remainder ``rem``.  ``lm_head`` and the
 ``encoder`` tree (its layers, then its final norm) come across as they are.
+Any tree of the parameters' structure maps the same way (a gradient,
+Adam's moments); ``from_jax_train_state`` carries an AdamW training state
+across.
 """
 
 from __future__ import annotations
@@ -23,13 +26,14 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .training.trainer import make_state
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a)                     # a contiguous copy; keeps 0-d
     if a.dtype.name == "bfloat16":      # ml_dtypes bfloat16 from jax
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _flatten(tree, pre: str, out: Dict[str, torch.Tensor]) -> None:
@@ -42,6 +46,8 @@ def _flatten(tree, pre: str, out: Dict[str, torch.Tensor]) -> None:
 
 def from_jax_params(cfg: ModelConfig,
                     params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of ``params`` (or of any tree of that structure: a
+    gradient, Adam's ``m`` or ``v``)."""
     out: Dict[str, torch.Tensor] = {"embed": _tensor(params["embed"])}
     _flatten(params["final_norm"], "final_norm.", out)
     i = 0
@@ -67,3 +73,24 @@ def _index(tree, pi: int):
     if isinstance(tree, dict):
         return {k: _index(v, pi) for k, v in tree.items()}
     return tree[pi]
+
+
+def from_jax_train_state(cfg: ModelConfig, state):
+    """The port's ``TrainState`` from ``repro``'s AdamW state, its leaves
+    numpy arrays (``jax.tree.map(np.asarray, state)``): ``step``, the
+    weights and ``m`` / ``v`` / ``count``, by state-dict name.
+
+    An Adafactor state does not carry over: ``repro`` stacks a period's
+    layers, so its Adafactor factors every per-layer 1-d leaf (each norm
+    scale) jointly across periods as a ``(periods, n)`` leaf, which has
+    no per-layer counterpart (the port's leaf keeps a full ``v``)."""
+    opt = state.opt_state
+    if "slots" in opt:
+        raise ValueError("an Adafactor state does not carry over: repro "
+                         "factors its period-stacked 1-d leaves across "
+                         "layers; the port keeps a per-layer v")
+    port_opt = {"m": from_jax_params(cfg, opt["m"]),
+                "v": from_jax_params(cfg, opt["v"]),
+                "count": _tensor(np.asarray(opt["count"]))}
+    return make_state(cfg, from_jax_params(cfg, state.params), port_opt,
+                      _tensor(np.asarray(state.step)))

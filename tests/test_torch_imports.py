@@ -36,6 +36,9 @@ def test_port_imports_with_jax_blocked():
         "    assert 'repro_torch.configs.' + m in mods, mods\n"
         "    assert configs.get_config(arch).name == arch\n"
         "assert 'repro_torch.configs.shapes' in mods, mods\n"
+        "for m in ('data', 'optimizer', 'trainer', 'checkpoint'):\n"
+        "    assert 'repro_torch.training.' + m in mods, mods\n"
+        "assert 'repro_torch.launch.train' in mods, mods\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
         " or k.startswith('repro.') for k, v in sys.modules.items()"
         " if v is not None)\n"
