@@ -205,7 +205,23 @@ Phases (any failure raises and the script exits non-zero):
    axis of 2 that restarts elastically at step 3; (d) (b)'s trained
    weights served through ``codec-cuda`` eager and fused: streams equal
    the dense decode, PAC and the epilogue launch, no autograd graph;
-16. print the ``kernels`` JSON line and the closing device line.
+16. the serving examples and the launch layer's dry run: (a)
+   ``examples/torch_port/{quickstart,serve_docqa,tree_speculation}.py``
+   as subprocesses on the card, side by side: their OK lines, and PAC and
+   the epilogue launched in every ``codec-cuda`` run; (b) in a child
+   process with expandable segments, qwen3-4b x36 bf16 on
+   ``make_host_mesh()`` (1x1): the dry run's decode (8 rows, a 4096-token
+   dense cache), prefill (1 x 4096) and train (4 x 512, AdamW, remat)
+   cells made on the card from seed 0: the argument bytes reckoned on the
+   meta device equal the allocator's (within 512 bytes a tensor), the
+   FLOPs ``FlopCounterMode`` counts over a real step equal the meta count
+   op for op; the temp estimate against the step's peak and ``bound_s``
+   against its median time are printed; (c) ``dryrun --all``'s loop in
+   process (meta runs over a pool of one process a CPU): every cell
+   ``ok`` or ``skip`` with the config's reason, ``fits_hbm`` null on the
+   production meshes, records in ``chiprun_out/dryrun_torch``, one line
+   per (arch, shape) at 16x16;
+17. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -216,6 +232,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -3950,6 +3967,272 @@ def phase_train_serve(cfg, state):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phase 16: the serving examples, and the launch layer's dry run held
+# against the card
+# --------------------------------------------------------------------- #
+P16_EXAMPLES = {
+    "quickstart.py": ("reduction", "codec-cuda    vs ref max |err|",
+                      "hydragen      vs ref max |err|"),
+    "serve_docqa.py": ("codec == hydragen == flash outputs: OK",
+                       "preemption + chunked prefill) outputs: OK",
+                       "SPMD mesh engine outputs: OK"),
+    "tree_speculation.py": ("match the dense oracle", "streams identical"),
+}
+# codec-cuda runs each example prints a launch line for
+P16_RUNS = {"quickstart.py": 1, "serve_docqa.py": 3,
+            "tree_speculation.py": 3}
+P16_TIMEOUT = 300
+# 16b: qwen3-4b x36 at full width, bf16, on make_host_mesh() (1x1)
+P16_CELLS = (("decode", "decode", 4096, 8), ("prefill", "prefill", 4096, 1),
+             ("train", "train", 512, 4))
+P16_STEPS = 5
+DRYRUN_OUT = Path("chiprun_out") / "dryrun_torch"
+
+
+def phase_examples(root):
+    """16a: the three serving examples of ``examples/torch_port`` as
+    subprocesses on the card, side by side: each exits 0 and prints its
+    OK lines, and every ``codec-cuda`` run launched PAC and the epilogue
+    (its ``codec-cuda launches: pac=N epilogue=M`` line, N and M > 0)."""
+    import re
+    pat = re.compile(r"codec-cuda launches: pac=(\d+) epilogue=(\d+)")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(root / "examples" / "torch_port" / name)],
+        cwd=str(root), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in P16_EXAMPLES}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=P16_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        assert proc.returncode == 0, (name, proc.returncode, out[-2000:],
+                                      err[-4000:])
+        for want in P16_EXAMPLES[name]:
+            assert want in out, (name, want, out[-2000:])
+        runs = [(int(p), int(e)) for p, e in pat.findall(out)]
+        assert len(runs) == P16_RUNS[name], (name, runs)
+        assert all(p > 0 and e > 0 for p, e in runs), (name, runs)
+        log(f"  16a. examples/torch_port/{name}: OK lines present, "
+            f"codec-cuda launches (pac, epilogue) per run {runs}")
+        for line in out.splitlines():
+            if "vs ref max |err|" in line or "saved" in line \
+                    or "identical" in line:
+                log(f"       {line.strip()}")
+    log(f"  16a: {time.perf_counter() - t0:.1f} s for the three examples "
+        f"(side by side)")
+
+
+def materialise(cell, gen):
+    """The cell's arguments on the card, from ``gen``: random bf16 weights
+    (and AdamW's zero moments), zero caches, random token ids; the same
+    structure, shapes and dtypes as the meta arguments."""
+    from repro_torch.launch.specs import flatten_args, make_optimizer_for
+    from repro_torch.models import transformer as T
+    from repro_torch.training import trainer
+    cfg, shape = cell.cfg, cell.shape
+    B, S = shape.global_batch, shape.seq_len
+
+    def ids(*size):
+        return torch.randint(0, cfg.vocab_size, size, generator=gen,
+                             device="cuda")
+    if cell.kind == "train":
+        opt, _ = make_optimizer_for(cell.arch, cfg)
+        args = (trainer.init_state(cfg, opt, gen, device="cuda"),
+                (ids(B, S), ids(B, S)))
+    else:
+        model = T.Transformer.from_state_dict(
+            cfg, T.init_params(cfg, gen, device="cuda"))
+        if cell.kind == "prefill":
+            args = (model, ids(B, S))
+        else:
+            cache = T.init_cache(model, B, S)
+            args = (model, ids(B, 1), cache,
+                    torch.full((B,), S - 1, dtype=torch.int64,
+                               device="cuda"))
+    want = {k: (tuple(t.shape), t.dtype) for k, t in cell.flat_args().items()}
+    got = {k: (tuple(t.shape), t.dtype)
+           for k, t in flatten_args(cell.kind, args).items()}
+    assert got == want, sorted(set(got.items()) ^ set(want.items()))[:6]
+    return args
+
+
+def requested_bytes():
+    """The bytes the caching allocator was asked for and still holds
+    (``None`` where this torch does not report them)."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.current")
+
+
+def dryrun_check():
+    """16b (run in a process of its own, with expandable segments, so the
+    caching allocator rounds each block to 512 bytes and no more): for
+    qwen3-4b x36 at full width, bf16, on ``make_host_mesh()`` (1x1), the
+    dry run's decode (8 rows against a dense 4096-token cache), prefill
+    (1 x 4096) and train cells (4 x 512 tokens, AdamW, remat) against the
+    card.  Asserted: the argument bytes the dry run reckons equal the
+    allocator's delta when the same arguments are made on the card
+    (``memory_allocated``, within 512 bytes a tensor; the requested bytes
+    exactly), and the FLOPs ``FlopCounterMode`` counts over one real step
+    equal the meta count, op for op.  Printed: the temp estimate against
+    the step's peak less its arguments, and ``bound_s`` against the
+    step's median time (CUDA events)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import PAPER_ARCH
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import input_specs
+
+    mesh = make_host_mesh()
+    assert mesh.name == "1x1", mesh
+    log(f"  16b. the dry run against the card: {PAPER_ARCH} at full width, "
+        f"bf16, on "
+        f"make_host_mesh() = {mesh.name}; allocator "
+        f"{torch.cuda.get_allocator_backend()}, PYTORCH_CUDA_ALLOC_CONF="
+        f"expandable_segments:True")
+    for name, kind, seq, batch in P16_CELLS:
+        t0 = time.perf_counter()
+        shape = InputShape(f"{name}_h100", kind, seq, batch)
+        counts = {}
+        rec = dryrun.run_cell(PAPER_ARCH, shape, mesh=mesh, counts=counts)
+        assert rec["status"] == "ok", rec
+        (count,) = counts.values()
+        cell = input_specs(PAPER_ARCH, shape, mesh)
+        t_meta = time.perf_counter() - t0
+        mem = rec["memory"]
+        n = len(cell.flat_args())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        r0 = requested_bytes()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        args = materialise(cell, gen)
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - a0
+        requested = None if r0 is None else requested_bytes() - r0
+        arg = int(mem["argument_size_in_bytes"])
+        assert requested in (None, arg), (name, requested, arg)
+        assert arg <= alloc <= arg + 512 * n, (name, alloc, arg, n)
+        # one real step under the counter: the same ops give the same count
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            cell.step_fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - a0 - alloc
+        card = {str(op): float(v) for op, v in
+                fc.get_flop_counts().get("Global", {}).items()}
+        diff = {op: (count.by_op.get(op), card.get(op))
+                for op in set(card) | set(count.by_op)
+                if count.by_op.get(op) != card.get(op)}
+        assert not diff and float(fc.get_total_flops()) == count.flops, \
+            (name, diff)
+        times = []
+        for _ in range(P16_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            cell.step_fn(*args)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]) / 1e3)
+        step_s = statistics.median(times)
+        r = rec["roofline"]
+        log(f"  16b {name} ({batch} x {seq}): arguments reckoned {arg} B, "
+            f"allocator delta {alloc} B (+{alloc - arg} over {n} tensors, "
+            f"requested {requested} B); FLOPs meta {count.flops:.6e} == "
+            f"card {fc.get_total_flops():.6e} "
+            f"({', '.join(f'{k} {v:.4e}' for k, v in sorted(card.items()))})"
+            f"; temp estimate {mem['temp_size_in_bytes'] / 1e9:.3f} GB vs "
+            f"card peak less arguments {peak / 1e9:.3f} GB; bound "
+            f"{r['bound_s'] * 1e3:.3f} ms ({r['dominant']}: compute "
+            f"{r['t_compute_s'] * 1e3:.3f}, memory "
+            f"{r['t_memory_s'] * 1e3:.3f}) vs step median "
+            f"{step_s * 1e3:.3f} ms of {P16_STEPS} "
+            f"({[round(t * 1e3, 2) for t in times]}); min bytes "
+            f"{rec['cost']['bytes_min'] / 1e9:.3f} GB, unfused bytes "
+            f"{rec['cost']['bytes_unfused'] / 1e9:.1f} GB; useful "
+            f"{rec['useful_flops_ratio']:.3f}; per device "
+            f"{rec['per_device_bytes'] / 1e9:.3f} GB, fits_hbm "
+            f"{rec['fits_hbm']}; meta {t_meta:.1f} s, total "
+            f"{time.perf_counter() - t0:.1f} s")
+        del args, fc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun_card(root):
+    """16b in a child process (``chip_smoke.py --dryrun-check``) whose
+    allocator uses expandable segments; its lines are echoed."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    proc = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                           "--dryrun-check"], cwd=str(root), env=env,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    log(f"  16b: {time.perf_counter() - t0:.1f} s (child process)")
+
+
+def phase_dryrun_all():
+    """16c: ``dryrun --all``'s loop (``dryrun.run_all``, its meta runs a
+    pool of one process a CPU): every (arch x shape x mesh) cell is
+    ``ok`` or ``skip`` with the config's skip reason, and nothing lands on
+    the card; one line per (arch, shape) at 16x16."""
+    from repro_torch.configs import (ASSIGNED_ARCHS, PAPER_ARCH, SHAPES,
+                                     get_config, skip_reason)
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    lines = []
+    recs = dryrun.run_all(str(DRYRUN_OUT), log=lines.append)
+    (DRYRUN_OUT / "run_all.log").write_text("\n".join(lines) + "\n")
+    assert torch.cuda.memory_allocated() == a0
+    archs = ASSIGNED_ARCHS + [PAPER_ARCH]
+    assert len(recs) == len(archs) * len(SHAPES) * 2, len(recs)
+    by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    n_ok = n_skip = 0
+    for arch in archs:
+        for shape in SHAPES:
+            for mesh in ("16x16", "2x16x16"):
+                r = by[(arch, shape, mesh)]
+                reason = skip_reason(get_config(arch), shape)
+                if reason:
+                    assert r["status"] == "skip" and r["reason"] == reason, r
+                    n_skip += 1
+                else:
+                    assert r["status"] == "ok", r.get("error", r)
+                    assert r["collectives"] is None
+                    # no total where activations are not split over model
+                    assert r["fits_hbm"] is None, r["fits_hbm"]
+                    n_ok += 1
+            r = by[(arch, shape, "16x16")]
+            if r["status"] == "ok":
+                log(f"  16c {arch} {shape} 16x16: state "
+                    f"{r['state_bytes'] / 1e9:.2f} GB a device "
+                    f"(state_fits_hbm {r['state_fits_hbm']}), temp "
+                    f"{r['memory']['temp_size_in_bytes'] / 1e9:.2f} GB "
+                    f"unsplit, fits_hbm {r['fits_hbm']}, "
+                    f"{r['roofline']['dominant']}"
+                    f"-bound ({r['roofline']['bound_s']:.4g} s), useful "
+                    f"FLOPs ratio {r['useful_flops_ratio']:.3f}")
+            else:
+                log(f"  16c {arch} {shape}: skip ({r['reason']})")
+    log(f"  16c: {n_ok} cells ok, {n_skip} skipped, records in "
+        f"{DRYRUN_OUT}; {time.perf_counter() - t0:.1f} s on "
+        f"{len(os.sched_getaffinity(0))} CPUs, no byte allocated on the "
+        f"card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3963,6 +4246,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if sys.argv[1:] == ["--dryrun-check"]:      # phase 16b's own process
+        dryrun_check()
+        return 0
     t_start = time.perf_counter()
 
     log("== 1. identify + build")
@@ -4088,6 +4374,20 @@ def main() -> int:
     t15.append(time.perf_counter())
     log("  phase 15: " + ", ".join(
         f"15{c} {b - a:.1f} s" for c, a, b in zip("abcd", t15, t15[1:])))
+
+    log("== 16. the serving examples on the card; the launch layer's dry "
+        "run on the meta device against the H100")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = [time.perf_counter()]
+    phase_examples(root)
+    t16.append(time.perf_counter())
+    phase_dryrun_card(root)
+    t16.append(time.perf_counter())
+    phase_dryrun_all()
+    t16.append(time.perf_counter())
+    log("  phase 16: " + ", ".join(
+        f"16{c} {b - a:.1f} s" for c, a, b in zip("abc", t16, t16[1:])))
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

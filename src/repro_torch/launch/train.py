@@ -20,8 +20,10 @@ Runs on the card unless ``--device cpu``.  Features:
   half of the data axis there: the loop saves, halves D, reloads the
   latest checkpoint and carries on (an elastic restart).
 
-``--model M > 1`` (tensor-parallel training) is refused: it needs
-``launch/sharding.py``'s specs and several cards.  ``repro``'s
+``--model M > 1`` (tensor-parallel training) is refused: the specs exist
+(``launch/sharding.py``, checked by ``launch/dryrun.py`` on the meta
+device) but a program that runs them over several cards does not (ROADMAP
+A17).  ``repro``'s
 ``--host-devices`` simulates XLA devices on a CPU and has no counterpart.
 """
 
@@ -59,9 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device (default cuda; cpu for tests)")
     args = ap.parse_args(argv)
     if args.model > 1:
-        ap.error("--model > 1 (tensor-parallel training) is not ported: it "
-                 "needs launch/sharding.py's specs (ROADMAP A16) and "
-                 "several cards (ROADMAP A17)")
+        ap.error("--model > 1 (tensor-parallel training) is not ported: "
+                 "its specs exist (launch/sharding.py, ROADMAP A16) but "
+                 "no multi-card program runs them (ROADMAP A17)")
     return args
 
 

@@ -77,15 +77,22 @@ def init_state(cfg: ModelConfig, optimizer: O.Optimizer,
     return make_state(cfg, params, optimizer.init(params))
 
 
-def abstract_state(cfg: ModelConfig, optimizer: O.Optimizer,
-                   dtype=None) -> TrainState:
-    """The state's shapes and dtypes on the ``meta`` device: nothing is
-    allocated (``state_bytes`` reads it)."""
+def meta_params(cfg: ModelConfig, dtype=None) -> Dict[str, torch.Tensor]:
+    """Every parameter as a ``meta`` tensor of its shape and of the dtype
+    ``init_params`` gives it (float32 router and Mamba scalars)."""
     dtype = T.torch_dtype(cfg, dtype)
     params = {}
     for name, (shape, kind) in T.param_shapes(cfg).items():
         dt = _F32 if kind in ("router", "ones32", "zeros32") else dtype
         params[name] = torch.empty(shape, dtype=dt, device="meta")
+    return params
+
+
+def abstract_state(cfg: ModelConfig, optimizer: O.Optimizer,
+                   dtype=None) -> TrainState:
+    """The state's shapes and dtypes on the ``meta`` device: nothing is
+    allocated (``state_bytes`` reads it)."""
+    params = meta_params(cfg, dtype)
     return make_state(cfg, params, optimizer.init(params))
 
 

@@ -76,3 +76,38 @@ def test_speculation_module_stands_alone():
                          text=True, timeout=60)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[[3, 1, 2]]"
+
+
+LAUNCH = ("mesh", "sharding", "specs", "op_stats", "dryrun")
+EXAMPLES = ("quickstart", "serve_docqa", "tree_speculation", "train_lm")
+
+
+def test_launch_layer_and_examples_stand_alone():
+    """The dry run's modules and the port's examples import neither
+    ``jax`` nor ``repro`` and set no ``XLA_FLAGS``: the launch modules
+    load with both made unimportable and leave the environment as it
+    was."""
+    files = [PORT / "launch" / f"{m}.py" for m in LAUNCH] + [
+        ROOT / "examples" / "torch_port" / f"{m}.py" for m in EXAMPLES]
+    for f in files:
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f
+        assert "XLA_FLAGS" not in text, f
+    code = (
+        "import os, sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "env = dict(os.environ)\n"
+        f"for m in {LAUNCH!r}:\n"
+        "    importlib.import_module('repro_torch.launch.' + m)\n"
+        "assert dict(os.environ) == env\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
+        " or k.startswith('repro.') for k, v in sys.modules.items()"
+        " if v is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
