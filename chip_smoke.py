@@ -172,13 +172,16 @@ Phases (any failure raises and the script exits non-zero):
    fused: a single-device reference that keeps its top-2 logits, then
    1x1, 2x1 and 2x2 meshes with the document split across the data
    shards, and 2x1 with ``replicate``, each traced: TPOT, device busy
-   and kernels a step beside phase 7's, the launches each graph holds
-   (PAC and the epilogue 36 x D x M, ``codec_por`` 36 x log2 D where
-   rows span shards), the merged rows Bm, the sequence-split nodes, the
+   and kernels a step beside phase 7's and beside the figures before
+   the merge kernel, the launches each graph holds (PAC and the epilogue
+   36 x D x M, one ``codec_mesh_merge`` a layer where rows span shards,
+   no ``codec_por``), the merged rows Bm, the sequence-split nodes, the
    replica promotions, the plan's KV bytes each shard reads a step;
    bf16 streams may part from the reference only at near-ties (its
    top-2 logits within 2 bf16 steps at the first differing token); (c)
-   the epilogue's mesh mode (tail-owner flags, float32 ``o``) at shard
+   ``codec_mesh_merge`` at the last step's shapes of the 2x1 and 2x2
+   runs (bitwise equal to the stacked butterfly on ``codec_por``), the
+   epilogue's mesh mode (tail-owner flags, float32 ``o``) at shard
    (0, 0) of the 2x2 run's last step and ``codec_por`` over the
    butterfly's partials, against their plain versions and bounds; (b)
    phase 6's 4-layer f32 model: 1x1, 2x1, 1x2 and 2x2, greedy and at
@@ -712,12 +715,14 @@ def check_flash_decode(gen):
 def reset_launches() -> None:
     from repro_torch.kernels import pac as pac_mod, por as por_mod
     pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
+    por_mod.mesh_merge_launches = 0
 
 
 def read_launches():
     from repro_torch.kernels import pac as pac_mod, por as por_mod
     return {"pac": pac_mod.launches, "por_epilogue": por_mod.epilogue_launches,
-            "por": por_mod.launches}
+            "por": por_mod.launches,
+            "mesh_merge": por_mod.mesh_merge_launches}
 
 
 def last_state(engine):
@@ -766,7 +771,8 @@ def phase_serve(timer):
         f"decode steps {res['steps']}; plan builds {res['replans']}")
     assert lens == [32], lens
     assert finite and all(finite), "non-finite logits"
-    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0}, \
+    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0,
+                        "mesh_merge": 0}, \
         (launches, expect)
     log(f"  launches: PAC {launches['pac']}, epilogue "
         f"{launches['por_epilogue']} = {n_attn} attention layers x "
@@ -1092,7 +1098,8 @@ def phase_serve_flash(cfg, model, codec_res):
     launches = read_launches()
     expect = len(engine.attn_layer_idx) * res["steps"]
     assert finite and all(finite), "non-finite logits"
-    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0}, \
+    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0,
+                        "mesh_merge": 0}, \
         (launches, expect)
     plan, _ = engine._plans[0]
     assert int(plan.task_qnum.max()) == 1, "flash plan shares a task"
@@ -1334,7 +1341,7 @@ def pressured_serve(cfg, model, backend, fused, pages, top2=None,
         expect = n_attn * res["steps"]
         assert launches == {"pac": n_pac * res["steps"],
                             "por_epilogue": expect,
-                            "por": 0}, (tag, launches, expect)
+                            "por": 0, "mesh_merge": 0}, (tag, launches, expect)
     engine.check()
     assert not engine._drafts, tag
     for rid in list(engine.requests):
@@ -1641,7 +1648,8 @@ def phase_lifecycle(cfg, model):
                                 temperature=P9_TEMPERATURE)["A"]
     launches = read_launches()
     expect = cfg.num_layers * sampled_eager["steps"]
-    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0}, \
+    assert launches == {"pac": expect, "por_epilogue": expect, "por": 0,
+                        "mesh_merge": 0}, \
         (launches, expect)
     same = sum(sampled["streams"][r] == sampled_eager["streams"][r]
                for r in sampled["streams"])
@@ -2101,7 +2109,7 @@ def spec_serve(cfg, model, backend, mode, prompts, max_new, widest=None):
     else:
         assert launches == {"pac": n_pac * res["steps"],
                             "por_epilogue": n_attn * res["steps"],
-                            "por": 0}, (tag, launches)
+                            "por": 0, "mesh_merge": 0}, (tag, launches)
     res["launches"] = launches
     res["rows"] = rows
     if spec:
@@ -2417,7 +2425,7 @@ def family_serve(cfg, model, backend, fused, prompts, max_new,
         assert finite and all(finite), (tag, "non-finite logits")
         assert launches == {"pac": n_pac * res["steps"],
                             "por_epilogue": n_attn * res["steps"],
-                            "por": 0}, (tag, launches)
+                            "por": 0, "mesh_merge": 0}, (tag, launches)
     return engine, res
 
 
@@ -2894,7 +2902,8 @@ def phase_mamba2(timer):
     with WindowTally() as tally:
         eng, r_e = family_serve(cfg, model, "codec-cuda", False, prompts,
                                 P13_NEW)
-    assert r_e["launches"] == {"pac": 0, "por_epilogue": 0, "por": 0}, \
+    assert r_e["launches"] == {"pac": 0, "por_epilogue": 0, "por": 0,
+                               "mesh_merge": 0}, \
         r_e["launches"]
     assert not tally.pac and not tally.epi and not eng.attn_layer_idx
     pt = check_ssm_sharing("mamba2 eager", eng, P13_REQUESTS, P13_DOC)
@@ -3222,6 +3231,10 @@ P14D_NEW = [8 + 3 * i for i in range(8)]
 # 14b's pressured pool: one request's 262 pages fit, the batch's 304 do
 # not
 P14_PAGES, P14_CHUNK = 288, 512
+# 14a's fused TPOT (ms) before the merge kernel, when the butterfly ran on
+# codec_por amid 35 other small kernels a layer (tools/chip_phase14.py on
+# an NVIDIA H100 80GB HBM3 at 700.00 W)
+P14_TPOT_BEFORE = {"1x1": 11.86, "2x1": 14.29, "2x2": 18.86}
 
 
 def mesh_engine(cfg, model, d, m, **kw):
@@ -3235,9 +3248,9 @@ def mesh_engine(cfg, model, d, m, **kw):
 
 def check_mesh_graphs(tag, engine, res, d, m):
     """Replays equal steps, one graph a signature, and in each graph D x M
-    PAC and epilogue launches a layer and log2(D) ``codec_por`` launches a
-    layer where rows span shards; returns the merge widths Bm by
-    signature."""
+    PAC and epilogue launches a layer, one ``codec_mesh_merge`` launch a
+    layer where rows span shards and no ``codec_por``; returns the merge
+    widths Bm by signature."""
     n_attn = len(engine.attn_layer_idx)
     step = engine.fused_step
     assert step.replays == res["steps"] == engine.stats["fused_calls"], \
@@ -3250,9 +3263,10 @@ def check_mesh_graphs(tag, engine, res, d, m):
         widths.append(bm)
         assert slot.launches == (n_attn * d * m,) * 2, (tag, sig,
                                                         slot.launches)
-        assert slot.por_launches == (
-            n_attn * (d - 1).bit_length() if bm else 0), (tag, sig,
-                                                           slot.por_launches)
+        assert slot.por_launches == 0, (tag, sig, slot.por_launches)
+        merges = n_attn if d > 1 and bm else 0
+        assert slot.merge_launches == merges, (tag, sig,
+                                               slot.merge_launches)
     return widths
 
 
@@ -3336,6 +3350,81 @@ def mesh_epilogue_bound(q, parts, k_pool, tails, owner, window=0):
     t_ops = flops / PEAK_FLOPS[torch.float32]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def merge_bound(o, scatter, out_dtype):
+    """Least time for ``mesh_merge`` on these inputs: the D shards'
+    partials (o, m, l) of the rows merged here, shard 0's ``o`` of every
+    other row, the indices and ``contrib`` read once, the layer's output
+    written once; D - 1 merges of ~(4 hd + 8) FLOPs a merged row and head
+    over the f32 peak."""
+    D, M, B, h, hd = o.shape
+    n = int((scatter < B).sum())
+    nbytes = (D * M * n * h * (hd + 2) * 4 + M * (B - n) * h * hd * 4
+              + M * B * h * hd * torch.finfo(out_dtype).bits // 8
+              + (2 * scatter.numel() + D) * 8)
+    flops = (D - 1) * M * n * h * (4.0 * hd + 8)
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def mesh_merge_kernel(tag, engine, timer, launches):
+    """14c: ``codec_mesh_merge`` at the last step's shapes of a mesh run,
+    timed with CUDA events beside its plain version and its bound: the
+    step's merge indices and ``contrib``, the last layer's ``m`` and
+    ``l`` as the epilogues left them in the slot's buffers, ``o`` from a
+    seed (zero where a shard holds the identity).  Its rows must equal
+    its plain version's within 1e-6 (``m`` bitwise) and shard 0's rows
+    of the stacked butterfly on ``codec_por`` bitwise."""
+    from repro_torch.kernels import por as por_mod
+    cfg = engine.cfg
+    slot = engine.fused_step._cur
+    base = slot.base.arrays
+    m, l = slot.stats_m.clone(), slot.stats_l.clone()
+    D, M, B, h_loc = m.shape
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    o = torch.randn((D, M, B, h_loc, cfg.head_dim), generator=gen,
+                    device="cuda")
+    o[l == 0] = 0.0
+    args = (o, m, l, base.merge_gather, base.merge_scatter, base.contrib)
+    out_dtype = torch.bfloat16
+    got = por_mod.mesh_merge(*args, torch.float32, stats=True)
+    want = por_mod.mesh_merge_torch(*args, torch.float32, stats=True)
+    gi, si = base.merge_gather, base.merge_scatter
+    Bm = gi.shape[0]
+    n = int((si < B).sum())
+    rows = si[:n]
+    stacked = por_mod.por_subgroup_merge(o[:, :, gi], m[:, :, gi],
+                                         l[:, :, gi], base.contrib)
+    torch.cuda.synchronize()
+    err = assert_close(f"{tag} mesh_merge", got, want, POR_TOL)
+    assert torch.equal(got[1], want[1]), (tag, "m differs from plain")
+    for g, st in zip(got, stacked):
+        assert torch.equal(g[:, rows], st[0][:, :n]), \
+            (tag, "mesh_merge differs from the butterfly on codec_por")
+    cast = por_mod.mesh_merge(*args, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(cast, got[0].to(out_dtype)), (tag, "cast")
+    ms = timer(lambda: por_mod.mesh_merge(*args, out_dtype))
+    med = timer.median
+    plain = timer(lambda: por_mod.mesh_merge_torch(*args, out_dtype))
+    bound, by = merge_bound(o, si, out_dtype)
+    log(f"  14c. codec_mesh_merge at {tag}'s last step ({D} x {M} shards, "
+        f"{B} rows in the bucket, {n} merged (Bm {Bm}), {h_loc} heads x d "
+        f"{cfg.head_dim}, bf16 out): {ms:.4f} ms/launch, mean of 20 "
+        f"(median {med:.4f}; plain {plain:.4f}; bound {bound:.5f} by "
+        f"{by}), max|err| {err:.3e}; bitwise equal to the stacked "
+        f"butterfly on codec_por; {launches['mesh_merge']} launches in the "
+        f"run")
+    return {"name": f"mesh_merge ({tag})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/por.cu",
+            "replaces": "src/repro/kernels/por.py:44 (in "
+                        "por_subgroup_merge, src/repro/kernels/por.py:121)",
+            "launches": launches["mesh_merge"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
 
 
 def mesh_kernels(engine, timer, launches):
@@ -3466,21 +3555,24 @@ def phase_mesh(timer, fused7):
         assert lens == [32], (tag, lens)
         assert launches["pac"] > 0 and launches["por_epilogue"] > 0, \
             (tag, launches)
-        if d > 1:
-            assert launches["por"] > 0, (tag, launches)
+        assert launches["por"] == 0, (tag, launches)
+        assert (launches["mesh_merge"] > 0) == (d > 1), (tag, launches)
         widths = check_mesh_graphs(tag, engine, r, d, m)
         prof = r["profile"]
         splits = max(sp.seq_splits for sp in engine._sharded_plans.values())
         nbytes = mesh_kv_bytes(engine)
         same, worst = check_near_ties(tag, ref["streams"], ref_top2,
                                       r["streams"])
+        before = P14_TPOT_BEFORE.get(tag)
         log(f"  {tag}: TPOT {r['tpot_ms']:.3f} ms "
-            f"({r['tpot_ms'] / r7['tpot_ms']:.2f}x phase 7's), device busy "
+            f"({r['tpot_ms'] / r7['tpot_ms']:.2f}x phase 7's"
+            + (f"; {before} before the merge kernel" if before else "")
+            + f"), device busy "
             f"{prof['device_busy_ms']:.3f} ms a traced step (idle share "
             f"{prof['idle_share']:.3f}), {prof['kernels_per_step']:.0f} "
-            f"kernels a step; a graph holds PAC x {n_attn * d * m}, "
-            f"epilogue x {n_attn * d * m}, codec_por x "
-            f"{n_attn * (d - 1).bit_length()} (where Bm > 0); Bm by "
+            f"kernels a traced step; a graph holds PAC x {n_attn * d * m}, "
+            f"epilogue x {n_attn * d * m}, codec_mesh_merge x "
+            f"{n_attn if d > 1 else 0} (where Bm > 0), codec_por x 0; Bm by "
             f"signature {widths}; {splits} seq-split node(s); replica "
             f"promotions {engine.stats['replica_promotions']}; plan KV a "
             f"step by data shard (each of {m} model shard(s)) "
@@ -3491,8 +3583,10 @@ def phase_mesh(timer, fused7):
             f"{same} of {len(r['streams'])} bf16 streams equal the "
             f"reference's (largest top-2 gap at a first difference "
             f"{worst:.2f} bf16 steps)")
+        if d > 1 and not replicate:
+            kernels.append(mesh_merge_kernel(tag, engine, timer, launches))
         if (d, m) == (2, 2):
-            kernels = mesh_kernels(engine, timer, launches)
+            kernels += mesh_kernels(engine, timer, launches)
         engine.check()
         for rid in list(engine.requests):
             engine.release(rid)

@@ -12,18 +12,21 @@ layer,
 * **per-shard partials**: for each model shard ``m`` (its block of query
   and KV heads, sliced from the shared projections) and each data shard
   ``d``, the backend's raw partials over shard ``d``'s plan and slab
-  (PAC for ``codec-cuda``), then one epilogue launch in stats mode with
-  the row's tail-owner flags and float32 ``o`` (a shard that does not
-  hold a row's tail contributes the POR identity);
-* **the cross-shard merge**: the rows whose KV spans shards
-  (``merge_gather``, ``Bm`` of them, a power of two or 0) are packed and
-  merged by ``kernels.por.por_subgroup_merge`` over the data axis, one
-  pairwise ``codec_por`` launch a merge round for every model shard at
-  once; at ``Bm = 0`` no merge runs;
-* **head-parallel output projection**: shard 0's merged ``o`` is cast to
-  the model's type and each model shard's head block multiplies its row
-  block of ``wo``; the ``M`` partial products are summed in order
-  (``model_sum``), as ``repro`` sums them with a ``psum`` over ``model``.
+  (PAC for ``codec-cuda``), then one epilogue launch with the row's
+  tail-owner flags, writing float32 ``o`` and its ``m`` / ``l`` into the
+  slot's fixed ``(D, M, B, h_loc)`` buffers (a shard that does not hold
+  a row's tail contributes the POR identity);
+* **the cross-shard merge**: one ``kernels.por.mesh_merge`` a layer (the
+  ``codec_mesh_merge`` kernel on the card): the rows whose KV spans
+  shards (``merge_gather``, ``Bm`` of them, a power of two or 0) go
+  through ``por_subgroup_merge``'s butterfly over the data axis for
+  every model shard at once, and shard 0's view of the layer comes out
+  in the model's type; at ``D = 1`` or ``Bm = 0`` no merge runs and
+  shard 0's ``o`` is cast;
+* **head-parallel output projection**: each model shard's head block of
+  shard 0's merged ``o`` multiplies its row block of ``wo``; the ``M``
+  partial products are summed in order (``model_sum``), as ``repro``
+  sums them with a ``psum`` over ``model``.
 
 Everything free of pages and heads (the embedding, FFN/MoE, the Mamba
 carry, the unembedding and sampling) is computed once.  ``repro`` runs it
@@ -117,18 +120,22 @@ def model_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 class _MeshSlot(_Slot):
     """The buffers of one mesh signature: per window, one set of plan
     arrays a data shard, and one PAC output buffer (a model shard's heads)
-    that every shard reuses in turn."""
+    that every shard reuses in turn; the epilogues' ``m`` and ``l``,
+    ``(D, M, bucket, h_loc)`` float32 each, that every layer reuses."""
 
     base_cls = ShardedStepBase
 
     def __init__(self, plans, base, device, h_loc: int, d: int, cfg,
-                 n_mamba: int = 0):
+                 n_mamba: int = 0, *, D: int, M: int):
         super().__init__([], base, device, h_loc, d, cfg, n_mamba)
         self.plans = [[ops.StaticArrays(cls, arrs, device)
                        for cls, arrs in shards] for shards in plans]
         self.pac_out = [ops.pac_outputs(shards[0].arrays, h_loc, d, device)
                         if isinstance(shards[0].arrays, ops.PlanArrays)
                         else None for shards in self.plans]
+        bucket = self.base.arrays.tokens.shape[0]
+        self.stats_m, self.stats_l = torch.empty(
+            (2, D, M, bucket, h_loc), dtype=torch.float32, device=device)
 
     def load(self, plans, base) -> None:
         for statics, shards in zip(self.plans, plans):
@@ -160,7 +167,8 @@ class ShardedStep(FusedStep):
 
     def _new_slot(self, plans, base) -> _MeshSlot:
         return _MeshSlot(plans, base, self.device, self.h_loc,
-                         self.cfg.head_dim, self.cfg, len(self.mamba_idx))
+                         self.cfg.head_dim, self.cfg, len(self.mamba_idx),
+                         D=self.D, M=self.M)
 
     def _logits(self, slot: _MeshSlot, base, q_pos, dlt, mix):
         D, M, h_loc = self.D, self.M, self.h_loc
@@ -181,7 +189,7 @@ class ShardedStep(FusedStep):
             w = self.win_slot[window]
             o = torch.empty((D, M, B, h_loc, hd), dtype=torch.float32,
                             device=qb.device)
-            ms, ls = [], []
+            ms, ls = slot.stats_m, slot.stats_l
             for m in range(M):
                 q_m = qb[:, m * h_loc:(m + 1) * h_loc].contiguous()
                 for d in range(D):
@@ -190,26 +198,16 @@ class ShardedStep(FusedStep):
                     parts = self.backend.parts_arrays(
                         q_m, kp, vp, prepared[w][d], num_queries=B,
                         window=window, out=slot.pac_out[w])
-                    _, m_dm, l_dm = por_mod.por_epilogue(
+                    por_mod.por_epilogue(
                         q_m, *parts, kp, vp, base.tail_page[d], tail_base,
-                        q_pos, window=window, stats=True,
-                        owner=base.tail_owner[d], o_f32=True, out=o[d, m])
-                    ms.append(m_dm)
-                    ls.append(l_dm)
-            o0 = o[0]                                 # (M, B, h_loc, hd)
+                        q_pos, window=window, owner=base.tail_owner[d],
+                        o_f32=True, out=o[d, m], out_m=ms[d, m],
+                        out_l=ls[d, m])
             if D > 1 and Bm > 0:
-                ml = (torch.stack(ms).view(M, D, B, h_loc).transpose(0, 1),
-                      torch.stack(ls).view(M, D, B, h_loc).transpose(0, 1))
-                gi = base.merge_gather
-                og, _, _ = por_mod.por_subgroup_merge(
-                    o[:, :, gi], ml[0][:, :, gi], ml[1][:, :, gi],
-                    base.contrib)
-                # shard 0's merged rows back in place; padded entries go
-                # to the spare row B
-                o0 = torch.cat([o0, o0.new_zeros((M, 1, h_loc, hd))], 1)
-                o0.index_copy_(1, base.merge_scatter, og[0])
-                o0 = o0[:, :B]
-            return o0.to(qb.dtype)
+                return por_mod.mesh_merge(o, ms, ls, base.merge_gather,
+                                          base.merge_scatter, base.contrib,
+                                          qb.dtype)
+            return o[0].to(qb.dtype)                  # (M, B, h_loc, hd)
 
         def project(layer, o0):
             if M == 1:

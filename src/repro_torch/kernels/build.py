@@ -121,6 +121,8 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.codec_por_epilogue.argtypes = ([P, I] + [P] * 7 + [I] + [P] * 5
                                        + [I] + [P] * 2 + [I] * 7 + [F, P])
     lib.codec_por_epilogue.restype = I
+    lib.codec_mesh_merge.argtypes = [P] * 7 + [I] + [P] * 2 + [I] * 6 + [P]
+    lib.codec_mesh_merge.restype = I
     lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 7
                                        + [F, P])
     lib.codec_flash_decode.restype = I

@@ -89,6 +89,51 @@
 //    page size is not checked) and no POR follows: merging an empty tail
 //    would divide o_f * l_f by l_f again and change the last bits.  A query
 //    with an empty segment (a padded row) comes out 0 with m = -1e30, l = 0.
+//
+// 3. codec_mesh_merge is the mesh's cross-shard merge for one layer, in one
+//    launch.  It replaces the Pallas TPU kernel
+//    src/repro/kernels/por.py::por in its role inside por_subgroup_merge
+//    (src/repro/kernels/por.py:121, called by the JAX package's sharded
+//    step, src/repro/distributed/step_fn.py:175-183), together with what
+//    surrounds it there: the row gather, the packing, the ppermute of each
+//    round, the scatter back and the cast.  Inputs are the D data shards'
+//    stats-mode epilogue outputs, o (D, M, B, h, hd) and m, l (D, M, B, h)
+//    float32, as the epilogues wrote them; merge_gather / merge_scatter
+//    (Bm,) int64 (gather padded with 0, scatter with B) and contrib (D,)
+//    int64 0/1 flags.  It writes shard 0's view, (M, B, h, hd) in the
+//    model's type:
+//      - a row b that no scatter slot names is o[0, :, b] cast;
+//      - the row b = merge_scatter[j] is shard 0's result of the subgroup
+//        butterfly over the D shards' partials of row merge_gather[j]:
+//        anchor = the first contributor, xall = max over contributors of
+//        (shard ^ anchor); round `shift` (1, 2, .., D/2) merges when
+//        xall >= shift, else copies (shard s keeps its own value when
+//        s / shift == anchor / shift, else takes shard s ^ shift's).  Shard
+//        0's final value needs, before round `shift`, the shards that are
+//        multiples of `shift`, so the kernel runs the D - 1 merges of that
+//        tree in round order, each one POR of codec_por's arithmetic above
+//        (expf, __fmul_rn, __fadd_rn, __fdiv_rn, the lower shard's side as
+//        the local operand): its rows are bitwise those of the stacked
+//        butterfly on codec_por, and a lone contributor's partials pass
+//        through copy rounds as selects, verbatim.
+//    A padded slot's scatter index is B, which names no row: nothing is
+//    written for it.  Optional out_m / out_l (M, B, h) take shard 0's m
+//    and l the same way.
+//
+//    What bounds it: at the serve's 2x1 mesh (32 heads, hd 128, 8 rows, all
+//    merged, bf16 output) it reads ~0.53 MB of partials and writes 64 KB:
+//    ~0.2 us at 3.35 TB/s, with a few FLOPs a byte.  Its launch bounds it.
+//    The composition it replaces took ~39 small kernels a layer (stack,
+//    gathers, pack, the XOR exchange copy, slice copies, codec_por, the
+//    selects, the scatter, the cast), each a launch and a round trip
+//    through HBM; here the D shards' rows are loaded once into registers,
+//    straight from where the epilogues wrote them, and the output is
+//    written once.  Grid (B, M, head blocks of up to 8 warps), one warp per
+//    query head, a lane holding hd/32 contiguous columns of each shard's
+//    row; every warp finds its row's slot by scanning merge_scatter with a
+//    ballot and reads contrib itself, on the device (no host sync, so it
+//    runs inside a CUDA graph).  It takes D = 1, 2, 4, 8, 16 and
+//    hd = 64, 128, 256, and writes float32 or bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -502,6 +547,153 @@ cudaError_t epilogue_for_types(const EpiArgs& a, int B, int group,
                  : launch_epilogue<D, float, float>(a, B, group, s);
 }
 
+// ------------------------------------------------------------------------
+// The mesh's cross-shard merge
+// ------------------------------------------------------------------------
+
+constexpr int kMergeWarps = 8;  // query heads (warps) a block
+
+struct MergeArgs {
+  const float* o;              // (D, M, B, h, hd)
+  const float* m;              // (D, M, B, h)
+  const float* l;              // (D, M, B, h)
+  const long long* gather;     // (Bm,) rows merged (padding 0)
+  const long long* scatter;    // (Bm,) where they go (padding B)
+  const long long* contrib;    // (D,) 1 for shards with partials
+  void* out;                   // (M, B, h, hd) float32 or bf16
+  float* out_m;                // (M, B, h) or null
+  float* out_l;                // (M, B, h) or null
+  int M, B, h, Bm;
+};
+
+// codec_por's arithmetic on one lane's columns: (o1, m1, l1) is the local
+// operand and takes the result
+template <int C>
+__device__ __forceinline__ void por_merge(float (&o1)[C], float& m1,
+                                          float& l1, const float (&o2)[C],
+                                          float m2, float l2) {
+  const float mx = fmaxf(m1, m2);
+  const float a1 = __fmul_rn(expf(m1 - mx), l1);
+  const float a2 = __fmul_rn(expf(m2 - mx), l2);
+  const float ll = __fadd_rn(a1, a2);
+  const float den = fmaxf(ll, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    o1[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o1[c], a1), __fmul_rn(o2[c], a2)),
+                      den);
+  }
+  m1 = mx;
+  l1 = ll;
+}
+
+// Rounds SHIFT, 2 SHIFT, .. D/2 of the butterfly, on the shards whose
+// values shard 0's result still needs (the multiples of SHIFT).
+template <int ND, int C, int SHIFT>
+__device__ __forceinline__ void butterfly(float (&o)[ND][C], float (&m)[ND],
+                                          float (&l)[ND], int xall,
+                                          int anchor) {
+  if constexpr (SHIFT < ND) {
+    if (xall >= SHIFT) {
+#pragma unroll
+      for (int s = 0; s < ND; s += 2 * SHIFT) {
+        por_merge<C>(o[s], m[s], l[s], o[s + SHIFT], m[s + SHIFT],
+                     l[s + SHIFT]);
+      }
+    } else {
+      // a copy round: a select, no arithmetic
+#pragma unroll
+      for (int s = 0; s < ND; s += 2 * SHIFT) {
+        if (s / SHIFT != anchor / SHIFT) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) o[s][c] = o[s + SHIFT][c];
+          m[s] = m[s + SHIFT];
+          l[s] = l[s + SHIFT];
+        }
+      }
+    }
+    butterfly<ND, C, 2 * SHIFT>(o, m, l, xall, anchor);
+  }
+}
+
+// Grid (B, M, ceil(h / kMergeWarps)), one warp per query head.
+template <int ND, int C, typename OT>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    mesh_merge_kernel(const MergeArgs a) {
+  constexpr int HD = 32 * C;
+  const int b = blockIdx.x, mi = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.z * kMergeWarps + (threadIdx.x >> 5);
+  if (h >= a.h) return;  // whole warps only
+
+  // the merge slot that scatters to row b, if any (padding scatters to B)
+  int slot = -1;
+  for (int j0 = 0; j0 < a.Bm; j0 += 32) {
+    const int j = j0 + lane;
+    const unsigned hit =
+        __ballot_sync(kFullMask, j < a.Bm && a.scatter[j] == b);
+    if (hit) {
+      slot = j0 + __ffs(hit) - 1;
+      break;
+    }
+  }
+  const size_t orow = ((size_t)mi * a.B + b) * a.h + h;  // = shard 0's row
+  float res[C];
+  float mr, lr;
+  if (slot < 0 || ND == 1) {
+    load_cols<C>(a.o + orow * HD + lane * C, res);
+    mr = a.m[orow];
+    lr = a.l[orow];
+  } else {
+    // anchor = the first contributor (0 if none), xall = max over the
+    // contributors of (shard ^ anchor)
+    const bool is_c = lane < ND && a.contrib[lane] > 0;
+    const unsigned cmask = __ballot_sync(kFullMask, is_c);
+    const int anchor = cmask ? __ffs(cmask) - 1 : 0;
+    const int xall = (int)__reduce_max_sync(
+        kFullMask, is_c ? (unsigned)(lane ^ anchor) : 0u);
+    const long long g = a.gather[slot];
+    float o[ND][C], m[ND], l[ND];
+#pragma unroll
+    for (int s = 0; s < ND; ++s) {
+      const size_t r = (((size_t)s * a.M + mi) * a.B + g) * a.h + h;
+      load_cols<C>(a.o + r * HD + lane * C, o[s]);
+      m[s] = a.m[r];
+      l[s] = a.l[r];
+    }
+    butterfly<ND, C, 1>(o, m, l, xall, anchor);
+#pragma unroll
+    for (int c = 0; c < C; ++c) res[c] = o[0][c];
+    mr = m[0];
+    lr = l[0];
+  }
+  store_cols<C>(static_cast<OT*>(a.out) + orow * HD + lane * C, res);
+  if (lane == 0 && a.out_m != nullptr) {
+    a.out_m[orow] = mr;
+    a.out_l[orow] = lr;
+  }
+}
+
+template <int ND, int C>
+cudaError_t launch_merge(const MergeArgs& a, int out_bf16,
+                         cudaStream_t stream) {
+  const int warps = a.h < kMergeWarps ? a.h : kMergeWarps;
+  const dim3 grid(a.B, a.M, (a.h + kMergeWarps - 1) / kMergeWarps);
+  if (out_bf16) {
+    mesh_merge_kernel<ND, C, __nv_bfloat16><<<grid, warps * 32, 0, stream>>>(a);
+  } else {
+    mesh_merge_kernel<ND, C, float><<<grid, warps * 32, 0, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <int ND>
+cudaError_t merge_for_dim(const MergeArgs& a, int hd, int out_bf16,
+                          cudaStream_t s) {
+  if (hd == 64) return launch_merge<ND, 2>(a, out_bf16, s);
+  if (hd == 128) return launch_merge<ND, 4>(a, out_bf16, s);
+  return launch_merge<ND, 8>(a, out_bf16, s);
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).
@@ -572,6 +764,57 @@ extern "C" int codec_por_epilogue(
     err = epilogue_for_types<128>(a, B, group, q_bf16, kv_bf16, s);
   } else {
     err = epilogue_for_types<256>(a, B, group, q_bf16, kv_bf16, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The mesh's cross-shard merge of one layer: o (D, M, B, h, hd), m / l
+// (D, M, B, h) float32; gather / scatter (Bm,) and contrib (D,) int64; out
+// (M, B, h, hd) bf16 when out_bf16, else float32; out_m / out_l (M, B, h)
+// float32 or null.  Returns the cudaError_t of the launch (0 = success),
+// cudaErrorInvalidValue for a shape it does not take.
+extern "C" int codec_mesh_merge(const void* o, const void* m, const void* l,
+                                const void* gather, const void* scatter,
+                                const void* contrib, void* out, int out_bf16,
+                                void* out_m, void* out_l, int D, int M, int B,
+                                int h, int hd, int Bm, void* stream) {
+  if ((D != 1 && D != 2 && D != 4 && D != 8 && D != 16) ||
+      (hd != 64 && hd != 128 && hd != 256) || M < 1 || h < 1 || B < 0 ||
+      Bm < 0 || M > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  MergeArgs a;
+  a.o = static_cast<const float*>(o);
+  a.m = static_cast<const float*>(m);
+  a.l = static_cast<const float*>(l);
+  a.gather = static_cast<const long long*>(gather);
+  a.scatter = static_cast<const long long*>(scatter);
+  a.contrib = static_cast<const long long*>(contrib);
+  a.out = out;
+  a.out_m = static_cast<float*>(out_m);
+  a.out_l = static_cast<float*>(out_l);
+  a.M = M;
+  a.B = B;
+  a.h = h;
+  a.Bm = Bm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 1:
+      err = merge_for_dim<1>(a, hd, out_bf16, s);
+      break;
+    case 2:
+      err = merge_for_dim<2>(a, hd, out_bf16, s);
+      break;
+    case 4:
+      err = merge_for_dim<4>(a, hd, out_bf16, s);
+      break;
+    case 8:
+      err = merge_for_dim<8>(a, hd, out_bf16, s);
+      break;
+    default:
+      err = merge_for_dim<16>(a, hd, out_bf16, s);
   }
   return static_cast<int>(err);
 }

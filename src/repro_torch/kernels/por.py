@@ -14,17 +14,25 @@ merge, written in q's type, in one launch of the kernel
 ``por_epilogue_torch`` (the same composition as plain torch ops) for CPU
 tensors.  ``tail=False`` (the speculative verify step, whose plan covers
 every page) keeps the segment reduction and the cast only.  The mesh's
-step runs it once per shard in stats mode with ``owner=`` (a shard that
-does not hold a row's tail contributes the POR identity) and
-``o_f32=True``
-(float32 ``o``, so the cross-shard merge sees unrounded partials).
+step runs it once per shard with ``owner=`` (a shard that does not hold
+a row's tail contributes the POR identity), ``o_f32=True`` (float32
+``o``, so the cross-shard merge sees unrounded partials) and ``m`` /
+``l`` written into its fixed buffers (``out_m=`` / ``out_l=``).
 
 ``por_allmerge`` and ``por_subgroup_merge`` merge partials stacked over a
 leading data-shard axis ``(D, ...)``, the counterparts of ``repro``'s
 cross-device merges under ``shard_map``: a round's ``ppermute`` is
 ``exchange`` (shard ``i`` receives shard ``i ^ shift``'s buffer) and a
 merge round runs the pairwise ``por`` (the CUDA ``codec_por`` kernel on
-the card) over every shard at once.
+the card) over every shard at once.  No serving path calls them.
+
+``mesh_merge`` is what the mesh's step runs once a layer: shard 0's view
+of ``por_subgroup_merge`` over the rows that span shards, scattered into
+the layer's output and cast, in one launch of the kernel
+``codec_mesh_merge`` for CUDA tensors and through ``mesh_merge_torch``
+(the same composition as plain torch ops, its rounds on ``por_ref``) for
+CPU tensors.  Its rows are bitwise those of the stacked butterfly on
+``codec_por``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from .ref import MASK_VALUE, por_ref
 # counted); chip_smoke.py resets them before driving the serving path
 launches = 0
 epilogue_launches = 0
+mesh_merge_launches = 0
 
 por_torch = por_ref
 
@@ -48,6 +57,8 @@ por_torch = por_ref
 EPILOGUE_HEAD_DIMS = (64, 128, 256)
 EPILOGUE_PAGES = (16, 64)
 EPILOGUE_MAX_GROUP = 8
+# what the mesh merge kernel takes: a power-of-two data axis up to 16
+MERGE_MAX_SHARDS = 16
 
 
 def por(o1: torch.Tensor, m1: torch.Tensor, l1: torch.Tensor,
@@ -171,7 +182,9 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
                  q_pos: torch.Tensor, *, window: int = 0,
                  stats: bool = False,
                  out: Optional[torch.Tensor] = None, tail: bool = True,
-                 owner: Optional[torch.Tensor] = None, o_f32: bool = False):
+                 owner: Optional[torch.Tensor] = None, o_f32: bool = False,
+                 out_m: Optional[torch.Tensor] = None,
+                 out_l: Optional[torch.Tensor] = None):
     """Decode attention's epilogue: segment reduction + tail page + POR.
 
     q: (B, h_q, d) float32/bfloat16; o_parts (P, h_q, d), m_parts /
@@ -194,17 +207,28 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     The mesh's options: ``owner`` (B,) int64, where 0 marks a row whose
     tail page this shard does not hold (its tail partial is the POR
     identity and no tail slot is read); ``o_f32`` writes ``o`` (and takes
-    ``out``) in float32 whatever q's type.
+    ``out``) in float32 whatever q's type; ``out_m`` / ``out_l``: (B, h_q)
+    float32 tensors that take ``m`` and ``l`` (both or neither; with
+    ``stats`` they are the ones returned).
     """
     args = (q, o_parts, m_parts, l_parts, seg_offsets, seg_rows, k_pool,
             v_pool, tail_pages, tail_base, q_pos)
     _check_shapes(*args, tail=tail, owner=owner)
+    if (out_m is None) != (out_l is None):
+        raise ValueError("por_epilogue: give out_m and out_l together")
+    for name, t in (("out_m", out_m), ("out_l", out_l)):
+        if t is not None and tuple(t.shape) != tuple(q.shape[:2]):
+            raise ValueError(f"por_epilogue: {name} shape "
+                             f"{tuple(t.shape)}, expected "
+                             f"{tuple(q.shape[:2])}")
     if q.device.type == "cpu":
         o, m, l = por_epilogue_torch(*args, window=window, tail=tail,
                                      owner=owner, o_f32=o_f32)
         if out is not None:
             out.copy_(o)
             o = out
+        if out_m is not None:
+            m, l = out_m.copy_(m), out_l.copy_(l)
         return (o, m, l) if stats else o
     if q.device.type != "cuda":
         raise ValueError(f"por_epilogue: no kernel for device {q.device}")
@@ -249,8 +273,11 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"por_epilogue: {name} must be 16-byte aligned "
                              f"(vector loads)")
-    m = l = None
-    if stats:
+    m, l = out_m, out_l
+    if m is not None:
+        _check("out_m", m, dev, (f32,))
+        _check("out_l", l, dev, (f32,))
+    elif stats:
         m = torch.empty(B, h_q, dtype=f32, device=dev)
         l = torch.empty(B, h_q, dtype=f32, device=dev)
     lib = build.load()
@@ -290,15 +317,16 @@ def exchange(x: torch.Tensor, shift: int) -> torch.Tensor:
     return pairs.flip(1).reshape(x.shape)
 
 
-def _por_stacked(o1, m1, l1, o2, m2, l2):
-    """``por`` over stacked partials: every leading axis folds into rows,
-    so one launch merges every shard's rows."""
+def _por_stacked(o1, m1, l1, o2, m2, l2, pairwise=por):
+    """``pairwise`` (``por`` or ``por_ref``) over stacked partials: every
+    leading axis folds into rows, so one launch merges every shard's
+    rows."""
     h, d = o1.shape[-2:]
 
     def rows(t, *tail):
         return t.reshape((-1,) + tail).contiguous()
-    o, m, l = por(rows(o1, h, d), rows(m1, h), rows(l1, h),
-                  rows(o2, h, d), rows(m2, h), rows(l2, h))
+    o, m, l = pairwise(rows(o1, h, d), rows(m1, h), rows(l1, h),
+                       rows(o2, h, d), rows(m2, h), rows(l2, h))
     return o.view(o1.shape), m.view(m1.shape), l.view(l1.shape)
 
 
@@ -356,6 +384,11 @@ def por_subgroup_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     contributors; round ``s`` merges iff ``xall >= s``), so one captured
     step serves every contributor pattern.
     """
+    return _subgroup_merge(o, m, l, contrib, por)
+
+
+def _subgroup_merge(o, m, l, contrib, pairwise):
+    """``por_subgroup_merge`` with its merge rounds on ``pairwise``."""
     D = o.shape[0]
     if D <= 1:
         return o, m, l
@@ -369,7 +402,8 @@ def por_subgroup_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     shift = 1
     while shift < D:
         recv = exchange(packed, shift)
-        merged = _pack(*_por_stacked(*_unpack(packed), *_unpack(recv)))
+        merged = _pack(*_por_stacked(*_unpack(packed), *_unpack(recv),
+                                     pairwise=pairwise))
         # a copy round: the anchor's aligned block of ``shift`` shards
         # already holds the finished merge; its XOR partners take it
         have = ((ids // shift) == (anchor // shift)).view(bshape)
@@ -377,3 +411,118 @@ def por_subgroup_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
         packed = torch.where(xall >= shift, merged, copied)
         shift *= 2
     return _unpack(packed)
+
+
+# --------------------------------------------------------------------- #
+# the mesh step's merge of one layer: gather, butterfly, scatter, cast
+# --------------------------------------------------------------------- #
+def mesh_merge_torch(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     merge_gather: torch.Tensor, merge_scatter: torch.Tensor,
+                     contrib: torch.Tensor, out_dtype: torch.dtype, *,
+                     stats: bool = False):
+    """``mesh_merge`` as plain torch ops, the mesh step's composition
+    before the kernel existed: the rows ``merge_gather`` names go through
+    ``por_subgroup_merge`` with its rounds on ``por_ref`` (on whatever
+    device the tensors lie), shard 0's merged rows go back to the rows
+    ``merge_scatter`` names (padding scatters to a spare row, dropped),
+    then the cast."""
+    D, M, B = o.shape[:3]
+    o0, m0, l0 = o[0], m[0], l[0]
+    if D > 1 and merge_gather.shape[0] > 0:
+        gi = merge_gather
+        merged = _subgroup_merge(o[:, :, gi], m[:, :, gi], l[:, :, gi],
+                                 contrib, por_ref)
+
+        def put(x, y):
+            x = torch.cat([x, x.new_zeros((M, 1) + tuple(x.shape[2:]))], 1)
+            x.index_copy_(1, merge_scatter, y[0])
+            return x[:, :B]
+        o0, m0, l0 = (put(x, y) for x, y in zip((o0, m0, l0), merged))
+    o0 = o0.to(out_dtype)
+    return (o0, m0, l0) if stats else o0
+
+
+def _check_merge(o, m, l, merge_gather, merge_scatter, contrib) -> None:
+    if o.dim() != 5:
+        raise ValueError(f"mesh_merge: o shape {tuple(o.shape)}, expected "
+                         f"(D, M, B, h, hd)")
+    D, M, B, h, _ = o.shape
+    Bm = merge_gather.shape[0]
+    for name, t, shape in (("m", m, (D, M, B, h)), ("l", l, (D, M, B, h)),
+                           ("merge_gather", merge_gather, (Bm,)),
+                           ("merge_scatter", merge_scatter, (Bm,)),
+                           ("contrib", contrib, (D,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"mesh_merge: {name} shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if D & (D - 1) or D > MERGE_MAX_SHARDS:
+        raise ValueError(f"mesh_merge takes a power-of-two shard axis up to "
+                         f"{MERGE_MAX_SHARDS}, got {D}")
+
+
+def mesh_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+               merge_gather: torch.Tensor, merge_scatter: torch.Tensor,
+               contrib: torch.Tensor, out_dtype: torch.dtype, *,
+               stats: bool = False):
+    """The mesh step's cross-shard merge of one layer: shard 0's view.
+
+    o: (D, M, B, h, hd) float32 and m / l: (D, M, B, h) float32, each data
+    shard's stats-mode epilogue output for each model shard's heads;
+    ``merge_gather`` / ``merge_scatter`` (Bm,) int64, the rows that span
+    shards and where their result goes (gather padded with 0, scatter
+    with B: a padded slot writes nothing); ``contrib`` (D,) int64, 1 for
+    the shards that hold partials of those rows.  Returns (M, B, h, hd) in
+    ``out_dtype`` (float32 or bfloat16): the rows ``merge_scatter`` names
+    hold shard 0's result of ``por_subgroup_merge`` over the D shards,
+    every other row is ``o[0]`` cast.  ``stats`` also returns shard 0's
+    (M, B, h) ``m`` and ``l``.  CPU tensors take ``mesh_merge_torch``;
+    CUDA tensors launch ``codec_mesh_merge`` once (or raise): nothing is
+    read on the host, so it runs inside a captured graph, and the indices
+    must lie below B (the kernel does not check them).
+    """
+    _check_merge(o, m, l, merge_gather, merge_scatter, contrib)
+    if o.device.type == "cpu":
+        return mesh_merge_torch(o, m, l, merge_gather, merge_scatter,
+                                contrib, out_dtype, stats=stats)
+    if o.device.type != "cuda":
+        raise ValueError(f"mesh_merge: no kernel for device {o.device}")
+    dev = o.device
+    f32, i64 = torch.float32, torch.int64
+    for name, t, dtype in (("o", o, f32), ("m", m, f32), ("l", l, f32),
+                           ("merge_gather", merge_gather, i64),
+                           ("merge_scatter", merge_scatter, i64),
+                           ("contrib", contrib, i64)):
+        if t.device != dev:
+            raise ValueError(f"mesh_merge: {name} on {t.device}, expected "
+                             f"{dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"mesh_merge: {name} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"mesh_merge: {name} must be contiguous")
+    D, M, B, h, hd = o.shape
+    if hd not in EPILOGUE_HEAD_DIMS or out_dtype not in (f32,
+                                                         torch.bfloat16):
+        raise ValueError(f"mesh_merge: the kernel takes hd in "
+                         f"{EPILOGUE_HEAD_DIMS} and float32 or bfloat16 "
+                         f"output, got hd={hd}, {out_dtype}")
+    if o.data_ptr() % 16:
+        raise ValueError("mesh_merge: o must be 16-byte aligned (vector "
+                         "loads)")
+    out = torch.empty((M, B, h, hd), dtype=out_dtype, device=dev)
+    om = ol = None
+    if stats:
+        om = torch.empty((M, B, h), dtype=f32, device=dev)
+        ol = torch.empty((M, B, h), dtype=f32, device=dev)
+    lib = build.load()
+    err = lib.codec_mesh_merge(
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), merge_gather.data_ptr(),
+        merge_scatter.data_ptr(), contrib.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16),
+        None if om is None else om.data_ptr(),
+        None if ol is None else ol.data_ptr(), D, M, B, h, hd,
+        merge_gather.shape[0], torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "codec_mesh_merge")
+    global mesh_merge_launches
+    mesh_merge_launches += 1
+    return (out, om, ol) if stats else out

@@ -421,6 +421,7 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     on_step = (metrics_reporter(engine, args.report_every)
                if telemetry is not None and args.report_every > 0 else None)
     pac_mod.launches = por_mod.launches = por_mod.epilogue_launches = 0
+    por_mod.mesh_merge_launches = 0
     t_submit = time.perf_counter()
     res = serve(engine, prompts, args.max_new, on_step=on_step,
                 profile_steps=args.profile,
@@ -580,6 +581,7 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
                       "pac_launches": pac_mod.launches,
                       "epilogue_launches": por_mod.epilogue_launches,
                       "por_launches": por_mod.launches,
+                      "mesh_merge_launches": por_mod.mesh_merge_launches,
                       "tokens": {str(r): len(t)
                                  for r, t in res["streams"].items()}}))
     return res

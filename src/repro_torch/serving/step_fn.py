@@ -117,10 +117,11 @@ class _Slot:
         self.out = torch.zeros((2, bucket), dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # (PAC, epilogue) and pairwise POR launches recorded into the graph
-        # at its capture
+        # (PAC, epilogue), pairwise POR and mesh merge launches recorded
+        # into the graph at its capture
         self.launches: Optional[Tuple[int, int]] = None
         self.por_launches: Optional[int] = None
+        self.merge_launches: Optional[int] = None
 
     def load(self, plans, base) -> None:
         for static, (_, arrs) in zip(self.plans, plans):
@@ -260,7 +261,8 @@ class FusedStep:
             self.device, self._mempool,
             lambda: self._body(slot, feed=False),
             lambda: self._body(slot, feed=True))
-        slot.launches, slot.por_launches = launches[:2], launches[2]
+        slot.launches = launches[:2]
+        slot.por_launches, slot.merge_launches = launches[2:]
         self.graphs += 1
         self.capture_time += time.perf_counter() - t0
 
@@ -326,21 +328,22 @@ def capture_graph(device, mempool, warm_up, body):
     """Run ``warm_up()`` eagerly on a side stream (it builds the kernel
     library, sets the kernels' shared-memory attributes and warms
     cuBLAS), then capture ``body()`` into a new ``torch.cuda.CUDAGraph``
-    in ``mempool``.  Returns the graph, the (PAC, epilogue, pairwise POR)
-    launches recorded into it and ``body``'s result; any failure
-    raises."""
+    in ``mempool``.  Returns the graph, the (PAC, epilogue, pairwise POR,
+    mesh merge) launches recorded into it and ``body``'s result; any
+    failure raises."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         warm_up()
     torch.cuda.current_stream(device).wait_stream(side)
-    pac0, epi0, por0 = (pac_mod.launches, por_mod.epilogue_launches,
-                        por_mod.launches)
+    def counts():
+        return (pac_mod.launches, por_mod.epilogue_launches,
+                por_mod.launches, por_mod.mesh_merge_launches)
+    before = counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=mempool):
         out = body()
-    launches = (pac_mod.launches - pac0, por_mod.epilogue_launches - epi0,
-                por_mod.launches - por0)
+    launches = tuple(b - a for a, b in zip(before, counts()))
     torch.cuda.synchronize(device)
     return graph, launches, out
 

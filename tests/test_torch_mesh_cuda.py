@@ -1,7 +1,9 @@
 """The mesh's kernels and step on the card: the epilogue's tail-owner flag
 and float32 output against the plain version, the cross-shard POR merge
-on ``codec_por`` against its CPU twin, and mesh engines against the
-single-device fused engine.
+on ``codec_por`` against its CPU twin, the layer's merge kernel
+``codec_mesh_merge`` against its plain version and against the stacked
+butterfly on ``codec_por``, and mesh engines against the single-device
+fused engine.
 
 Needs an NVIDIA GPU and ``nvcc`` (the kernels are built on first use);
 skips elsewhere.  Run on the card with
@@ -141,6 +143,86 @@ def test_por_subgroup_merge_on_card(D):
                     assert torch.equal(g[s].cpu(), torch.from_numpy(x[src]))
 
 
+def _merge_patterns(D, rng):
+    """Every contributor pattern for D <= 4; for D = 8 each lone
+    contributor, every shard, aligned blocks and a few drawn at random."""
+    if D <= 4:
+        return [m for m in itertools.product([False, True], repeat=D)
+                if any(m)]
+    pats = [tuple(s == i for s in range(D)) for i in range(D)]
+    pats += [tuple(s // k == j for s in range(D))
+             for k in (2, 4) for j in range(D // k)]
+    pats.append((True,) * D)
+    while len(pats) < 2 * D + 12:
+        m = tuple(bool(x) for x in rng.integers(0, 2, D))
+        if any(m):
+            pats.append(m)
+    return pats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_mesh_merge_on_card(D, hd):
+    """On an H100: ``codec_mesh_merge`` over M = 1, 2 model shards, 12
+    heads (two head blocks), bf16 and f32 output, 1, 2, 3 and 7 merged
+    rows of 8 (Bm = 1, 2, 4 and 8 = B, the last two padded): one launch a
+    call and no ``codec_por``; against its plain version on the card at
+    1e-6 with ``m`` bitwise; bitwise equal to shard 0's rows of the
+    stacked butterfly on ``codec_por``; a lone contributor's partials
+    verbatim; rows not merged are shard 0's, cast; bf16 is the f32
+    result cast; two launches give the same bits."""
+    _need_card()
+    from repro_torch.distributed.step_fn import sharded_step_base
+    rng = np.random.default_rng(100 * D + hd)
+    B, h = 8, 12
+    for M in (1, 2):
+        for n in (1, 2, 3, 7):
+            rows = sorted(rng.choice(B, n, replace=False).tolist())
+            keep = [r for r in range(B) if r not in rows]
+            for mask in _merge_patterns(D, rng):
+                c = np.asarray(mask, np.int64)
+                base = sharded_step_base(
+                    [0] * B, [0] * B, np.zeros((D, B), np.int64), [0] * B,
+                    [0] * B, np.ones((D, B), np.int64), rows, c, B, 0)
+                gi, si, ct = (torch.from_numpy(x).cuda()
+                              for x in base[7:10])
+                o = rng.standard_normal((D, M, B, h, hd)).astype(np.float32)
+                m = (3 * rng.standard_normal((D, M, B, h))).astype(
+                    np.float32)
+                l = rng.uniform(0.5, 4.0, (D, M, B, h)).astype(np.float32)
+                for s in range(D):
+                    if not mask[s]:
+                        o[s], m[s], l[s] = 0.0, MASK_VALUE, 0.0
+                o, m, l = (torch.from_numpy(x).cuda() for x in (o, m, l))
+                n0, p0 = por_mod.mesh_merge_launches, por_mod.launches
+                got = por_mod.mesh_merge(o, m, l, gi, si, ct, torch.float32,
+                                         stats=True)
+                bf = por_mod.mesh_merge(o, m, l, gi, si, ct, torch.bfloat16)
+                again = por_mod.mesh_merge(o, m, l, gi, si, ct,
+                                           torch.float32, stats=True)
+                assert por_mod.mesh_merge_launches - n0 == 3
+                assert por_mod.launches == p0
+                plain = por_mod.mesh_merge_torch(o, m, l, gi, si, ct,
+                                                 torch.float32, stats=True)
+                stacked = por_mod.por_subgroup_merge(
+                    o[:, :, gi], m[:, :, gi], l[:, :, gi], ct)
+                torch.cuda.synchronize()
+                key = (M, n, mask)
+                assert bf.dtype == torch.bfloat16
+                assert torch.equal(bf, got[0].to(torch.bfloat16)), key
+                for g, a, p, st, x in zip(got, again, plain, stacked,
+                                          (o, m, l)):
+                    assert torch.equal(g, a), key
+                    torch.testing.assert_close(g, p, rtol=1e-6, atol=1e-6)
+                    assert torch.equal(g[:, rows], st[0][:, :n]), key
+                    assert torch.equal(g[:, keep], x[0][:, keep]), key
+                    if sum(mask) == 1:
+                        src = mask.index(True)
+                        assert torch.equal(g[:, rows], x[src][:, rows])
+                assert torch.equal(got[1], plain[1]), key
+
+
 def _mesh_model():
     """qwen3-4b at small widths with the epilogue's smallest head dim,
     4 query heads over 2 KV heads (a 2-way model axis leaves 2 over 1),
@@ -173,8 +255,8 @@ def test_mesh_streams_equal_fused_on_card():
     """On an H100: at f32 weights every mesh's streams (greedy and at
     temperature 0.7) equal the single-device fused engine's; one graph a
     signature, each holding D x M PAC and epilogue launches a layer and,
-    where rows span shards, log2(D) ``codec_por`` launches a layer; no
-    page leaks on any shard."""
+    where rows span shards, one ``codec_mesh_merge`` launch a layer and
+    no ``codec_por``; no page leaks on any shard."""
     _need_card()
     from repro_torch.distributed import decode_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -192,8 +274,8 @@ def test_mesh_streams_equal_fused_on_card():
             for sig, slot in step.slots.items():
                 assert slot.launches == (layers * d * m,) * 2, sig
                 bm = sig[-1][1]
-                assert slot.por_launches == (
-                    layers * (d - 1).bit_length() if bm else 0), sig
+                assert slot.por_launches == 0, sig
+                assert slot.merge_launches == (layers if bm else 0), sig
                 merged |= bm > 0
             assert merged == (d > 1)
             for r in list(eng.requests):

@@ -15,9 +15,17 @@ options: the port against ``repro`` on the same inputs.
   under ``shard_map`` in one subprocess with four host devices, for every
   contributor pattern at D = 2 and 4; the port's stacked versions on the
   same partials match at 1e-6, bitwise where one shard contributes;
+* the mesh step's merge of one layer (``mesh_merge``, its plain version
+  here): the same ``repro`` merges, placed at rows of a layer's
+  ``(D, M, B, h, hd)`` partials through gather / scatter indices, give
+  ``repro``'s shard-0 rows at 1e-6 with ``m`` bitwise, a lone
+  contributor's rows bitwise; padded slots write nothing and rows that
+  are not merged come out as shard 0's, cast; the step calls it once a
+  layer and never the pairwise ``por``;
 * the epilogue's tail-owner flag and float32 output against ``repro``'s
   sharded-step arithmetic (``combine_partials_stats``,
-  ``single_page_attention``, the identity select, ``por_ref``);
+  ``single_page_attention``, the identity select, ``por_ref``), and its
+  ``out_m`` / ``out_l``;
 * the mesh's and the engine's guards, and the serve CLI on a 2x2 mesh.
 
 Every cost model on both sides takes one explicit ``HardwareSpec`` (the
@@ -437,6 +445,171 @@ def test_por_merges_match_repro(D, repro_merges):
                                               z[f"{key}_sub_{part}"])
 
 
+MERGE_ROWS = [6, 1, 4, 2, 5]      # the fixture's 5 rows, in a 7-row layer
+
+
+def _layer(z, key, B=7, M=2, seed=0):
+    """A layer's ``(D, M, B, h, hd)`` partials holding the fixture's rows
+    of ``key`` at ``MERGE_ROWS`` (model shard 1 in reverse order), every
+    other row random on every shard; gather / scatter padded to 8 as
+    ``sharded_step_base`` pads them."""
+    o, m, l = (z[f"{key}_{x}"] for x in "oml")
+    D, _, h, hd = o.shape
+    rng = np.random.default_rng(seed)
+    O = rng.standard_normal((D, M, B, h, hd)).astype(np.float32)
+    Mx = (3.0 * rng.standard_normal((D, M, B, h))).astype(np.float32)
+    Lx = rng.uniform(0.5, 4.0, (D, M, B, h)).astype(np.float32)
+    for X, x in ((O, o), (Mx, m), (Lx, l)):
+        X[:, 0, MERGE_ROWS] = x
+        X[:, 1, MERGE_ROWS] = x[:, ::-1]
+    n = len(MERGE_ROWS)
+    gather = np.array(MERGE_ROWS + [0] * (8 - n), np.int64)
+    scatter = np.array(MERGE_ROWS + [B] * (8 - n), np.int64)
+    c = z[f"{key}_c"].astype(np.int64)
+    return [torch.from_numpy(x) for x in (O, Mx, Lx, gather, scatter, c)]
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_merge_matches_repro(D, repro_merges):
+    """Every contributor pattern: the merged rows are ``repro``'s shard-0
+    rows (1e-6, ``m`` and a lone contributor bitwise), the others shard
+    0's own, cast to f32 and bf16."""
+    z = repro_merges
+    keys = sorted({k.rsplit("_", 1)[0] for k in z
+                   if k.startswith(f"{D}_") and k.endswith("_c")})
+    assert len(keys) == 2 ** D - 1
+    rest = [0, 3]
+    for key in keys:
+        args = _layer(z, key)
+        o = args[0]
+        want = [z[f"{key}_sub_{x}"][0] for x in "oml"]
+        got = por_mod.mesh_merge(*args, torch.float32, stats=True)
+        assert got[0].shape == o.shape[1:]
+        for g, x in zip(got, args[:3]):
+            assert torch.equal(g[:, rest], x[0][:, rest])
+        for mi, order in ((0, slice(None)), (1, slice(None, None, -1))):
+            for part, (g, w) in enumerate(zip(got, want)):
+                w = np.ascontiguousarray(w[order])
+                g = g[mi, MERGE_ROWS].numpy()
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
+                                           err_msg=(key, part))
+                if part == 1:
+                    np.testing.assert_array_equal(g, w)
+        # the cast comes after the merge
+        bf = por_mod.mesh_merge(*args, torch.bfloat16)
+        assert bf.dtype == torch.bfloat16
+        assert torch.equal(bf, got[0].to(torch.bfloat16))
+        c = z[f"{key}_c"]
+        if c.sum() == 1:
+            src = int(np.argmax(c))
+            for g, x in zip(got, args[:3]):
+                assert torch.equal(g[:, MERGE_ROWS], x[src][:, MERGE_ROWS])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mesh_merge_pads_and_leaves_other_rows(n, dtype):
+    """``Bm < B`` with padded slots (from ``sharded_step_base``: gather 0,
+    scatter B): row 0 and every row not merged is shard 0's, cast, though
+    the padding gathers row 0; each merged row is shard 0's result of
+    ``por_subgroup_merge`` over that row alone; ``Bm = 0`` merges
+    nothing."""
+    from repro_torch.distributed.step_fn import sharded_step_base
+    D, M, B, h, hd = 4, 2, 8, 3, 16
+    rng = np.random.default_rng(n)
+    merge_rows = sorted(rng.choice(np.arange(1, B), n, replace=False)
+                        .tolist())
+    base = sharded_step_base([0] * B, [0] * B, np.zeros((D, B), np.int64),
+                             [0] * B, [0] * B, np.ones((D, B), np.int64),
+                             merge_rows, np.array([1, 0, 1, 1]), B, 0)
+    gather, scatter, c = (torch.from_numpy(x) for x in base[7:10])
+    assert gather.shape[0] == (0 if n == 0 else 1 << (n - 1).bit_length())
+    o = torch.from_numpy(rng.standard_normal((D, M, B, h, hd)).astype(
+        np.float32))
+    m = torch.from_numpy((3 * rng.standard_normal((D, M, B, h))).astype(
+        np.float32))
+    l = torch.from_numpy(rng.uniform(0.5, 4, (D, M, B, h)).astype(
+        np.float32))
+    m[1], l[1], o[1] = -1e30, 0.0, 0.0      # shard 1 does not contribute
+    got, gm, gl = por_mod.mesh_merge(o, m, l, gather, scatter, c, dtype,
+                                     stats=True)
+    keep = [r for r in range(B) if r not in merge_rows]
+    assert 0 in keep
+    assert torch.equal(got[:, keep], o[0][:, keep].to(dtype))
+    assert torch.equal(gm[:, keep], m[0][:, keep])
+    assert torch.equal(gl[:, keep], l[0][:, keep])
+    for r in merge_rows:
+        wo, wm, wl = por_mod.por_subgroup_merge(
+            o[:, :, r:r + 1], m[:, :, r:r + 1], l[:, :, r:r + 1], c)
+        assert torch.equal(got[:, r], wo[0][:, 0].to(dtype))
+        assert torch.equal(gm[:, r], wm[0][:, 0])
+        assert torch.equal(gl[:, r], wl[0][:, 0])
+    if n:
+        assert not torch.equal(got[:, merge_rows],
+                               o[0][:, merge_rows].to(dtype))
+
+
+def test_mesh_merge_guards():
+    o = torch.zeros(3, 1, 2, 1, 64)
+    ml = torch.zeros(3, 1, 2, 1)
+    idx = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="power-of-two"):
+        por_mod.mesh_merge(o, ml, ml, idx, idx, torch.ones(3),
+                           torch.float32)
+    with pytest.raises(ValueError, match="power-of-two"):
+        por_mod.mesh_merge(*(torch.zeros((32,) + t.shape[1:])
+                             for t in (o, ml, ml)), idx, idx,
+                           torch.ones(32), torch.float32)
+    with pytest.raises(ValueError, match="merge_scatter shape"):
+        por_mod.mesh_merge(o[:2], ml[:2], ml[:2], idx,
+                           torch.zeros(2, dtype=torch.int64), torch.ones(2),
+                           torch.float32)
+    with pytest.raises(ValueError, match="m shape"):
+        por_mod.mesh_merge(o[:2], ml[:1], ml[:2], idx, idx, torch.ones(2),
+                           torch.float32)
+
+
+def test_mesh_step_merges_once_a_layer(monkeypatch):
+    """The fused mesh step (its body runs eagerly on the CPU) calls
+    ``mesh_merge`` once an attention layer on a 2x2 mesh whose document
+    spans the data shards, and never the pairwise ``por``; its streams
+    equal the 1x1 mesh's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+    cfg = smoke_config("qwen2.5-14b")
+    model = build_model(cfg, seed=0, device="cpu", dtype=torch.float32)
+    calls = {"merge": 0, "por": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+    monkeypatch.setattr(por_mod, "mesh_merge",
+                        counted("merge", por_mod.mesh_merge))
+    monkeypatch.setattr(por_mod, "por", counted("por", por_mod.por))
+
+    def run(d, m):
+        eng = DecodeEngine(cfg, model, device="cpu", mesh=decode_mesh(
+            d, m, device="cpu"), fused=True, num_pages=64, page_size=8,
+            max_q=8, seq_split_pages=2)
+        doc = list(range(10, 58))
+        rids = [eng.add_request(doc + [100 + i], max_new=4)
+                for i in range(3)]
+        eng.run(32)
+        return eng, [list(eng.requests[r].generated) for r in rids]
+    _, want = run(1, 1)
+    assert calls == {"merge": 0, "por": 0}
+    eng, got = run(2, 2)
+    assert got == want
+    layers = len(eng.attn_layer_idx)
+    decode_steps = eng.stats["fused_calls"]
+    assert decode_steps > 0 and calls["por"] == 0
+    assert calls["merge"] == layers * decode_steps, (calls, decode_steps)
+
+
 def test_exchange_is_the_xor_permutation():
     x = torch.arange(8 * 3).view(8, 3)
     for shift in (1, 2, 4):
@@ -513,6 +686,43 @@ def test_epilogue_owner_f32_matches_repro(window):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                        atol=1e-5)
+
+
+def test_epilogue_writes_out_m_and_out_l():
+    """``por_epilogue(out_m=, out_l=)`` on the plain path writes the ``m``
+    and ``l`` it computes into the given tensors, returns them with
+    ``stats`` and leaves ``o`` as without them."""
+    rng = np.random.default_rng(3)
+    B, h, d, page, P = 3, HQ, D_HEAD, 8, 5
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    q, o_p, m_p = t(B, h, d), t(P, h, d), 3 * t(P, h)
+    l_p = torch.from_numpy(rng.uniform(0.5, 4, (P, h)).astype(np.float32))
+    k, v = t(4, page, HKV, d), t(4, page, HKV, d)
+    seg = (torch.tensor([0, 2, 3, 5], dtype=torch.int32),
+           torch.arange(5, dtype=torch.int32))
+    tails = (torch.tensor([0, 2, 3]), torch.tensor([16, 24, 40]),
+             torch.tensor([19, 24, 47]))
+    owner = torch.tensor([1, 0, 1])
+    args = (q, o_p, m_p, l_p, *seg, k, v, *tails)
+    kw = dict(owner=owner, o_f32=True)
+    want = por_mod.por_epilogue(*args, stats=True, **kw)
+    om, ol = torch.full((2, B, h), float("nan")).unbind(0)
+    got = por_mod.por_epilogue(*args, stats=True, out_m=om, out_l=ol, **kw)
+    assert got[1] is om and got[2] is ol
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    om.fill_(float("nan"))
+    ol.fill_(float("nan"))
+    o = por_mod.por_epilogue(*args, out_m=om, out_l=ol, **kw)
+    assert torch.equal(o, want[0])
+    assert torch.equal(om, want[1]) and torch.equal(ol, want[2])
+    with pytest.raises(ValueError, match="together"):
+        por_mod.por_epilogue(*args, out_m=om, **kw)
+    with pytest.raises(ValueError, match="out_l shape"):
+        por_mod.por_epilogue(*args, out_m=om, out_l=ol[:2], **kw)
 
 
 # --------------------------------------------------------------------- #
