@@ -219,11 +219,17 @@ Phases (any failure raises and the script exits non-zero):
    meta device equal the allocator's (within 512 bytes a tensor), the
    FLOPs ``FlopCounterMode`` counts over a real step equal the meta count
    op for op; the temp estimate against the step's peak and ``bound_s``
-   against its median time are printed; (c) ``dryrun --all``'s loop in
-   process (meta runs over a pool of one process a CPU): every cell
-   ``ok`` or ``skip`` with the config's reason, ``fits_hbm`` null on the
-   production meshes, records in ``chiprun_out/dryrun_torch``, one line
-   per (arch, shape) at 16x16;
+   against its median time are printed; then the decode and train cells
+   on a 1x2 (data, model) mesh: partitioned on the meta device, then
+   rank 0's local program run on the card under the same fake world
+   (real CUDA shards, no-op collectives): its FLOPs and collectives equal
+   the meta run's op for op, its argument bytes the allocator's, and
+   ``per_device_bytes`` is printed against the card's peak; (c) the dry
+   run's loop in process (meta runs over a pool of one process a CPU)
+   for qwen3-4b and llama4-scout on both production meshes: every cell
+   ``ok`` or ``skip`` with the config's reason, partitioned on 16x16
+   with collectives and a boolean ``fits_hbm``, the unpartitioned record
+   with its reason on 2x16x16, records in ``chiprun_out/dryrun_torch``;
 17. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
@@ -4081,6 +4087,13 @@ P16_TIMEOUT = 300
 P16_CELLS = (("decode", "decode", 4096, 8), ("prefill", "prefill", 4096, 1),
              ("train", "train", 512, 4))
 P16_STEPS = 5
+# 16b's model-split cells: the same model on a 1x2 (data, model) mesh, the
+# local program of rank 0 run on the card under the dry run's fake world
+P16_SPLIT_MESH = (1, 2)
+P16_SPLIT_CELLS = (("decode", "decode", 4096, 8), ("train", "train", 512, 4))
+# 16c: the dry run's loop on both production meshes for these archs (the
+# full --all is ``python -m repro_torch.launch.dryrun --all`` on a CPU host)
+P16_ALL_ARCHS = ("qwen3-4b", "llama4-scout-17b-a16e")
 DRYRUN_OUT = Path("chiprun_out") / "dryrun_torch"
 
 
@@ -4259,6 +4272,86 @@ def dryrun_check():
         del args, fc
         gc.collect()
         torch.cuda.empty_cache()
+    dryrun_check_split()
+
+
+def dryrun_check_split():
+    """16b's model-split half: qwen3-4b x36 bf16 on a 1x2 (data, model)
+    mesh.  The dry run partitions each cell on the meta device; then the
+    same cell is made again under the same fake world with its local
+    shards zeros on the card (``input_specs(partitioned=True,
+    device="cuda")``), and rank 0's local program runs there, its
+    collectives the fake backend's no-ops, counted by the same
+    ``OpStats``.  Both runs use a ``cuda`` ``DeviceMesh`` (DTensor moves
+    a local shard to its mesh's device type; the dry run's default
+    ``cpu`` mesh would bring the shards back to the host), so both
+    partition alike.  Asserted: the local FLOPs of the card's run equal the
+    meta count op for op, the same collectives, and the allocator's
+    argument bytes equal the reckoned local shards (within 512 bytes a
+    tensor).  Printed: ``per_device_bytes`` against the card's peak
+    (``max_memory_allocated``), and the collectives by kind."""
+    from repro_torch.configs import PAPER_ARCH
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, op_stats
+    from repro_torch.launch.mesh import LaunchMesh, device_mesh
+    from repro_torch.launch.specs import input_specs
+
+    mesh = LaunchMesh(("data", "model"), P16_SPLIT_MESH)
+    log(f"  16b. the model-split mesh {mesh.name}: {PAPER_ARCH} x36 bf16, "
+        f"rank 0's local program of the fake world ({mesh.size} ranks, "
+        f"no-op collectives) on the card")
+    for name, kind, seq, batch in P16_SPLIT_CELLS:
+        t0 = time.perf_counter()
+        shape = InputShape(f"{name}_h100", kind, seq, batch)
+        meta = dryrun.count_local(PAPER_ARCH, shape, mesh, {},
+                                  device_type="cuda")
+        rec = dryrun.run_cell(PAPER_ARCH, shape, mesh=mesh, local=meta)
+        assert rec["status"] == "ok", rec
+        t_meta = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        with device_mesh(mesh, "cuda") as dm:
+            cell = input_specs(PAPER_ARCH, shape, mesh, partitioned=True,
+                               device_mesh=dm, device="cuda")
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated() - a0
+            n = len(cell.flat_args())
+            arg = int(rec["memory"]["argument_size_in_bytes"])
+            assert arg <= alloc <= arg + 512 * n, (name, alloc, arg, n)
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            card = op_stats.count_cell(cell)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated() - a0
+            del cell
+        diff = {op: (meta.by_op.get(op), card.by_op.get(op))
+                for op in set(card.by_op) | set(meta.by_op)
+                if meta.by_op.get(op) != card.by_op.get(op)}
+        assert not diff and card.flops == meta.flops, (name, diff)
+        kinds = [(c.kind, c.in_bytes, c.out_bytes, c.ranks)
+                 for c in card.collectives]
+        assert kinds == [(c.kind, c.in_bytes, c.out_bytes, c.ranks)
+                         for c in meta.collectives], name
+        per_dev = rec["per_device_bytes"]
+        c = rec["collectives"]
+        log(f"  16b {name} ({batch} x {seq}) at {mesh.name}: local FLOPs "
+            f"meta {meta.flops:.6e} == card {card.flops:.6e} (total "
+            f"{rec['cost']['flops_total']:.6e}); arguments reckoned {arg} "
+            f"B, allocator {alloc} B over {n} shards; per_device_bytes "
+            f"{per_dev / 1e9:.3f} GB (state {rec['state_bytes'] / 1e9:.3f}"
+            f" + temp {rec['memory']['temp_size_in_bytes'] / 1e9:.3f}) vs "
+            f"card peak {peak / 1e9:.3f} GB ({peak / per_dev:.3f}x), "
+            f"fits_hbm {rec['fits_hbm']}; collectives "
+            f"{ {k: v for k, v in c['count'].items() if v} } "
+            f"{c['total_link_bytes'] / 1e9:.3f} GB on links, "
+            f"t_collective {rec['roofline']['t_collective_s'] * 1e3:.3f} "
+            f"ms; rules {rec['partition_rules']}; meta {t_meta:.1f} s, "
+            f"card run {t_card:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_dryrun_card(root):
@@ -4276,51 +4369,76 @@ def phase_dryrun_card(root):
 
 
 def phase_dryrun_all():
-    """16c: ``dryrun --all``'s loop (``dryrun.run_all``, its meta runs a
-    pool of one process a CPU): every (arch x shape x mesh) cell is
-    ``ok`` or ``skip`` with the config's skip reason, and nothing lands on
-    the card; one line per (arch, shape) at 16x16."""
-    from repro_torch.configs import (ASSIGNED_ARCHS, PAPER_ARCH, SHAPES,
-                                     get_config, skip_reason)
+    """16c: the dry run's loop (``dryrun.run_all``, its meta runs a pool
+    of one process a CPU) for ``P16_ALL_ARCHS`` on both production
+    meshes: every cell ``ok`` or ``skip`` with the config's reason; on
+    16x16 partitioned (its collectives counted and priced, a per-device
+    total and a boolean fit), on 2x16x16 the unpartitioned record with
+    its reason (``dryrun.UNPARTITIONED_REASON``); no process group left
+    behind, and nothing on the card; one line a cell."""
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, get_config, skip_reason
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     torch.cuda.synchronize()
     a0 = torch.cuda.memory_allocated()
     lines = []
-    recs = dryrun.run_all(str(DRYRUN_OUT), log=lines.append)
+    meshes = [dryrun.mesh_for(False), dryrun.mesh_for(True)]
+    recs = dryrun.run_all(str(DRYRUN_OUT), archs=list(P16_ALL_ARCHS),
+                          meshes=meshes, log=lines.append)
     (DRYRUN_OUT / "run_all.log").write_text("\n".join(lines) + "\n")
     assert torch.cuda.memory_allocated() == a0
-    archs = ASSIGNED_ARCHS + [PAPER_ARCH]
-    assert len(recs) == len(archs) * len(SHAPES) * 2, len(recs)
+    assert not dist.is_initialized()
+    assert len(recs) == len(P16_ALL_ARCHS) * len(SHAPES) * 2, len(recs)
     by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
     n_ok = n_skip = 0
-    for arch in archs:
+    for arch in P16_ALL_ARCHS:
         for shape in SHAPES:
-            for mesh in ("16x16", "2x16x16"):
-                r = by[(arch, shape, mesh)]
+            for mesh in meshes:
+                r = by[(arch, shape, mesh.name)]
                 reason = skip_reason(get_config(arch), shape)
                 if reason:
-                    assert r["status"] == "skip" and r["reason"] == reason, r
+                    assert r["status"] == "skip" and \
+                        r["reason"] == reason, r
                     n_skip += 1
-                else:
-                    assert r["status"] == "ok", r.get("error", r)
-                    assert r["collectives"] is None
-                    # no total where activations are not split over model
-                    assert r["fits_hbm"] is None, r["fits_hbm"]
-                    n_ok += 1
-            r = by[(arch, shape, "16x16")]
-            if r["status"] == "ok":
-                log(f"  16c {arch} {shape} 16x16: state "
-                    f"{r['state_bytes'] / 1e9:.2f} GB a device "
-                    f"(state_fits_hbm {r['state_fits_hbm']}), temp "
-                    f"{r['memory']['temp_size_in_bytes'] / 1e9:.2f} GB "
-                    f"unsplit, fits_hbm {r['fits_hbm']}, "
-                    f"{r['roofline']['dominant']}"
-                    f"-bound ({r['roofline']['bound_s']:.4g} s), useful "
-                    f"FLOPs ratio {r['useful_flops_ratio']:.3f}")
-            else:
-                log(f"  16c {arch} {shape}: skip ({r['reason']})")
+                    log(f"  16c {arch} {shape} {mesh.name}: skip "
+                        f"({r['reason']})")
+                    continue
+                assert r["status"] == "ok", (r.get("op"),
+                                             r.get("error", r))
+                n_ok += 1
+                rf = r["roofline"]
+                if not r["partitioned"]:
+                    assert r["collectives"] is None and \
+                        r["fits_hbm"] is None
+                    assert r["unpartitioned_reason"] == \
+                        dryrun.UNPARTITIONED_REASON
+                    log(f"  16c {arch} {shape} {mesh.name}: not "
+                        f"partitioned (three axes); state "
+                        f"{r['state_bytes'] / 1e9:.2f} GB, compute "
+                        f"{rf['t_compute_s']:.4g} s, memory "
+                        f"{rf['t_memory_s']:.4g} s; {r['cell_s']:.1f} s")
+                    continue
+                assert sum(r["collectives"]["count"].values()) > 0
+                assert isinstance(r["fits_hbm"], bool)
+                c = r["collectives"]
+                share = r["cost"]["flops"] * r["chips"] / \
+                    r["cost"]["flops_total"]
+                log(f"  16c {arch} {shape} {mesh.name}: state "
+                    f"{r['state_bytes'] / 1e9:.2f} GB + temp "
+                    f"{r['memory']['temp_size_in_bytes'] / 1e9:.2f} GB = "
+                    f"{r['per_device_bytes'] / 1e9:.2f} GB a device, "
+                    f"fits_hbm {r['fits_hbm']}; collectives "
+                    f"{ {k: v for k, v in c['count'].items() if v} }, "
+                    f"{c['by_link']['network'] / 1e9:.2f} GB network + "
+                    f"{c['by_link']['nvlink'] / 1e9:.2f} GB NVLink = "
+                    f"{rf['t_collective_s']:.4g} s; compute "
+                    f"{rf['t_compute_s']:.4g} s, memory "
+                    f"{rf['t_memory_s']:.4g} s: {rf['dominant']}-bound; "
+                    f"local FLOPs {share:.3f}x an even share; torch "
+                    f"{r['torch_version']}; "
+                    f"{r['cell_s']:.1f} s")
     log(f"  16c: {n_ok} cells ok, {n_skip} skipped, records in "
         f"{DRYRUN_OUT}; {time.perf_counter() - t0:.1f} s on "
         f"{len(os.sched_getaffinity(0))} CPUs, no byte allocated on the "

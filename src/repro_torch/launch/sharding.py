@@ -5,9 +5,10 @@ A spec is a tuple with one entry a tensor dimension: ``None``
 (replicated), a mesh axis name, or a tuple of axis names (the dimension
 split over their product).  ``repro``'s ``PartitionSpec`` becomes this
 plain tuple and its ``NamedSharding`` the pair (mesh, spec); no array
-carries one, because the port has no SPMD compiler.  The dry run
-(``launch/dryrun.py``) divides each tensor by its spec (``shard_shape``)
-to reckon a device's bytes.
+carries one outside the dry run.  The dry run (``launch/dryrun.py``)
+divides each tensor by its spec (``shard_shape``) to reckon a device's
+bytes, and on a mesh of more than one card partitions the step with
+DTensor: ``placements`` turns a spec into one placement a mesh axis.
 
 Scheme (per pod: mesh axes ``data`` x ``model``; two pods add ``pod``):
 
@@ -24,7 +25,7 @@ Rules match on the port's state-dict names (``layers.{i}.attn.wq.w``,
 is ``repro``'s for the period-stacked leaf without its leading
 replicated axis.  ``repro``'s ``with_sharding`` and its activation
 constraints (``layers.hint``, ``set_activation_mesh``) have no
-counterpart: nothing here compiles a program that would read them.
+counterpart: DTensor's sharding propagation places the activations.
 """
 
 from __future__ import annotations
@@ -143,6 +144,31 @@ def shard_shape(shape: Sequence[int], spec: Spec,
             raise ValueError(f"spec {spec} does not tile {tuple(shape)} on "
                              f"mesh {mesh.shape}")
         out.append(dim // n)
+    return tuple(out)
+
+
+def placements(spec: Spec, mesh: LaunchMesh) -> Tuple[Any, ...]:
+    """DTensor placements of a (legalized) spec, one a mesh axis:
+    ``Shard(d)`` on every axis that splits dimension ``d``, else
+    ``Replicate()``.  A dimension split over several axes (``("pod",
+    "data")``) is sharded on each in order, which DTensor reads as the
+    first axis the major one, as ``shard_shape`` and ``repro``'s
+    ``NamedSharding`` tile it; so the axes must come in the mesh's
+    order."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: List[Any] = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(spec):
+        entry = _entry(entry)
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [mesh.axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} of dimension {d} "
+                             f"are not in the mesh's order "
+                             f"{mesh.axis_names}")
+        for i in idx:
+            out[i] = Shard(d)
     return tuple(out)
 
 

@@ -11,12 +11,23 @@ Nothing is allocated: the arguments are meta tensors, and the step runs
 on them to count FLOPs and track intermediate bytes (``op_stats``).
 ``repro``'s ``unroll`` (a scan unrolled for XLA's cost analysis) has no
 counterpart here, since the port's layers are a Python loop.
+
+``partitioned=True`` (with a ``DeviceMesh`` from ``mesh.device_mesh``)
+makes every argument a DTensor whose local shard is rank 0's block of
+its spec (``sharding.placements``): parameters, optimizer slots, tokens,
+labels and the decode cache; the frontend stubs are made sharded like
+the tokens.  The steps stay the port's own; DTensor's sharding
+propagation partitions them, and ``op_stats`` counts rank 0's program.
+A train cell's gradients are redistributed to their parameter's
+placements as autograd makes them (a hook on each parameter): the
+reduce-scatter an SPMD program gives a sharded parameter's gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple, Union
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -64,6 +75,12 @@ class CellSpec:
     arg_specs: Dict[str, sh.Spec]
     outputs: List[Output]
     opts: Dict
+    device_mesh: Any = None     # the DeviceMesh of a partitioned cell
+
+    @property
+    def partitioned(self) -> bool:
+        """Whether the arguments are DTensors over ``device_mesh``."""
+        return self.device_mesh is not None
 
     def flat_args(self) -> Dict[str, torch.Tensor]:
         """Every tensor of ``args`` by path (the keys of ``arg_specs``)."""
@@ -108,16 +125,26 @@ def flatten_args(kind: str, args: Tuple) -> Dict[str, torch.Tensor]:
 
 def _extras_fn(cfg: ModelConfig, dtype: torch.dtype
                ) -> Optional[Callable[[torch.Tensor], Dict]]:
-    """Stub frontend inputs as a function of the token batch."""
+    """Stub frontend inputs as a function of the token batch (split over
+    the batch as the tokens are, where they are a DTensor)."""
     key = {"vision": "prefix_embeds", "audio": "encoder_embeds"}.get(
         cfg.frontend)
     if key is None:
         return None
 
     def fn(tokens):
-        return {key: torch.zeros((tokens.shape[0], cfg.frontend_seq,
-                                  cfg.d_model), dtype=dtype,
-                                 device=tokens.device)}
+        shape = (tokens.shape[0], cfg.frontend_seq, cfg.d_model)
+        if not hasattr(tokens, "placements"):
+            return {key: torch.zeros(shape, dtype=dtype,
+                                     device=tokens.device)}
+        from torch.distributed.tensor import DTensor
+        local = tokens.to_local()
+        return {key: DTensor.from_local(
+            torch.zeros((local.shape[0],) + shape[1:], dtype=dtype,
+                        device=local.device),
+            tokens.device_mesh, tokens.placements, run_check=False,
+            shape=torch.Size(shape),
+            stride=(shape[1] * shape[2], shape[2], 1))}
     return fn
 
 
@@ -167,10 +194,86 @@ def _opt_specs(opt_state: Dict, p_specs: Dict[str, sh.Spec]
 def input_specs(arch: str, shape: Union[str, InputShape], mesh: LaunchMesh,
                 *, microbatches: int = 1, remat: bool = True,
                 num_periods: Optional[int] = None, ce_impl: str = "gather",
-                fsdp: bool = True, moe_groups: int = 1) -> CellSpec:
+                fsdp: bool = True, moe_groups: int = 1,
+                partitioned: bool = False, device_mesh=None,
+                device: str = "meta",
+                cfg: Optional[ModelConfig] = None) -> CellSpec:
     """The cell's step and its arguments on the meta device, with specs.
-    ``shape``: a name of ``configs.shapes.SHAPES`` or an ``InputShape``."""
-    cfg = get_config(arch)
+    ``shape``: a name of ``configs.shapes.SHAPES`` or an ``InputShape``;
+    ``cfg``: a config in place of ``get_config(arch)`` (a smoke config).
+    ``partitioned``: the arguments as DTensors over ``device_mesh`` (a
+    ``DeviceMesh`` with the mesh's axes, ``mesh.device_mesh``), their
+    local shards zeros on ``device`` (``meta``: nothing allocated)."""
+    cell = _input_specs(arch, shape, mesh, microbatches=microbatches,
+                        remat=remat, num_periods=num_periods,
+                        ce_impl=ce_impl, fsdp=fsdp, moe_groups=moe_groups,
+                        cfg=cfg)
+    if not partitioned:
+        return cell
+    if device_mesh is None:
+        raise ValueError("a partitioned cell needs a device_mesh "
+                         "(launch.mesh.device_mesh)")
+    return partition(cell, device_mesh, device)
+
+
+def _dtensor(t: torch.Tensor, spec: sh.Spec, mesh: LaunchMesh, dmesh,
+             device: str):
+    """A DTensor of ``t``'s shape and dtype under ``spec``, its local
+    shard zeros on ``device``."""
+    from torch.distributed.tensor import DTensor
+    spec = sh.legalize(spec, t.shape, mesh)
+    local = torch.zeros(sh.shard_shape(t.shape, spec, mesh), dtype=t.dtype,
+                        device=device)
+    return DTensor.from_local(local, dmesh, sh.placements(spec, mesh),
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _grad_like(param, grad):
+    """A parameter's gradient on the parameter's placements."""
+    return grad.redistribute(param.device_mesh, param.placements)
+
+
+def partition(cell: CellSpec, dmesh, device: str = "meta") -> CellSpec:
+    """The cell with every argument a DTensor over ``dmesh`` (its spec's
+    placements; local shards zeros on ``device``)."""
+    mesh, specs = cell.mesh, cell.arg_specs
+
+    def dt(path: str, t: torch.Tensor):
+        return _dtensor(t.detach(), specs[path], mesh, dmesh, device)
+
+    def tree(pre: str, x):
+        if isinstance(x, dict):
+            return {k: tree(f"{pre}.{k}", v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(tree(f"{pre}.{i}", v) for i, v in enumerate(x))
+        return dt(pre, x)
+
+    if cell.kind == "train":
+        state, (tokens, labels) = cell.args
+        params = {n: dt(f"params.{n}", p) for n, p in state.params.items()}
+        new = trainer.make_state(cell.cfg, params,
+                                 tree("opt", state.opt_state))
+        new.step = dt("step", state.step)
+        for p in new.params.values():
+            p.register_hook(functools.partial(_grad_like, p))
+        args = (new, (dt("tokens", tokens), dt("labels", labels)))
+    else:
+        model = T.Transformer.from_state_dict(cell.cfg, {
+            n: dt(f"params.{n}", p)
+            for n, p in cell.args[0].named_parameters()})
+        args = (model, dt("tokens", cell.args[1]))
+        if cell.kind == "decode":
+            args += (tree("cache", cell.args[2]),
+                     dt("cache_len", cell.args[3]))
+    return dataclasses.replace(cell, args=args, device_mesh=dmesh)
+
+
+def _input_specs(arch: str, shape: Union[str, InputShape],
+                 mesh: LaunchMesh, *, microbatches: int, remat: bool,
+                 num_periods: Optional[int], ce_impl: str, fsdp: bool,
+                 moe_groups: int, cfg: Optional[ModelConfig]) -> CellSpec:
+    cfg = cfg or get_config(arch)
     if isinstance(shape, str):
         shape = SHAPES[shape]
     if not shape_supported(cfg, shape.name):

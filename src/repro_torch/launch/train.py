@@ -20,11 +20,14 @@ Runs on the card unless ``--device cpu``.  Features:
   half of the data axis there: the loop saves, halves D, reloads the
   latest checkpoint and carries on (an elastic restart).
 
-``--model M > 1`` (tensor-parallel training) is refused: the specs exist
-(``launch/sharding.py``, checked by ``launch/dryrun.py`` on the meta
-device) but a program that runs them over several cards does not (ROADMAP
-A17).  ``repro``'s
-``--host-devices`` simulates XLA devices on a CPU and has no counterpart.
+``--model M`` is taken as ``repro`` takes it: ``repro`` builds the
+parameters' model-axis specs and never applies them, so its train state
+stays replicated over ``model`` and the losses do not change with M.
+Replicated over ``model`` on one device, the step is computed once.  (The
+tensor-parallel program of those specs is what ``launch/dryrun.py``
+partitions on the meta device; running it on several cards is ROADMAP
+A17.)  ``repro``'s ``--host-devices`` simulates XLA devices on a CPU and
+has no counterpart.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--data", type=int, default=0,
                     help="data-axis size (shards run in turn on the device)")
-    ap.add_argument("--model", type=int, default=1, help="model-axis size")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model-axis size (the state is replicated over "
+                         "it, as in repro: the step is computed once)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adamw")
@@ -60,10 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for tests)")
     args = ap.parse_args(argv)
-    if args.model > 1:
-        ap.error("--model > 1 (tensor-parallel training) is not ported: "
-                 "its specs exist (launch/sharding.py, ROADMAP A16) but "
-                 "no multi-card program runs them (ROADMAP A17)")
+    if args.model < 1:
+        ap.error("--model must be at least 1")
     return args
 
 

@@ -20,6 +20,11 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 
 MASK_VALUE = -1e30
+# the dry run's attention and MoE over DTensors (``launch/op_stats.py``,
+# ``partitioned_mha`` / ``partitioned_moe``): set only while it
+# partitions a step
+PARTITIONED_MHA = None
+PARTITIONED_MOE = None
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -150,6 +155,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     precision ``repro``'s einsums use).  Padded query rows carry position
     -1 and stay finite.
     """
+    if PARTITIONED_MHA is not None and hasattr(q, "placements"):
+        return PARTITIONED_MHA(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_positions=q_positions,
+                               kv_positions=kv_positions, kv_valid=kv_valid,
+                               q_chunk=q_chunk, kv_layout=kv_layout)
     B, Tq, Hq, hd = q.shape
     if kv_layout == "bhld":
         Tk, Hkv = k.shape[2], k.shape[1]
@@ -340,6 +350,7 @@ def moe_route(p: MoE, cfg: ModelConfig, xg: torch.Tensor):
 
 
 def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor,
+              experts: Optional[Tuple[int, int]] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k token-choice MoE with capacity, sort-based dispatch, as
     ``repro``'s: the (token, choice) pairs are stable-sorted by expert id
@@ -351,7 +362,13 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     Nothing here reads a value on the host (no ``bincount``, ``nonzero``,
     mask indexing or ``.item()``): counts are ``scatter_add_`` into fixed
     zeros, so a CUDA graph can capture it.  ``cap`` follows the call's
-    token count (``moe_capacity``)."""
+    token count (``moe_capacity``).
+
+    ``experts=(lo, hi)``: ``p.wi`` / ``p.wo`` hold experts lo..hi-1 only,
+    and only their products are computed; the others' outputs are zeros
+    (an expert-parallel shard's part of the sum)."""
+    if PARTITIONED_MOE is not None and hasattr(x, "placements"):
+        return PARTITIONED_MOE(p, cfg, x)
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     ff = cfg.d_ff
@@ -385,9 +402,15 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor,
         0, slot, vals.reshape(-1, d))
     xin = xin.reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
 
+    if experts is not None:
+        xin = xin[experts[0]:experts[1]]
     h = _expert_mm(xin, p.wi)                               # (E, G*cap, F)
     h = _act(h, cfg.mlp_act, ff).to(cdt)
     out = _expert_mm(h, p.wo)                               # (E, G*cap, d)
+    if experts is not None:
+        whole = out.new_zeros((E,) + tuple(out.shape[1:]))
+        whole[experts[0]:experts[1]] = out
+        out = whole
     out = out.reshape(E, G, cap, d).transpose(0, 1).reshape(-1, d)
 
     gate_flat = gate_vals.reshape(G, nk) * keep.to(f32)

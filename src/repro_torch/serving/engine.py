@@ -259,6 +259,16 @@ class DecodeEngine:
             if D & (D - 1):
                 raise ValueError(f"data axis must be a power of two "
                                  f"(POR butterfly), got {D}")
+            if D > por_mod.MERGE_MAX_SHARDS:
+                # repro takes any power of two; the step's cross-shard
+                # merge (codec_mesh_merge) takes at most 16 shards, so a
+                # wider axis is refused here, before any request is
+                # admitted, not in the middle of run()
+                raise ValueError(
+                    f"data axis {D} is wider than the "
+                    f"{por_mod.MERGE_MAX_SHARDS} shards codec_mesh_merge "
+                    f"takes (kernels/por.py MERGE_MAX_SHARDS); raising "
+                    f"that limit belongs to ROADMAP A17")
             if Mx > 1 and (cfg.num_heads % Mx or cfg.num_kv_heads % Mx):
                 raise ValueError(
                     f"model axis {Mx} must divide heads "

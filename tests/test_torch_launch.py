@@ -6,7 +6,9 @@ batch, cache and pool specs and the optimizer's slots equal ``repro``'s
 (its meshes built abstract, with no device).  Bytes: shard shapes and
 argument bytes equal a numpy reckoning from ``repro``'s specs.  FLOPs:
 ``count_flops`` is affine in the period count and counts each product as
-2 M N K.  Records: ``run_cell`` keeps ``repro``'s keys.
+2 M N K.  Records: ``run_cell`` keeps ``repro``'s keys, with
+collectives, a per-device total and a fit on every mesh (the partition
+itself: ``test_torch_partition.py``).
 """
 
 import json
@@ -15,10 +17,12 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import AbstractMesh, NamedSharding, PartitionSpec as P
 
 from repro.configs import (ASSIGNED_ARCHS, PAPER_ARCH, get_config,
                            skip_reason)
+from repro.launch import hlo_stats
 from repro.launch import sharding as jsh
 from repro.launch import specs as jspecs
 from repro.models import transformer as JT
@@ -401,21 +405,25 @@ def test_temp_bytes_track_live_intermediates():
 # records
 # --------------------------------------------------------------------- #
 def assert_hbm_keys(rec):
-    """``state_bytes`` is exact everywhere; ``per_device_bytes`` and
-    ``fits_hbm`` are published only where nothing is split over
-    ``model`` (the temp estimate keeps activations whole)."""
+    """``state_bytes`` is exact; on a partitioned mesh
+    ``per_device_bytes`` is the state plus the local program's temp bytes
+    and ``fits_hbm`` a boolean; on a mesh of three axes, not partitioned,
+    both are null with the reason, as the temp bytes are."""
     m = rec["memory"]
     state = (m["argument_size_in_bytes"] + m["output_size_in_bytes"]
              - m["alias_size_in_bytes"])
     assert rec["state_bytes"] == state
     assert rec["state_fits_hbm"] == (state <= 80e9)
-    if int(rec["mesh"].split("x")[-1]) > 1:       # model, the last axis
+    assert "fits_hbm_reason" not in rec
+    if rec["mesh"].count("x") == 2:
         assert rec["per_device_bytes"] is None and rec["fits_hbm"] is None
-        assert rec["fits_hbm_reason"] == dryrun.FITS_HBM_REASON
-    else:
-        assert rec["per_device_bytes"] == state + m["temp_size_in_bytes"]
-        assert rec["fits_hbm"] == (rec["per_device_bytes"] <= 80e9)
-        assert "fits_hbm_reason" not in rec
+        assert m["temp_size_in_bytes"] is None
+        assert rec["unpartitioned_reason"] == dryrun.UNPARTITIONED_REASON
+        return
+    assert m["temp_size_in_bytes"] > 0
+    assert rec["per_device_bytes"] == state + m["temp_size_in_bytes"]
+    assert isinstance(rec["fits_hbm"], bool)
+    assert rec["fits_hbm"] == (rec["per_device_bytes"] <= 80e9)
 
 
 REPRO_KEYS = {"arch", "shape", "mesh", "multi_pod", "tag", "microbatches",
@@ -432,23 +440,43 @@ MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
     ("qwen3-4b", "train_4k"), ("llama4-scout-17b-a16e", "decode_32k"),
     ("mamba2-2.7b", "long_500k")])
 def test_run_cell_records(arch, shape, tmp_path):
+    """Each cell on a 2x2 mesh, partitioned (production meshes of 16x16
+    are ``test_torch_partition.py``'s), and on the two-pod production
+    mesh, whose three axes are not partitioned: one unpartitioned count
+    shared by both, and a local count from the 2x2 mesh's program."""
     counts = {}
-    recs = [dryrun.run_cell(arch, shape, mp, num_periods=1, counts=counts)
-            for mp in (False, True)]
-    assert len(counts) == 1              # one FLOP count, both meshes
+    meshes = [tmesh.LaunchMesh(("data", "model"), (2, 2)),
+              tmesh_of(True)]
+    recs = [dryrun.run_cell(arch, shape, mesh=m, num_periods=1,
+                            counts=counts) for m in meshes]
+    assert len(counts) == 1              # the unpartitioned count, shared
+    (whole,) = counts.values()
     cfg = tspecs.reduced_config(tconfigs.get_config(arch), 1)
-    for rec, chips in zip(recs, (256, 512)):
+    for rec, chips in zip(recs, (4, 512)):
         assert REPRO_KEYS <= set(rec), REPRO_KEYS - set(rec)
         assert rec["status"] == "ok" and rec["chips"] == chips
-        assert rec["collectives"] is None
-        assert rec["collective_reason"] == dryrun.COLLECTIVE_REASON
         assert set(rec["memory"]) == MEMORY_KEYS
         r = rec["roofline"]
-        assert r["t_collective_s"] is None
-        assert r["bound_s"] == max(r["t_compute_s"], r["t_memory_s"])
         assert r["t_compute_s"] == rec["cost"]["flops"] / 989e12
         assert r["t_memory_s"] == rec["cost"]["bytes_min"] / 3.35e12
-        assert rec["cost"]["flops"] == rec["cost"]["flops_total"] / chips
+        assert rec["cost"]["flops_total"] == whole.flops
+        assert rec["torch_version"] == torch.__version__
+        if chips == 512:
+            assert rec["collectives"] is None and not rec["partitioned"]
+            assert rec["unpartitioned_reason"] == \
+                dryrun.UNPARTITIONED_REASON
+            assert r["t_collective_s"] is None
+            assert r["bound_s"] == max(r["t_compute_s"], r["t_memory_s"])
+            assert rec["cost"]["flops"] == whole.flops / chips
+            continue
+        c = rec["collectives"]
+        assert set(c["count"]) == set(hlo_stats.COLLECTIVE_OPS)
+        assert sum(c["count"].values()) > 0
+        assert c["by_link"]["network"] == 0     # 4 cards: one node
+        assert r["t_collective_s"] == c["by_link"]["nvlink"] / 450e9 > 0
+        assert r["bound_s"] == max(r["t_compute_s"], r["t_memory_s"],
+                                   r["t_collective_s"])
+        assert whole.flops / chips <= rec["cost"]["flops"] < whole.flops
         assert rec["hardware"]["hbm_bytes"] == 80e9
         n = cfg.active_param_count()
         kind = tconfigs.SHAPES[shape].kind
@@ -458,13 +486,12 @@ def test_run_cell_records(arch, shape, tmp_path):
             * n * toks
         m = rec["memory"]
         assert_hbm_keys(rec)
-        assert m["temp_size_in_bytes"] > 0
         if kind == "prefill":
             assert m["alias_size_in_bytes"] == 0
         else:            # the train state and the decode cache in place
             assert m["alias_size_in_bytes"] > 0
         json.dumps(rec)
-    cell = tspecs.input_specs(arch, shape, tmesh_of(False), num_periods=1)
+    cell = tspecs.input_specs(arch, shape, meshes[0], num_periods=1)
     mem = op_stats.extract_memory(cell, temp=0.0)
     assert mem["argument_size_in_bytes"] == op_stats.argument_bytes(cell)
     assert mem["argument_size_in_bytes"] == \
@@ -485,6 +512,17 @@ def test_skipped_cell_and_cli(tmp_path):
     rec = json.loads((out / "whisper-base__decode_32k__2x16x16.json")
                      .read_text())
     assert rec["status"] == "ok" and rec["chips"] == 512
+    assert_hbm_keys(rec)
+    assert dryrun.main(["--arch", "whisper-base", "--shape", "decode_32k",
+                        "--mesh", "2x2", "--out", str(out)]) == 0
+    rec = json.loads((out / "whisper-base__decode_32k__2x2.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["chips"] == 4
+    assert not dist.is_initialized()
+    assert_hbm_keys(rec)
+    assert dryrun.main(["--table", "--out", str(out)]) == 0
+    assert dryrun.parse_mesh("2x4x2").axis_names == ("pod", "data",
+                                                     "model")
     # an InputShape and a host mesh, as the card's check builds them
     shape = InputShape("decode_small", "decode", 64, 2)
     rec = dryrun.run_cell("qwen3-4b", shape, mesh=tmesh.make_host_mesh(),
@@ -496,25 +534,31 @@ def test_skipped_cell_and_cli(tmp_path):
 
 
 def test_run_all_writes_every_cell_once(tmp_path):
-    """``run_all`` over one arch (one period of it) and two shapes: every
-    (shape x mesh) cell is written, the supported ones ``ok`` with the
-    pool's counts and temps equal to what ``run_cell`` reckons in this
-    process, the skipped one with ``repro``'s reason; a second call finds
-    them all cached."""
+    """``run_all`` over one arch (one period of it), two shapes and two
+    small meshes: every (shape x mesh) cell is written, the supported
+    ones ``ok`` with the pool's counts and local programs equal to what
+    ``run_cell`` reckons in this process, the skipped one with
+    ``repro``'s reason; a second call finds them all cached."""
     out, logs = tmp_path / "all", []
     arch, shapes = "whisper-base", ["decode_32k", "long_500k"]
+    meshes = [dryrun.parse_mesh("1x2"), tmesh_of(True)]
     recs = dryrun.run_all(str(out), archs=[arch], shapes=shapes,
-                          log=logs.append, num_periods=1)
+                          log=logs.append, meshes=meshes, num_periods=1)
     assert [(r["shape"], r["mesh"], r["status"]) for r in recs] == [
-        ("decode_32k", "16x16", "ok"), ("decode_32k", "2x16x16", "ok"),
-        ("long_500k", "16x16", "skip"), ("long_500k", "2x16x16", "skip")]
+        ("decode_32k", "1x2", "ok"), ("decode_32k", "2x16x16", "ok"),
+        ("long_500k", "1x2", "skip"), ("long_500k", "2x16x16", "skip")]
     assert recs[2]["reason"] == skip_reason(get_config(arch), "long_500k")
     assert sorted(p.name for p in out.iterdir()) == sorted(
-        dryrun.cell_filename(arch, s, m) for s in shapes
-        for m in ("16x16", "2x16x16"))
-    here = dryrun.run_cell(arch, "decode_32k", True, num_periods=1)
-    for key in ("memory", "cost", "roofline", "state_bytes"):
-        assert recs[1][key] == here[key], key
+        dryrun.cell_filename(arch, s, m.name) for s in shapes
+        for m in meshes)
+    here = dryrun.run_cell(arch, "decode_32k", mesh=meshes[0],
+                           num_periods=1)
+    for key in ("memory", "cost", "roofline", "collectives",
+                "state_bytes"):
+        assert recs[0][key] == here[key], key
+    assert recs[1]["collectives"] is None and not recs[1]["partitioned"]
+    assert not dist.is_initialized()
     assert dryrun.run_all(str(out), archs=[arch], shapes=shapes,
-                          log=logs.append, num_periods=1) == []
+                          log=logs.append, meshes=meshes,
+                          num_periods=1) == []
     assert sum(line.startswith("[skip-cached]") for line in logs) == 4

@@ -522,7 +522,8 @@ def _run(args, timeout=300):
 def test_train_cli_resumes_and_restarts_elastically(tmp_path, capsys):
     """Two steps that checkpoint (in-process), then the CLI as a
     subprocess: it resumes there on a data axis of 2 and loses half of it
-    at step 3.  ``--model 2`` is refused."""
+    at step 3.  A model axis under 1 is refused (``--model M >= 1`` is
+    taken as ``repro`` takes it: ``test_train_cli_model_axis``)."""
     args = ["--smoke", "--device", "cpu", "--global-batch", "4",
             "--seq-len", "16", "--ckpt-dir", str(tmp_path)]
     assert train_cli.main(args + ["--steps", "2"]) == 0
@@ -536,8 +537,24 @@ def test_train_cli_resumes_and_restarts_elastically(tmp_path, capsys):
     assert "[ckpt] saved step 4 " in out
     assert "step    5 loss" in out and "done: 4 steps" in out
     with pytest.raises(SystemExit):
-        train_cli.parse_args(["--model", "2"])
-    assert "ROADMAP A16" in capsys.readouterr().err
+        train_cli.parse_args(["--model", "0"])
+    assert "--model must be at least 1" in capsys.readouterr().err
+
+
+def test_train_cli_model_axis(tmp_path):
+    """``--model 2``: ``repro`` builds the model-axis specs and never
+    applies them, so its state stays replicated and the losses do not
+    move; the port's ``--data 2 --model 2`` gives ``--data 2 --model 1``'s
+    losses and gradient norms bitwise."""
+    runs = {}
+    for m in (1, 2):
+        hist = []
+        assert train_cli.main(["--smoke", "--device", "cpu",
+                               "--global-batch", "4", "--seq-len", "16",
+                               "--steps", "3", "--data", "2",
+                               "--model", str(m)], history=hist) == 0
+        runs[m] = hist
+    assert len(runs[1]) == 3 and runs[2] == runs[1]
 
 
 def test_train_lm_example_runs(tmp_path):
