@@ -220,16 +220,19 @@ Phases (any failure raises and the script exits non-zero):
    FLOPs ``FlopCounterMode`` counts over a real step equal the meta count
    op for op; the temp estimate against the step's peak and ``bound_s``
    against its median time are printed; then the decode and train cells
-   on a 1x2 (data, model) mesh: partitioned on the meta device, then
-   rank 0's local program run on the card under the same fake world
-   (real CUDA shards, no-op collectives): its FLOPs and collectives equal
-   the meta run's op for op, its argument bytes the allocator's, and
-   ``per_device_bytes`` is printed against the card's peak; (c) the dry
-   run's loop in process (meta runs over a pool of one process a CPU)
-   for qwen3-4b and llama4-scout on both production meshes: every cell
-   ``ok`` or ``skip`` with the config's reason, partitioned on 16x16
-   with collectives and a boolean ``fits_hbm``, the unpartitioned record
-   with its reason on 2x16x16, records in ``chiprun_out/dryrun_torch``;
+   on a 1x2 (data, model) mesh, and on a 2x1x2 (pod, data, model) mesh at
+   twice the batch (one pod's block, plus the all-reduces over the pod
+   group): partitioned on the meta device, then rank 0's local program
+   run on the card under the same fake world (real CUDA shards, no-op
+   collectives): its FLOPs and collectives equal the meta run's op for
+   op, its argument bytes the allocator's, and ``per_device_bytes`` is
+   printed against the card's peak; (c) the dry run's loop in process
+   (meta runs over a pool of one process a CPU) for qwen3-4b and
+   llama4-scout on both production meshes: every cell ``ok`` or
+   ``skip`` with the config's reason, partitioned with collectives and a
+   boolean ``fits_hbm`` (2x16x16 as one pod's block, the pod group's
+   all-reduces on the network, train only), records in
+   ``chiprun_out/dryrun_torch``;
 17. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
@@ -4087,9 +4090,11 @@ P16_TIMEOUT = 300
 P16_CELLS = (("decode", "decode", 4096, 8), ("prefill", "prefill", 4096, 1),
              ("train", "train", 512, 4))
 P16_STEPS = 5
-# 16b's model-split cells: the same model on a 1x2 (data, model) mesh, the
-# local program of rank 0 run on the card under the dry run's fake world
-P16_SPLIT_MESH = (1, 2)
+# 16b's model-split cells: the same model on a 1x2 (data, model) mesh and
+# on a (pod, data, model) = 2x1x2 mesh at twice the batch (one pod's block
+# is the 1x2 cell), the local program of rank 0 run on the card under the
+# dry run's fake world
+P16_SPLIT_MESHES = ((1, 2), (2, 1, 2))
 P16_SPLIT_CELLS = (("decode", "decode", 4096, 8), ("train", "train", 512, 4))
 # 16c: the dry run's loop on both production meshes for these archs (the
 # full --all is ``python -m repro_torch.launch.dryrun --all`` on a CPU host)
@@ -4277,81 +4282,102 @@ def dryrun_check():
 
 def dryrun_check_split():
     """16b's model-split half: qwen3-4b x36 bf16 on a 1x2 (data, model)
-    mesh.  The dry run partitions each cell on the meta device; then the
-    same cell is made again under the same fake world with its local
-    shards zeros on the card (``input_specs(partitioned=True,
-    device="cuda")``), and rank 0's local program runs there, its
-    collectives the fake backend's no-ops, counted by the same
-    ``OpStats``.  Both runs use a ``cuda`` ``DeviceMesh`` (DTensor moves
-    a local shard to its mesh's device type; the dry run's default
-    ``cpu`` mesh would bring the shards back to the host), so both
-    partition alike.  Asserted: the local FLOPs of the card's run equal the
-    meta count op for op, the same collectives, and the allocator's
-    argument bytes equal the reckoned local shards (within 512 bytes a
-    tensor).  Printed: ``per_device_bytes`` against the card's peak
-    (``max_memory_allocated``), and the collectives by kind."""
+    mesh, and on a 2x1x2 (pod, data, model) mesh at twice the batch,
+    partitioned as one pod's block (``specs.pod_local``) with the
+    all-reduces that merge the pods.  The dry run partitions each cell on
+    the meta device; then the same cell is made again under the same fake
+    world (the block's) with its local shards zeros on the card
+    (``input_specs(partitioned=True, device="cuda")``), and rank 0's
+    local program runs there, its collectives the fake backend's no-ops,
+    counted by the same ``OpStats``.  Both runs use a ``cuda``
+    ``DeviceMesh`` (DTensor moves a local shard to its mesh's device
+    type; the dry run's default ``cpu`` mesh would bring the shards back
+    to the host), so both partition alike.  Asserted: the local FLOPs of
+    the card's run equal the meta count op for op, the same collectives
+    (the pod's too), and the allocator's argument bytes equal the
+    reckoned local shards (within 512 bytes a tensor).  Printed:
+    ``per_device_bytes`` against the card's peak
+    (``max_memory_allocated``), and the collectives by kind, the pod
+    group's apart."""
+    from repro_torch.configs import PAPER_ARCH
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import pod_block
+
+    for sizes in P16_SPLIT_MESHES:
+        mesh = dryrun.parse_mesh("x".join(map(str, sizes)))
+        block = pod_block(mesh)
+        log(f"  16b. the model-split mesh {mesh.name}: {PAPER_ARCH} x36 "
+            f"bf16, rank 0's local program of the fake world "
+            f"({block.size} ranks of the {block.name} block, no-op "
+            f"collectives) on the card")
+        for name, kind, seq, batch in P16_SPLIT_CELLS:
+            dryrun_check_cell(mesh, name, kind, seq,
+                              batch * (mesh.size // block.size))
+
+
+def dryrun_check_cell(mesh, name, kind, seq, batch):
+    """One cell of ``dryrun_check_split`` on ``mesh``."""
     from repro_torch.configs import PAPER_ARCH
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import dryrun, op_stats
-    from repro_torch.launch.mesh import LaunchMesh, device_mesh
+    from repro_torch.launch.mesh import device_mesh, pod_block
     from repro_torch.launch.specs import input_specs
 
-    mesh = LaunchMesh(("data", "model"), P16_SPLIT_MESH)
-    log(f"  16b. the model-split mesh {mesh.name}: {PAPER_ARCH} x36 bf16, "
-        f"rank 0's local program of the fake world ({mesh.size} ranks, "
-        f"no-op collectives) on the card")
-    for name, kind, seq, batch in P16_SPLIT_CELLS:
-        t0 = time.perf_counter()
-        shape = InputShape(f"{name}_h100", kind, seq, batch)
-        meta = dryrun.count_local(PAPER_ARCH, shape, mesh, {},
-                                  device_type="cuda")
-        rec = dryrun.run_cell(PAPER_ARCH, shape, mesh=mesh, local=meta)
-        assert rec["status"] == "ok", rec
-        t_meta = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shape = InputShape(f"{name}_h100", kind, seq, batch)
+    meta = dryrun.count_local(PAPER_ARCH, shape, mesh, {},
+                              device_type="cuda")
+    rec = dryrun.run_cell(PAPER_ARCH, shape, mesh=mesh, local=meta)
+    assert rec["status"] == "ok", rec
+    t_meta = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    with device_mesh(pod_block(mesh), "cuda") as dm:
+        cell = input_specs(PAPER_ARCH, shape, mesh, partitioned=True,
+                           device_mesh=dm, device="cuda")
         torch.cuda.synchronize()
-        a0 = torch.cuda.memory_allocated()
-        with device_mesh(mesh, "cuda") as dm:
-            cell = input_specs(PAPER_ARCH, shape, mesh, partitioned=True,
-                               device_mesh=dm, device="cuda")
-            torch.cuda.synchronize()
-            alloc = torch.cuda.memory_allocated() - a0
-            n = len(cell.flat_args())
-            arg = int(rec["memory"]["argument_size_in_bytes"])
-            assert arg <= alloc <= arg + 512 * n, (name, alloc, arg, n)
-            torch.cuda.reset_peak_memory_stats()
-            t1 = time.perf_counter()
-            card = op_stats.count_cell(cell)
-            torch.cuda.synchronize()
-            t_card = time.perf_counter() - t1
-            peak = torch.cuda.max_memory_allocated() - a0
-            del cell
-        diff = {op: (meta.by_op.get(op), card.by_op.get(op))
-                for op in set(card.by_op) | set(meta.by_op)
-                if meta.by_op.get(op) != card.by_op.get(op)}
-        assert not diff and card.flops == meta.flops, (name, diff)
-        kinds = [(c.kind, c.in_bytes, c.out_bytes, c.ranks)
-                 for c in card.collectives]
-        assert kinds == [(c.kind, c.in_bytes, c.out_bytes, c.ranks)
-                         for c in meta.collectives], name
-        per_dev = rec["per_device_bytes"]
-        c = rec["collectives"]
-        log(f"  16b {name} ({batch} x {seq}) at {mesh.name}: local FLOPs "
-            f"meta {meta.flops:.6e} == card {card.flops:.6e} (total "
-            f"{rec['cost']['flops_total']:.6e}); arguments reckoned {arg} "
-            f"B, allocator {alloc} B over {n} shards; per_device_bytes "
-            f"{per_dev / 1e9:.3f} GB (state {rec['state_bytes'] / 1e9:.3f}"
-            f" + temp {rec['memory']['temp_size_in_bytes'] / 1e9:.3f}) vs "
-            f"card peak {peak / 1e9:.3f} GB ({peak / per_dev:.3f}x), "
-            f"fits_hbm {rec['fits_hbm']}; collectives "
-            f"{ {k: v for k, v in c['count'].items() if v} } "
-            f"{c['total_link_bytes'] / 1e9:.3f} GB on links, "
-            f"t_collective {rec['roofline']['t_collective_s'] * 1e3:.3f} "
-            f"ms; rules {rec['partition_rules']}; meta {t_meta:.1f} s, "
-            f"card run {t_card:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
+        alloc = torch.cuda.memory_allocated() - a0
+        n = len(cell.flat_args())
+        arg = int(rec["memory"]["argument_size_in_bytes"])
+        assert arg <= alloc <= arg + 512 * n, (name, alloc, arg, n)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        card = op_stats.count_cell(cell)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - a0
+        del cell
+    diff = {op: (meta.by_op.get(op), card.by_op.get(op))
+            for op in set(card.by_op) | set(meta.by_op)
+            if meta.by_op.get(op) != card.by_op.get(op)}
+    assert not diff and card.flops == meta.flops, (name, diff)
+    kinds = [(c.kind, c.in_bytes, c.out_bytes, c.ranks)
+             for c in card.collectives]
+    assert kinds == [(c.kind, c.in_bytes, c.out_bytes, c.ranks)
+                     for c in meta.collectives], name
+    per_dev = rec["per_device_bytes"]
+    c = rec["collectives"]
+    pod = c.get("pod")
+    across = "" if pod is None else (
+        f" ({pod['count']} all-reduces over the pod group, "
+        f"{pod['link_bytes'] / 1e9:.4f} GB on {pod['link']})")
+    log(f"  16b {name} ({batch} x {seq}) at {mesh.name}: local FLOPs "
+        f"meta {meta.flops:.6e} == card {card.flops:.6e} (total "
+        f"{rec['cost']['flops_total']:.6e}); arguments reckoned {arg} "
+        f"B, allocator {alloc} B over {n} shards; per_device_bytes "
+        f"{per_dev / 1e9:.3f} GB (state {rec['state_bytes'] / 1e9:.3f}"
+        f" + temp {rec['memory']['temp_size_in_bytes'] / 1e9:.3f}) vs "
+        f"card peak {peak / 1e9:.3f} GB ({peak / per_dev:.3f}x), "
+        f"fits_hbm {rec['fits_hbm']}; collectives "
+        f"{ {k: v for k, v in c['count'].items() if v} } "
+        f"{c['total_link_bytes'] / 1e9:.3f} GB on links{across}, "
+        f"t_collective {rec['roofline']['t_collective_s'] * 1e3:.3f} "
+        f"ms; rules {rec['partition_rules']}; meta {t_meta:.1f} s, "
+        f"card run {t_card:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_dryrun_card(root):
@@ -4371,11 +4397,11 @@ def phase_dryrun_card(root):
 def phase_dryrun_all():
     """16c: the dry run's loop (``dryrun.run_all``, its meta runs a pool
     of one process a CPU) for ``P16_ALL_ARCHS`` on both production
-    meshes: every cell ``ok`` or ``skip`` with the config's reason; on
-    16x16 partitioned (its collectives counted and priced, a per-device
-    total and a boolean fit), on 2x16x16 the unpartitioned record with
-    its reason (``dryrun.UNPARTITIONED_REASON``); no process group left
-    behind, and nothing on the card; one line a cell."""
+    meshes: every cell ``ok`` or ``skip`` with the config's reason, and
+    partitioned (its collectives counted and priced, a per-device total
+    and a boolean fit; on 2x16x16 as one pod's block, with the pod
+    group's all-reduces on the network); no process group left behind,
+    and nothing on the card; one line a cell."""
     import torch.distributed as dist
     from repro_torch.configs import SHAPES, get_config, skip_reason
     from repro_torch.launch import dryrun
@@ -4409,20 +4435,15 @@ def phase_dryrun_all():
                                              r.get("error", r))
                 n_ok += 1
                 rf = r["roofline"]
-                if not r["partitioned"]:
-                    assert r["collectives"] is None and \
-                        r["fits_hbm"] is None
-                    assert r["unpartitioned_reason"] == \
-                        dryrun.UNPARTITIONED_REASON
-                    log(f"  16c {arch} {shape} {mesh.name}: not "
-                        f"partitioned (three axes); state "
-                        f"{r['state_bytes'] / 1e9:.2f} GB, compute "
-                        f"{rf['t_compute_s']:.4g} s, memory "
-                        f"{rf['t_memory_s']:.4g} s; {r['cell_s']:.1f} s")
-                    continue
+                assert r["partitioned"], r
                 assert sum(r["collectives"]["count"].values()) > 0
                 assert isinstance(r["fits_hbm"], bool)
                 c = r["collectives"]
+                pod = c.get("pod")
+                if "pod" in mesh.axis_names:
+                    assert pod["link"] == "network", pod
+                    assert (pod["count"] > 0) == (
+                        SHAPES[shape].kind == "train"), pod
                 share = r["cost"]["flops"] * r["chips"] / \
                     r["cost"]["flops_total"]
                 log(f"  16c {arch} {shape} {mesh.name}: state "
@@ -4433,7 +4454,11 @@ def phase_dryrun_all():
                     f"{ {k: v for k, v in c['count'].items() if v} }, "
                     f"{c['by_link']['network'] / 1e9:.2f} GB network + "
                     f"{c['by_link']['nvlink'] / 1e9:.2f} GB NVLink = "
-                    f"{rf['t_collective_s']:.4g} s; compute "
+                    f"{rf['t_collective_s']:.4g} s"
+                    + ("" if pod is None else
+                       f" (the pod group's {pod['count']} all-reduces: "
+                       f"{pod['link_bytes'] / 1e9:.4f} GB network)")
+                    + f"; compute "
                     f"{rf['t_compute_s']:.4g} s, memory "
                     f"{rf['t_memory_s']:.4g} s: {rf['dominant']}-bound; "
                     f"local FLOPs {share:.3f}x an even share; torch "

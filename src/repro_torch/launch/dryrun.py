@@ -41,12 +41,16 @@ Per cell it records (``<out>/<arch>__<shape>__<mesh>.json``):
   ops no rule pins.
 
 A 1x1 mesh splits nothing: its step runs unpartitioned (no collective).
-A mesh of three axes (2x16x16) is not partitioned either
-(``UNPARTITIONED_REASON``): its record is the unpartitioned count, the
-FLOPs a chip the total over ``chips``, and ``collectives``,
-``t_collective_s``, ``per_device_bytes`` and ``fits_hbm`` null with
-``unpartitioned_reason``.  A cell whose step an op cannot partition is
-recorded with ``status: "error"`` and the op (``op``).
+A two-pod mesh (2x16x16) is partitioned as one pod's block
+(``specs.pod_local``): ``pod`` splits only the batch (and a batch-1
+cache's sequence), so rank 0's program is its pod's cell, under the
+three-axis specs less ``pod``, on the ``(data, model)`` block's fake
+world, plus an all-reduce over its pod group (two nodes apart: the
+network) for each batch reduction (each gradient, the loss and the CE)
+and each split-K merge of a cache split over ``pod``
+(``op_stats.run_counted``); ``collectives["pod"]`` counts those.  A cell
+whose step an op cannot partition is recorded with ``status: "error"``
+and the op (``op``).
 
 Usage::
 
@@ -80,17 +84,12 @@ HBM_BYTES = 80e9
 NVLINK_BW = 450e9
 NETWORK_BW = 50e9
 LINK_BW = {"nvlink": NVLINK_BW, "network": NETWORK_BW}
-UNPARTITIONED_REASON = (
-    "a mesh of three axes is not partitioned: DTensor's sharding "
-    "propagation over them costs over 15 min of host time a layer of a "
-    "train cell in torch 2.13, and torch 2.11 refuses a dimension split "
-    "over two axes (ROADMAP C4); FLOPs a chip are the total over chips")
 
 
 def partitionable(mesh) -> bool:
     """Whether the dry run partitions a cell over ``mesh``: more than one
-    card, on at most two axes."""
-    return mesh.size > 1 and len(mesh.sizes) <= 2
+    card."""
+    return mesh.size > 1
 
 
 def mesh_for(multi_pod: bool):
@@ -107,35 +106,46 @@ def count_local(arch: str, shape, mesh, opts: Dict,
                 device_type: str = "cpu"):
     """Rank 0's local program of a cell (``op_stats.StepCount``): the
     cell partitioned over a fake world of ``mesh`` (a ``DeviceMesh`` of
-    ``device_type``, ``mesh.device_mesh``), torn down after; on a mesh
-    the dry run does not partition (``partitionable``), the
-    unpartitioned step."""
+    ``device_type``, ``mesh.device_mesh``), torn down after; on a two-pod
+    mesh its pod-local cell over the world of one pod
+    (``mesh.pod_block``); on one card, the unpartitioned step."""
     from . import op_stats
-    from .mesh import device_mesh
+    from .mesh import device_mesh, pod_block
     from .specs import input_specs
     if not partitionable(mesh):
         return op_stats.count_cell(input_specs(arch, shape, mesh, **opts))
-    with device_mesh(mesh, device_type) as dm:
+    with device_mesh(pod_block(mesh), device_type) as dm:
         return op_stats.count_cell(input_specs(
             arch, shape, mesh, partitioned=True, device_mesh=dm, **opts))
 
 
-def collective_record(ops) -> Dict:
+def collective_record(ops, mesh=None) -> Dict:
     """``repro``'s ``collectives`` fields (``count``, ``link_bytes`` and
     ``result_bytes`` by kind), the link bytes by link, and the seconds
-    they take: each collective's bytes over its group's slowest link."""
+    they take: each collective's bytes over its group's slowest link.
+    On a two-pod ``mesh``, ``pod``: the count, link bytes and link of
+    those over rank 0's pod group (``mesh.pod_group``), already in the
+    rest."""
     from . import op_stats
-    from .mesh import group_link
+    from .mesh import POD_AXIS, group_link, pod_group
     st = op_stats.collect_collectives(ops)
     by_link = {"nvlink": 0.0, "network": 0.0}
     for c in ops:
         if c.n > 1 and c.out_bytes:
             by_link[group_link(c.ranks)] += c.link_bytes
     seconds = sum(b / LINK_BW[k] for k, b in by_link.items())
-    return {"count": st.count, "link_bytes": st.link_bytes,
-            "result_bytes": st.result_bytes,
-            "total_link_bytes": st.total_link_bytes, "by_link": by_link,
-            "seconds": seconds}
+    rec = {"count": st.count, "link_bytes": st.link_bytes,
+           "result_bytes": st.result_bytes,
+           "total_link_bytes": st.total_link_bytes, "by_link": by_link,
+           "seconds": seconds}
+    if mesh is not None and POD_AXIS in mesh.axis_names:
+        ranks = pod_group(mesh)
+        pod = op_stats.collect_collectives(c for c in ops
+                                           if c.ranks == ranks)
+        rec["pod"] = {"count": sum(pod.count.values()),
+                      "link_bytes": pod.total_link_bytes,
+                      "link": group_link(ranks)}
+    return rec
 
 
 def run_cell(arch: str, shape, multi_pod: bool = False, *,
@@ -195,16 +205,14 @@ def run_cell(arch: str, shape, multi_pod: bool = False, *,
     t_local = time.time() - t2
     mem = op_stats.extract_memory(cell, mesh, temp=local.peak_bytes)
     bytes_min = op_stats.min_bytes(cell, mesh)
-    coll = collective_record(local.collectives) if split or chips == 1 \
-        else None
-    flops = local.flops if split or chips == 1 else count.flops / chips
+    coll = collective_record(local.collectives, mesh)
+    flops = local.flops
 
     t_compute = flops / PEAK_FLOPS
     t_memory_s = bytes_min / HBM_BW
-    t_collective = None if coll is None else coll.pop("seconds")
-    terms = {"compute": t_compute, "memory": t_memory_s}
-    if t_collective is not None:
-        terms["collective"] = t_collective
+    t_collective = coll.pop("seconds")
+    terms = {"compute": t_compute, "memory": t_memory_s,
+             "collective": t_collective}
     dominant = max(terms, key=terms.get)
 
     c = cell.cfg
@@ -216,21 +224,16 @@ def run_cell(arch: str, shape, multi_pod: bool = False, *,
     model_flops = (6.0 if shape.kind == "train" else 2.0) * n_act * tokens
     state = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
              - mem["alias_size_in_bytes"])
-    per_dev = None if coll is None else state + mem["temp_size_in_bytes"]
-    if coll is None:
-        # the unpartitioned temp keeps the activations whole: no bound
-        mem["temp_size_in_bytes"] = None
-        rec["unpartitioned_reason"] = UNPARTITIONED_REASON
+    per_dev = state + mem["temp_size_in_bytes"]
     rec.update(
         status="ok", kind=cell.kind, chips=chips, partitioned=split,
         local_batch=cell.local_batch,
         specs_s=round(t_specs, 2), count_s=round(t_count, 2),
         local_s=round(t_local, 2),
         cost={"flops": flops, "flops_total": count.flops,
-              "flops_by_op": local.by_op if split or chips == 1 else None,
+              "flops_by_op": local.by_op,
               "bytes_min": float(bytes_min),
-              "bytes_unfused": local.unfused_bytes if split or chips == 1
-              else None},
+              "bytes_unfused": local.unfused_bytes},
         memory=mem,
         collectives=coll,
         roofline={"t_compute_s": t_compute, "t_memory_s": t_memory_s,
@@ -247,7 +250,7 @@ def run_cell(arch: str, shape, multi_pod: bool = False, *,
         state_bytes=state,
         state_fits_hbm=bool(state <= HBM_BYTES),
         per_device_bytes=per_dev,
-        fits_hbm=None if per_dev is None else bool(per_dev <= HBM_BYTES),
+        fits_hbm=bool(per_dev <= HBM_BYTES),
         partition_rules=local.rules if split else {},
     )
     return rec

@@ -18,6 +18,10 @@ between them): ``group_link`` names the slowest link of a group.
 world of ``mesh.size`` ranks in this process (its collectives do
 nothing) and a ``torch.distributed`` ``DeviceMesh`` over it, on which
 DTensor's sharding propagation partitions a step (``launch/specs.py``).
+A two-pod mesh is partitioned as one pod's block (``pod_block``): the
+``pod`` axis splits only the batch (and a batch-1 cache's sequence), so
+rank 0's program is its pod's cell on the ``(data, model)`` axes plus the
+all-reduces over its pod group (``pod_group``) that merge the pods.
 """
 
 from __future__ import annotations
@@ -85,6 +89,28 @@ def make_host_mesh(data: Optional[int] = None,
 
 def mesh_axis_sizes(mesh: LaunchMesh) -> Tuple[int, ...]:
     return tuple(mesh.shape[a] for a in mesh.axis_names)
+
+
+POD_AXIS = "pod"
+
+
+def pod_block(mesh: LaunchMesh) -> LaunchMesh:
+    """One pod of ``mesh``: its ``(data, model)`` axes without the leading
+    ``pod`` axis (a mesh with no ``pod`` axis is its own block).  Ranks
+    run row-major with ``pod`` the major axis, so pod 0 holds ranks 0 to
+    ``block.size - 1`` in the block's own order: rank 0's ``data`` and
+    ``model`` groups are the same global ranks on either mesh."""
+    if POD_AXIS not in mesh.axis_names:
+        return mesh
+    if mesh.axis_names[0] != POD_AXIS:
+        raise ValueError(f"mesh {mesh.axis_names}: the pod axis must lead")
+    return LaunchMesh(mesh.axis_names[1:], mesh.sizes[1:])
+
+
+def pod_group(mesh: LaunchMesh) -> Tuple[int, ...]:
+    """Rank 0's group over ``pod``: one rank a pod, a block apart
+    (``(0, 256)`` on 2x16x16); ``(0,)`` on a mesh with no ``pod`` axis."""
+    return tuple(range(0, mesh.size, pod_block(mesh).size))
 
 
 # --------------------------------------------------------------------- #

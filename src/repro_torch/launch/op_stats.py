@@ -51,6 +51,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import weakref
 from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
                     Tuple)
@@ -61,7 +62,7 @@ from torch.utils.flop_counter import flop_registry
 
 from . import sharding as sh
 from .mesh import LaunchMesh
-from .specs import CellSpec
+from .specs import CellSpec, PodSplit
 
 
 def _key(t: torch.Tensor) -> int:
@@ -605,6 +606,43 @@ def _replicate():
     return Replicate()
 
 
+def _copy_into_partial(func, args, kwargs, note):
+    """``copy_`` of a source split over an axis on which the destination
+    holds a partial sum (autograd's ``CopySlices`` writes a slice's
+    gradient into a clone of a gradient that DTensor left partial: the
+    backward of the SSD scan's ``prev[:, c] = s`` at some batches), which
+    DTensor refuses (no shard-to-partial redistribution): a partial sum
+    whose shards are the source's blocks, each in its place and zeros
+    elsewhere, sums to the source, so each rank zeroes the destination
+    and writes its own block, with no collective; rank 0's block is the
+    first of each such dimension.  The source's other axes are placed as
+    the destination's.  Exact."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dst, src = args[0], args[1]
+    if not isinstance(dst, DTensor) or not isinstance(src, DTensor):
+        return NotImplemented
+    want, blocks = [], []
+    for pd, ps in zip(dst.placements, src.placements):
+        if pd.is_partial() and ps.is_shard():
+            want.append(ps)
+            blocks.append(ps.dim % src.ndim)
+        elif pd.is_partial():
+            want.append(ps if ps == pd else Replicate())
+        else:
+            want.append(pd)
+    if not blocks:
+        return NotImplemented
+    note("copy_into_partial")
+    block = _placed(src, want).to_local()
+    local = dst._local_tensor
+    local.zero_()
+    region = local
+    for d in blocks:
+        region = region.narrow(d, 0, block.shape[d])
+    region.copy_(block)
+    return dst
+
+
 def _into_plain(func, args, kwargs, note):
     """An in-place op on a plain tensor with DTensor operands (a mask
     made with ``torch.ones`` and ``&=`` a comparison of decode positions;
@@ -764,7 +802,7 @@ def _flip_local(func, args, kwargs, note):
                               stride=x.stride())
 
 
-def partitioned_mha(q, k, v, **kw):
+def partitioned_mha(q, k, v, pod_merge: Optional[Callable] = None, **kw):
     """``models.layers.mha`` over DTensors, as an SPMD program runs
     attention: on each shard's local block, so no op inside it is placed
     by DTensor (its einsums merge the batch with the heads, which torch
@@ -784,7 +822,10 @@ def partitioned_mha(q, k, v, **kw):
       output is gathered for the output projection.
 
     Rank 0's positions and masks are its rows (and, split-K, its
-    columns) of the plain ones the model made."""
+    columns) of the plain ones the model made.  ``pod_merge``: where a
+    pod-local cell's cache has its sequence split over ``pod`` too, each
+    split-K merge (the statistics, the outputs) is merged across the
+    pods as well: ``pod_merge`` records that all-reduce of its result."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from ..models import layers as L
     mesh = q.device_mesh
@@ -865,11 +906,16 @@ def partitioned_mha(q, k, v, **kw):
              for a in range(mesh.ndim)]
     whole = [Replicate() if p.is_partial() else p for p in merge]
     stats = out.new_zeros(out.shape[:-1] + (2,), dtype=torch.float32)
-    _placed(DTensor.from_local(stats, mesh, merge, run_check=False), whole)
-    return _placed(DTensor.from_local(out, mesh, merge, run_check=False,
-                                      shape=q.shape,
-                                      stride=_contiguous_stride(q.shape)),
-                   whole)
+    stats = _placed(DTensor.from_local(stats, mesh, merge, run_check=False),
+                    whole)
+    out = _placed(DTensor.from_local(out, mesh, merge, run_check=False,
+                                     shape=q.shape,
+                                     stride=_contiguous_stride(q.shape)),
+                  whole)
+    if pod_merge is not None:
+        pod_merge(stats)
+        pod_merge(out)
+    return out
 
 
 def partitioned_moe(p, cfg, x):
@@ -934,7 +980,7 @@ RULES = ("fsdp_gather", "head_vocab_split", "row_parallel_all_reduce",
          "logits_grad_vocab_split", "scatter_add_shards",
          "index_put_shards", "index_put_partial", "into_plain",
          "reshape_gathered", "reshape_moved", "slice_permuted",
-         "slice_backward_permuted", "flip_gathered")
+         "slice_backward_permuted", "flip_gathered", "copy_into_partial")
 
 # DTensor ops placed by their operands' placements (see each rule); a
 # rule returns ``NotImplemented`` where DTensor's own strategy applies.
@@ -951,6 +997,7 @@ PARTITION_RULES = {torch.ops.aten.gather.default: _resolve_partial,
                    torch.ops.aten.scatter_add.default: _scatter_add_shards,
                    torch.ops.aten.flip.default: _flip_local,
                    torch.ops.aten.scatter_add_.default: _scatter_add_shards,
+                   torch.ops.aten.copy_.default: _copy_into_partial,
                    torch.ops.aten.slice_backward.default:
                        _slice_backward_blocks}
 # the rules that record a collective they issue themselves
@@ -971,8 +1018,10 @@ class OpStats(TorchDispatchMode):
 
     def __init__(self, exclude: Iterable[torch.Tensor] = (),
                  io: bool = True, flops: bool = True,
-                 params: Dict[str, torch.Tensor] = None):
+                 params: Dict[str, torch.Tensor] = None,
+                 pod: Optional[PodSplit] = None):
         super().__init__()
+        self.pod = pod
         self.io = io
         self.flops_on = flops
         self.flops = 0.0
@@ -1191,6 +1240,14 @@ class OpStats(TorchDispatchMode):
         finally:
             self._fixing = False
 
+    def pod_all_reduce(self, t) -> None:
+        """A batch reduction of a pod-local program merged across the
+        pods: an all-reduce of ``t``'s local tensor over rank 0's pod group
+        (``PodSplit.ranks``), in place (no byte allocated)."""
+        local = getattr(t, "_local_tensor", t)
+        self.collectives.append(Collective("all-reduce", _nbytes(local),
+                                           _nbytes(local), self.pod.ranks))
+
     def _record(self, kind: str, local: torch.Tensor,
                 ranks: Tuple[int, ...]) -> None:
         """A collective a rule issues on local tensors (a permute: as many
@@ -1264,8 +1321,9 @@ def local_tensors(tensors: Iterable[torch.Tensor]) -> List[torch.Tensor]:
 
 def run_counted(step_fn: Callable, args: Tuple, exclude=(),
                 flops: bool = True,
-                params: Optional[Dict[str, torch.Tensor]] = None
-                ) -> StepCount:
+                params: Optional[Dict[str, torch.Tensor]] = None,
+                pod: Optional[PodSplit] = None,
+                batch_results: Optional[Callable] = None) -> StepCount:
     """Run ``step_fn(*args)`` (meta tensors: nothing allocated, nothing
     launched) under ``OpStats``; FLOPs and op bytes only with ``flops``.
     ``exclude``: the arguments, DTensors or not, whose storages are not
@@ -1274,11 +1332,21 @@ def run_counted(step_fn: Callable, args: Tuple, exclude=(),
     them).  Where the arguments hold DTensors the step runs under
     ``implicit_replication``: a plain tensor the model makes (RoPE's
     angles, positions) is the same on every rank; an op it cannot
-    partition raises ``PartitionError`` naming the op."""
+    partition raises ``PartitionError`` naming the op.
+
+    ``pod``: the step is a pod-local program (``specs.pod_local``), and
+    its batch reductions are merged across the pods, each by an
+    all-reduce of its result over the pod group (``OpStats.pod_all_reduce``):
+    where ``pod`` splits the batch, every trained weight's gradient (its
+    shard, as the gradient hook places it) and the results
+    ``batch_results(out)`` names; where it splits a cache's sequence, each
+    split-K merge of attention (``partitioned_mha``)."""
     exclude = list(exclude)
     params = params or {}
     stats = OpStats(local_tensors(exclude), io=flops, flops=flops,
-                    params=params)
+                    params=params, pod=pod)
+    hooks = [t.register_hook(stats.pod_all_reduce) for t in params.values()
+             if pod is not None and pod.batch and t.requires_grad]
     dtensor = _dtensor_type()
     ctx = contextlib.nullcontext()
     partitioned = dtensor is not None and any(isinstance(t, dtensor)
@@ -1289,10 +1357,16 @@ def run_counted(step_fn: Callable, args: Tuple, exclude=(),
         ctx = implicit_replication()
     from ..models import layers as L
     L.PARTITIONED_MHA = partitioned_mha if partitioned else None
+    if pod is not None and pod.kv_seq:
+        L.PARTITIONED_MHA = functools.partial(
+            partitioned_mha, pod_merge=stats.pod_all_reduce)
     L.PARTITIONED_MOE = partitioned_moe if partitioned else None
     try:
         with ctx, stats:
-            step_fn(*args)
+            out = step_fn(*args)
+            if pod is not None and pod.batch and batch_results is not None:
+                for t in batch_results(out):
+                    stats.pod_all_reduce(t)
     except PartitionError:
         raise
     except Exception as e:
@@ -1302,6 +1376,8 @@ def run_counted(step_fn: Callable, args: Tuple, exclude=(),
                              f"{type(e).__name__}: {e}") from e
     finally:
         L.PARTITIONED_MHA = L.PARTITIONED_MOE = None
+        for h in hooks:
+            h.remove()
     return StepCount(stats.flops, dict(stats.by_op),
                      float(stats.unfused_bytes), float(stats.peak_bytes),
                      stats.collectives, dict(stats.rules))
@@ -1337,10 +1413,22 @@ def _reduced(out):
     return out
 
 
+# a train step's metrics that are means over the batch (``moe_aux`` is
+# each shard's own, ``partitioned_moe``; ``grad_norm`` is the reduced
+# gradients')
+BATCH_METRICS = ("loss", "ce")
+
+
+def _batch_metrics(out) -> List[torch.Tensor]:
+    return [out[1][k] for k in BATCH_METRICS]
+
+
 def count_cell(cell: CellSpec, flops: bool = True) -> StepCount:
     """One counted run of the cell's step: at its global batch, or, on a
     partitioned cell, rank 0's local program, whose results are reduced
-    where they hold partial sums (``_reduced``)."""
+    where they hold partial sums (``_reduced``); on a pod-local cell
+    (``cell.pod``) with the all-reduces that merge the pods
+    (``run_counted``; a train step's ``BATCH_METRICS``)."""
     flat = cell.flat_args()
     step_fn = cell.step_fn
     if cell.partitioned:
@@ -1349,7 +1437,10 @@ def count_cell(cell: CellSpec, flops: bool = True) -> StepCount:
     return run_counted(step_fn, cell.args, exclude=flat.values(),
                        flops=flops, params={p[len("params."):]: t
                                             for p, t in flat.items()
-                                            if p.startswith("params.")})
+                                            if p.startswith("params.")},
+                       pod=cell.pod,
+                       batch_results=_batch_metrics if cell.kind == "train"
+                       else None)
 
 
 def _shard_bytes(shape, dtype: torch.dtype, spec: sh.Spec,

@@ -204,6 +204,10 @@ def batch_sharding(mesh: LaunchMesh, ndim: int, global_batch: int) -> Spec:
     return (_entry(axes),) + (None,) * (ndim - 1)
 
 
+# a dense cache's attention tensors, head-major (B, Hkv, L, hd)
+KV_KEYS = ("k", "v", "xk", "xv")
+
+
 def _tail_rank(name: str) -> int:
     return {"k": 4, "v": 4, "xk": 4, "xv": 4, "conv": 3, "ssm": 4}.get(name, 0)
 
@@ -221,7 +225,7 @@ def cache_spec(name: str, shape: Sequence[int], mesh: LaunchMesh,
     batch_ok = global_batch % dp_size == 0 and global_batch >= dp_size
     ndim = len(shape)
     lead: List[Entry] = [None] * (ndim - _tail_rank(name))
-    if name in ("k", "v", "xk", "xv"):
+    if name in KV_KEYS:
         if batch_ok:
             spec = lead + [dp if len(dp) > 1 else dp[0], None, "model", None]
         else:

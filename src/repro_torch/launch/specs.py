@@ -21,6 +21,13 @@ propagation partitions them, and ``op_stats`` counts rank 0's program.
 A train cell's gradients are redistributed to their parameter's
 placements as autograd makes them (a hook on each parameter): the
 reduce-scatter an SPMD program gives a sharded parameter's gradient.
+
+A cell on a mesh with a ``pod`` axis is partitioned as its pod-local cell
+(``pod_local``): the specs made on the three axes, ``pod`` dropped from
+them and each dimension it split cut to one pod's block, over a
+``DeviceMesh`` of the ``(data, model)`` block (``mesh.pod_block``).  Its
+``pod`` (``PodSplit``) says what the pod axis split, from which
+``op_stats`` adds the all-reduces that merge the pods.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from ..models import transformer as T
 from ..training import optimizer as opt_mod
 from ..training import trainer
 from . import sharding as sh
-from .mesh import LaunchMesh
+from .mesh import POD_AXIS, LaunchMesh, pod_block, pod_group
 
 # archs whose optimizer state must be factored to fit a card's memory
 ADAFACTOR_ARCHS = {"kimi-k2-1t-a32b", "llava-next-34b", "qwen1.5-32b",
@@ -60,6 +67,18 @@ class Output:
     written: Optional[Tuple[int, ...]] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class PodSplit:
+    """What a two-pod cell's ``pod`` axis splits, as its pod-local cell
+    (``pod_local``) keeps it: ``ranks``, rank 0's group over ``pod``
+    (global ranks, ``mesh.pod_group``); ``batch``, whether it splits the
+    tokens; ``kv_seq``, whether it splits a decode cache's sequence (a
+    batch the data axes do not divide, ``long_500k``)."""
+    ranks: Tuple[int, ...]
+    batch: bool
+    kv_seq: bool
+
+
 @dataclasses.dataclass
 class CellSpec:
     """A cell's step and its meta arguments: ``step_fn(*args)``.
@@ -76,6 +95,7 @@ class CellSpec:
     outputs: List[Output]
     opts: Dict
     device_mesh: Any = None     # the DeviceMesh of a partitioned cell
+    pod: Optional[PodSplit] = None  # a pod-local cell's pod axis
 
     @property
     def partitioned(self) -> bool:
@@ -234,9 +254,106 @@ def _grad_like(param, grad):
     return grad.redistribute(param.device_mesh, param.placements)
 
 
+def _axes(entry: sh.Entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def drop_pod(spec: sh.Spec) -> sh.Spec:
+    """``spec`` with ``pod`` taken out of every entry (normal form)."""
+    return tuple(sh._entry(tuple(a for a in _axes(e) if a != POD_AXIS))
+                 for e in spec)
+
+
+def pod_shape(shape, spec: sh.Spec, mesh: LaunchMesh) -> Tuple[int, ...]:
+    """One pod's block of a tensor of ``shape``: each dimension that
+    ``pod`` splits under ``spec`` (legalized for ``shape``) cut by the
+    pod count."""
+    spec = sh.legalize(spec, shape, mesh)
+    pods = mesh.shape[POD_AXIS]
+    return tuple(d // pods if POD_AXIS in _axes(e) else d
+                 for d, e in zip(shape, spec))
+
+
+def _with_flat(kind: str, args: Tuple, flat: Dict[str, torch.Tensor]
+               ) -> Tuple:
+    """``args`` with its batch tensors (tokens, labels, the decode cache
+    and lengths) taken from ``flat``; the weights and the optimizer state
+    as they are."""
+    if kind == "train":
+        return (args[0], (flat["tokens"], flat["labels"]))
+    if kind == "prefill":
+        return (args[0], flat["tokens"])
+    cache = [{k: flat[f"cache.{i}.{k}"] for k in layer}
+             for i, layer in enumerate(args[2])]
+    return (args[0], flat["tokens"], cache, flat["cache_len"])
+
+
+def pod_local(cell: CellSpec) -> CellSpec:
+    """One pod's block of a cell on a mesh with a leading ``pod`` axis,
+    on the ``(data, model)`` block (``mesh.pod_block``); any other cell
+    as it is.  The specs are the three-axis ones (``cache_spec`` splits a
+    Mamba state's batch over ``pod`` alone on two pods, a batch-1 cache's
+    sequence over every axis: specs made on the block would differ),
+    with ``pod`` dropped from each entry and each dimension it split cut
+    by the pod count (``pod_shape``); arguments and outputs are cut
+    alike.  ``pod`` splits only the batch and a cache's sequence (DP over
+    ``pod``, ``launch/sharding.py``): a weight, optimizer slot or step
+    counter whose spec names it raises ``op_stats.PartitionError`` naming
+    the tensor.  Rank 0 lies in pod 0, whose block is the first of every
+    cut dimension, so the block's rank 0 holds the same shards as the
+    cell's."""
+    from .op_stats import PartitionError
+    mesh = cell.mesh
+    if POD_AXIS not in mesh.axis_names:
+        return cell
+    flat = cell.flat_args()
+    full = {p: sh.legalize(cell.arg_specs[p], t.shape, mesh)
+            for p, t in flat.items()}
+    cut: Dict[str, torch.Tensor] = {}
+    for path, t in flat.items():
+        spec = full[path]
+        if (path == "step" or path.startswith(("params.", "opt."))) and \
+                any(POD_AXIS in _axes(e) for e in spec):
+            raise PartitionError(path, f"spec {spec} splits a weight or "
+                                       f"optimizer state over {POD_AXIS!r}, "
+                                       f"which splits only the batch")
+        shape = pod_shape(t.shape, spec, mesh)
+        cut[path] = t if shape == tuple(t.shape) else torch.empty(
+            shape, dtype=t.dtype, device=t.device)
+    outputs = []
+    for o in cell.outputs:
+        spec = sh.legalize(o.spec, o.shape, mesh)
+        written = None if o.written is None else pod_shape(o.written, o.spec,
+                                                           mesh)
+        outputs.append(dataclasses.replace(
+            o, shape=pod_shape(o.shape, spec, mesh), spec=drop_pod(spec),
+            written=written))
+    # head-major (B, Hkv, L, hd): the sequence is the second to last
+    kv_seq = any(POD_AXIS in _axes(spec[-2]) for p, spec in full.items()
+                 if p.startswith("cache.")
+                 and p.rsplit(".", 1)[1] in sh.KV_KEYS)
+    batch = POD_AXIS in _axes(full["tokens"][0])
+    B = cut["tokens"].shape[0]
+    return dataclasses.replace(
+        cell, shape=dataclasses.replace(cell.shape, global_batch=B),
+        args=_with_flat(cell.kind, cell.args, cut), mesh=pod_block(mesh),
+        arg_specs={p: drop_pod(spec) for p, spec in full.items()},
+        outputs=outputs, pod=PodSplit(pod_group(mesh), batch, kv_seq))
+
+
 def partition(cell: CellSpec, dmesh, device: str = "meta") -> CellSpec:
     """The cell with every argument a DTensor over ``dmesh`` (its spec's
-    placements; local shards zeros on ``device``)."""
+    placements; local shards zeros on ``device``).  A cell on a mesh with
+    a ``pod`` axis is partitioned as its pod-local cell (``pod_local``),
+    over a ``dmesh`` of its ``(data, model)`` block."""
+    cell = pod_local(cell)
+    if tuple(dmesh.mesh_dim_names or ()) != cell.mesh.axis_names or \
+            tuple(dmesh.mesh.shape) != cell.mesh.sizes:
+        raise ValueError(f"a DeviceMesh {dmesh.mesh_dim_names} "
+                         f"{tuple(dmesh.mesh.shape)} for a cell on "
+                         f"{cell.mesh.axis_names} {cell.mesh.sizes}")
     mesh, specs = cell.mesh, cell.arg_specs
 
     def dt(path: str, t: torch.Tensor):

@@ -405,21 +405,22 @@ def test_temp_bytes_track_live_intermediates():
 # records
 # --------------------------------------------------------------------- #
 def assert_hbm_keys(rec):
-    """``state_bytes`` is exact; on a partitioned mesh
-    ``per_device_bytes`` is the state plus the local program's temp bytes
-    and ``fits_hbm`` a boolean; on a mesh of three axes, not partitioned,
-    both are null with the reason, as the temp bytes are."""
+    """``state_bytes`` is exact; on every mesh ``per_device_bytes`` is the
+    state plus the local program's temp bytes and ``fits_hbm`` a boolean;
+    a two-pod record is partitioned (one pod's block), with its pod
+    group's collectives priced on the network."""
     m = rec["memory"]
     state = (m["argument_size_in_bytes"] + m["output_size_in_bytes"]
              - m["alias_size_in_bytes"])
     assert rec["state_bytes"] == state
     assert rec["state_fits_hbm"] == (state <= 80e9)
     assert "fits_hbm_reason" not in rec
+    assert "unpartitioned_reason" not in rec
     if rec["mesh"].count("x") == 2:
-        assert rec["per_device_bytes"] is None and rec["fits_hbm"] is None
-        assert m["temp_size_in_bytes"] is None
-        assert rec["unpartitioned_reason"] == dryrun.UNPARTITIONED_REASON
-        return
+        assert rec["partitioned"]
+        pod = rec["collectives"]["pod"]
+        assert pod["link"] == "network"
+        assert pod["link_bytes"] <= rec["collectives"]["by_link"]["network"]
     assert m["temp_size_in_bytes"] > 0
     assert rec["per_device_bytes"] == state + m["temp_size_in_bytes"]
     assert isinstance(rec["fits_hbm"], bool)
@@ -440,10 +441,12 @@ MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
     ("qwen3-4b", "train_4k"), ("llama4-scout-17b-a16e", "decode_32k"),
     ("mamba2-2.7b", "long_500k")])
 def test_run_cell_records(arch, shape, tmp_path):
-    """Each cell on a 2x2 mesh, partitioned (production meshes of 16x16
-    are ``test_torch_partition.py``'s), and on the two-pod production
-    mesh, whose three axes are not partitioned: one unpartitioned count
-    shared by both, and a local count from the 2x2 mesh's program."""
+    """Each cell on a 2x2 mesh and on the two-pod production mesh, both
+    partitioned (the two-pod one as one pod's block; production cells
+    are ``test_torch_partition.py``'s too): one unpartitioned count
+    shared by both, a local count from each mesh's program, and on two
+    pods the network bytes of the pod group (a train step's gradients
+    and loss; nothing for prefill and decode)."""
     counts = {}
     meshes = [tmesh.LaunchMesh(("data", "model"), (2, 2)),
               tmesh_of(True)]
@@ -461,19 +464,24 @@ def test_run_cell_records(arch, shape, tmp_path):
         assert r["t_memory_s"] == rec["cost"]["bytes_min"] / 3.35e12
         assert rec["cost"]["flops_total"] == whole.flops
         assert rec["torch_version"] == torch.__version__
-        if chips == 512:
-            assert rec["collectives"] is None and not rec["partitioned"]
-            assert rec["unpartitioned_reason"] == \
-                dryrun.UNPARTITIONED_REASON
-            assert r["t_collective_s"] is None
-            assert r["bound_s"] == max(r["t_compute_s"], r["t_memory_s"])
-            assert rec["cost"]["flops"] == whole.flops / chips
-            continue
+        assert rec["partitioned"]
         c = rec["collectives"]
         assert set(c["count"]) == set(hlo_stats.COLLECTIVE_OPS)
         assert sum(c["count"].values()) > 0
-        assert c["by_link"]["network"] == 0     # 4 cards: one node
-        assert r["t_collective_s"] == c["by_link"]["nvlink"] / 450e9 > 0
+        if chips == 512:
+            # groups of 16 on model span two nodes, and so does the pod
+            # group (0, 256): every byte on the network
+            pod = c["pod"]
+            assert pod["link"] == "network" and c["by_link"]["nvlink"] == 0
+            kind = tconfigs.SHAPES[shape].kind
+            assert (pod["count"] > 0) == (kind == "train")
+            assert (pod["link_bytes"] > 0) == (kind == "train")
+            assert r["t_collective_s"] == pytest.approx(
+                c["by_link"]["network"] / 50e9)
+        else:
+            assert "pod" not in c
+            assert c["by_link"]["network"] == 0     # 4 cards: one node
+            assert r["t_collective_s"] == c["by_link"]["nvlink"] / 450e9 > 0
         assert r["bound_s"] == max(r["t_compute_s"], r["t_memory_s"],
                                    r["t_collective_s"])
         assert whole.flops / chips <= rec["cost"]["flops"] < whole.flops
@@ -556,7 +564,8 @@ def test_run_all_writes_every_cell_once(tmp_path):
     for key in ("memory", "cost", "roofline", "collectives",
                 "state_bytes"):
         assert recs[0][key] == here[key], key
-    assert recs[1]["collectives"] is None and not recs[1]["partitioned"]
+    assert recs[1]["partitioned"] and recs[1]["collectives"]["pod"] == {
+        "count": 0, "link_bytes": 0.0, "link": "network"}
     assert not dist.is_initialized()
     assert dryrun.run_all(str(out), archs=[arch], shapes=shapes,
                           log=logs.append, meshes=meshes,

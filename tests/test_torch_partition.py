@@ -15,7 +15,11 @@ splits evenly, and the local peak is below the unpartitioned one on a
 model-split mesh.  Beside ``repro``: its 2x2 mini dry run (XLA's SPMD
 partition of the same smoke train step) and the port's partition of it
 agree on temp bytes, the local share of the FLOPs and the link bytes of
-the collectives both issue, within stated limits.
+the collectives both issue, within stated limits.  Two pods: a cell on
+(pod, data, model) is its pod's block on (data, model) (the same ops,
+FLOPs and temp as that cell at the pod's batch, exactly) plus the
+all-reduces over the pod group that the specs imply, held by hand, on
+production cells, and beside ``repro``'s 2x2x2 mini dry run.
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ import torch.distributed as dist
 import pytest
 
 from repro.launch import hlo_stats
+from repro_torch import configs as tconfigs
 from repro_torch.configs import smoke_config
 from repro_torch.configs.shapes import InputShape
 from repro_torch.distributed import decode_mesh
@@ -60,14 +65,18 @@ def lmesh(*sizes):
 _RUNS = {}
 
 
-def partitioned(kind, sizes, cfg=DENSE1):
+def partitioned(kind, sizes, cfg=DENSE1, batch=None):
     """The smoke cell's local program on ``sizes`` (cached; no remat, so
-    a train cell runs its forward once)."""
-    key = (kind, sizes, cfg.name, cfg.num_layers)
+    a train cell runs its forward once); ``batch`` in place of the
+    shape's; on three axes, its pod-local program."""
+    shape = SHAPES[kind]
+    if batch is not None:
+        shape = dataclasses.replace(shape, global_batch=batch)
+    key = (kind, sizes, cfg.name, cfg.num_layers, shape.global_batch)
     if key not in _RUNS:
         mesh = lmesh(*sizes)
-        with tmesh.device_mesh(mesh) as dm:
-            cell = tspecs.input_specs(cfg.name, SHAPES[kind], mesh, cfg=cfg,
+        with tmesh.device_mesh(tmesh.pod_block(mesh)) as dm:
+            cell = tspecs.input_specs(cfg.name, shape, mesh, cfg=cfg,
                                       remat=False, partitioned=True,
                                       device_mesh=dm)
             _RUNS[key] = op_stats.count_cell(cell)
@@ -397,6 +406,30 @@ def test_partition_rules_act_where_dtensor_cannot_place():
     assert whole("decode").rules == {}
 
 
+def test_copy_into_partial_writes_each_block():
+    """``copy_`` of a source split over ``model`` into a destination that
+    holds a partial sum there (DTensor refuses it: no shard-to-partial
+    redistribution): rank 0 zeroes its partial and writes its own block
+    of the source (the first), so the shards' blocks sum to the source;
+    no collective, no FLOP."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = lmesh(1, 2)
+    with tmesh.device_mesh(mesh) as dm:
+        dst = DTensor.from_local(torch.full((4, 6), 7.0), dm,
+                                 [Shard(0), Partial()], run_check=False)
+        src = DTensor.from_local(torch.arange(12.0).reshape(4, 3), dm,
+                                 [Shard(0), Shard(1)], run_check=False,
+                                 shape=torch.Size((4, 6)), stride=(6, 1))
+        st = op_stats.run_counted(lambda d, s: d.copy_(s), (dst, src),
+                                  exclude=[dst, src])
+        local = dst.to_local()
+        assert torch.equal(local[:, :3], torch.arange(12.0).reshape(4, 3))
+        assert torch.equal(local[:, 3:], torch.zeros(4, 3))
+        assert st.collectives == [] and st.flops == 0
+        assert st.rules == {"copy_into_partial": 1}
+    assert not dist.is_initialized()
+
+
 def test_unplaceable_op_is_named():
     """An op no rule places and DTensor refuses raises ``PartitionError``
     naming it: the dry run records the cell as an error with the op."""
@@ -460,21 +493,213 @@ def test_production_records(shape):
         assert 1.0 < share < 1.1
 
 
-def test_three_axis_mesh_is_not_partitioned():
-    """A 2x16x16 cell keeps the unpartitioned record: FLOPs the total
-    over chips, and the collective term, temp bytes, per-device bytes
-    and the fit null with the reason."""
-    rec = dryrun.run_cell("qwen3-4b", "decode_32k", multi_pod=True,
-                          num_periods=1)
-    assert rec["status"] == "ok" and not rec["partitioned"]
-    assert rec["mesh"] == "2x16x16"
-    assert rec["unpartitioned_reason"] == dryrun.UNPARTITIONED_REASON
-    assert rec["collectives"] is None
-    assert rec["roofline"]["t_collective_s"] is None
-    assert rec["per_device_bytes"] is None and rec["fits_hbm"] is None
-    assert rec["memory"]["temp_size_in_bytes"] is None
-    assert rec["cost"]["flops"] == rec["cost"]["flops_total"] / 512
-    assert isinstance(rec["state_fits_hbm"], bool)
+def param_shard_bytes(cell):
+    """One device's shards of the cell's weights, in bytes: what the
+    gradients that merge across the pods hold."""
+    return sum(op_stats._shard_bytes(t.shape, t.dtype, cell.arg_specs[p],
+                                     cell.mesh)
+               for p, t in cell.flat_args().items()
+               if p.startswith("params."))
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_three_axis_production_records(shape):
+    """qwen3-4b at one layer on 2x16x16 is partitioned as one pod's block
+    and fits: its local FLOPs (by op) and temp equal, exactly, those of
+    the 16x16 program at the pod's batch (half the global), and so do
+    its collectives but the pod's.  Train merges each gradient shard and
+    the two batch metrics across the pods (group (0, 256), two nodes
+    apart: the network), one all-reduce each, the weights' shard bytes
+    plus 8 on the link; decode splits its batch over ``pod`` and has no
+    pod collective."""
+    rec = dryrun.run_cell("qwen3-4b", shape, multi_pod=True, num_periods=1)
+    assert not dist.is_initialized()
+    assert_record(rec)
+    assert rec["mesh"] == "2x16x16" and rec["chips"] == 512
+    assert rec["partitioned"] and rec["fits_hbm"]
+    assert "unpartitioned_reason" not in rec
+    full = tconfigs.SHAPES[shape]
+    half = dataclasses.replace(full, global_batch=full.global_batch // 2)
+    sub = dryrun.count_local("qwen3-4b", half, lmesh(16, 16),
+                             dict(num_periods=1))
+    assert not dist.is_initialized()
+    assert rec["cost"]["flops"] == sub.flops
+    assert rec["cost"]["flops_by_op"] == sub.by_op
+    assert rec["memory"]["temp_size_in_bytes"] == sub.peak_bytes
+    assert rec["partition_rules"] == sub.rules
+    assert rec["local_batch"] == full.global_batch // 32
+    c, pod = rec["collectives"], rec["collectives"]["pod"]
+    mine = dryrun.collective_record(sub.collectives)
+    assert pod["link"] == "network" == tmesh.group_link((0, 256))
+    for kind in hlo_stats.COLLECTIVE_OPS:
+        extra = pod["count"] if kind == "all-reduce" else 0
+        assert c["count"][kind] == mine["count"][kind] + extra, kind
+    assert c["by_link"]["network"] == pytest.approx(
+        mine["by_link"]["network"] + pod["link_bytes"])
+    if shape == "decode_32k":
+        assert pod == {"count": 0, "link_bytes": 0.0, "link": "network"}
+        return
+    cell = tspecs.input_specs("qwen3-4b", shape, tmesh_of(True),
+                              num_periods=1)
+    n = sum(p.startswith("params.") for p in cell.arg_specs)
+    assert pod["count"] == n + len(op_stats.BATCH_METRICS)
+    # an all-reduce over 2 sends its bytes once: 2 (n-1)/n = 1
+    assert pod["link_bytes"] == param_shard_bytes(cell) + 8
+
+
+def tmesh_of(multi_pod):
+    return tmesh.make_production_mesh(multi_pod=multi_pod)
+
+
+POD3 = (2, 2, 2)
+POD_GROUP = (0, 4)                  # rank 0's pod group on 2x2x2
+
+
+def split_by_pod(colls):
+    pod = [c for c in colls if c.ranks == POD_GROUP]
+    return pod, [c for c in colls if c.ranks != POD_GROUP]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_pod_local_identity(kind):
+    """The smoke cell at batch 8 on 2x2x2 against the same cell at batch
+    4 on 2x2 (its pod's block): the same ops, FLOPs, op bytes, temp and
+    rules, and the same collectives in the same order, plus the pod's.
+    Train: each gradient, as its hook places it, and the loss and the CE
+    are all-reduced over the pod group, whose link bytes are the
+    weights' shard bytes plus 2 x 4 (by hand from the specs); every
+    reduction over ``data`` that moves more than a scalar is a gradient's
+    (a batch reduction), at once followed by its pod all-reduce.  The
+    scalars over ``data`` that gain none are the metrics (merged after
+    the step) and the clip's norm, a sum over the gradients' shards
+    already merged.  Prefill and decode: FSDP's traffic over ``data`` is
+    all-gathers only, and nothing crosses the pods."""
+    three = partitioned(kind, POD3, batch=8)
+    two = partitioned(kind, (2, 2))
+    assert three.flops == two.flops and three.by_op == two.by_op
+    assert three.unfused_bytes == two.unfused_bytes
+    assert three.peak_bytes == two.peak_bytes
+    assert three.rules == two.rules
+    pod, rest = split_by_pod(three.collectives)
+    assert rest == two.collectives
+    data = (0, 2)
+    if kind != "train":
+        assert pod == []
+        assert {c.kind for c in rest if c.ranks == data} <= {"all-gather"}
+        return
+    mesh = lmesh(*POD3)
+    cell = tspecs.input_specs(DENSE1.name, dataclasses.replace(
+        TRAIN, global_batch=8), mesh, cfg=DENSE1, remat=False)
+    assert {c.kind for c in pod} == {"all-reduce"}
+    assert len(pod) == sum(p.startswith("params.") for p in cell.arg_specs) \
+        + len(op_stats.BATCH_METRICS)
+    assert sum(c.link_bytes for c in pod) == param_shard_bytes(cell) + 8
+    colls = three.collectives
+    for i, c in enumerate(colls):
+        if c.ranks == data and c.kind != "all-gather" and c.out_bytes > 4:
+            assert colls[i + 1] == op_stats.Collective(
+                "all-reduce", c.out_bytes, c.out_bytes, POD_GROUP), i
+
+
+def test_pod_local_cell_keeps_each_devices_shards():
+    """``specs.pod_local`` of a train cell on 2x2x2: the (data, model)
+    block, specs without ``pod``, the tokens cut to one pod's batch, the
+    weights and the optimizer state as they are, and every device's
+    argument, output and alias bytes and its minimum traffic equal the
+    three-axis cell's; a weight split over ``pod`` is refused, naming
+    it."""
+    mesh = lmesh(*POD3)
+    cell = tspecs.input_specs(DENSE1.name, dataclasses.replace(
+        TRAIN, global_batch=8), mesh, cfg=DENSE1)
+    local = tspecs.pod_local(cell)
+    assert local.mesh == lmesh(2, 2) == tmesh.pod_block(mesh)
+    assert local.pod == tspecs.PodSplit(POD_GROUP, True, False)
+    assert local.shape.global_batch == 4 and local.local_batch == 2
+    assert cell.local_batch == 2
+    flat, cut = cell.flat_args(), local.flat_args()
+    assert tuple(cut["tokens"].shape) == (4, 32)
+    for p, t in flat.items():
+        assert "pod" not in str(local.arg_specs[p]), p
+        if p not in ("tokens", "labels"):
+            assert cut[p] is t, p
+    assert op_stats.extract_memory(local, temp=0.0) == \
+        op_stats.extract_memory(cell, temp=0.0)
+    assert op_stats.min_bytes(local) == op_stats.min_bytes(cell)
+    assert tspecs.pod_local(local) is local
+    bad = dataclasses.replace(cell, arg_specs=dict(
+        cell.arg_specs, **{"params.embed": ("pod", "model")}))
+    with pytest.raises(op_stats.PartitionError) as err:
+        tspecs.pod_local(bad)
+    assert err.value.op == "params.embed"
+    with tmesh.device_mesh(mesh) as dm:
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            tspecs.partition(cell, dm)
+    assert not dist.is_initialized()
+
+
+def test_pod_split_mamba_state():
+    """mamba2's smoke decode at batch 8 on 2x2x2: the tokens split over
+    (pod, data), but ``cache_spec`` splits the SSM and conv states' batch
+    over ``dp[0]``, which is ``pod`` on two pods: their local shards keep
+    the pod's batch, 4 rows, replicated over ``data`` (specs recomputed
+    on the (data, model) block would split them to 2).  The step
+    partitions and no collective crosses the pods."""
+    cfg = tspecs.reduced_config(smoke_config("mamba2-2.7b"), 1)
+    mesh = lmesh(*POD3)
+    shape = dataclasses.replace(DECODE, global_batch=8)
+    with tmesh.device_mesh(tmesh.pod_block(mesh)) as dm:
+        cell = tspecs.input_specs(cfg.name, shape, mesh, cfg=cfg,
+                                  partitioned=True, device_mesh=dm)
+        assert cell.pod == tspecs.PodSplit(POD_GROUP, True, False)
+        flat = cell.flat_args()
+        assert tuple(flat["tokens"].to_local().shape) == (2, 1)
+        for key in ("conv", "ssm"):
+            assert "data" not in str(cell.arg_specs[f"cache.0.{key}"])
+            t = flat[f"cache.0.{key}"]
+            assert t.shape[0] == 4 and t.to_local().shape[0] == 4, key
+        count = op_stats.count_cell(cell)
+    assert not dist.is_initialized()
+    assert split_by_pod(count.collectives)[0] == []
+    assert count.flops > 0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b"])
+def test_pod_split_sequence_merge(arch):
+    """A batch-1 decode (``long_500k``'s layout) at one period on 2x2x2:
+    the cache's sequence splits over (pod, data, model), the batch over
+    nothing.  The pod-local program is the 2x2 cell over the pod's half
+    of the cache (the same ops, FLOPs and temp), and each split-K merge
+    of attention (the softmax statistics, then the outputs, each
+    all-reduced over ``model``) gains an all-reduce of the same bytes
+    over the pod group; Mamba layers (jamba's seven of eight) keep their
+    state whole on every device and gain nothing."""
+    cfg = tspecs.reduced_config(smoke_config(arch), 1)
+    runs = {}
+    for sizes, seq in ((POD3, 64), ((2, 2), 32)):
+        mesh = lmesh(*sizes)
+        shape = InputShape("long_s", "decode", seq, 1)
+        with tmesh.device_mesh(tmesh.pod_block(mesh)) as dm:
+            cell = tspecs.input_specs(cfg.name, shape, mesh, cfg=cfg,
+                                      partitioned=True, device_mesh=dm)
+            runs[sizes] = (cell, op_stats.count_cell(cell))
+    cell, three = runs[POD3]
+    two = runs[(2, 2)][1]
+    assert cell.pod == tspecs.PodSplit(POD_GROUP, False, True)
+    assert three.flops == two.flops and three.by_op == two.by_op
+    assert three.peak_bytes == two.peak_bytes
+    pod, rest = split_by_pod(three.collectives)
+    assert rest == two.collectives
+    attn = sum(c.get("k") is not None for c in cell.args[2])
+    assert attn == (cfg.num_layers if arch == "gemma3-1b" else 1)
+    assert len(pod) == 2 * attn
+    colls = three.collectives
+    for i, c in enumerate(colls):
+        if c.ranks == POD_GROUP:
+            # the merge over model two places before (statistics, output)
+            j = i - 2
+            assert c.kind == colls[j].kind == "all-reduce"
+            assert c.out_bytes == colls[j].out_bytes
+            assert colls[j].ranks == (0, 1)
 
 
 def test_small_mesh_records_price_nvlink():
@@ -490,24 +715,31 @@ def test_small_mesh_records_price_nvlink():
 # beside repro's 2x2 mini dry run (tests/test_launch.py)
 # --------------------------------------------------------------------- #
 MINI = """
-import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import os, sys
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                           + sys.argv[1])
+import ast
 import jax, jax.numpy as jnp
 from repro.configs import smoke_config
 from repro.launch import hlo_stats, sharding as sh
 from repro.training import trainer
 from repro.training.optimizer import cosine_schedule, make_optimizer
 
-kw = {}
-if hasattr(jax.sharding, "AxisType"):
-    kw["axis_types"] = (jax.sharding.AxisType.Auto,) * 2
 cfg = smoke_config("qwen2.5-14b")
 opt = make_optimizer("adamw", cosine_schedule(1e-3, 2, 10))
 step = trainer.make_train_step(cfg, opt, remat=False)
 state_sds = trainer.abstract_state(cfg, opt)
-for sizes in ((2, 2), (1, 1)):
-    devs = jax.devices()[:sizes[0] * sizes[1]]
-    mesh = jax.make_mesh(sizes, ("data", "model"), devices=devs, **kw)
+for sizes, batch in ast.literal_eval(sys.argv[2]):
+    names = ("data", "model") if len(sizes) == 2 else ("pod", "data",
+                                                       "model")
+    kw = {}
+    if hasattr(jax.sharding, "AxisType"):
+        kw["axis_types"] = (jax.sharding.AxisType.Auto,) * len(sizes)
+    n = 1
+    for size in sizes:
+        n *= size
+    devs = jax.devices()[:n]
+    mesh = jax.make_mesh(sizes, names, devices=devs, **kw)
     psh = sh.params_shardings(state_sds.params, mesh, cfg)
     state = trainer.TrainState(
         jax.ShapeDtypeStruct((), jnp.int32, sharding=sh.replicated(mesh)),
@@ -515,8 +747,8 @@ for sizes in ((2, 2), (1, 1)):
         jax.tree.map(lambda s: jax.ShapeDtypeStruct(
             s.shape, s.dtype, sharding=sh.replicated(mesh)),
             state_sds.opt_state))
-    tok = jax.ShapeDtypeStruct((4, 16), jnp.int32,
-                               sharding=sh.batch_sharding(mesh, 2, 4))
+    tok = jax.ShapeDtypeStruct((batch, 16), jnp.int32,
+                               sharding=sh.batch_sharding(mesh, 2, batch))
     with mesh:
         compiled = jax.jit(step).lower(state, (tok, tok)).compile()
     ca = compiled.cost_analysis()
@@ -528,15 +760,18 @@ for sizes in ((2, 2), (1, 1)):
 """
 
 
-def repro_mini(tmp_path):
-    """``repro``'s mini dry run (qwen2.5-14b smoke, train 4 x 16, no
-    remat; its optimizer state replicated) compiled by XLA for meshes of
-    2x2 and 1x1 forced host devices: temp bytes, FLOPs, collectives."""
+def repro_mini(tmp_path, runs=(((2, 2), 4), ((1, 1), 4)), devices=4):
+    """``repro``'s mini dry run (qwen2.5-14b smoke, train at ``batch`` x
+    16, no remat; its optimizer state replicated) compiled by XLA for
+    each ``(sizes, batch)`` of ``runs``, a mesh of ``(data, model)`` or
+    ``(pod, data, model)`` forced host devices: temp bytes, FLOPs,
+    collectives, one record a run in order."""
     import ast
     script = tmp_path / "mini.py"
     script.write_text(MINI)
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+    r = subprocess.run([sys.executable, str(script), str(devices),
+                        repr(tuple(runs))], capture_output=True,
                        text=True, timeout=600,
                        env=dict(os.environ, PYTHONPATH=os.path.abspath(src),
                                 JAX_PLATFORMS="cpu"))
@@ -545,8 +780,8 @@ def repro_mini(tmp_path):
         if line.startswith("MINI "):
             sizes, rec = line[5:].split(") ", 1)
             out[ast.literal_eval(sizes + ")")] = ast.literal_eval(rec)
-    assert len(out) == 2, r.stderr[-2000:]
-    return out[(2, 2)], out[(1, 1)]
+    assert len(out) == len(runs), r.stderr[-2000:]
+    return [out[sizes] for sizes, _ in runs]
 
 
 def test_beside_repro_mini_dry_run(tmp_path):
@@ -587,6 +822,44 @@ def test_beside_repro_mini_dry_run(tmp_path):
     repro_link = sum(theirs["link"].values())
     assert repro_link <= port.total_link_bytes <= 1.5 * repro_link
     assert sum(port.count.values()) >= sum(theirs["count"].values())
+
+
+def test_beside_repro_three_axis_mini(tmp_path):
+    """``repro``'s mini dry run on 2x2x2 forced host devices at batch 8
+    (and on 2x2 at batch 4, one pod's block; 1x1 at batch 8 for the
+    FLOPs share) against the port's pod-local partition of it, within
+    stated limits:
+
+    * the local share of the FLOPs at least an even share (1/8) and no
+      more than XLA's;
+    * the all-reduces' link bytes (the row-parallel products, the CE,
+      and now the gradients merged across the pods) within 25% of
+      XLA's, and all link bytes within 1.5 times either way;
+    * temp bytes between 0.75 times XLA's 2x2 figure at batch 4 (the
+      port's pod-local program is that cell) and XLA's 2x2x2 figure:
+      XLA also gathers activations across the pods (the logits over
+      ``{0,2,4,6}``, for one), which the specs do not ask for, and its
+      temp grows over 2x2's at the same batch a pod."""
+    theirs, block, one = repro_mini(
+        tmp_path, runs=(((2, 2, 2), 8), ((2, 2), 4), ((1, 1), 8)),
+        devices=8)
+    cfg = smoke_config("qwen2.5-14b")
+    shape = InputShape("mini", "train", 16, 8)
+    mesh = lmesh(*POD3)
+    with tmesh.device_mesh(tmesh.pod_block(mesh)) as dm:
+        local = op_stats.count_cell(tspecs.input_specs(
+            "qwen2.5-14b", shape, mesh, cfg=cfg, remat=False,
+            partitioned=True, device_mesh=dm))
+    total = op_stats.count_cell(tspecs.input_specs(
+        "qwen2.5-14b", shape, lmesh(1, 1), cfg=cfg, remat=False)).flops
+    port = op_stats.collect_collectives(local.collectives)
+    assert split_by_pod(local.collectives)[0]
+    assert 1 / 8 <= local.flops / total <= theirs["flops"] / one["flops"]
+    assert port.link_bytes["all-reduce"] == pytest.approx(
+        theirs["link"]["all-reduce"], rel=0.25)
+    repro_link = sum(theirs["link"].values())
+    assert repro_link / 1.5 <= port.total_link_bytes <= 1.5 * repro_link
+    assert 0.75 * block["temp"] <= local.peak_bytes <= theirs["temp"]
 
 
 def test_attention_on_local_blocks():
