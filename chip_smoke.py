@@ -189,7 +189,19 @@ Phases (any failure raises and the script exits non-zero):
    with replication at 2x1 and 2x2, and 2x2 under pressure, no page
    leaked on any shard; (d) ``calibrate=True`` at 2x2: what
    ``recalibrate`` fits (to shards that run one after another on one
-   card: not the H100's coefficients);
+   card: not the H100's coefficients); (e) the mesh over processes, one
+   rank a shard holding only its slab of the pool: (i) (a)'s model and
+   traffic as a 1x1 process mesh under NCCL in this process, the
+   collectives captured in its graphs (PAC, the epilogue and the model
+   sum's all-reduce 36 each a graph), TPOT beside (a)'s 1x1; (ii) (b)'s
+   model at 2x1, 1x2 and 2x2 as gloo ranks sharing the card (spawned
+   together), greedy and at 0.7: every rank's streams equal the
+   single-controller mesh's and the single-device eager engine's byte
+   for byte, PAC, the epilogue and (where rows merge)
+   ``codec_mesh_merge`` launched in every rank, each rank's pool bytes;
+   (iii) (a)'s model at 2x2 on gloo ranks: streams equal to (a)'s 2x2 or
+   parting only at near-ties by (a)'s rule; no time of (ii) or (iii) is
+   a mesh's TPOT;
 15. training on the card (no Pallas kernel is on this path: gradients
    come from autograd through the plain-torch model): (a) qwen3-4b at
    full width and depth, bf16 weights from seed 0, AdamW with float32
@@ -3246,13 +3258,16 @@ P14_PAGES, P14_CHUNK = 288, 512
 P14_TPOT_BEFORE = {"1x1": 11.86, "2x1": 14.29, "2x2": 18.86}
 
 
-def mesh_engine(cfg, model, d, m, **kw):
+def mesh_engine(cfg, model, d, m, mesh=None, **kw):
+    """A fused mesh engine on ``mesh`` (by default a ``d`` x ``m``
+    single-controller mesh on the card)."""
     from repro_torch.distributed import decode_mesh
     from repro_torch.serving.engine import DecodeEngine
     kw.setdefault("num_pages", 1024)
+    mesh = mesh or decode_mesh(d, m)
     return DecodeEngine(cfg, model, page_size=PAGE, num_lanes=LANES,
-                        max_q=MAX_Q, fused=True, mesh=decode_mesh(d, m),
-                        seq_split_pages=P14_SPLIT, device="cuda", **kw)
+                        max_q=MAX_Q, fused=True, mesh=mesh,
+                        seq_split_pages=P14_SPLIT, device=mesh.device, **kw)
 
 
 def check_mesh_graphs(tag, engine, res, d, m):
@@ -3525,7 +3540,9 @@ def phase_mesh(timer, fused7):
     that records its top-2 logits, then 1x1, 2x1 and 2x2 meshes (the
     document split across the data shards) and 2x1 with ``replicate``,
     each fused and traced; beside phase 7's fused numbers (``fused7``).
-    Returns the ``kernels`` entries of 14c."""
+    Returns the ``kernels`` entries of 14c and, for 14e, the model, the
+    prompts, the reference's streams and top-2 logits, and each mesh's
+    TPOT and streams by tag."""
     from repro_torch.configs import PAPER_ARCH, get_config
     from repro_torch.launch.serve import doc_prompts, serve
     from repro_torch.models.transformer import build_model
@@ -3553,6 +3570,9 @@ def phase_mesh(timer, fused7):
         f"{p7['kernels_per_step']:.0f} kernels a step; reference run "
         f"(top-2 logits kept on the device): {ref['steps']} steps")
     kernels = []
+    runs14 = {"cfg": cfg, "model": model, "prompts": prompts,
+              "ref": ref["streams"], "ref_top2": ref_top2, "tpot": {},
+              "streams": {}}
     runs = [(d, m, False) for d, m in P14_MESHES] + [(2, 1, True)]
     for d, m, replicate in runs:
         tag = f"{d}x{m}" + (" replicate" if replicate else "")
@@ -3573,6 +3593,8 @@ def phase_mesh(timer, fused7):
         same, worst = check_near_ties(tag, ref["streams"], ref_top2,
                                       r["streams"])
         before = P14_TPOT_BEFORE.get(tag)
+        runs14["tpot"][tag] = r["tpot_ms"]
+        runs14["streams"][tag] = r["streams"]
         log(f"  {tag}: TPOT {r['tpot_ms']:.3f} ms "
             f"({r['tpot_ms'] / r7['tpot_ms']:.2f}x phase 7's"
             + (f"; {before} before the merge kernel" if before else "")
@@ -3603,9 +3625,7 @@ def phase_mesh(timer, fused7):
         assert engine.pool.num_free == engine.pool.num_pages, (tag, "leak")
         del engine
         torch.cuda.empty_cache()
-    del model
-    torch.cuda.empty_cache()
-    return kernels
+    return kernels, runs14
 
 
 def phase_mesh_f32():
@@ -3614,7 +3634,8 @@ def phase_mesh_f32():
     byte for byte; replication at 2x1 and 2x2 (under the TPU priors, so
     nodes are promoted: the document's leaves with phase 6's prompts,
     every node with a one-page document); the 2x2 mesh under pressure; no
-    page leaked on any shard."""
+    page leaked on any shard.  Returns the single-device references and
+    the meshes' streams by ``(d, m, temperature)``, for 14e."""
     from repro_torch.configs import PAPER_ARCH, get_config
     from repro_torch.core.cost_model import HardwareSpec
     from repro_torch.launch.serve import doc_prompts, serve
@@ -3633,6 +3654,7 @@ def phase_mesh_f32():
                                temperature=t, device="cuda")
             refs[name, t] = serve(eng, prompts, max_new=32)["streams"]
             del eng
+    streams = {}
 
     def check(tag, prompts_name, d, m, temperature=0.0, replicate=False,
               **kw):
@@ -3645,6 +3667,8 @@ def phase_mesh_f32():
         want = refs[prompts_name, temperature]
         diff = first_difference(want, r["streams"])
         assert diff is None, (tag, diff)
+        if prompts_name == "long" and not replicate and not kw:
+            streams[d, m, temperature] = r["streams"]
         check_mesh_graphs(tag, eng, r, d, m)
         st = dict(eng.stats)
         eng.check()
@@ -3679,6 +3703,7 @@ def phase_mesh_f32():
         f"equal streams; no page leaked on any shard")
     del model
     torch.cuda.empty_cache()
+    return {"refs": refs, "streams": streams}
 
 
 def phase_calibrate():
@@ -3713,6 +3738,199 @@ def phase_calibrate():
     eng.pool.allocator.check()
     del eng, model
     torch.cuda.empty_cache()
+
+
+# 14e: the mesh over processes.  (ii) runs phase 6's 4-layer f32 model on
+# gloo ranks that share the one card, each mesh spawned once with both
+# temperatures; (iii) phase 3's model at 2x2
+P14E_MESHES = ((2, 1), (1, 2), (2, 2))
+P14E_TIMEOUT = 300
+
+
+def p14e_rank(mesh, full: bool, temperatures):
+    """One gloo rank of 14e (ii)/(iii) on ``cuda:0``: phase 14b's model
+    and long document (``full``: phase 3's model and traffic), fused
+    through the rank step; per temperature its streams, the launches it
+    made, its pool bytes and whether a step was captured."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.distributed import mesh as mesh_mod
+    from repro_torch.launch.serve import doc_prompts, serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_config(PAPER_ARCH)
+    if not full:
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    model = build_model(cfg, seed=0, device=mesh.device,
+                        dtype=torch.bfloat16 if full else torch.float32)
+    prompts = doc_prompts(8, P14_DOC, P14_Q, cfg.vocab_size,
+                          seed=0 if full else 1)
+    out = {}
+    for t in temperatures:
+        eng = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                           num_lanes=LANES, max_q=MAX_Q, fused=True,
+                           mesh=mesh, seq_split_pages=P14_SPLIT,
+                           temperature=t, device=mesh.device)
+        reset_launches()
+        c0 = mesh_mod.collectives
+        r = serve(eng, prompts, max_new=32)
+        torch.cuda.synchronize()
+        bms = sorted({sig[-1][1] for sig in eng.bucket_signatures})
+        eng.check()
+        for rid in list(eng.requests):
+            eng.release(rid)
+        eng.pool.allocator.check()
+        out[t] = {"streams": r["streams"], "launches": read_launches(),
+                  "collectives": mesh_mod.collectives - c0,
+                  "pool_bytes": eng.pool.bytes_used(), "bm": bms,
+                  "captured": eng.fused_step.graphs,
+                  "leak": eng.pool.num_free != eng.pool.num_pages}
+        del eng
+    return out
+
+
+def check_rank_runs(tag, ranks, wants, d):
+    """Every rank's streams equal each of ``wants`` (streams by
+    temperature); PAC, the epilogue and (where a signature merged rows)
+    ``codec_mesh_merge`` launched in every rank; nothing captured under
+    gloo, no page leaked."""
+    for rank, runs in enumerate(ranks):
+        for t, r in runs.items():
+            for want in wants:
+                diff = first_difference(want[t], r["streams"])
+                assert diff is None, (tag, rank, t, diff)
+            la = r["launches"]
+            assert la["pac"] > 0 and la["por_epilogue"] > 0, (tag, rank, la)
+            merged = d > 1 and max(r["bm"]) > 0
+            assert (la["mesh_merge"] > 0) == merged, (tag, rank, la, r["bm"])
+            assert la["por"] == 0 and r["collectives"] > 0, (tag, rank, la)
+            assert r["captured"] == 0 and not r["leak"], (tag, rank, r)
+
+
+def phase_process_mesh(runs14, f32_14):
+    """14e: the mesh over processes, one rank a shard.  (i) phase 3's
+    model and traffic as a 1x1 process mesh under NCCL in this process,
+    collectives captured in the graphs, beside 14a's 1x1 TPOT; (ii) phase
+    14b's f32 model at 2x1, 1x2 and 2x2 on gloo ranks sharing the card,
+    greedy and at 0.7: streams equal to the single-controller mesh's and
+    the single-device eager engine's; (iii) phase 3's model at 2x2 on
+    gloo ranks: streams equal to 14a's 2x2 run or parting at near-ties by
+    14a's rule.  No time of (ii) or (iii) is a mesh's TPOT: their ranks
+    share one card and gloo goes through the host."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import mesh as mesh_mod
+    from repro_torch.distributed.launch import spawn_ranks
+    from repro_torch.launch.serve import serve
+
+    cfg, model, prompts = runs14["cfg"], runs14["model"], runs14["prompts"]
+    n_attn = cfg.num_layers
+    store = tempfile.mkdtemp(prefix="p14e-")
+    # (i) NCCL, one rank, in this process
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "nccl"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.process_mesh(1, 1)
+        engine = mesh_engine(cfg, model, 1, 1, mesh=mesh)
+        reset_launches()
+        r = serve(engine, prompts, max_new=32, profile_steps=PROFILE_STEPS)
+        launches = read_launches()
+        step = engine.fused_step
+        assert step.captures and step.graphs == len(
+            engine.bucket_signatures), (step.graphs,)
+        for sig, slot in step.slots.items():
+            assert slot.launches == (n_attn, n_attn), (sig, slot.launches)
+            assert slot.collectives == n_attn, (sig, slot.collectives)
+            assert slot.merge_launches == 0 and slot.por_launches == 0
+        same, worst = check_near_ties("14e 1x1 nccl", runs14["ref"],
+                                      runs14["ref_top2"], r["streams"])
+        eq_1x1 = sum(r["streams"][k] == v
+                     for k, v in runs14["streams"]["1x1"].items())
+        prof = r["profile"]
+        log(f"  14e (i) 1x1 process mesh, NCCL, qwen3-4b x{n_attn} bf16: "
+            f"TPOT {r['tpot_ms']:.3f} ms beside 14a's single-controller "
+            f"1x1 {runs14['tpot']['1x1']:.3f} ms (same process); device "
+            f"busy {prof['device_busy_ms']:.3f} ms a traced step (idle "
+            f"share {prof['idle_share']:.3f}), "
+            f"{prof['kernels_per_step']:.0f} kernels a step; "
+            f"{step.graphs} graph(s), each PAC x {n_attn}, epilogue x "
+            f"{n_attn}, NCCL all-reduce (the model sum's slot gather) x "
+            f"{n_attn} captured; {r['steps']} replays; launches "
+            f"{launches}; {eq_1x1} of {len(r['streams'])} streams equal "
+            f"14a's 1x1, {same} the reference's (largest top-2 gap at a "
+            f"first difference {worst:.2f} bf16 steps)")
+        engine.check()
+        for rid in list(engine.requests):
+            engine.release(rid)
+        engine.pool.allocator.check()
+        del engine, mesh
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) gloo ranks on the one card, the three meshes side by side
+    temps = (0.0, P14F_TEMPERATURE)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(P14E_MESHES)) as ex:
+        futs = {(d, m): ex.submit(
+            spawn_ranks, p14e_rank, d, m, "gloo",
+            os.path.join(store, f"gloo{d}x{m}"), "cuda:0",
+            (False, temps), P14E_TIMEOUT) for d, m in P14E_MESHES}
+        ranks = {k: f.result() for k, f in futs.items()}
+    t_ii = time.perf_counter() - t0
+    refs, single = f32_14["refs"], f32_14["streams"]
+    for (d, m), rr in ranks.items():
+        tag = f"14e (ii) {d}x{m} gloo"
+        check_rank_runs(tag, rr, [{t: single[d, m, t] for t in temps},
+                                  {t: refs["long", t] for t in temps}], d)
+        pool = [r[0.0]["pool_bytes"] for r in rr]
+        log(f"  {tag}: {d * m} ranks on cuda:0, greedy and t="
+            f"{P14F_TEMPERATURE}: every rank's streams equal the "
+            f"single-controller mesh's and the single-device eager "
+            f"engine's byte for byte; launches by rank "
+            f"{[r[0.0]['launches'] for r in rr]} (greedy run), slot "
+            f"gathers by rank {[r[0.0]['collectives'] for r in rr]}, Bm "
+            f"{rr[0][0.0]['bm']}; pool bytes by rank "
+            f"{[round(b / 2**20, 1) for b in pool]} MiB "
+            f"(1/{d * m} of the mesh's); uncaptured")
+    log(f"  14e (ii) wall {t_ii:.1f} s for the three meshes together (not "
+        f"a mesh time: the ranks share one card, gloo goes through the "
+        f"host)")
+
+    # (iii) phase 3's model at 2x2 over gloo
+    del model, runs14["model"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rr = spawn_ranks(p14e_rank, 2, 2, "gloo", os.path.join(store, "full"),
+                     "cuda:0", (True, (0.0,)), P14E_TIMEOUT)
+    check_rank_runs("14e (iii) 2x2 gloo", rr, [], 2)
+    got = rr[0][0.0]["streams"]
+    for rank, r in enumerate(rr):
+        assert r[0.0]["streams"] == got, ("14e (iii) ranks differ", rank)
+    parted = [k for k, v in runs14["streams"]["2x2"].items() if got[k] != v]
+    # a stream that parts from 14a's 2x2 may do so only at a near-tie of
+    # the reference (14a's rule)
+    same, worst = check_near_ties(
+        "14e (iii) 2x2 gloo", {k: runs14["ref"][k] for k in parted},
+        runs14["ref_top2"], got)
+    eq_2x2 = len(got) - len(parted)
+    log(f"  14e (iii) 2x2 gloo, qwen3-4b x{n_attn} bf16, 4 ranks on "
+        f"cuda:0: every rank's streams alike; {eq_2x2} of {len(got)} equal "
+        f"14a's 2x2 run; of the others, {same} equal the reference's "
+        f"(largest top-2 gap at a first difference {worst:.2f} bf16 "
+        f"steps); launches by rank "
+        f"{[r[0.0]['launches'] for r in rr]}; pool bytes by rank "
+        f"{[round(r[0.0]['pool_bytes'] / 2**20, 1) for r in rr]} MiB; "
+        f"wall {time.perf_counter() - t0:.1f} s (not a mesh time)")
+    shutil.rmtree(store, ignore_errors=True)
 
 
 # --------------------------------------------------------------------- #
@@ -4585,14 +4803,19 @@ def main() -> int:
     log("== 14. the mesh on one card: sharded KV pool, per-shard plans, "
         "the cross-shard POR butterfly, head-parallel attention")
     t14 = [time.perf_counter()]
-    kernels += phase_mesh(timer, fused7)
+    k14, runs14 = phase_mesh(timer, fused7)
+    kernels += k14
     t14.append(time.perf_counter())
-    phase_mesh_f32()
+    f32_14 = phase_mesh_f32()
     t14.append(time.perf_counter())
     phase_calibrate()
     t14.append(time.perf_counter())
+    phase_process_mesh(runs14, f32_14)
+    del runs14, f32_14
+    t14.append(time.perf_counter())
     log(f"  phase 14: 14a-c {t14[1] - t14[0]:.1f} s, 14b "
-        f"{t14[2] - t14[1]:.1f} s, 14d {t14[3] - t14[2]:.1f} s")
+        f"{t14[2] - t14[1]:.1f} s, 14d {t14[3] - t14[2]:.1f} s, 14e "
+        f"{t14[4] - t14[3]:.1f} s")
 
     log("== 15. training on the card: qwen3-4b at full width and depth, "
         "the step against the CPU, the launcher, train then serve")

@@ -380,3 +380,142 @@ class ShardedKVPool(PagedKVPool):
         idx = self._index(pages)
         self.k[:, :, idx] = 0.0
         self.v[:, :, idx] = 0.0
+
+
+class RankKVPool(ShardedKVPool):
+    """One rank's share of the pool on a process mesh: the host allocator
+    is the whole mesh's (global page rows, alike on every rank), the
+    tensors only shard ``(d, m)``'s slab, ``k`` / ``v`` of ``(n_layers,
+    stride, page, n_kv / M, head_dim)``: ``1 / (D * M)`` of the
+    single-controller pool's bytes.  Writes keep the rank's own rows and
+    head block (other rows go to its trash page); what reads another
+    rank's slab (prefill's ``gather_context``, replica ``copy_pages``) is
+    a gather over the mesh in which each rank writes only what it
+    holds."""
+
+    def __init__(self, n_layers: int, num_pages: int, page_size: int,
+                 n_kv: int, head_dim: int, *, mesh,
+                 seq_split_pages: int = 0, dtype=torch.float32,
+                 device="cuda"):
+        D, M = mesh.shape["data"], mesh.shape["model"]
+        per_shard = num_pages // D
+        if per_shard < 1 or num_pages % D:
+            raise ValueError(
+                f"num_pages={num_pages} must be a positive multiple of "
+                f"the data axis ({D})")
+        if n_kv % M:
+            raise ValueError(f"model axis {M} must divide the {n_kv} KV "
+                             f"heads")
+        self.mesh = mesh
+        self.d, self.m = mesh.coords
+        self.n_layers = n_layers
+        self.num_pages = D * per_shard
+        self.page_size = page_size
+        self.device = torch.device(device)
+        self.model_shards = M
+        self.allocator = ShardedPageAllocator(D, per_shard, seq_split_pages)
+        self.k = torch.zeros((n_layers, self.allocator.stride, page_size,
+                              n_kv // M, head_dim), dtype=dtype,
+                             device=self.device)
+        self.v = torch.zeros_like(self.k)
+
+    @property
+    def kv_shape(self) -> Tuple[int, int]:
+        return (self.model_shards * self.k.shape[3], self.k.shape[4])
+
+    @property
+    def page_bytes(self) -> int:
+        """K+V bytes of one page across all attention layers and heads
+        (the whole mesh's, as the single-controller pool counts it)."""
+        per = (self.k.shape[0] * self.k.shape[2] * self.k.shape[3]
+               * self.model_shards * self.k.shape[4])
+        return 2 * per * self.k.element_size()
+
+    def shard_pools(self, layer: int, d: int,
+                    m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        if (d, m) != (self.d, self.m):
+            raise ValueError(f"rank ({self.d}, {self.m}) holds no slab of "
+                             f"shard ({d}, {m})")
+        return self.k[layer], self.v[layer]
+
+    def _local(self, rows: torch.Tensor) -> torch.Tensor:
+        """Global page rows -> this rank's local rows; rows of other data
+        shards -> its trash page (no host sync: graph-safe)."""
+        s = self.page_stride
+        return torch.where(rows // s == self.d, rows % s, self.local_trash)
+
+    def _own_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., n_kv, hd) -> this rank's (..., n_kv / M, hd) block."""
+        h = self.k.shape[3]
+        return x[..., self.m * h:(self.m + 1) * h, :].to(self.k.dtype)
+
+    def write_tokens(self, layer: int, pages, offsets,
+                     k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """Scatter n tokens into (global page row, offset) slots: the
+        rank's own rows and head block (other rows land in its trash
+        page)."""
+        pg, of = self._local(self._index(pages)), self._index(offsets)
+        self.k[layer].index_put_((pg, of), self._own_heads(k_new))
+        self.v[layer].index_put_((pg, of), self._own_heads(v_new))
+
+    def write_tail(self, layer: int, rows: torch.Tensor,
+                   offsets: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor) -> None:
+        """The rank step's tail writes: ``rows`` (B,) this shard's local
+        tail (or trash) rows, ``offsets`` (B,); ``k_new`` / ``v_new`` (B,
+        n_kv, hd), of which the rank keeps its head block."""
+        self.k[layer].index_put_((rows, offsets), self._own_heads(k_new))
+        self.v[layer].index_put_((rows, offsets), self._own_heads(v_new))
+
+    def _gather_rows(self, rows: torch.Tensor, axis: str,
+                     layer: Optional[int] = None) -> torch.Tensor:
+        """K and V of the global page rows ``rows`` from the ranks that
+        hold them, gathered over ``axis``: ``(2, layers, n, page, heads,
+        hd)``, every layer or ``layer`` alone, with this rank's head
+        block (``"data"``) or every head (``"world"``).  Each row's head
+        block is written by the one rank that holds it and is zero
+        elsewhere, so the sum over the group leaves every element its
+        holder's bits."""
+        h = self.k.shape[3]
+        src = ((self.k, self.v) if layer is None
+               else (self.k[layer:layer + 1], self.v[layer:layer + 1]))
+        heads = h * (self.model_shards if axis == "world" else 1)
+        h0 = self.m * h if axis == "world" else 0
+        buf = self.k.new_zeros((2, src[0].shape[0], rows.shape[0])
+                               + tuple(self.k.shape[2:3]) + (heads,)
+                               + tuple(self.k.shape[4:]))
+        own = (rows // self.page_stride == self.d)[:, None, None, None]
+        loc = self._local(rows)
+        for i, t in enumerate(src):
+            buf[i, ..., h0:h0 + h, :] = torch.where(own, t[:, loc], 0)
+        return self.mesh.slot_gather(buf, axis)
+
+    def copy_pages(self, dst: List[int], src: List[int]) -> None:
+        """Copy whole pages, every layer (replica promotion): each source
+        row comes from the rank of its data shard over the data group;
+        each rank keeps the destinations that are its own."""
+        kv = self._gather_rows(self._index(src), "data")
+        loc = self._local(self._index(dst))
+        self.k[:, loc] = kv[0]
+        self.v[:, loc] = kv[1]
+
+    def gather_context(self, layer: int, pages: List[int], length: int,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dense (length, n_kv, hd) copy of a page run (prefill reuse),
+        assembled over the whole mesh: pages from their data shards, head
+        blocks from their model shards."""
+        kv = self._gather_rows(self._index(pages), "world", layer)
+        shape = (len(pages) * self.page_size,) + self.kv_shape
+        return (kv[0, 0].reshape(shape)[:length],
+                kv[1, 0].reshape(shape)[:length])
+
+    def fill_slot(self, page: int, off: int, value: float) -> None:
+        # only the page's own data shard holds it (the trash page stays
+        # clean)
+        if self.shard_of(page) == self.d:
+            self.k[:, self.local_of(page), off] = value
+
+    def zero_pages(self, pages: List[int]) -> None:
+        idx = self._local(self._index(pages))
+        self.k[:, idx] = 0.0
+        self.v[:, idx] = 0.0

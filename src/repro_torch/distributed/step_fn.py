@@ -221,3 +221,104 @@ class ShardedStep(FusedStep):
         return decode_stack(self.model, self.pool, self.attn_layer_idx,
                             base.tokens, q_pos, None, base.tail_base, None,
                             attend, mix, write=write, project=project)
+
+
+class RankStep(ShardedStep):
+    """The fused step of one rank of a process mesh (``mesh.ProcessMesh``):
+    the same layer stack as ``ShardedStep`` for shard ``(d, m)`` alone.
+
+    Per attention layer the rank writes its tail rows into its own slab,
+    runs the backend's partials over its own data shard's plan and one
+    epilogue, into slot 0 of ``(D, 1, B, h_loc)`` buffers; where ``D > 1``
+    and ``Bm > 0`` its data group then gathers the ``Bm`` rows that
+    ``merge_gather`` names from every data shard (one slot gather of
+    ``o``, ``m`` and ``l``) into slots ``0..D-1``, and ``por.mesh_merge``
+    (the unchanged ``codec_mesh_merge``) reads them: every rank of the
+    group computes shard 0's view, bitwise alike.  The rows outside the
+    merge are those whose whole path is replicated, which every shard
+    computes alike from its own replicas.  The output projection
+    multiplies the rank's head block by its row block of ``wo``; the
+    model group gathers the ``M`` partial products (a slot gather,
+    issued at ``M = 1`` too) and ``model_sum`` adds them in shard order,
+    as ``ShardedStep`` does.  The rest of the step runs on every rank from
+    the same inputs, so every rank samples the same tokens.
+
+    A graph is captured only where the group's backend is NCCL (its
+    collectives are recorded into the graph); under gloo the same body
+    runs uncaptured each step (``captures`` is False)."""
+
+    def __init__(self, cfg, model, pool, backend, windows, attn_layer_idx,
+                 device, temperature: float = 0.0, key=None, *, mesh):
+        super().__init__(cfg, model, pool, backend, windows, attn_layer_idx,
+                         device, temperature, key, mesh=mesh)
+        self.mesh = mesh
+        self.d, self.m = mesh.coords
+        self.captures = self.cuda and mesh.backend == "nccl"
+
+    def epoch(self, sig: tuple, plans, base) -> List:
+        """As ``ShardedStep.epoch``, keeping this rank's data shard's plan
+        of each window."""
+        return super().epoch(sig, [[shards[self.d]] for shards in plans],
+                             base)
+
+    def _new_slot(self, plans, base) -> _MeshSlot:
+        return _MeshSlot(plans, base, self.device, self.h_loc,
+                         self.cfg.head_dim, self.cfg, len(self.mamba_idx),
+                         D=self.D, M=1)
+
+    def _logits(self, slot: _MeshSlot, base, q_pos, dlt, mix):
+        D, M, h_loc, d, m = self.D, self.M, self.h_loc, self.d, self.m
+        hd = self.cfg.head_dim
+        prepared = [self.backend.advance_fn(shards[0].arrays, base.delta)
+                    for shards in slot.plans]
+        B = q_pos.shape[0]
+        gi = base.merge_gather
+        Bm = gi.shape[0]
+        tail_page, owner = base.tail_page[d], base.tail_owner[d]
+        tail_off = base.tail_off0 + dlt
+
+        def write(la, k_new, v_new):
+            self.pool.write_tail(la, tail_page, tail_off, k_new, v_new)
+            return self.pool.k[la], self.pool.v[la]
+
+        def attend(qb, kp, vp, window, _, tail_base, q_pos):
+            w = self.win_slot[window]
+            q_m = qb[:, m * h_loc:(m + 1) * h_loc].contiguous()
+            o = torch.empty((D, 1, B, h_loc, hd), dtype=torch.float32,
+                            device=qb.device)
+            ms, ls = slot.stats_m, slot.stats_l
+            parts = self.backend.parts_arrays(
+                q_m, kp, vp, prepared[w], num_queries=B, window=window,
+                out=slot.pac_out[w])
+            por_mod.por_epilogue(
+                q_m, *parts, kp, vp, tail_page, tail_base, q_pos,
+                window=window, owner=owner, o_f32=True, out=o[0, 0],
+                out_m=ms[0, 0], out_l=ls[0, 0])
+            if D > 1 and Bm > 0:
+                # o, m and l of the merged rows, one slot a data shard
+                ex = o.new_zeros((D, Bm, h_loc, hd + 2))
+                ex[d] = torch.cat([o[0, 0, gi], ms[0, 0, gi, :, None],
+                                   ls[0, 0, gi, :, None]], -1)
+                self.mesh.slot_gather(ex, "data")
+                o[:, 0, gi] = ex[..., :hd]
+                ms[:, 0, gi] = ex[..., hd]
+                ls[:, 0, gi] = ex[..., hd + 1]
+                return por_mod.mesh_merge(o, ms, ls, gi, base.merge_scatter,
+                                          base.contrib, qb.dtype)
+            return o[0].to(qb.dtype)                  # (1, B, h_loc, hd)
+
+        def project(layer, o0):
+            if M == 1:
+                y = L.dense(layer.attn.wo, o0[0].reshape(B, 1, -1))
+            else:
+                blk = h_loc * hd
+                y = (o0[0].reshape(B, 1, blk)
+                     @ layer.attn.wo.w[m * blk:(m + 1) * blk])
+            parts = y.new_zeros((M,) + tuple(y.shape))
+            parts[m] = y
+            self.mesh.slot_gather(parts, "model")
+            return model_sum(parts.unbind(0))
+
+        return decode_stack(self.model, self.pool, self.attn_layer_idx,
+                            base.tokens, q_pos, None, base.tail_base, None,
+                            attend, mix, write=write, project=project)

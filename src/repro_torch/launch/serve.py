@@ -83,12 +83,25 @@ prints the shards' occupancy, the sequence-split and replicated nodes,
 the merged rows, the replica promotions and, when calibrated, the fitted
 coefficients.  ``--compare`` on a mesh compares ``codec-cuda`` with
 ``codec-torch`` (``flash`` does not shard).
+
+``--dist-backend {nccl,gloo}`` runs the mesh as processes, one rank a
+shard (``distributed.process_mesh``), under ``torchrun --nproc-per-node
+D*M`` (which sets the ranks' environment; the group initializes from
+it): each rank holds the weights and its own slab of the pool, on
+``cuda:{LOCAL_RANK}`` unless ``--device`` names another.  Every rank
+builds the same traffic from ``--seed`` and runs the same host logic;
+rank 0 alone prints and exports telemetry.  NCCL captures each step's
+collectives into its graph; gloo runs the step uncaptured.  The run
+fixes ``PYTHONHASHSEED`` (re-executing itself once when it is unset).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import sys
 import time
 from typing import Dict, List, Optional, Sequence
@@ -99,7 +112,7 @@ import torch
 from ..configs import get_config, served_archs
 from ..core import metrics as metrics_mod
 from ..core.plan import bucket_pow2
-from ..distributed.mesh import decode_mesh, parse_mesh
+from ..distributed.mesh import decode_mesh, parse_mesh, process_mesh
 from ..kernels import pac as pac_mod, por as por_mod
 from ..models.transformer import build_model
 from ..serving.cache import CachePolicy
@@ -384,7 +397,8 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
     telemetry = (None if args.no_telemetry
                  else Telemetry(profile_every=args.profile_every))
     mesh_d, mesh_m = parse_mesh(args.mesh)
-    mesh = (decode_mesh(mesh_d, mesh_m, device=device)
+    mesh = (args.process_mesh if args.process_mesh is not None
+            else decode_mesh(mesh_d, mesh_m, device=device)
             if mesh_d * mesh_m > 1 else None)
     engine = DecodeEngine(cfg, model, page_size=args.page_size,
                           num_pages=args.max_pages, backend=backend,
@@ -462,7 +476,9 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
               f"{engine.stats['fused_calls']} steps, graphs captured "
               f"{step.graphs} for {len(engine.bucket_signatures)} "
               f"bucket signatures, capture {res['capture_s']:.3f} s, token "
-              f"flushes {engine.stats['token_flushes']}")
+              f"flushes {engine.stats['token_flushes']}"
+              + ("" if step.captures else " (uncaptured: the body runs "
+                 "eagerly each step)"))
     st = engine.stats
     if mesh is not None:
         occ = "/".join(f"{o:.0%}" for o in engine.pool.shard_occupancy())
@@ -571,10 +587,11 @@ def run(args, cfg, model, backend: str) -> Dict[str, object]:
                   f"{ms('profile_dispatch_p50_ms')}, device wait "
                   f"{ms('profile_device_p50_ms')}")
         suffix = f".{backend}" if args.compare else ""
-        if args.trace_out:
+        rank0 = args.process_mesh is None or args.process_mesh.rank == 0
+        if args.trace_out and rank0:
             telemetry.export_trace(args.trace_out + suffix)
             print(f"trace -> {args.trace_out + suffix}")
-        if args.metrics_out:
+        if args.metrics_out and rank0:
             engine.export_metrics(args.metrics_out + suffix)
             print(f"metrics -> {args.metrics_out + suffix}")
     print(json.dumps({"backend": backend,
@@ -638,6 +655,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="DATAxMODEL shards for mesh serving, all on "
                          "--device (implies --fused, needs a shardable "
                          "backend)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="run --mesh as processes, one rank a shard, under "
+                         "torchrun --nproc-per-node DATA*MODEL")
     ap.add_argument("--seq-split-pages", type=int, default=0,
                     help="pages a node keeps on one data shard before it "
                          "moves on to the next (0: only when one fills)")
@@ -716,7 +737,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
     if args.cache_ttl is not None or args.cache_pages is not None:
         args.cache = True
+    args.process_mesh = None
+    if args.dist_backend is None:
+        return _main(args)
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # every rank must iterate its sets alike
+        if argv is not None:
+            raise RuntimeError("--dist-backend needs PYTHONHASHSEED=0")
+        os.environ["PYTHONHASHSEED"] = "0"
+        os.execv(sys.executable, [sys.executable, "-m",
+                                  "repro_torch.launch.serve"]
+                 + sys.argv[1:])
+    import torch.distributed as dist
+    dist.init_process_group(args.dist_backend)
+    try:
+        device = (None if args.device == "cuda"
+                  else torch.device(args.device))
+        args.process_mesh = process_mesh(*parse_mesh(args.mesh),
+                                         device=device)
+        args.device = str(args.process_mesh.device)
+        if args.process_mesh.rank == 0:
+            return _main(args)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _main(args)
+    finally:
+        dist.destroy_process_group()
 
+
+def _main(args) -> int:
     cfg = get_config(args.arch)
     model = build_model(cfg, seed=args.seed, device=torch.device(args.device),
                         dtype=torch.bfloat16)
@@ -724,7 +772,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # flash does not shard: on a mesh the pair is the two shardable
         # codec backends
         d, m = parse_mesh(args.mesh)
-        other = "codec-torch" if d * m > 1 else "flash"
+        other = ("codec-torch" if d * m > 1 or args.process_mesh
+                 else "flash")
         codec = run(args, cfg, model, "codec-cuda")
         base = run(args, cfg, model, other)
         match = codec["streams"] == base["streams"]

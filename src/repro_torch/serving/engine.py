@@ -113,9 +113,16 @@ output projection.  ``replicate=True`` copies hot short prefix nodes onto
 every data shard when ``CostModel.replicate_gain`` says the saved merge
 outweighs the extra reads (demoted first under pressure); ``calibrate=True``
 synchronizes every mesh step to time it and refits the cost model's
-coefficients from those steps at each plan epoch (``recalibrate``).  The
-port places every shard on the engine's one device, so the shards run one
-after another: the fitted coefficients describe that, not a mesh of cards.
+coefficients from those steps at each plan epoch (``recalibrate``).  A
+``decode_mesh`` places every shard on the engine's one device, so the
+shards run one after another: the fitted coefficients describe that, not
+a mesh of cards.  A ``distributed.process_mesh`` runs one engine a rank,
+each holding its shard's slab (``RankKVPool``) and running its shard of
+the step (``RankStep``); every rank runs this host logic on the same
+inputs, compares a digest of each plan epoch with the others
+(``MeshDivergenceError``), fits ``recalibrate`` to step times maxed over
+the ranks, and refuses deadlines, queue timeouts and fault injection
+(``ProcessMeshUnsupported``: each rank would read its own clock).
 """
 
 from __future__ import annotations
@@ -132,8 +139,10 @@ from ..core import plan as plan_mod
 from ..core import tree as tree_mod
 from ..core.cost_model import CostModel
 from ..core.scheduler import AdmissionController, AdmissionPolicy
-from ..distributed.kv_pool import ShardedKVPool
-from ..distributed.step_fn import ShardedStep, sharded_step_base
+from ..distributed.kv_pool import RankKVPool, ShardedKVPool
+from ..distributed.mesh import (ProcessMesh, ProcessMeshUnsupported,
+                                digest)
+from ..distributed.step_fn import RankStep, ShardedStep, sharded_step_base
 from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
 from ..models import mamba as M
@@ -276,6 +285,17 @@ class DecodeEngine:
             if torch.device(mesh.device) != self.device:
                 raise ValueError(f"mesh on {mesh.device}, engine on "
                                  f"{self.device}")
+        # a process mesh (one rank a shard): every rank runs this host
+        # logic on the same inputs; what a rank would read for itself
+        # (deadlines on its own clock, injected faults) is refused
+        self._ranked = isinstance(mesh, ProcessMesh)
+        # a running digest of the requests added and cancelled, which the
+        # ranks compare at each plan epoch
+        self._host_log = 0
+        if self._ranked and faults is not None:
+            raise ProcessMeshUnsupported(
+                "fault injection is not supported on a process mesh "
+                "(ROADMAP C5)")
         sampler.check_temperature(temperature)
         # ---- tree-speculative decoding (``repro``'s DESIGN §10) ------- #
         # speculative=True (defaults) or a SpecConfig: several tokens can
@@ -361,7 +381,7 @@ class DecodeEngine:
         # request left, so its carry row is never synced back)
         self._fused_rows: Optional[List[Optional[int]]] = None
         if mesh is not None:
-            self.pool = ShardedKVPool(
+            self.pool = (RankKVPool if self._ranked else ShardedKVPool)(
                 max(len(self.attn_layer_idx), 1), num_pages, page_size,
                 max(cfg.num_kv_heads, 1), max(cfg.head_dim, 1), mesh=mesh,
                 seq_split_pages=seq_split_pages, device=self.device)
@@ -463,7 +483,7 @@ class DecodeEngine:
         self.fused = bool(fused) and self._backend.jit_safe
         self.fused_step = None
         if self.fused and mesh is not None:
-            self.fused_step = ShardedStep(
+            self.fused_step = (RankStep if self._ranked else ShardedStep)(
                 cfg, self.model, self.pool, self._backend, self._windows(),
                 self.attn_layer_idx, self.device, temperature, self.key,
                 mesh=mesh)
@@ -527,6 +547,11 @@ class DecodeEngine:
         if max_queue_s is not None and max_queue_s <= 0:
             raise ValueError(
                 f"max_queue_s must be positive, got {max_queue_s}")
+        if self._ranked and (deadline_s is not None
+                             or max_queue_s is not None):
+            raise ProcessMeshUnsupported(
+                "deadline_s / max_queue_s are not supported on a process "
+                "mesh: each rank would read its own clock (ROADMAP C5)")
         # only an unservable prompt is an error: whole-prompt prefill needs
         # every page at once, chunked prefill one chunk + the tail it grows
         # into (larger prompts just wait in the queue)
@@ -538,6 +563,9 @@ class DecodeEngine:
                 f"admitted")
         rid = self._next_rid
         self._next_rid += 1
+        if self._ranked:
+            self._host_log = digest(self._host_log, "add", rid, max_new,
+                                    arr.astype(np.int64).tobytes())
         now = self.clock()
         req = Request(rid, prompt, max_new=max_new, on_token=on_token,
                       on_done=on_done, submit_t=now)
@@ -1572,8 +1600,18 @@ class DecodeEngine:
         On this port every shard of a mesh runs on one device, in turn,
         while the features charge the heaviest shard (a real mesh's
         makespan): a fit here describes that serial run, not a mesh of
-        cards."""
+        cards.  On a process mesh each rank measures its own steps; the
+        fit takes their max over the ranks (a real mesh's makespan), so
+        every rank fits the same coefficients."""
         rows = [s for s in self.step_stats if s.get("hbm_bytes")]
+        if self._ranked and rows:
+            secs = self.mesh.host_max(
+                [v for s in rows for v in (s.get("dispatch_time", 0.0),
+                                           s.get("compute_time", 0.0))])
+            rows = [{**s, "dispatch_time": secs[2 * i],
+                     **({"compute_time": secs[2 * i + 1]}
+                        if "compute_time" in s else {})}
+                    for i, s in enumerate(rows)]
         profiled = [s for s in rows if s.get("profiled")]
         pool = profiled or [s for s in rows
                             if s.get("dispatch_time", 0) > 0]
@@ -2381,6 +2419,9 @@ class DecodeEngine:
             self._decode_timing.update(
                 compute_time=t_d2 - t_d1, profiled=True,
                 host_time=max(0.0, t_d0 - t0 - flush_in))
+        if self._ranked:
+            # under gloo the rank step runs uncaptured
+            self._decode_timing.update(graph=self.fused_step.captures)
         if self.mesh is not None and self._epoch_features:
             self._decode_timing.update(self._epoch_features)
             if profiled and self._epoch_shard_features:
@@ -2547,6 +2588,14 @@ class DecodeEngine:
         Bm = base[7].shape[0]
         sig.append(("merge", Bm))
         self._record_epoch_features(Bm)
+        if self._ranked:
+            # the ranks must agree on the whole host plan before the step's
+            # collectives: a divergent rank raises on every rank
+            self.mesh.agree(digest(
+                self._host_log, rows, sig,
+                *(a.tobytes() for shards in host for _, arrs in shards
+                  for a in arrs),
+                *(np.asarray(a).tobytes() for a in base)), "the plan epoch")
         return sig, host, base
 
     def _record_epoch_features(self, merge_bucket: int) -> None:
@@ -2971,6 +3020,8 @@ class DecodeEngine:
         req = self.requests.get(rid)
         if req is None or req.state in TERMINAL:
             return False
+        if self._ranked:
+            self._host_log = digest(self._host_log, "cancel", rid)
         self.flush_tokens()    # deliverable tokens land before closing
         self._finish(req, CANCELLED, "cancelled")
         return True

@@ -47,7 +47,8 @@ library, sets the kernels' shared-memory attributes and warms cuBLAS),
 then captures it; all graphs share one memory pool.  A failed capture or
 replay raises: there is no eager fallback on the card.  On the CPU the
 same step body runs eagerly over the same buffers, with the same
-semantics.
+semantics, and so it does on the card where ``captures`` is off (a
+process mesh under gloo: ``distributed.step_fn.RankStep``).
 
 ``SpecStep`` is the speculative engine's counterpart (``repro``'s
 ``make_spec_step_fn``): one replay scores a whole verify step's rows
@@ -117,11 +118,12 @@ class _Slot:
         self.out = torch.zeros((2, bucket), dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # (PAC, epilogue), pairwise POR and mesh merge launches recorded
-        # into the graph at its capture
+        # (PAC, epilogue), pairwise POR and mesh merge launches and a
+        # process mesh's collectives recorded into the graph at its capture
         self.launches: Optional[Tuple[int, int]] = None
         self.por_launches: Optional[int] = None
         self.merge_launches: Optional[int] = None
+        self.collectives: Optional[int] = None
 
     def load(self, plans, base) -> None:
         for static, (_, arrs) in zip(self.plans, plans):
@@ -166,6 +168,9 @@ class FusedStep:
             if layer.kind.mixer == "mamba")}
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
+        # capture a graph a signature (on the card); otherwise the body
+        # runs eagerly each step
+        self.captures = self.cuda
         self.slots: Dict[tuple, _Slot] = {}
         self._cur: Optional[_Slot] = None
         self._mempool = torch.cuda.graph_pool_handle() if self.cuda else None
@@ -174,7 +179,7 @@ class FusedStep:
         self._events: List[Optional[torch.cuda.Event]] = []
         self._next = 0
         self.graphs = 0            # graphs captured
-        self.replays = 0           # graph replays (eager calls on the CPU)
+        self.replays = 0           # graph replays (eager calls uncaptured)
         self.capture_time = 0.0    # host seconds of warm-ups and captures
 
     # ------------------------------------------------------------------ #
@@ -191,7 +196,7 @@ class FusedStep:
         else:
             slot.load(plans, base)
         self._ensure_ring(slot.out.shape[1])
-        if self.cuda and slot.graph is None:
+        if self.captures and slot.graph is None:
             self._capture(slot)
         self._cur = slot
         return self._arrays(slot)
@@ -221,7 +226,7 @@ class FusedStep:
         slot = self._cur
         if slot is None:
             raise RuntimeError("FusedStep called outside a plan epoch")
-        if self.cuda:
+        if slot.graph is not None:
             slot.graph.replay()
         else:
             slot.logits = self._body(slot, feed=True)
@@ -262,7 +267,8 @@ class FusedStep:
             lambda: self._body(slot, feed=False),
             lambda: self._body(slot, feed=True))
         slot.launches = launches[:2]
-        slot.por_launches, slot.merge_launches = launches[2:]
+        slot.por_launches, slot.merge_launches, slot.collectives = \
+            launches[2:]
         self.graphs += 1
         self.capture_time += time.perf_counter() - t0
 
@@ -329,8 +335,9 @@ def capture_graph(device, mempool, warm_up, body):
     library, sets the kernels' shared-memory attributes and warms
     cuBLAS), then capture ``body()`` into a new ``torch.cuda.CUDAGraph``
     in ``mempool``.  Returns the graph, the (PAC, epilogue, pairwise POR,
-    mesh merge) launches recorded into it and ``body``'s result; any
-    failure raises."""
+    mesh merge, process-mesh collective) launches recorded into it and
+    ``body``'s result; any failure raises."""
+    from ..distributed import mesh as mesh_mod
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -338,7 +345,8 @@ def capture_graph(device, mempool, warm_up, body):
     torch.cuda.current_stream(device).wait_stream(side)
     def counts():
         return (pac_mod.launches, por_mod.epilogue_launches,
-                por_mod.launches, por_mod.mesh_merge_launches)
+                por_mod.launches, por_mod.mesh_merge_launches,
+                mesh_mod.collectives)
     before = counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=mempool):
@@ -419,7 +427,7 @@ class SpecStep:
         self.slots: Dict[tuple, _SpecSlot] = {}
         self._mempool = torch.cuda.graph_pool_handle() if self.cuda else None
         self.graphs = 0            # graphs captured
-        self.replays = 0           # graph replays (eager calls on the CPU)
+        self.replays = 0           # graph replays (eager calls uncaptured)
         self.capture_time = 0.0    # host seconds of warm-ups and captures
         # a list to time replays on the card: each appends its (start,
         # end) CUDA events, recorded around the replay alone

@@ -3,13 +3,13 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/chip_phase14.py        # 14a-d
+    python3 tools/chip_phase14.py        # 14a-e
     python3 tools/chip_phase14.py a      # 14a and 14c only
 
 Builds the kernels, serves phase 3's workload through the single-device
 fused step (phase 7's numbers, which 14a prints beside each mesh), then
-runs ``chip_smoke.phase_mesh`` (14a, 14c), ``phase_mesh_f32`` (14b) and
-``phase_calibrate`` (14d), and prints the seconds each took and 14c's
+runs ``chip_smoke.phase_mesh`` (14a, 14c), ``phase_mesh_f32`` (14b),
+``phase_calibrate`` (14d) and ``phase_process_mesh`` (14e), and prints the seconds each took and 14c's
 ``kernels`` entries as JSON.  A quicker loop than the whole script when
 only the mesh changed.
 """
@@ -55,12 +55,14 @@ def main() -> int:
     del engine, model
     torch.cuda.empty_cache()
     t = [time.perf_counter()]
-    kernels = cs.phase_mesh(timer, {"codec-cuda": r})
+    kernels, runs14 = cs.phase_mesh(timer, {"codec-cuda": r})
     t.append(time.perf_counter())
     if "a" not in sys.argv[1:]:
-        cs.phase_mesh_f32()
+        f32_14 = cs.phase_mesh_f32()
         t.append(time.perf_counter())
         cs.phase_calibrate()
+        t.append(time.perf_counter())
+        cs.phase_process_mesh(runs14, f32_14)
         t.append(time.perf_counter())
     print("phase 14 parts, s:", [round(b - a, 1) for a, b in zip(t, t[1:])])
     print(json.dumps(kernels))
