@@ -3933,6 +3933,138 @@ def phase_process_mesh(runs14, f32_14):
     shutil.rmtree(store, ignore_errors=True)
 
 
+# 14e (iv): deadlines, a queue timeout and phase 9's fault plan on the
+# process mesh (ROADMAP C5).  Seven running slots: the eighth request
+# waits and times out in the queue, request P9F_DEADLINE ends on its
+# deadline mid-decode
+P14E4_RUNNING, P14E4_QUEUE = 7, 7
+P14E4_QUEUE_S = 1.5
+
+
+class RankClock(StepClock):
+    """Phase 9's step clock at a rank's own rate and origin: ranks that
+    acted on their own readings would time out apart."""
+
+    def __init__(self, rank: int = 0):
+        super().__init__()
+        self.rate, self.origin = 1.0 + 0.37 * rank, 5.0 * rank
+
+    def __call__(self):
+        return self.origin + self.rate * self.t
+
+
+def p14e_c5_run(cfg, model, mesh, rank: int = 0):
+    """The deadline, queue-timeout and fault workload on ``mesh`` (a
+    process mesh, or a ``decode_mesh`` fed rank 0's clock): streams,
+    terminal states, counters, the launches, and whether a page leaked."""
+    from repro_torch.launch.serve import doc_prompts
+    from repro_torch.serving.engine import DecodeEngine
+    _, plan = fault_plan()
+    clock = RankClock(rank)
+    eng = DecodeEngine(cfg, model, page_size=PAGE, num_pages=1024,
+                       num_lanes=LANES, max_q=MAX_Q, fused=True, mesh=mesh,
+                       seq_split_pages=P14_SPLIT, faults=plan, clock=clock,
+                       max_running=P14E4_RUNNING, device=mesh.device)
+    reset_launches()
+    for i, q in enumerate(doc_prompts(8, P9F_DOC, P9_Q, cfg.vocab_size,
+                                      seed=3)):
+        eng.add_request(q, max_new=P9F_NEW, deadline_s=(
+            P9F_DEADLINE_S if i == P9F_DEADLINE else None),
+            max_queue_s=P14E4_QUEUE_S if i == P14E4_QUEUE else None)
+    for _ in range(200):
+        if not eng.has_work():
+            break
+        eng.step()
+        clock.t += 1.0
+    eng.run(0)
+    out = {"streams": {r: list(q.generated) for r, q in eng.requests.items()},
+           "states": {r: (q.state, q.finish_reason)
+                      for r, q in eng.requests.items()},
+           "stats": {k: eng.stats[k] for k in (
+               "timed_out", "faults_injected", "dispatch_failures",
+               "dispatch_recoveries", "nan_rows", "nonfinite_rows",
+               "preempted")},
+           "fired": dict(eng.injector.fired), "launches": read_launches()}
+    eng.check()
+    for rid in list(eng.requests):
+        eng.release(rid)
+    out["leak"] = not all(s.num_free == s.num_pages
+                          for s in eng.pool.allocator.shards)
+    del eng
+    return out
+
+
+def p14e_c5_rank(mesh):
+    """One gloo rank of 14e (iv) on ``cuda:0``: phase 14b's model."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.models.transformer import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device=mesh.device, dtype=torch.float32)
+    return p14e_c5_run(cfg, model, mesh, mesh.rank)
+
+
+def phase_process_mesh_c5():
+    """14e (iv), C5 repaired: phase 9's seeded fault plan with a deadline
+    and a queue timeout, on phase 14b's 4-layer f32 model, as a 1x1 NCCL
+    process mesh in this process and as 2x1 gloo ranks sharing the card,
+    each rank's clock at its own rate (rank 0's reading decides): the
+    streams, terminal states and fault counters equal the single
+    controller's ``decode_mesh`` fed rank 0's clock."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.distributed import decode_mesh
+    from repro_torch.distributed import mesh as mesh_mod
+    from repro_torch.distributed.launch import spawn_ranks
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    want = {(d, 1): p14e_c5_run(cfg, model, decode_mesh(d, 1, "cuda"))
+            for d in (1, 2)}
+    for w in want.values():
+        reasons = {why for _, why in w["states"].values()}
+        assert {"deadline", "queue_timeout", "done"} <= reasons, w["states"]
+        assert w["fired"]["nan_logits"] == 1 and w["fired"]["alloc"] >= 1 \
+            and w["fired"]["dispatch"] >= 1 and not w["leak"], w
+    store = tempfile.mkdtemp(prefix="p14e4-")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "nccl"), 1), rank=0, world_size=1)
+    try:
+        got = {(1, 1): [p14e_c5_run(cfg, model,
+                                    mesh_mod.process_mesh(1, 1))]}
+    finally:
+        dist.destroy_process_group()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    got[2, 1] = spawn_ranks(p14e_c5_rank, 2, 1, "gloo",
+                            os.path.join(store, "gloo"), "cuda:0", (),
+                            P14E_TIMEOUT)
+    for mesh, ranks in got.items():
+        w = want[mesh]
+        for rank, r in enumerate(ranks):
+            for k in ("streams", "states", "stats", "fired"):
+                assert r[k] == w[k], ("14e (iv)", mesh, rank, k, r[k], w[k])
+            la = r["launches"]
+            assert la["pac"] > 0 and la["por_epilogue"] > 0 and \
+                not r["leak"], (mesh, rank, la)
+        log(f"  14e (iv) {mesh[0]}x{mesh[1]} "
+            f"{'NCCL' if mesh == (1, 1) else 'gloo'} process mesh, "
+            f"{cfg.num_layers} layers f32, each rank's clock at its own "
+            f"rate: phase 9's fault plan (fired {w['fired']}), a deadline "
+            f"and a queue timeout give the single controller's streams, "
+            f"terminal states {sorted(set(w['states'].values()))} and "
+            f"counters {w['stats']} on every rank; launches by rank "
+            f"{[r['launches'] for r in ranks]}")
+    shutil.rmtree(store, ignore_errors=True)
+
+
 # --------------------------------------------------------------------- #
 # phase 15: training on the card
 # --------------------------------------------------------------------- #
@@ -4036,12 +4168,13 @@ def phase_train_full():
     data = SyntheticLM(DataConfig(cfg.vocab_size, P15_SEQ, P15_BATCH))
     batches = [tuple(torch.from_numpy(a).cuda() for a in data.batch(i))
                for i in range(2)]
-    losses, times = [], []
+    losses, gnorms, times = [], [], []
     for i in range(P15_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step(state, batches[i % 2])
         losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
@@ -4105,9 +4238,11 @@ def phase_train_full():
         f"backward (with the remat recompute) {ms[1]:.1f} ms, clip "
         f"{ms[2]:.1f} ms, optimizer + apply {ms[3]:.1f} ms")
     del state, step, updates, batches
+    gc.collect()
     torch.cuda.empty_cache()
     return {"step_ms": 1e3 * step_s, "mfu": mfu, "peak_gb": peak / 1e9,
-            "busy_ms": busy, "phases_ms": ms}
+            "busy_ms": busy, "phases_ms": ms, "losses": losses,
+            "gnorms": gnorms}
 
 
 def phase_train_parity():
@@ -4286,6 +4421,307 @@ def phase_train_serve(cfg, state):
             f"grad")
         del eng
     torch.cuda.empty_cache()
+
+
+# 15e: training over processes.  (ii) runs 15b's model on gloo ranks that
+# share the card, one row a rank; (iii) the launcher under torchrun
+P15E_MESHES = ((2, 1), (2, 2))
+P15E_STEPS = 2
+P15E_TIMEOUT = 300
+P15E_CLI = ["--smoke", "--global-batch", "8", "--seq-len", "64"]
+# 15e (i): steps of 15a's and of the rank's, taken in turn
+P15E_AB = 3
+
+
+def state_digest(state) -> int:
+    """A 64-bit digest of a training state's weights, bit for bit."""
+    from repro_torch.distributed.mesh import digest
+    return digest(*(p.detach().contiguous().view(torch.uint8).cpu()
+                    .numpy().tobytes() for p in state.params.values()))
+
+
+def p15e_cfg(layers: int):
+    from repro_torch.configs import PAPER_ARCH, get_config
+    return dataclasses.replace(get_config(PAPER_ARCH), num_layers=layers,
+                               dtype="float32")
+
+
+def p15e_steps(step, state, data, device):
+    """``P15E_STEPS`` steps: (loss, grad norm) each, and the weights'
+    digest after them."""
+    hist = []
+    for i in range(P15E_STEPS):
+        b = tuple(torch.from_numpy(a).to(device) for a in data.batch(i))
+        state, met = step(state, b)
+        hist.append((float(met["loss"]), float(met["grad_norm"])))
+    return hist, state_digest(state)
+
+
+def p15e_fresh(cfg, device):
+    """15b's weights and a fresh AdamW state on ``device`` (the card's
+    own generator, so every process draws the same weights)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import trainer
+    opt = O.adamw(O.cosine_schedule(P15_LR, P15_WARMUP, 10))
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    return opt, trainer.make_state(cfg, params, opt.init(params))
+
+
+def p15e_rank(mesh, layers: int):
+    """One gloo rank of 15e (ii) on ``cuda:0``: its data shard's row of
+    each global batch through the rank step."""
+    from repro_torch.distributed.train_step import make_rank_train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = p15e_cfg(layers)
+    opt, state = p15e_fresh(cfg, mesh.device)
+    step = make_rank_train_step(cfg, opt, mesh, remat=False)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, P15B_SEQ, mesh.data),
+                       dp_rank=mesh.coords[0], dp_world=mesh.data)
+    return p15e_steps(step, state, data, mesh.device)
+
+
+def p15e_cli_rank(mesh, argv):
+    """One gloo rank of 15e (ii)'s elastic restart: the launcher."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    hist, buf = [], io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv, history=hist, mesh=mesh)
+    return rc, hist, buf.getvalue()
+
+
+def phase_train_processes(full):
+    """15e: training over processes, one rank a ``(data, model)`` shard.
+    (i) 15a's settings as one NCCL rank in this process: the same eight
+    steps through the rank step (gradients through the bucketed slot
+    gathers), losses and grad norms against 15a's, step time, tokens/s,
+    MFU and peak memory beside 15a's, then steps of both taken in turn
+    on one state and the gather alone; (ii) 15b's model on gloo ranks
+    sharing the card at 2x1 and 2x2, one row a rank: losses, grad norms
+    and the weights' digest equal the single controller's ``--data 2``
+    on the card, and the launcher's elastic restart 2 -> 1 (``--smoke``)
+    gives the single controller's history; (iii) ``torchrun
+    --nproc-per-node 1 -m repro_torch.launch.train --dist-backend nccl``
+    runs to its end, and a second call resumes from its checkpoint (in a
+    thread, beside (ii)).  No time of (ii) is a mesh's: its ranks share
+    one card and gloo copies through the host."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.distributed import mesh as mesh_mod
+    from repro_torch.distributed.launch import spawn_ranks
+    from repro_torch.distributed.train_step import (BUCKET_BYTES,
+                                                     _gather_grads, buckets,
+                                                     make_rank_train_step)
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import trainer
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    store = tempfile.mkdtemp(prefix="p15e-")
+    # (i) one NCCL rank, 15a's model, optimizer, batches and steps
+    cfg = get_config(PAPER_ARCH)
+    opt = O.adamw(O.cosine_schedule(P15_LR, P15_WARMUP,
+                                    max(P15_STEPS, 10)))
+    tokens = P15_BATCH * P15_SEQ
+    n = trainer.state_bytes(trainer.abstract_state(cfg, opt))["n_params"]
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "nccl"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.process_mesh(1, 1)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = trainer.init_state(cfg, opt, gen, device="cuda")
+        step = make_rank_train_step(cfg, opt, mesh, remat=True)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, P15_SEQ, P15_BATCH))
+        batches = [tuple(torch.from_numpy(a).cuda() for a in data.batch(i))
+                   for i in range(2)]
+        c0 = mesh_mod.collectives
+        losses, gnorms, times = [], [], []
+        for i in range(P15_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batches[i % 2])
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        gathers = (mesh_mod.collectives - c0) // P15_STEPS
+        # A/B in turn on the same state: 15a's step, then the rank's
+        plain = trainer.make_train_step(cfg, opt, remat=True)
+        ab = {"15a": [], "rank": []}
+        for i in range(2 * P15E_AB):
+            name, fn = (("15a", plain), ("rank", step))[i % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = fn(state, batches[i // 2 % 2])
+            float(met["loss"])
+            torch.cuda.synchronize()
+            ab[name].append(time.perf_counter() - t0)
+        # the gather alone, on a gradient-shaped copy of the weights
+        grads = {k: p.detach().clone() for k, p in state.params.items()}
+        t_g = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _gather_grads(mesh, [grads], grads, True, BUCKET_BYTES)
+            torch.cuda.synchronize()
+            t_g.append(time.perf_counter() - t0)
+        n_buckets = len(buckets(grads, 1))
+        del state, step, plain, batches, grads
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = statistics.median(times[1:])
+    mfu = 6 * n * tokens / (step_s * PEAK_FLOPS[torch.bfloat16])
+    same = losses == full["losses"] and gnorms == full["gnorms"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, full["losses"]))
+    log(f"  15e (i) one NCCL rank, {cfg.name} x{cfg.num_layers} bf16, "
+        f"AdamW, remat, {P15_BATCH} x {P15_SEQ} tokens: losses and grad "
+        f"norms {'equal' if same else 'DIFFER FROM'} 15a's bit for bit "
+        f"(max rel diff {worst:.1e}; losses {losses}, 15a's "
+        f"{full['losses']}); step "
+        f"times (s) {[round(t, 4) for t in times]}: median of steps "
+        f"2-{P15_STEPS} {1e3 * step_s:.1f} ms beside 15a's "
+        f"{full['step_ms']:.1f} ms (same process, "
+        f"{1e3 * step_s - full['step_ms']:+.1f} ms), {tokens / step_s:.0f} "
+        f"tokens/s, MFU {mfu:.4f}; peak memory {peak / 1e9:.2f} GB beside "
+        f"15a's {full['peak_gb']:.2f} GB; {gathers} slot gathers a step "
+        f"(the metrics and {n_buckets} buckets of at most "
+        f"{BUCKET_BYTES >> 20} MiB; the step's agree is one more "
+        f"all-reduce); in turn on one state, 15a's step "
+        f"{[round(1e3 * t, 1) for t in ab['15a']]} ms, the rank's "
+        f"{[round(1e3 * t, 1) for t in ab['rank']]} ms (medians "
+        f"{1e3 * statistics.median(ab['15a']):.1f} / "
+        f"{1e3 * statistics.median(ab['rank']):.1f}); the gather alone "
+        f"{[round(1e3 * t, 1) for t in t_g]} ms")
+
+    # (iii), the launcher under torchrun, runs beside (ii): its time is
+    # the processes' start
+    pool = ThreadPoolExecutor(1)
+    torchrun = pool.submit(p15e_torchrun)
+    pool.shutdown(wait=False)
+
+    # (ii) gloo ranks on the one card at 15b's model
+    layers = P15B_LAYERS
+    cfg = p15e_cfg(layers)
+    opt = O.adamw(O.cosine_schedule(P15_LR, P15_WARMUP, 10))
+    nb = trainer.state_bytes(trainer.abstract_state(cfg, opt,
+                                                    torch.float32))
+    # a rank: weights, the gradient, its float32 sum, the clipped copy,
+    # Adam's two moments, one bucket and ~0.6 GB of CUDA context
+    rank_gb = (4 * nb["params"] + nb["opt_state"]
+               + BUCKET_BYTES) / 1e9 + 0.6
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    if 4 * rank_gb > 0.9 * free:
+        layers = 1
+    opt, state = p15e_fresh(cfg, "cuda")
+    ref = p15e_steps(trainer.make_train_step(
+        cfg, opt, microbatches=2, remat=False), state, SyntheticLM(
+        DataConfig(cfg.vocab_size, P15B_SEQ, 2)), "cuda")
+    del state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = {2: ref}
+    if layers != P15B_LAYERS:
+        cfg1 = p15e_cfg(layers)
+        opt, state = p15e_fresh(cfg1, "cuda")
+        refs[1] = p15e_steps(trainer.make_train_step(
+            cfg1, opt, microbatches=2, remat=False), state, SyntheticLM(
+            DataConfig(cfg1.vocab_size, P15B_SEQ, 2)), "cuda")
+        del state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    for d, m in P15E_MESHES:
+        nl = P15B_LAYERS if d * m <= 2 else layers
+        t0 = time.perf_counter()
+        got = spawn_ranks(p15e_rank, d, m, "gloo",
+                          os.path.join(store, f"gloo{d}x{m}"), "cuda:0",
+                          (nl,), P15E_TIMEOUT)
+        want = refs[2 if nl == P15B_LAYERS else 1]
+        for rank, r in enumerate(got):
+            assert r == want, ("15e (ii)", d, m, rank, r, want)
+        log(f"  15e (ii) {d}x{m} gloo, {cfg.name} x{nl} f32 at full width, "
+            f"one row a rank, {d * m} ranks on cuda:0: every rank's losses "
+            f"{[round(x, 6) for x, _ in want[0]]}, grad norms and weights' "
+            f"digest equal the single controller's --data 2 on the card; "
+            f"wall {time.perf_counter() - t0:.1f} s (not a mesh time)"
+            + (f"; 4 ranks x {rank_gb:.1f} GB reckoned against "
+               f"{free:.1f} GB free, so {nl} layer(s)"
+               if d * m > 2 else ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = P15E_CLI + ["--device", "cuda", "--data", "2", "--steps",
+                           "6", "--fail-at-step", "3"]
+        single = p15e_cli_rank(None, argv + ["--ckpt-dir", f"{tmp}/s"])
+        got = spawn_ranks(p15e_cli_rank, 2, 1, "gloo",
+                          os.path.join(store, "elastic"), "cuda:0",
+                          (argv + ["--ckpt-dir", f"{tmp}/m"],), P15E_TIMEOUT)
+    (rc0, h0, out0), (rc1, h1, _) = got
+    assert single[0] == rc0 == rc1 == 0, (single[2], out0)
+    assert h0 == single[1] and h1 == single[1][:3], (h0, h1, single[1])
+    assert "[elastic] step 3" in out0 and "done: 6 steps" in out0, out0
+    log(f"  15e (ii) elastic restart over 2 gloo ranks (--smoke, --data 2 "
+        f"--fail-at-step 3): rank 1 left after the pre-failure save, rank "
+        f"0 went on as a 1x1 mesh; its losses "
+        f"{[round(x, 5) for _, x, _ in h0]} equal the single "
+        f"controller's on the card bit for bit")
+
+    outs = torchrun.result()
+    assert "done: 6 steps" in outs[0][0], outs[0][0]
+    assert "[resume] step 6" in outs[1][0] and "done: 2 steps" in \
+        outs[1][0], outs[1][0]
+    log(f"  15e (iii) torchrun --nproc-per-node 1 -m repro_torch.launch."
+        f"train --smoke --dist-backend nccl: 6 steps to done "
+        f"({outs[0][1]:.1f} s of command), then a second call resumed at "
+        f"step 6 and ran 2 ({outs[1][1]:.1f} s); both beside (ii)")
+    shutil.rmtree(store, ignore_errors=True)
+    # one card, the same kernels at the same shapes: the rank's step is
+    # 15a's to the bit (the gathers copy)
+    assert same, ("15e (i) losses", losses, full["losses"], gnorms,
+                  full["gnorms"])
+
+
+def p15e_torchrun():
+    """15e (iii): ``torchrun --nproc-per-node 1 -m
+    repro_torch.launch.train --smoke --dist-backend nccl`` to its end,
+    then again with more steps (a resume); each call's output and
+    seconds."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for steps in (6, 8):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--nproc-per-node", "1", "--master-addr", "localhost",
+                 "--master-port", str(free_port()), "-m",
+                 "repro_torch.launch.train", *P15E_CLI, "--dist-backend",
+                 "nccl", "--steps", str(steps), "--ckpt-dir", tmp],
+                capture_output=True, text=True, timeout=P15E_TIMEOUT,
+                env=env)
+            assert res.returncode == 0, res.stdout + res.stderr[-4000:]
+            outs.append((res.stdout, time.perf_counter() - t0))
+    return outs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 # --------------------------------------------------------------------- #
@@ -4813,17 +5249,21 @@ def main() -> int:
     phase_process_mesh(runs14, f32_14)
     del runs14, f32_14
     t14.append(time.perf_counter())
+    phase_process_mesh_c5()
+    t14.append(time.perf_counter())
     log(f"  phase 14: 14a-c {t14[1] - t14[0]:.1f} s, 14b "
         f"{t14[2] - t14[1]:.1f} s, 14d {t14[3] - t14[2]:.1f} s, 14e "
-        f"{t14[4] - t14[3]:.1f} s")
+        f"(i-iii) {t14[4] - t14[3]:.1f} s, 14e (iv) "
+        f"{t14[5] - t14[4]:.1f} s")
 
     log("== 15. training on the card: qwen3-4b at full width and depth, "
-        "the step against the CPU, the launcher, train then serve")
+        "the step against the CPU, the launcher, train then serve, "
+        "training over processes")
     del fused7, codec_res, flash_res
     gc.collect()            # engines and their graphs' pools sit in cycles
     torch.cuda.empty_cache()
     t15 = [time.perf_counter()]
-    phase_train_full()
+    full15 = phase_train_full()
     t15.append(time.perf_counter())
     cfg15, state15 = phase_train_parity()
     t15.append(time.perf_counter())
@@ -4831,9 +5271,13 @@ def main() -> int:
     t15.append(time.perf_counter())
     phase_train_serve(cfg15, state15)
     del state15
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15.append(time.perf_counter())
+    phase_train_processes(full15)
     t15.append(time.perf_counter())
     log("  phase 15: " + ", ".join(
-        f"15{c} {b - a:.1f} s" for c, a, b in zip("abcd", t15, t15[1:])))
+        f"15{c} {b - a:.1f} s" for c, a, b in zip("abcde", t15, t15[1:])))
 
     log("== 16. the serving examples on the card; the launch layer's dry "
         "run on the meta device against the H100")

@@ -11,7 +11,10 @@ shards.
 * ``step_fn.py`` — ``ShardedStep``: per-shard PAC and epilogue, the
   cross-shard POR merge, the head-parallel output projection, in one
   CUDA graph a signature; ``RankStep``: one rank's shard of it;
-* ``launch.py``  — ``spawn_ranks``: a process mesh on one host.
+* ``launch.py``  — ``spawn_ranks``: a process mesh on one host;
+* ``train_step.py`` — ``make_rank_train_step``: training over a process
+  mesh, each rank's gradients gathered over ``data`` and summed in shard
+  order (``launch/train.py --dist-backend``).
 
 ``repro`` runs the mesh as one program traced under ``shard_map`` over
 its devices, with one controller.  The port runs it in one of two ways.
@@ -33,7 +36,9 @@ bitwise alike) and the output projection's partial products over the
 model group (then the ordered ``model_sum``).  Every rank runs the same
 host logic on the same inputs and checks at each plan epoch that the
 ranks agree (``MeshDivergenceError`` otherwise).  The streams equal the
-single controller's byte for byte.  Under NCCL the step's collectives
+single controller's byte for byte.  Deadlines and queue timeouts are
+decided on rank 0's clock (``ProcessMesh.host_broadcast``), and a fault
+plan fires alike on every rank.  Under NCCL the step's collectives
 are captured into its CUDA graph; under gloo the step runs uncaptured.
 
 On the CPU (gloo, one process a shard)::
@@ -55,6 +60,7 @@ and on one card, several gloo ranks sharing it: ``--dist-backend gloo
 from .kv_pool import (RankKVPool, ShardedKVPool,            # noqa: F401
                       ShardedPageAllocator)
 from .mesh import (DecodeMesh, MeshDivergenceError,         # noqa: F401
-                   ProcessMesh, ProcessMeshUnsupported, decode_mesh,
-                   parse_mesh, process_mesh)
+                   ProcessMesh, decode_mesh, parse_mesh,
+                   process_mesh)
 from .step_fn import RankStep, ShardedStep, ShardedStepBase  # noqa: F401
+from .train_step import make_rank_train_step                # noqa: F401

@@ -58,8 +58,10 @@ def spawn_ranks(fn: Callable, data: int, model: int, backend: str,
     process mesh (``fn`` and ``args`` are pickled: a module-level
     function).  ``init_file`` must not exist yet: it becomes the group's
     ``FileStore``.  ``PYTHONHASHSEED`` is fixed for the ranks, so every
-    rank iterates its sets alike.  Returns the ranks' results in rank
-    order."""
+    rank iterates its sets alike.  A rank may return while the others go
+    on (an elastic restart's leavers, after ``ProcessMesh.shrink``): its
+    result is kept and its process ends.  Returns the ranks' results in
+    rank order."""
     if os.path.exists(init_file):
         raise FileExistsError(f"{init_file} exists: a FileStore must start "
                               f"from a new file")

@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,10 +43,6 @@ collectives = 0
 
 class MeshDivergenceError(RuntimeError):
     """The ranks of a process mesh disagree on their host state."""
-
-
-class ProcessMeshUnsupported(ValueError):
-    """An engine option that a process mesh refuses (ROADMAP §C)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +156,40 @@ class ProcessMesh:
                 group=self.groups["world"])
         return t.tolist()
 
+    def host_broadcast(self, values: Sequence[float],
+                       src: int = 0) -> List[float]:
+        """Rank ``src``'s host vector (float64) on every rank: a value
+        that one rank reads for itself (its clock) and every rank must
+        act on alike.  One writer, the words summed as ``int64``: the
+        bits arrive exactly."""
+        t = torch.zeros(len(values), dtype=torch.float64,
+                        device=self.device)
+        if self.rank == src:
+            t.copy_(torch.tensor(list(values), dtype=torch.float64))
+        if t.numel():
+            torch.distributed.all_reduce(t.view(torch.int64),
+                                         group=self.groups["world"])
+        return t.tolist()
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (one small all-reduce on the
+        mesh's device, so it orders with the device's work too)."""
+        torch.distributed.all_reduce(
+            torch.zeros(1, dtype=torch.int32, device=self.device),
+            group=self.groups["world"])
+
+    def shrink(self, data: int) -> Optional["ProcessMesh"]:
+        """The first ``data`` data shards as a mesh of their own (an
+        elastic restart's survivors), ``None`` on a rank outside it.
+        Every rank of this mesh must call it, members or not, in one
+        order, while all are still present: ``new_group`` is collective
+        over the default group."""
+        if data < 1 or data > self.data:
+            raise ValueError(f"cannot shrink a {self.data}x{self.model} "
+                             f"mesh to {data} data shards")
+        return _build(data, self.model, self.device,
+                      list(range(data * self.model)))
+
     def agree(self, value: int, what: str) -> None:
         """Raise ``MeshDivergenceError`` on every rank unless every rank
         passed the same ``value`` (a digest, cut to 63 bits; one
@@ -204,16 +234,34 @@ def process_mesh(data: int = 1, model: int = 1,
                          f"{data * model} ranks, the world has {world}")
     if device is None:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    return _build(data, model, torch.device(device), None)
+
+
+def _build(data: int, model: int, device: torch.device,
+           members: Optional[List[int]]) -> Optional[ProcessMesh]:
+    """The mesh over the default group's ranks ``members`` (``None``: all
+    of them, as they are); every rank of the default group makes every
+    group, in one order."""
+    import torch.distributed as dist
+
+    _check_sizes(data, model)
     rank = dist.get_rank()
+    if members is None:
+        world = dist.group.WORLD
+    else:
+        world = dist.new_group(members)
+        if rank not in members:
+            world = None
     by_m, by_d = group_ranks(data, model)
-    groups: Dict[str, object] = {"world": dist.group.WORLD}
-    d, m = rank_coords(rank, model)
-    # every rank makes every group, in one order
-    for name, sets, mine in (("data", by_m, m), ("model", by_d, d)):
+    mine = rank_coords(rank, model) if world is not None else (-1, -1)
+    groups: Dict[str, object] = {"world": world}
+    for name, sets, i_mine in (("data", by_m, mine[1]),
+                               ("model", by_d, mine[0])):
         for i, ranks in enumerate(sets):
             g = dist.new_group(ranks)
-            if i == mine:
+            if i == i_mine:
                 groups[name] = g
-    return ProcessMesh(int(data), int(model), torch.device(device), rank,
+    if world is None:
+        return None
+    return ProcessMesh(int(data), int(model), device, rank,
                        dist.get_backend(), groups)
-

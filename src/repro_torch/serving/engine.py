@@ -119,10 +119,11 @@ shards run one after another: the fitted coefficients describe that, not
 a mesh of cards.  A ``distributed.process_mesh`` runs one engine a rank,
 each holding its shard's slab (``RankKVPool``) and running its shard of
 the step (``RankStep``); every rank runs this host logic on the same
-inputs, compares a digest of each plan epoch with the others
-(``MeshDivergenceError``), fits ``recalibrate`` to step times maxed over
-the ranks, and refuses deadlines, queue timeouts and fault injection
-(``ProcessMeshUnsupported``: each rank would read its own clock).
+inputs, compares a digest of each plan epoch (the faults fired
+included) with the others (``MeshDivergenceError``), fits
+``recalibrate`` to step times maxed over the ranks, and decides
+deadlines and queue timeouts on rank 0's clock, broadcast to every rank
+(each rank's own clock would part their admission order and timeouts).
 """
 
 from __future__ import annotations
@@ -140,8 +141,7 @@ from ..core import tree as tree_mod
 from ..core.cost_model import CostModel
 from ..core.scheduler import AdmissionController, AdmissionPolicy
 from ..distributed.kv_pool import RankKVPool, ShardedKVPool
-from ..distributed.mesh import (ProcessMesh, ProcessMeshUnsupported,
-                                digest)
+from ..distributed.mesh import ProcessMesh, digest
 from ..distributed.step_fn import RankStep, ShardedStep, sharded_step_base
 from ..kernels import por as por_mod, registry as registry_mod
 from ..models import layers as L
@@ -286,16 +286,14 @@ class DecodeEngine:
                 raise ValueError(f"mesh on {mesh.device}, engine on "
                                  f"{self.device}")
         # a process mesh (one rank a shard): every rank runs this host
-        # logic on the same inputs; what a rank would read for itself
-        # (deadlines on its own clock, injected faults) is refused
+        # logic on the same inputs; the one value a rank reads for itself
+        # and acts on, the clock, is rank 0's (``_mesh_clock``), and a
+        # fault plan is a schedule by step, so every rank's injector
+        # fires alike
         self._ranked = isinstance(mesh, ProcessMesh)
         # a running digest of the requests added and cancelled, which the
         # ranks compare at each plan epoch
         self._host_log = 0
-        if self._ranked and faults is not None:
-            raise ProcessMeshUnsupported(
-                "fault injection is not supported on a process mesh "
-                "(ROADMAP C5)")
         sampler.check_temperature(temperature)
         # ---- tree-speculative decoding (``repro``'s DESIGN §10) ------- #
         # speculative=True (defaults) or a SpecConfig: several tokens can
@@ -547,11 +545,6 @@ class DecodeEngine:
         if max_queue_s is not None and max_queue_s <= 0:
             raise ValueError(
                 f"max_queue_s must be positive, got {max_queue_s}")
-        if self._ranked and (deadline_s is not None
-                             or max_queue_s is not None):
-            raise ProcessMeshUnsupported(
-                "deadline_s / max_queue_s are not supported on a process "
-                "mesh: each rank would read its own clock (ROADMAP C5)")
         # only an unservable prompt is an error: whole-prompt prefill needs
         # every page at once, chunked prefill one chunk + the tail it grows
         # into (larger prompts just wait in the queue)
@@ -563,16 +556,20 @@ class DecodeEngine:
                 f"admitted")
         rid = self._next_rid
         self._next_rid += 1
-        if self._ranked:
-            self._host_log = digest(self._host_log, "add", rid, max_new,
-                                    arr.astype(np.int64).tobytes())
         now = self.clock()
+        if self._ranked and (deadline_s is not None
+                             or max_queue_s is not None):
+            now = self._mesh_clock(now)
         req = Request(rid, prompt, max_new=max_new, on_token=on_token,
                       on_done=on_done, submit_t=now)
         if deadline_s is not None:
             req.deadline = now + float(deadline_s)
         if max_queue_s is not None:
             req.queue_deadline = now + float(max_queue_s)
+        if self._ranked:
+            self._host_log = digest(self._host_log, "add", rid, max_new,
+                                    req.deadline, req.queue_deadline,
+                                    arr.astype(np.int64).tobytes())
         self.requests[rid] = req
         if self.telemetry is not None:
             self.telemetry.metrics["requests_submitted"].inc()
@@ -2593,6 +2590,7 @@ class DecodeEngine:
             # collectives: a divergent rank raises on every rank
             self.mesh.agree(digest(
                 self._host_log, rows, sig,
+                self.injector and sorted(self.injector.fired.items()),
                 *(a.tobytes() for shards in host for _, arrs in shards
                   for a in arrs),
                 *(np.asarray(a).tobytes() for a in base)), "the plan epoch")
@@ -3141,11 +3139,24 @@ class DecodeEngine:
             req.finish_reason = req.finish_reason or "done"
             self._fire_on_done(req)
 
+    def _mesh_clock(self, now: float) -> float:
+        """Rank 0's clock reading on every rank of a process mesh (one
+        host broadcast): deadlines, queue timeouts and the EDF order are
+        decided on it, so the ranks decide alike.  Telemetry spans stay
+        on each rank's own clock (rank 0 alone exports them)."""
+        return self.mesh.host_broadcast([now])[0]
+
     def _enforce_deadlines(self) -> None:
         """Step-boundary deadline sweep over every request not yet over
         (the waiting queue included): an expired one ends ``TIMED_OUT``
         with its KV released and its stream closed."""
         now = self.clock()
+        if self._ranked:
+            if not any(q.state not in TERMINAL and (
+                    q.deadline is not None or q.queue_deadline is not None)
+                    for q in self.requests.values()):
+                return
+            now = self._mesh_clock(now)
         for req in list(self.requests.values()):
             if req.state in TERMINAL:
                 continue

@@ -11,7 +11,8 @@ ignored by ``latest_step``, so a preemption mid-save can never corrupt
 the restore path.  Shard ``s`` holds piece ``s`` of every array split on
 its leading axis; 0-d arrays and arrays shorter than the shard count live
 whole in shard 0.  Restore re-assembles them (an elastic restart reuses
-the same files).
+the same files).  Over a process mesh (``save_checkpoint(mesh=)``) each
+file is written by its own rank, ``(d=s, m=0)``, and rank 0 publishes.
 
 Keys are the leaves' paths joined by ``/``: a ``TrainState`` saves its
 ``tree()`` (``step``, ``params/<state-dict name>``, ``opt_state/m/<name>``
@@ -82,39 +83,75 @@ def _to_leaf(arr: np.ndarray, dtype: str, like):
     return t.to(like.device)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: Tree,
-                    *, num_shards: int = 1, keep: int = 3,
-                    extra: Optional[Dict] = None) -> str:
-    """Save ``tree`` under ``ckpt_dir/step_NNNNNN``, atomically."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    step_dir = os.path.join(ckpt_dir, f"step_{step:06d}")
-    tmp_dir = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
-
-    manifest = {"step": step, "num_shards": num_shards,
-                "time": time.time(), "extra": extra or {},
-                "arrays": {}}
+def _layout(tree: Tree, num_shards: int
+            ) -> Tuple[Dict, List[Dict[str, np.ndarray]]]:
+    """The manifest's ``arrays`` and each shard file's arrays."""
+    arrays: Dict[str, Dict] = {}
     shards: List[Dict[str, np.ndarray]] = [dict() for _ in range(num_shards)]
     for key, leaf in _flatten(tree):
         arr, dtype = _to_numpy(leaf)
-        manifest["arrays"][key] = {"shape": list(arr.shape),
-                                   "dtype": dtype}
+        arrays[key] = {"shape": list(arr.shape), "dtype": dtype}
         if arr.ndim == 0 or num_shards == 1 or arr.shape[0] < num_shards:
             shards[0][key] = arr           # small/replicated: shard 0 owns it
-            manifest["arrays"][key]["sharded"] = False
+            arrays[key]["sharded"] = False
         else:
-            manifest["arrays"][key]["sharded"] = True
+            arrays[key]["sharded"] = True
             splits = np.array_split(arr, num_shards, axis=0)
             for s, piece in enumerate(splits):
                 shards[s][key] = piece
-    for s, shard in enumerate(shards):
-        np.savez(os.path.join(tmp_dir, f"shard_{s:05d}.npz"), **shard)
-    # manifest last: its presence marks the checkpoint complete
-    with open(os.path.join(tmp_dir, "MANIFEST.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(step_dir):
-        shutil.rmtree(step_dir)
-    os.rename(tmp_dir, step_dir)
-    _gc(ckpt_dir, keep)
+    return arrays, shards
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Tree,
+                    *, num_shards: int = 1, keep: int = 3,
+                    extra: Optional[Dict] = None, mesh=None) -> str:
+    """Save ``tree`` under ``ckpt_dir/step_NNNNNN``, atomically.
+
+    ``mesh`` (a ``distributed.ProcessMesh``, every rank holding the same
+    ``tree``, ``ckpt_dir`` on storage every rank sees): every rank calls
+    this.  The ranks check that their arrays agree; shard ``s`` is
+    written by the rank at ``(d=s, m=0)`` into a temp directory that
+    every rank names alike; after a barrier rank 0 writes the manifest
+    last and publishes the directory, and a second barrier keeps any
+    rank from reading a partial checkpoint.  The files are the
+    one-process save's."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    step_dir = os.path.join(ckpt_dir, f"step_{step:06d}")
+    arrays, shards = _layout(tree, num_shards)
+    manifest = {"step": step, "num_shards": num_shards,
+                "time": time.time(), "extra": extra or {},
+                "arrays": arrays}
+    if mesh is None:
+        tmp_dir = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
+        writes = range(num_shards)
+    else:
+        from ..distributed.mesh import digest
+        if num_shards > mesh.data:
+            raise ValueError(f"{num_shards} shards need as many data "
+                             f"shards, the mesh has {mesh.data}")
+        mesh.agree(digest(*(a.tobytes() for sh in shards
+                            for a in sh.values())), "the saved arrays")
+        tmp_dir = os.path.join(ckpt_dir, f".tmp_save_step_{step:06d}")
+        if mesh.rank == 0:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+            os.makedirs(tmp_dir)
+        mesh.barrier()
+        d, m = mesh.coords
+        writes = [d] if m == 0 and d < num_shards else []
+    for s in writes:
+        np.savez(os.path.join(tmp_dir, f"shard_{s:05d}.npz"), **shards[s])
+    if mesh is not None:
+        mesh.barrier()
+    if mesh is None or mesh.rank == 0:
+        # manifest last: its presence marks the checkpoint complete
+        with open(os.path.join(tmp_dir, "MANIFEST.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(step_dir):
+            shutil.rmtree(step_dir)
+        os.rename(tmp_dir, step_dir)
+        _gc(ckpt_dir, keep)
+    if mesh is not None:
+        mesh.barrier()
     return step_dir
 
 

@@ -145,6 +145,48 @@ def make_loss_fn(cfg: ModelConfig, *, aux_weight: float = 0.01,
     return loss_fn
 
 
+def make_micro_step(cfg: ModelConfig, *, aux_weight: float = 0.01,
+                    remat: bool = True, ce_impl: str = "gather",
+                    extras_fn: Optional[Callable] = None) -> Callable:
+    """``micro(state, tokens, labels) -> (loss, {"ce", "moe_aux"},
+    grads)``: one microbatch's loss and metrics (0-d, detached) and its
+    gradient by parameter name, in the weights' dtypes (zeros for a
+    parameter the loss does not reach)."""
+    loss_fn = make_loss_fn(cfg, aux_weight=aux_weight, remat=remat,
+                           ce_impl=ce_impl)
+
+    def micro(state: TrainState, tokens, labels):
+        extras = extras_fn(tokens) if extras_fn else {}
+        names = list(state.params)
+        with torch.enable_grad():
+            loss, met = loss_fn(state.model, tokens, labels, extras)
+            grads = torch.autograd.grad(
+                loss, [state.params[k] for k in names], allow_unused=True)
+        grads = {k: (torch.zeros_like(state.params[k]) if g is None else g)
+                 for k, g in zip(names, grads)}
+        return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
+    return micro
+
+
+def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
+                 optimizer: O.Optimizer, clip_norm: float
+                 ) -> torch.Tensor:
+    """Clip ``grads`` by their global norm, update the optimizer state and
+    add the updates to the weights in place, advance ``step``; returns
+    the norm before clipping.  ``grads`` is emptied once clipped, so the
+    unclipped gradient is freed before the optimizer's temporaries."""
+    clipped, gnorm = O.clip_by_global_norm(grads, clip_norm)
+    grads.clear()
+    updates, state.opt_state = optimizer.update(clipped, state.opt_state,
+                                                state.params)
+    del clipped
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.add_(updates.pop(k))
+    state.step = state.step + 1
+    return gnorm
+
+
 def make_train_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
                     microbatches: int = 1, remat: bool = True,
                     clip_norm: float = 1.0, aux_weight: float = 0.01,
@@ -159,19 +201,8 @@ def make_train_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
     the batch and sums the gradients in float32 (activation memory /
     microbatches).  ``extras_fn`` makes stub frontend inputs (VLM prefix
     embeds, audio encoder frames) from a token batch."""
-    loss_fn = make_loss_fn(cfg, aux_weight=aux_weight, remat=remat,
-                           ce_impl=ce_impl)
-
-    def micro(state: TrainState, tokens, labels):
-        extras = extras_fn(tokens) if extras_fn else {}
-        names = list(state.params)
-        with torch.enable_grad():
-            loss, met = loss_fn(state.model, tokens, labels, extras)
-            grads = torch.autograd.grad(
-                loss, [state.params[k] for k in names], allow_unused=True)
-        grads = {k: (torch.zeros_like(state.params[k]) if g is None else g)
-                 for k, g in zip(names, grads)}
-        return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
+    micro = make_micro_step(cfg, aux_weight=aux_weight, remat=remat,
+                            ce_impl=ce_impl, extras_fn=extras_fn)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         tokens, labels = batch
@@ -200,14 +231,7 @@ def make_train_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
             met = {k: v * inv for k, v in met.items()}
             for g in grads.values():
                 g.mul_(inv)
-        grads, gnorm = O.clip_by_global_norm(grads, clip_norm)
-        updates, state.opt_state = optimizer.update(grads, state.opt_state,
-                                                    state.params)
-        del grads
-        with torch.no_grad():
-            for k, p in state.params.items():
-                p.add_(updates.pop(k))
-        state.step = state.step + 1
+        gnorm = apply_update(state, grads, optimizer, clip_norm)
         return state, {"loss": loss, "grad_norm": gnorm, **met}
 
     return train_step

@@ -39,6 +39,8 @@ def test_port_imports_with_jax_blocked():
         "for m in ('data', 'optimizer', 'trainer', 'checkpoint'):\n"
         "    assert 'repro_torch.training.' + m in mods, mods\n"
         "assert 'repro_torch.launch.train' in mods, mods\n"
+        "for m in ('mesh', 'launch', 'train_step'):\n"
+        "    assert 'repro_torch.distributed.' + m in mods, mods\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro'"
         " or k.startswith('repro.') for k, v in sys.modules.items()"
         " if v is not None)\n"
@@ -107,6 +109,27 @@ def test_launch_layer_and_examples_stand_alone():
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+RANK_SIDE = ("torch_process_mesh_cases", "torch_process_train_cases")
+
+
+def test_rank_side_helpers_import_no_jax():
+    """The modules that spawned ranks import by name load with ``jax``
+    and ``repro`` made unimportable."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {RANK_SIDE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

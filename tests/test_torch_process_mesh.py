@@ -17,12 +17,29 @@ holds ``1 / (D * M)`` of the single-controller pool's bytes.
 ``calibrate=True`` fits the same coefficients on every rank;
 ``repro``'s ``ARCH_SWEEP`` models match at 2x1; the prefix cache,
 cascade prefill and telemetry match the single-controller mesh.  A rank
-fed another request makes every rank raise ``MeshDivergenceError``; a
-world of the wrong size, an uninitialized group, a mesh on another
-device and the refused options raise.
+fed another request, or whose fault injector fires otherwise, makes
+every rank raise ``MeshDivergenceError``; a world of the wrong size, an
+uninitialized group, a mesh on another device and the refused options
+raise.
+
+Deadlines, queue timeouts and fault plans (ROADMAP C5, repaired): on
+2x1 and 2x2 meshes each rank reads a fake clock of its own rate and
+origin, and rank 0's reading, broadcast, decides; the deadline workload
+and two fault plans (one spec of every kind, parsed, and a seeded
+schedule) give every rank the streams, terminal states, counters, step
+decisions and callbacks of the single-controller mesh fed rank 0's
+clock.  At 2x1 the deadline workload and the parsed plan also run on
+``repro``'s mesh engine (fused, ``codec-xla``, two forced host devices,
+in a subprocess).
 """
 
 import inspect
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -50,6 +67,10 @@ MESH_CASES = {
 }
 SPAWN_TIMEOUT = 240
 mesh_ids = [f"{d}x{m}" for d, m in MESHES]
+# the meshes whose spawn also runs the deadline and fault workloads
+C5_MESHES = [(2, 1), (2, 2)]
+C5_RUNS = ["deadlines"] + list(cases.FAULT_PLANS)
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +104,8 @@ def spawns(npz, tmp_path_factory):
     for d, m in MESHES:
         out[d, m] = spawn_ranks(
             cases.rank_main, d, m, "gloo", str(tmp / f"{d}x{m}"),
-            device="cpu", args=(npz, MESH_CASES[d, m], (d, m) == (2, 1)),
+            device="cpu", args=(npz, MESH_CASES[d, m], (d, m) == (2, 1),
+                                (d, m) in C5_MESHES),
             timeout=SPAWN_TIMEOUT)
     return out
 
@@ -94,6 +116,56 @@ def controller(npz):
     model = cases.load_model(npz)
     return {(d, m): {c: cases.run_case(model, decode_mesh(d, m, "cpu"), c)
                      for c in MESH_CASES[d, m]} for d, m in MESHES}
+
+
+@pytest.fixture(scope="module")
+def controller_c5(npz):
+    """The single-controller mesh's deadline and fault runs, fed rank
+    0's clock."""
+    model = cases.load_model(npz)
+    return {(d, m): cases.c5_runs(model, decode_mesh(d, m, "cpu"))
+            for d, m in C5_MESHES}
+
+
+# ``repro``'s mesh engine at 2x1 (fused, codec-xla) on the deadline
+# workload and the parsed fault plan, on two forced host devices
+REPRO_MESH = textwrap.dedent("""\
+    import os, pickle, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    import jax
+    from repro.distributed import decode_mesh
+    from repro.models import transformer as JT
+    from repro.serving.engine import DecodeEngine
+    from repro.serving.faults import FaultPlan
+    import torch_process_mesh_cases as cases
+
+    params = JT.init_params(cases.CFG, jax.random.PRNGKey(0))
+
+    def make(**kw):
+        return DecodeEngine(cases.CFG, params, page_size=8, num_pages=256,
+                            backend="codec-xla", max_q=8, fused=True,
+                            mesh=decode_mesh(2, 1), seq_split_pages=2, **kw)
+    out = {"deadlines": cases.wl_deadlines(make, cases.rank_clock(0)),
+           "parsed": cases.wl_faults(
+               make, FaultPlan.parse(cases.FAULT_PLANS["parsed"]))}
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(out, f)
+""")
+
+
+@pytest.fixture(scope="module")
+def repro_mesh(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("repro_mesh")
+    script, result = tmp / "repro_mesh.py", tmp / "out.pkl"
+    script.write_text(REPRO_MESH)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, str(script), str(result)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    with open(result, "rb") as f:
+        return pickle.load(f)
 
 
 def rank_case(spawns, mesh, case):
@@ -223,13 +295,23 @@ def test_slot_gather_is_exact(spawns, mesh):
     assert all(r["slot_gather_exact"] for r in spawns[mesh])
 
 
-def test_divergent_rank_raises_on_every_rank(npz, tmp_path):
+def _diverge(npz, tmp_path, what):
     got = spawn_ranks(cases.rank_diverge, 2, 1, "gloo",
-                      str(tmp_path / "store"), device="cpu", args=(npz,),
-                      timeout=SPAWN_TIMEOUT)
+                      str(tmp_path / "store"), device="cpu",
+                      args=(npz, what), timeout=SPAWN_TIMEOUT)
     for name, msg in got:
         assert name == "MeshDivergenceError", msg
         assert "plan epoch" in msg
+
+
+def test_divergent_rank_raises_on_every_rank(npz, tmp_path):
+    _diverge(npz, tmp_path, "request")
+
+
+def test_divergent_fault_plan_raises_on_every_rank(npz, tmp_path):
+    """Rank 1's plan holds a stall that rank 0's lacks: only the faults
+    fired differ, and the plan epoch's digest holds them."""
+    _diverge(npz, tmp_path, "faults")
 
 
 @pytest.fixture(scope="module")
@@ -242,12 +324,67 @@ def refusals(npz, tmp_path_factory):
 
 @pytest.mark.parametrize("what,error", [
     ("wrong_world", "ValueError"), ("device_mismatch", "ValueError"),
-    ("deadline", "ProcessMeshUnsupported"),
-    ("max_queue", "ProcessMeshUnsupported"),
-    ("faults", "ProcessMeshUnsupported"), ("speculative", "ValueError"),
-    ("nan_guard", "ValueError"), ("eager", "ValueError")])
+    ("speculative", "ValueError"), ("nan_guard", "ValueError"),
+    ("eager", "ValueError")])
 def test_process_mesh_refuses(refusals, what, error):
     assert refusals[what] == error
+
+
+@pytest.mark.parametrize("what", ["deadline", "max_queue", "faults"])
+def test_process_mesh_takes_deadlines_and_faults(refusals, what):
+    assert refusals[what] is None
+
+
+def _assert_c5_equal(got, want, tag):
+    for key in ("streams", "states", "stats", "trace", "on_token",
+                "on_done", "free"):
+        assert got[key] == want[key], (tag, key)
+    assert all(got["free"]), (tag, "leaked pages")
+
+
+@pytest.mark.parametrize("mesh", C5_MESHES, ids=["2x1", "2x2"])
+def test_deadlines_on_rank_skewed_clocks(spawns, controller_c5, mesh):
+    """Each rank's clock runs at its own rate from its own origin; rank
+    0's reading decides, so every rank times out, queues out and admits
+    as the single controller fed rank 0's clock does."""
+    want = controller_c5[mesh]["deadlines"]
+    why = {w for _, w in want["states"].values()}
+    assert {"deadline", "queue_timeout", "done"} <= why, want["states"]
+    assert want["stats"]["timed_out"] == 2, want["stats"]
+    for rank, r in enumerate(spawns[mesh]):
+        got = r["c5"]["deadlines"]
+        _assert_c5_equal(got, want, (mesh, rank))
+        assert got["queue"] == want["queue"]
+
+
+@pytest.mark.parametrize("plan", list(cases.FAULT_PLANS))
+@pytest.mark.parametrize("mesh", C5_MESHES, ids=["2x1", "2x2"])
+def test_fault_plans_on_a_process_mesh(spawns, controller_c5, mesh, plan):
+    """Every rank builds the same injector from the plan: each fault
+    fires at the same seam on every rank, and the outcome is the single
+    controller's."""
+    want = controller_c5[mesh][plan]
+    st = want["stats"]
+    assert st["faults_injected"] >= 1, st
+    if plan == "parsed":
+        assert {k for k, n in want["fired"].items() if n} == {
+            "alloc", "dispatch", "stall", "callback", "nan_logits"}, \
+            want["fired"]
+        assert st["dispatch_failures"] == 2 and st["callback_errors"] == 1
+    for rank, r in enumerate(spawns[mesh]):
+        got = r["c5"][plan]
+        _assert_c5_equal(got, want, (mesh, plan, rank))
+        assert got["fired"] == want["fired"]
+
+
+@pytest.mark.parametrize("run", ["deadlines", "parsed"])
+def test_c5_runs_equal_repro_mesh(spawns, controller_c5, repro_mesh, run):
+    """At 2x1 the single controller and every rank equal ``repro``'s
+    mesh engine on the deadline workload and the parsed fault plan."""
+    want = repro_mesh[run]
+    for got in [controller_c5[2, 1][run]] + [
+            r["c5"][run] for r in spawns[2, 1]]:
+        _assert_c5_equal(got, want, run)
 
 
 def test_process_mesh_device_defaults_to_the_local_card(refusals):

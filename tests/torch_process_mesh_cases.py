@@ -178,21 +178,153 @@ def check_slot_gather(mesh) -> bool:
     return ok
 
 
-def rank_main(mesh, npz: str, cases, archs: bool = False):
+# ---- deadlines and fault plans (ROADMAP C5) ------------------------ #
+# Each workload takes ``make(**engine_kw)`` and, for the fault runs, a
+# fault plan's text, which each package parses with its own
+# ``FaultPlan.parse`` (so ``repro``'s mesh engine runs them too).
+FAULT_PLANS = {
+    # every kind once: an allocator refusal, two dispatch failures (the
+    # recovery ladder), a stall, a raising on_token, a NaN KV slot
+    "parsed": "alloc@0,dispatch@1*2,stall@2=0.001,callback@3:2,"
+              "nan_logits@4:1",
+    # FaultPlan.seeded(3, rate=0.25): every kind, rids left to the seams
+    "seeded": "seed:3:0.25",
+}
+OUTCOME_STATS = ("steps", "admitted", "preempted", "reclaimed",
+                 "cancelled", "timed_out", "failed", "callback_errors",
+                 "faults_injected", "dispatch_failures",
+                 "dispatch_recoveries", "nan_rows")
+# what a step record shows of the decisions (not of timing)
+OUTCOME_STEP = ("decoded", "admitted", "preempted", "timed_out", "failed",
+                "waiting", "running", "pages_free")
+
+
+class SkewClock:
+    """A fake clock the driver advances one tick a step; it reads
+    ``origin + rate * ticks``.  Each rank's has its own rate and origin
+    (``rank_clock``), so ranks that acted on their own readings would
+    time out and admit apart."""
+
+    def __init__(self, rate: float = 1.0, origin: float = 0.0):
+        self.rate, self.origin, self.ticks = rate, origin, 0
+
+    def __call__(self) -> float:
+        return self.origin + self.rate * self.ticks
+
+
+def rank_clock(rank: int) -> SkewClock:
+    """Rank ``rank``'s clock; rank 0's is the plain one that the single
+    controller and ``repro`` are fed."""
+    return SkewClock(1.0 + 0.37 * rank, 5.0 * rank)
+
+
+class Recorder:
+    """The streaming callbacks: tokens by request, and each close."""
+
+    def __init__(self):
+        self.tokens, self.closed = {}, []
+
+    def on_token(self, rid, tok):
+        self.tokens.setdefault(rid, []).append(int(tok))
+
+    def on_done(self, rid, why):
+        self.closed.append((rid, why))
+
+
+def outcome(eng, rec, **extra):
+    """What a user sees of ``eng`` (streams, terminal states, counters,
+    each step's decisions, the callbacks), then every request released:
+    the pages left free on each data shard."""
+    eng.check()
+    out = {"streams": {r: [int(t) for t in q.generated]
+                       for r, q in eng.requests.items()},
+           "states": {r: (str(q.state), q.finish_reason)
+                      for r, q in eng.requests.items()},
+           "stats": {k: int(eng.stats[k]) for k in OUTCOME_STATS},
+           "trace": [tuple(float(s.get(k, 0)) for k in OUTCOME_STEP)
+                     for s in eng.step_stats],
+           "on_token": rec.tokens, "on_done": rec.closed, **extra}
+    if eng.injector is not None:
+        out["fired"] = dict(eng.injector.fired)
+    for r in list(eng.requests):
+        eng.release(r)
+    out["free"] = [s.num_free == s.num_pages
+                   for s in eng.pool.allocator.shards]
+    eng.pool.allocator.check()
+    return out
+
+
+def wl_deadlines(make, clock):
+    """Two running slots over five requests: one ends on its deadline
+    mid-decode, one on its queue timeout, the rest in EDF order; the
+    clock moves one tick a step."""
+    rec = Recorder()
+    eng = make(max_running=2, clock=clock)
+    kw = dict(on_token=rec.on_token, on_done=rec.on_done)
+    eng.add_request(PROMPTS[0], max_new=8, deadline_s=2.5, **kw)
+    eng.add_request(PROMPTS[1], max_new=4, **kw)
+    eng.add_request(PROMPTS[2], max_new=3, deadline_s=30.0, **kw)
+    eng.add_request(PROMPTS[3], max_new=4, max_queue_s=1.5, **kw)
+    queue = list(eng.admission.queue)
+    for i in range(40):
+        if i == 2:
+            eng.add_request(LATE, max_new=4, deadline_s=9.0, **kw)
+        if i > 2 and not eng.has_work():
+            break
+        eng.step()
+        clock.ticks += 1
+    return outcome(eng, rec, queue=queue)
+
+
+def wl_faults(make, plan):
+    """``drive``'s workload, streamed, under a fault plan."""
+    rec = Recorder()
+    eng = make(faults=plan)
+    kw = dict(on_token=rec.on_token, on_done=rec.on_done)
+    for p in PROMPTS:
+        eng.add_request(p, max_new=6, **kw)
+    eng.step()
+    eng.step()
+    eng.add_request(LATE, max_new=4, **kw)
+    eng.run(96)
+    return outcome(eng, rec)
+
+
+def c5_runs(model, mesh, rank: int = 0, device="cpu"):
+    """The deadline workload on ``rank``'s clock and every fault plan, on
+    ``mesh`` (a process mesh, or a ``decode_mesh`` fed rank 0's
+    clock)."""
+    def make(**kw):
+        return DecodeEngine(CFG, model, page_size=8, num_pages=256,
+                            backend="codec-cuda", max_q=8, fused=True,
+                            mesh=mesh, seq_split_pages=2, device=device,
+                            **kw)
+    out = {"deadlines": wl_deadlines(make, rank_clock(rank))}
+    for name, text in FAULT_PLANS.items():
+        out[name] = wl_faults(make, FaultPlan.parse(text))
+    return out
+
+
+def rank_main(mesh, npz: str, cases, archs: bool = False,
+              c5: bool = False):
     """A rank's part of a spawn: ``cases`` of ``CASES`` on the qwen
-    weights of ``npz``, then (``archs``) the ARCH_SWEEP models; its
-    coordinates and the slot-gather check."""
+    weights of ``npz``, then (``archs``) the ARCH_SWEEP models and
+    (``c5``) the deadline and fault runs; its coordinates and the
+    slot-gather check."""
     torch.set_num_threads(1)
     model = load_model(npz)
     out = {"coords": mesh.coords, "slot_gather_exact": check_slot_gather(mesh),
            "cases": {c: run_case(model, mesh, c) for c in cases}}
     if archs:
         out["archs"] = {a: arch_streams(a, page, mesh) for a, page in ARCHS}
+    if c5:
+        out["c5"] = c5_runs(model, mesh, mesh.rank)
     return out
 
 
 def rank_refusals(mesh, npz: str):
-    """A 1x1 rank: the options a process mesh refuses, a world of the
+    """A 1x1 rank: the options a process mesh refuses and those it takes
+    (deadlines, queue timeouts, a fault plan: ``None``), a world of the
     wrong size, a mesh on another device than the engine's, and the
     default device."""
     torch.set_num_threads(1)
@@ -220,7 +352,7 @@ def rank_refusals(mesh, npz: str):
     out["max_queue"] = refused(lambda: eng.add_request(PROMPTS[0],
                                                        max_queue_s=5.0))
     out["faults"] = refused(lambda: engine(
-        mesh=mesh, faults=FaultPlan.parse("alloc@1")))
+        mesh=mesh, faults=FaultPlan.parse("alloc@1")).run(16))
     out["speculative"] = refused(lambda: engine(mesh=mesh,
                                                 speculative=True))
     out["nan_guard"] = refused(lambda: engine(mesh=mesh, nan_guard=True))
@@ -229,21 +361,28 @@ def rank_refusals(mesh, npz: str):
     return out
 
 
-def rank_diverge(mesh, npz: str):
-    """A 2x1 spawn whose rank 1 is fed another late request: every rank
-    must raise ``MeshDivergenceError`` (returned here by name)."""
+def rank_diverge(mesh, npz: str, what: str = "request"):
+    """A 2x1 spawn whose rank 1 is fed another late request (``what ==
+    "request"``) or a stall that rank 0's plan lacks (``"faults"``: only
+    the injectors' counts differ): every rank must raise
+    ``MeshDivergenceError`` (returned here by name)."""
     torch.set_num_threads(1)
     model = load_model(npz)
+    plan = None
+    if what == "faults":
+        plan = FaultPlan.parse("stall@0=0.001" if mesh.rank else "")
     eng = DecodeEngine(CFG, model, page_size=8, num_pages=256,
                        backend="codec-cuda", max_q=8, fused=True,
-                       mesh=mesh, seq_split_pages=2, device="cpu")
-    for p in PROMPTS:
-        eng.add_request(p, max_new=6)
-    eng.step()
-    eng.step()
-    late = LATE if mesh.rank == 0 else LATE[:-1] + [252]
-    eng.add_request(late, max_new=4)
+                       mesh=mesh, seq_split_pages=2, device="cpu",
+                       faults=plan)
+    late = LATE if mesh.rank == 0 or what != "request" \
+        else LATE[:-1] + [252]
     try:
+        for p in PROMPTS:
+            eng.add_request(p, max_new=6)
+        eng.step()
+        eng.step()
+        eng.add_request(late, max_new=4)
         eng.run(96)
     except mesh_mod.MeshDivergenceError as e:
         return type(e).__name__, str(e)

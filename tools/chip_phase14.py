@@ -5,12 +5,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 tools/chip_phase14.py        # 14a-e
     python3 tools/chip_phase14.py a      # 14a and 14c only
+    python3 tools/chip_phase14.py c5     # 14e (iv) only
 
 Builds the kernels, serves phase 3's workload through the single-device
 fused step (phase 7's numbers, which 14a prints beside each mesh), then
 runs ``chip_smoke.phase_mesh`` (14a, 14c), ``phase_mesh_f32`` (14b),
-``phase_calibrate`` (14d) and ``phase_process_mesh`` (14e), and prints the seconds each took and 14c's
-``kernels`` entries as JSON.  A quicker loop than the whole script when
+``phase_calibrate`` (14d), ``phase_process_mesh`` (14e i-iii) and
+``phase_process_mesh_c5`` (14e iv), and prints the seconds each took and
+14c's ``kernels`` entries as JSON.  A quicker loop than the whole script when
 only the mesh changed.
 """
 
@@ -42,6 +44,11 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     print(cs.nvidia_smi(), flush=True)
     build.load()
+    if sys.argv[1:] == ["c5"]:
+        t0 = time.perf_counter()
+        cs.phase_process_mesh_c5()
+        print(f"14e (iv): {time.perf_counter() - t0:.1f} s")
+        return 0
     timer = cs.Timer()
     cfg = get_config(PAPER_ARCH)
     model = build_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -63,6 +70,8 @@ def main() -> int:
         cs.phase_calibrate()
         t.append(time.perf_counter())
         cs.phase_process_mesh(runs14, f32_14)
+        t.append(time.perf_counter())
+        cs.phase_process_mesh_c5()
         t.append(time.perf_counter())
     print("phase 14 parts, s:", [round(b - a, 1) for a, b in zip(t, t[1:])])
     print(json.dumps(kernels))

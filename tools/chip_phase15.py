@@ -3,14 +3,15 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/chip_phase15.py          # 15a-d
+    python3 tools/chip_phase15.py          # 15a-e
     python3 tools/chip_phase15.py b c d    # only the phases named
 
 Builds the kernels (15d serves through ``codec-cuda``), then runs
 ``chip_smoke.phase_train_full`` (15a), ``phase_train_parity`` (15b),
-``phase_train_cli`` (15c) and ``phase_train_serve`` (15d, on 15b's
-trained state), and prints the seconds each took.  A quicker loop than
-the whole script when only the training path changed.
+``phase_train_cli`` (15c), ``phase_train_serve`` (15d, on 15b's
+trained state) and ``phase_train_processes`` (15e, which needs 15a's
+losses: ``e`` runs ``a`` too), and prints the seconds each took.  A
+quicker loop than the whole script when only the training path changed.
 """
 
 import sys
@@ -36,11 +37,13 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     print(cs.nvidia_smi(), flush=True)
     build.load()
-    which = set("".join(sys.argv[1:])) or set("abcd")
+    which = set("".join(sys.argv[1:])) or set("abcde")
+    if "e" in which:
+        which.add("a")
     t = {}
     if "a" in which:
         t0 = time.perf_counter()
-        cs.phase_train_full()
+        full = cs.phase_train_full()
         t["15a"] = time.perf_counter() - t0
     if which & set("bd"):
         t0 = time.perf_counter()
@@ -54,6 +57,13 @@ def main() -> int:
         t0 = time.perf_counter()
         cs.phase_train_serve(cfg, state)
         t["15d"] = time.perf_counter() - t0
+    if "e" in which:
+        state = None
+        cs.gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cs.phase_train_processes(full)
+        t["15e"] = time.perf_counter() - t0
     cs.log("  phase 15: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items()))
     return 0
 
