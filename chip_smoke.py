@@ -245,7 +245,28 @@ Phases (any failure raises and the script exits non-zero):
    boolean ``fits_hbm`` (2x16x16 as one pod's block, the pod group's
    all-reduces on the network, train only), records in
    ``chiprun_out/dryrun_torch``;
-17. print the ``kernels`` JSON line and the closing device line.
+17. the three kernels over every shape their TPU kernels take: (a)
+   ``flash_decode`` against its plain version at d 64, 128 and 256 x
+   groups 1, 4, 5, 7, 8, 16 and 32 (8 KV heads up to group 8, else 32
+   query heads; phase 4's row lengths, NaN past each), f32 and bf16,
+   bf16 within one bf16 step, the bf16 ones timed beside the plain
+   version and SDPA; the epilogue
+   on PAC's partials of an engine-shaped plan (8 questions over a
+   2048-token document) at pages 8, 24, 32 and 128 x groups 1, 4, 8 and
+   32, in codec mode and in mesh mode (owner flags, float32 ``o``), and
+   at gemma3-1b's layout on page 128 with f32 KV (staged 64 tokens at a
+   time) and group 32 at d 256, f32 and bf16, timed beside the plain
+   version; ``codec_mesh_merge`` at 32 and 64 shards under five
+   contributor patterns, bitwise the stacked butterfly on ``codec_por``;
+   (b) fused ``codec-cuda`` serves beside ``codec-torch`` at every
+   epilogue shape the ``kernels`` line lists, equal streams: phase 6's
+   4-layer f32 model at pages 32, 8 and 128, the same with one KV head
+   (group 32) at page 32 on one device and on ``decode_mesh(2, 1)``,
+   gemma3-1b's layout (12c's 6 layers, f32) at page 128; each row's
+   launches are its serve's; (c) ROADMAP C2's
+   reproduction (the qwen2.5-14b smoke model, head dim 64) at
+   ``decode_mesh(32, 1)`` and ``(64, 1)``: the single-device streams;
+18. print the ``kernels`` JSON line and the closing device line.
 
 It needs CUDA and exits at once when ``torch.cuda.is_available()`` is
 false; it imports neither ``jax`` nor the JAX package.
@@ -5124,6 +5145,420 @@ def phase_dryrun_all():
         f"card")
 
 
+# --------------------------------------------------------------------- #
+# phase 17: the three kernels over every shape their TPU kernels take
+# --------------------------------------------------------------------- #
+# flash_decode: phase 4's row lengths (8 rows up to 4192 positions, NaN
+# past each), every head dim the kernel takes x the groups of fig13's
+# sweep and the real head layouts
+P17_FD_LENS = (4192, 1, 2007, 3000, 4100, 777, 4192, 64)
+P17_FD_DIMS = (64, 128, 256)
+P17_GROUPS = (1, 4, 5, 7, 8, 16, 32)
+# gemma3-1b's layout beside the sweep, and the (h_q, n_kv, d) shapes that
+# get a row of the kernels JSON line
+P17_FD_EXTRA = ((4, 1, 256),)
+P17_FD_ROWS = {(4, 1, 256): "gemma3-1b", (40, 8, 128): "llama4-scout",
+               (56, 8, 128): "llava-next-34b", (32, 2, 128): "fig13",
+               (32, 1, 128): "fig13", (8, 8, 64): "MHA"}
+# the epilogue: pages x groups at d 128 in codec and mesh mode, then
+# gemma3-1b's layout at page 128 with f32 KV (staged 64 tokens at a time)
+# and group 32 at d 256
+P17_PAGES = (8, 24, 32, 128)
+P17_EPI_GROUPS = (1, 4, 8, 32)
+P17_EPI_EXTRA = ((128, 4, 1, 256, torch.float32),
+                 (32, 32, 1, 256, torch.bfloat16))
+P17_MERGE_D = (32, 64)
+# 17b's fused codec-cuda serves: (model, page, data shards or 0)
+P17_SERVES = (("qwen3-4b", 32, 0), ("qwen3-4b", 8, 0), ("qwen3-4b", 128, 0),
+              ("qwen3-4b 32 over 1", 32, 0), ("qwen3-4b 32 over 1", 32, 2),
+              ("gemma3-1b", 128, 0))
+P17_DOC = 2048
+P17_REPS = 5
+C2_DOC = [3 + (7 * i) % 240 for i in range(320)]     # 40 pages of 8
+
+
+def p17_heads(group):
+    """(h_q, n_kv) at ``group``: 8 KV heads up to group 8 (qwen3-4b's and
+    llama4-scout's count), past it 32 query heads (fig13's sweep)."""
+    n_kv = 8 if group <= 8 else 32 // group
+    return n_kv * group, n_kv
+
+
+def p17_flash_decode(timer):
+    """17a: ``flash_decode`` against its plain version at every (d,
+    group) and gemma3-1b's layout, f32 and bf16 q and KV; bf16 timed
+    beside the plain version and SDPA over the same rows (``enable_gqa``,
+    K and V zero where NaN).  Returns {(h_q, n_kv, d): row}."""
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    lens = torch.tensor(P17_FD_LENS, dtype=torch.int32, device="cuda")
+    B, L = lens.numel(), max(P17_FD_LENS)
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    rows = {}
+    shapes = [p17_heads(g) + (d,) for d in P17_FD_DIMS for g in P17_GROUPS]
+    for h_q, n_kv, d in shapes + list(P17_FD_EXTRA):
+        group = h_q // n_kv
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, h_q, d, generator=gen, device="cuda"
+                            ).to(dtype)
+            k, v = (torch.randn(B, L, n_kv, d, generator=gen,
+                                device="cuda").to(dtype)
+                    for _ in range(2))
+            for b, n in enumerate(P17_FD_LENS):
+                k[b, n:] = float("nan")
+                v[b, n:] = float("nan")
+            n0 = fd.launches
+            got = fd.flash_decode(q, k, v, lens)
+            launches = fd.launches - n0
+            want = fd.flash_decode_torch(q, k, v, lens)
+            torch.cuda.synchronize()
+            tag = f"17a flash_decode d={d} group={group} {dtype}"
+            assert bool(torch.isfinite(got).all()), tag
+            if dtype == torch.float32:
+                err = assert_close(tag, [got], [want], EPI_TOL)
+                log(f"  {tag}: {h_q} over {n_kv} heads, max|err| "
+                    f"{err:.3e} (tol {EPI_TOL:g})")
+                continue
+            # both sum in f32 and round once to bf16
+            ulps = bf16_ulps(got, want)
+            assert ulps <= EPI_ULPS, (tag, ulps)
+            err = max_err([got], [want])
+            kz, vz = (torch.nan_to_num(x, nan=0.0).transpose(1, 2)
+                      for x in (k, v))
+            qs = q[:, :, None]
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, kz, vz, attn_mask=mask, enable_gqa=True)
+            ms = timer(lambda: fd.flash_decode(q, k, v, lens), P17_REPS)
+            plain = timer(lambda: fd.flash_decode_torch(q, k, v, lens),
+                          P17_REPS)
+            lib = timer(sdpa, P17_REPS)
+            bound, by = fd_bound(q, k, lens)
+            log(f"  {tag}: {h_q} over {n_kv} heads, within {ulps} bf16 "
+                f"step(s), max|err| {err:.3e}; {ms:.4f} ms/launch, mean of "
+                f"{P17_REPS} (bound {bound:.4f} by {by}, "
+                f"{bound / ms:.1%} of it; plain {plain:.4f}; SDPA "
+                f"{lib:.4f})")
+            rows[(h_q, n_kv, d)] = {
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib}
+            del kz, vz
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def p17_epilogue(page, h_q, n_kv, d, mesh, gen, timer, time_dtype):
+    """17a: PAC's raw partials (NaN in dead slots) of an engine-shaped
+    plan at ``page`` (8 requests over a 2048-token document), then the
+    epilogue against its plain version, f32 and bf16 q and KV; in mesh
+    mode with every other row's tail on another shard (owner 0) and
+    float32 ``o``.  ``time_dtype``'s pair is timed.  Returns its row."""
+    from repro_torch.core import cost_model, plan as plan_mod, tree
+    from repro_torch.kernels import ops, pac as pac_mod, por as por_mod
+    forest = tree.two_level(8, P17_DOC, 64, block_size=page)
+    pages = plan_mod.assign_dense_pages(forest)
+    cm = cost_model.CostModel(h_q, n_kv, d, page_size=page)
+    plan, tails = engine_state(forest, cm, LANES, MAX_Q, 2048)
+    pa = ops.plan_arrays(plan, "cuda")
+    B = plan.num_queries
+    k = torch.randn(pages, page, n_kv, d, generator=gen, device="cuda")
+    v = torch.randn(pages, page, n_kv, d, generator=gen, device="cuda")
+    q = torch.randn(B, h_q, d, generator=gen, device="cuda")
+    kw = {}
+    if mesh:
+        kw = {"owner": (torch.arange(B, device="cuda") % 2 == 0).long(),
+              "o_f32": True}
+    nan = float("nan")
+    row = None
+    for dt in (torch.float32, torch.bfloat16):
+        qc, kc, vc = q.to(dt), k.to(dt), v.to(dt)
+        Tp1, max_q = pa.q_gather.shape
+        raw = (torch.full((Tp1, max_q, h_q, d), nan, device="cuda"),
+               torch.full((Tp1, max_q, h_q), nan, device="cuda"),
+               torch.full((Tp1, max_q, h_q), nan, device="cuda"))
+        o, m, l = pac_mod.pac(qc, pa, kc, vc, out=raw)
+        parts = ops.Parts(o.reshape(-1, h_q, d), m.reshape(-1, h_q),
+                          l.reshape(-1, h_q), pa.seg_offsets, pa.seg_rows)
+        n0 = por_mod.epilogue_launches
+        got = por_mod.por_epilogue(qc, *parts, kc, vc, *tails, stats=True,
+                                   **kw)
+        launches = por_mod.epilogue_launches - n0
+        want = por_mod.por_epilogue_torch(qc, *parts, kc, vc, *tails, **kw)
+        torch.cuda.synchronize()
+        tag = (f"17a epilogue page={page} {h_q} over {n_kv} d={d} "
+               f"{'mesh' if mesh else 'codec'} {dt}")
+        assert all(bool(torch.isfinite(g).all()) for g in got), tag
+        ml_err = assert_close(tag, got[1:], want[1:], EPI_TOL)
+        if got[0].dtype == torch.bfloat16:
+            ulps = bf16_ulps(got[0], want[0])
+            assert ulps <= EPI_ULPS, (tag, ulps)
+            err = max_err(got[:1], want[:1])
+            what = f"bf16 o within {ulps} step(s), max|err| {err:.3e}"
+        else:
+            err = assert_close(tag, got[:1], want[:1], EPI_TOL)
+            what = f"f32 o max|err| {err:.3e}"
+        line = (f"  {tag}: {B} queries, {int(pa.seg_offsets[-1])} live "
+                f"rows; {what}; m, l max|err| {ml_err:.3e}")
+        if dt == time_dtype:
+            def kernel():
+                return por_mod.por_epilogue(qc, *parts, kc, vc, *tails, **kw)
+
+            def plain():
+                return por_mod.por_epilogue_torch(qc, *parts, kc, vc, *tails,
+                                                  **kw)
+            ms = timer(kernel, P17_REPS)
+            plain_ms = timer(plain, P17_REPS)
+            bound, by = (mesh_epilogue_bound(qc, parts, kc, tails,
+                                             kw["owner"]) if mesh else
+                         epilogue_bound(qc, parts, kc, tails))
+            line += (f"; {ms:.4f} ms/launch, mean of {P17_REPS} (bound "
+                     f"{bound:.5f} by {by}; plain {plain_ms:.4f})")
+            row = {"launches": launches, "max_abs_err": max(err, ml_err),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": None}
+        log(line)
+    return row
+
+
+def p17_merge(D, gen, timer):
+    """17a: ``codec_mesh_merge`` at ``D`` shards (1 model shard, 8 rows
+    all merged, 32 heads, hd 128) under every contributor pattern of a
+    few kinds: within 1e-6 of its plain version (``m`` bitwise) and
+    bitwise shard 0's rows of the stacked butterfly on ``codec_por``;
+    timed with every shard contributing.  Returns its row."""
+    from repro_torch.kernels import por as por_mod
+    M, B, h, hd = 1, 8, 32, 128
+    gi = torch.arange(B, device="cuda")
+    si = gi.clone()
+    rng = np.random.default_rng(D)
+    pats = [np.ones(D, bool), np.eye(D, dtype=bool)[D - 1],
+            np.arange(D) < D // 2, np.arange(D) % 17 == 3,
+            rng.integers(0, 2, D).astype(bool)]
+    row, args = None, None
+    for c in pats:
+        o = torch.randn(D, M, B, h, hd, generator=gen, device="cuda")
+        m = 3 * torch.randn(D, M, B, h, generator=gen, device="cuda")
+        l = 0.5 + 3.5 * torch.rand(D, M, B, h, generator=gen, device="cuda")
+        off = torch.from_numpy(~c).cuda()
+        o[off], m[off], l[off] = 0.0, -1e30, 0.0
+        ct = torch.from_numpy(c.astype(np.int64)).cuda()
+        args = (o, m, l, gi, si, ct)
+        n0 = por_mod.mesh_merge_launches
+        got = por_mod.mesh_merge(*args, torch.float32, stats=True)
+        launches = por_mod.mesh_merge_launches - n0
+        want = por_mod.mesh_merge_torch(*args, torch.float32, stats=True)
+        stacked = por_mod.por_subgroup_merge(o[:, :, gi], m[:, :, gi],
+                                             l[:, :, gi], ct)
+        torch.cuda.synchronize()
+        tag = f"17a mesh_merge D={D} contributors={int(c.sum())}"
+        err = assert_close(tag, got, want, POR_TOL)
+        assert torch.equal(got[1], want[1]), (tag, "m")
+        for g, st in zip(got, stacked):
+            assert torch.equal(g, st[0]), (tag, "not the stacked butterfly")
+        if row is None:         # every shard contributes: timed
+            ms = timer(lambda: por_mod.mesh_merge(*args, torch.bfloat16),
+                       P17_REPS)
+            plain = timer(lambda: por_mod.mesh_merge_torch(*args,
+                                                           torch.bfloat16),
+                          P17_REPS)
+            bound, by = merge_bound(o, si, torch.bfloat16)
+            row = {"launches": launches, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None}
+            log(f"  {tag}: max|err| {err:.3e} (tol {POR_TOL:g}), bitwise "
+                f"the stacked butterfly on codec_por; {ms:.4f} ms/launch, "
+                f"mean of {P17_REPS} (bound {bound:.5f} by {by}; plain "
+                f"{plain:.4f})")
+        else:
+            log(f"  {tag}: max|err| {err:.3e}, bitwise the stacked "
+                f"butterfly on codec_por")
+    return row
+
+
+def phase_pages_f32():
+    """17b: fused ``codec-cuda`` serves at the new shapes, each beside
+    ``codec-torch`` (plain PAC, the same epilogue kernel) on one device;
+    the streams must be equal.  Phase 6's 4-layer f32 qwen3-4b at pages of
+    32, 8 and 128; the same with one KV head (32 over 1: group 32) at page
+    32, on one device and on a ``decode_mesh(2, 1)`` (the epilogue's mesh
+    mode); gemma3-1b's layout (4 over 1, d 256; 12c's 6 layers, f32 KV
+    staged 64 tokens at a time) at page 128.  8 questions over a
+    2048-token document, 32 greedy tokens each.  Returns the launch counts
+    of each ``codec-cuda`` serve, read just after it with every count
+    reset just before, by (model, page, data shards)."""
+    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.distributed import decode_mesh
+    from repro_torch.launch.serve import doc_prompts, serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+    qwen = dataclasses.replace(get_config(PAPER_ARCH), num_layers=4)
+    models = {"qwen3-4b": qwen,
+              "qwen3-4b 32 over 1": dataclasses.replace(qwen,
+                                                        num_kv_heads=1),
+              "gemma3-1b": dataclasses.replace(get_config("gemma3-1b"),
+                                               num_layers=P12C_GEMMA_LAYERS)}
+    out = {}
+    for name, cfg in models.items():
+        model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+        prompts = doc_prompts(8, P17_DOC, 64, cfg.vocab_size, seed=1)
+        for page in sorted({pg for nm, pg, _ in P17_SERVES if nm == name}):
+            pages = 4 * (P17_DOC + 8 * 96) // page
+            want = None
+            for backend, D in [("codec-torch", 0)] + [
+                    ("codec-cuda", D) for nm, pg, D in P17_SERVES
+                    if (nm, pg) == (name, page)]:
+                tag = (f"17b {name} page {page} {backend}"
+                       + (f" decode_mesh({D}, 1)" if D else ""))
+                reset_launches()
+                engine = DecodeEngine(
+                    cfg, model, page_size=page,
+                    num_pages=pages * (4 if D else 1), num_lanes=LANES,
+                    max_q=MAX_Q, backend=backend, fused=True,
+                    mesh=decode_mesh(D, 1) if D else None,
+                    seq_split_pages=1 if D else 0, device="cuda")
+                res = serve(engine, prompts, max_new=32)
+                n = read_launches()
+                assert n["por_epilogue"] > 0, (tag, n)
+                assert (n["pac"] > 0) == (backend == "codec-cuda"), (tag, n)
+                assert (n["mesh_merge"] > 0) == bool(D), (tag, n)
+                assert engine.fused_step.replays == res["steps"], tag
+                if want is None:
+                    want = res["streams"]
+                else:
+                    out[(name, page, D)] = n
+                    bad = [r for r in want if want[r] != res["streams"][r]]
+                    if bad:
+                        raise AssertionError(f"{tag}: streams differ from "
+                                             f"codec-torch's for {bad}")
+                log(f"  {tag} fused: {res['steps']} steps, "
+                    f"{engine.fused_step.graphs} graphs, launches {n}"
+                    + ("" if backend == "codec-torch" else
+                       f"; == codec-torch on {len(want)} streams x 32 "
+                       f"tokens, {cfg.num_layers} layers f32"))
+                del engine
+                torch.cuda.empty_cache()
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_c2_mesh():
+    """17c: ROADMAP C2's reproduction on the card: the qwen2.5-14b smoke
+    model (head dim widened to 64, the epilogue's smallest), f32, four
+    questions over a 320-token document at page 8, fused ``codec-cuda``:
+    at 32 and 64 data shards (the document over 32 and 40 of them) the
+    streams equal the single-device engine's.  Returns the merge's
+    launches by axis."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import decode_mesh
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+    cfg = dataclasses.replace(smoke_config("qwen2.5-14b"), head_dim=64)
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+
+    def streams(mesh):
+        reset_launches()
+        eng = DecodeEngine(cfg, model, page_size=8, num_pages=512,
+                           backend="codec-cuda", max_q=8, fused=True,
+                           mesh=mesh, seq_split_pages=1 if mesh else 0,
+                           device="cuda")
+        rids = [eng.add_request(C2_DOC + [245 + i], max_new=8)
+                for i in range(4)]
+        eng.run(64)
+        eng.check()
+        return [list(eng.requests[r].generated) for r in rids], \
+            read_launches()
+    one, n1 = streams(None)
+    assert all(len(s) == 8 for s in one) and n1["por_epilogue"] > 0, n1
+    out = {}
+    for D in P17_MERGE_D:
+        got, n = streams(decode_mesh(D, 1))
+        assert got == one, (D, got, one)
+        assert n["mesh_merge"] > 0 and n["por"] == 0, (D, n)
+        out[D] = n
+        log(f"  17c decode_mesh({D}, 1): streams equal the single-device "
+            f"engine's ({len(one)} x 8 tokens); launches {n}")
+    return out
+
+
+def phase_shapes(timer):
+    """17: (b) and (c) serve first, then (a) holds every kernel against
+    its plain version at the new shapes; returns the kernels JSON rows."""
+    t = [time.perf_counter()]
+    pages = phase_pages_f32()
+    t.append(time.perf_counter())
+    merges = phase_c2_mesh()
+    t.append(time.perf_counter())
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    fd_rows = p17_flash_decode(timer)
+    t.append(time.perf_counter())
+    epi = {}
+    for page in P17_PAGES:
+        for group in P17_EPI_GROUPS:
+            h_q, n_kv = p17_heads(group)
+            for mesh in (False, True):
+                epi[(page, group, 128, mesh)] = p17_epilogue(
+                    page, h_q, n_kv, 128, mesh, gen, timer, torch.bfloat16)
+    for page, h_q, n_kv, d, dt in P17_EPI_EXTRA:
+        for mesh in (False, True):
+            epi[(page, h_q // n_kv, d, mesh)] = p17_epilogue(
+                page, h_q, n_kv, d, mesh, gen, timer, dt)
+    t.append(time.perf_counter())
+    merge_rows = {D: p17_merge(D, gen, timer) for D in P17_MERGE_D}
+    t.append(time.perf_counter())
+    log("  phase 17: " + ", ".join(
+        f"{c} {b - a:.1f} s" for c, a, b in zip(
+            ("17b", "17c", "17a flash_decode", "17a epilogue",
+             "17a mesh_merge"), t, t[1:])))
+
+    def entry(name, source, replaces, row, **over):
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces}
+        e.update({k: row[k] for k in ("launches", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")})
+        e.update(over)
+        return e
+    fd_src = "src/repro_torch/kernels/csrc/flash_decode.cu"
+    por_src = "src/repro_torch/kernels/csrc/por.cu"
+    kernels = []
+    for (h_q, n_kv, d), what in P17_FD_ROWS.items():
+        kernels.append(entry(
+            f"flash_decode ({what}: {h_q} over {n_kv} heads, d {d}, bf16)",
+            fd_src, "src/repro/kernels/flash_decode.py:91",
+            fd_rows[(h_q, n_kv, d)]))
+    epi_src = "src/repro/kernels/por.py:44"
+    # launches: the 17b serve that runs the row's shape
+    for key, name, serve_key in (
+            ((32, 4, 128, False), "page 32, 32 over 8 heads, d 128",
+             ("qwen3-4b", 32, 0)),
+            ((8, 4, 128, False), "page 8, 32 over 8 heads, d 128",
+             ("qwen3-4b", 8, 0)),
+            ((128, 4, 128, False), "page 128, 32 over 8 heads, d 128",
+             ("qwen3-4b", 128, 0)),
+            ((32, 32, 128, False), "group 32, page 32, d 128",
+             ("qwen3-4b 32 over 1", 32, 0)),
+            ((32, 32, 128, True), "group 32, page 32, d 128, mesh mode",
+             ("qwen3-4b 32 over 1", 32, 2)),
+            ((128, 4, 256, False), "page 128, gemma3-1b's 4 over 1 heads, "
+             "d 256, f32 KV staged 64 tokens at a time",
+             ("gemma3-1b", 128, 0))):
+        kernels.append(entry(f"por_epilogue ({name})", por_src, epi_src,
+                             epi[key], launches=pages[serve_key][
+                                 "por_epilogue"]))
+    for D in P17_MERGE_D:
+        kernels.append(entry(
+            f"mesh_merge (D = {D}, 8 rows x 32 heads, d 128, bf16 out)",
+            por_src, "src/repro/kernels/por.py:44 (in por_subgroup_merge, "
+            "src/repro/kernels/por.py:121)", merge_rows[D],
+            launches=merges[D]["mesh_merge"]))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5292,6 +5727,15 @@ def main() -> int:
     t16.append(time.perf_counter())
     log("  phase 16: " + ", ".join(
         f"16{c} {b - a:.1f} s" for c, a, b in zip("abc", t16, t16[1:])))
+
+    log("== 17. the three kernels over every shape their TPU kernels "
+        "take: flash_decode at d 64/128/256 and groups to 32, the "
+        "epilogue at pages 8-128 and group 32, the merge past 16 shards")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    kernels += phase_shapes(timer)
+    log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
 
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

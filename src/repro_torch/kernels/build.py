@@ -126,6 +126,8 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 7
                                        + [F, P])
     lib.codec_flash_decode.restype = I
+    lib.codec_flash_decode_chunk.argtypes = [I, I]
+    lib.codec_flash_decode_chunk.restype = I
     return lib
 
 

@@ -52,11 +52,19 @@
 //    ids -> partial rows; tail page id -> tail K/V).  The design keeps
 //    that chain short and overlaps its two branches:
 //      - one block per (query, KV head), one warp per query head of the
-//        group (1-8 warps); a lane holds d/32 contiguous columns of q, of
-//        each partial row and of the output, read and written as vectors;
+//        group up to 8 warps; a wider group (16, 32) shares 8 warps (or the
+//        largest divisor of the group below 8), each taking group / warps
+//        heads in turn, so a thread keeps the registers of one head; a lane
+//        holds d/32 contiguous columns of q, of each partial row and of the
+//        output, read and written as vectors;
 //      - the block first issues cp.async copies of the tail page's visible
 //        K and V rows for its KV head into shared memory, straight from the
-//        pool page (no gather copy), then does the segment while they fly;
+//        pool page (no gather copy), then does the first head's segment
+//        while they fly.  K and V are staged whole where both fit in 128 KB
+//        (every page up to 128 tokens but f32 KV at d = 256 past 64
+//        tokens); there they go 64 tokens at a time, re-staged for each of
+//        a warp's heads, and the tail's softmax is carried online across
+//        the passes (the sums scaled by exp(m_old - m_new));
 //      - a warp reads up to 32 rows' m and l in one load and takes the
 //        segment max with shuffles; the o rows of up to 64/(d/32) partials
 //        are all issued before the weighted sum consumes them, the first
@@ -64,9 +72,12 @@
 //      - the tail scores: each lane dots its columns of q with every
 //        visible K row in shared memory, and one transposing butterfly (31
 //        shuffles for 32 scores) leaves the score of token `lane` in lane
-//        `lane`; p is broadcast back by shuffle for the V sum.
-//    It takes d = 64, 128 and 256, groups of 1 to 8 query heads per KV
-//    head, pages of 16 and 64 tokens, f32 or bf16 q and f32 or bf16 KV, and
+//        `lane`, up to 4 such rounds for a page of up to 128 tokens (a
+//        page that is not a multiple of 32 leaves the last round's lanes
+//        past it at the mask); p is broadcast back by shuffle for the V
+//        sum.
+//    It takes d = 64, 128 and 256, any number of query heads per KV head,
+//    any page from 1 to 128 tokens, f32 or bf16 q and f32 or bf16 KV, and
 //    refuses anything else.
 //
 //    The mesh's two options (the sharded step runs the epilogue once per
@@ -132,8 +143,15 @@
 //    query head, a lane holding hd/32 contiguous columns of each shard's
 //    row; every warp finds its row's slot by scanning merge_scatter with a
 //    ballot and reads contrib itself, on the device (no host sync, so it
-//    runs inside a CUDA graph).  It takes D = 1, 2, 4, 8, 16 and
-//    hd = 64, 128, 256, and writes float32 or bf16.
+//    runs inside a CUDA graph).  Up to 16 shards every round runs on
+//    registers (o[D][hd/32] a lane: 184 registers at D = 16, hd 256).  A
+//    wider axis runs in blocks of 16 shards, each block's four rounds in
+//    registers as above, and the blocks' results are combined in the
+//    tree's order as they come (a binary counter over the blocks, one
+//    stacked result a level in local memory): each merge and each copy is
+//    the one the butterfly makes, on the same operands, so the rows stay
+//    bitwise those of the stacked route.  It takes any power-of-two D up
+//    to 2^19 and hd = 64, 128, 256, and writes float32 or bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,7 +200,12 @@ using codec::kFullMask;
 using codec::reduce_rounds;
 
 constexpr float kMask = -1e30f;  // the plain versions' MASK_VALUE
-constexpr int kMaxGroup = 8;     // query heads per KV head (warps a block)
+constexpr int kMaxWarps = 8;     // warps a block (query heads at a time)
+// shared memory for the tail page: K and V staged whole up to this, else
+// kTailChunk tokens at a time
+constexpr size_t kTailSmem = 128 << 10;
+constexpr int kTailChunk = 64;
+constexpr int kMaxPage = 128;
 
 struct EpiArgs {
   const void* q;                // (B, h_q, d), f32 or bf16
@@ -201,6 +224,7 @@ struct EpiArgs {
   float* out_m;                 // (B, h_q) or null
   float* out_l;                 // (B, h_q) or null
   int h_q, n_kv, page, window;
+  int tc;    // tail tokens staged at once: the page, or kTailChunk
   int tail;  // 0: segment and cast only (no tail page, no POR)
   int out_f32;  // 1: out is float32 whatever q's type
   float scale;
@@ -324,25 +348,54 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Grid (n_kv, B), one warp per query head of the KV head's group.
-template <int D, typename QT, typename KT>
-__global__ void __launch_bounds__(kMaxGroup * 32)
+// Stages tokens s0..s1 (inclusive) of the tail page's rows for KV head g
+// into shared memory, token j at row j - c0: every thread of the block
+// issues its share of 16-byte cp.async copies, straight from the pool.
+template <int D, typename KT>
+__device__ __forceinline__ void stage_tail(const EpiArgs& a, KT* ks, KT* vs,
+                                           int b, int g, int s0, int s1,
+                                           int c0) {
+  constexpr int kPieces = D * (int)sizeof(KT) / 16;  // 16-byte row pieces
+  constexpr int kPieceElems = 16 / (int)sizeof(KT);
+  const size_t row = (size_t)a.n_kv * D;
+  const size_t first = ((size_t)a.tail_pages[b] * a.page * a.n_kv + g) * D;
+  const KT* kp = static_cast<const KT*>(a.k_pool) + first;
+  const KT* vp = static_cast<const KT*>(a.v_pool) + first;
+  const int n = (s1 - s0 + 1) * kPieces;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = s0 + i / kPieces;
+    const int c = (i % kPieces) * kPieceElems;
+    cp_async16(ks + (j - c0) * D + c, kp + j * row + c, 16);
+    cp_async16(vs + (j - c0) * D + c, vp + j * row + c, 16);
+  }
+}
+
+// Grid (n_kv, B).  The block's warps share the KV head's group of query
+// heads: nw warps (a divisor of the group, at most kMaxWarps), each taking
+// group / nw heads one after another (heads g * group + it * nw + warp).
+// kWide is false where a warp takes one head and the page (up to 64
+// tokens) is staged whole: then the head loop and the tail's stage loop
+// run once, known at compile time, and the tail takes two 32-token rounds.
+template <int D, typename QT, typename KT, bool kWide>
+__global__ void __launch_bounds__(kMaxWarps * 32)
     epilogue_kernel(const EpiArgs a) {
   constexpr int C = D / 32;                // columns of a lane
   constexpr int kInFlight = 64 / C;        // partial rows loaded at once
-  constexpr int kPieces = D * (int)sizeof(KT) / 16;  // 16-byte row pieces
-  constexpr int kPieceElems = 16 / (int)sizeof(KT);
+  constexpr int kRounds = kWide ? kMaxPage / 32 : 2;  // of the tail, a pass
   extern __shared__ __align__(16) unsigned char smem[];
   KT* ks = reinterpret_cast<KT*>(smem);
-  KT* vs = ks + a.page * D;
+  KT* vs = ks + a.tc * D;
 
   const int g = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int h = g * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int group = a.h_q / a.n_kv;
 
   // 1. the tail page (tail mode, on the shard that holds it): visible
-  // tokens j0..j1, copied to shared memory.  A non-owner keeps j0 > j1:
-  // its tail partial comes out as the POR identity.
+  // tokens j0..j1.  Its first tc tokens (the whole page where K and V fit
+  // in shared memory together) are copied now and land while the first
+  // head's segment is reduced.  A non-owner keeps j0 > j1: its tail
+  // partial comes out as the POR identity.
   int j0 = 0, j1 = -1;
   if (a.tail && (a.owner == nullptr || a.owner[b] != 0)) {
     const long long qp = a.q_pos[b];
@@ -351,200 +404,237 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
     const long long lo = a.window > 0 ? qp - a.window + 1 - base : 0;
     j1 = (int)(hi < a.page - 1 ? hi : a.page - 1);
     j0 = (int)(lo > 0 ? lo : 0);
-    const size_t row = (size_t)a.n_kv * D;
-    const size_t first = ((size_t)a.tail_pages[b] * a.page * a.n_kv + g) * D;
-    const KT* kp = static_cast<const KT*>(a.k_pool) + first;
-    const KT* vp = static_cast<const KT*>(a.v_pool) + first;
-    const int n = (j1 - j0 + 1) * kPieces;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int j = j0 + i / kPieces;
-      const int c = (i % kPieces) * kPieceElems;
-      cp_async16(ks + j * D + c, kp + j * row + c, 16);
-      cp_async16(vs + j * D + c, vp + j * row + c, 16);
-    }
+    stage_tail<D, KT>(a, ks, vs, b, g, j0, min(j1, a.tc - 1), 0);
   }
   if (a.tail) cp_async_commit();
 
-  float qv[C];
-  {
-    const QT* qr = static_cast<const QT*>(a.q) + ((size_t)b * a.h_q + h) * D +
-                   lane * C;
+  const int heads = kWide ? group / nw : 1;
+  for (int it = 0; it < heads; ++it) {
+    const int h = g * group + it * nw + warp;
+    float qv[C];
+    {
+      const QT* qr = static_cast<const QT*>(a.q) +
+                     ((size_t)b * a.h_q + h) * D + lane * C;
 #pragma unroll
-    for (int c = 0; c < C; ++c) qv[c] = to_f32(qr[c]);
-  }
+      for (int c = 0; c < C; ++c) qv[c] = to_f32(qr[c]);
+    }
 
-  // 2. the segment of query b: max, then the weighted sums row by row.
-  // The first kInFlight o rows are issued with the m and l loads: their
-  // addresses need only the row ids, not the segment max.
-  const int s0 = a.seg_offsets[b], s1 = a.seg_offsets[b + 1];
-  int r0 = 0;
-  float m0 = kMask, l0 = 0.f, mx = -INFINITY;
-  if (s0 + lane < s1) {
-    r0 = a.seg_rows[s0 + lane];
-    m0 = a.m_parts[(size_t)r0 * a.h_q + h];
-    l0 = a.l_parts[(size_t)r0 * a.h_q + h];
-    mx = m0;
-  }
-  float ov[kInFlight][C];
-  const auto issue_rows = [&](int r, int k0, int n) {
-#pragma unroll
-    for (int k = 0; k < kInFlight; ++k) {
-      const int rk = __shfl_sync(kFullMask, r, (k0 + k) & 31);
-      if (k0 + k < n) {
-        load_cols<C>(a.o_parts + ((size_t)rk * a.h_q + h) * D + lane * C,
-                     ov[k]);
-      }
+    // 2. the segment of query b: max, then the weighted sums row by row.
+    // The first kInFlight o rows are issued with the m and l loads: their
+    // addresses need only the row ids, not the segment max.
+    const int s0 = a.seg_offsets[b], s1 = a.seg_offsets[b + 1];
+    int r0 = 0;
+    float m0 = kMask, l0 = 0.f, mx = -INFINITY;
+    if (s0 + lane < s1) {
+      r0 = a.seg_rows[s0 + lane];
+      m0 = a.m_parts[(size_t)r0 * a.h_q + h];
+      l0 = a.l_parts[(size_t)r0 * a.h_q + h];
+      mx = m0;
     }
-  };
-  issue_rows(r0, 0, min(32, s1 - s0));
-  for (int s = s0 + 32; s < s1; s += 32) {
-    if (s + lane < s1) {
-      const int r = a.seg_rows[s + lane];
-      mx = fmaxf(mx, a.m_parts[(size_t)r * a.h_q + h]);
-    }
-  }
-  const float m_f = fmaxf(warp_max(mx), kMask);
-
-  float l_f = 0.f, num[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) num[c] = 0.f;
-  for (int s = s0; s < s1; s += 32) {
-    const int n = min(32, s1 - s);
-    int r = r0;
-    float alpha = 0.f;
-    if (s == s0) {
-      if (lane < n) alpha = __fmul_rn(expf(m0 - m_f), l0);
-    } else if (lane < n) {
-      r = a.seg_rows[s + lane];
-      alpha = __fmul_rn(expf(a.m_parts[(size_t)r * a.h_q + h] - m_f),
-                        a.l_parts[(size_t)r * a.h_q + h]);
-    }
-    for (int k0 = 0; k0 < n; k0 += kInFlight) {
-      if (s != s0 || k0 != 0) issue_rows(r, k0, n);
+    float ov[kInFlight][C];
+    const auto issue_rows = [&](int r, int k0, int n) {
 #pragma unroll
       for (int k = 0; k < kInFlight; ++k) {
-        const float w = __shfl_sync(kFullMask, alpha, (k0 + k) & 31);
+        const int rk = __shfl_sync(kFullMask, r, (k0 + k) & 31);
         if (k0 + k < n) {
-          l_f = __fadd_rn(l_f, w);
+          load_cols<C>(a.o_parts + ((size_t)rk * a.h_q + h) * D + lane * C,
+                       ov[k]);
+        }
+      }
+    };
+    issue_rows(r0, 0, min(32, s1 - s0));
+    for (int s = s0 + 32; s < s1; s += 32) {
+      if (s + lane < s1) {
+        const int r = a.seg_rows[s + lane];
+        mx = fmaxf(mx, a.m_parts[(size_t)r * a.h_q + h]);
+      }
+    }
+    const float m_f = fmaxf(warp_max(mx), kMask);
+
+    float l_f = 0.f, num[C];
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            num[c] = __fadd_rn(num[c], __fmul_rn(ov[k][c], w));
+    for (int c = 0; c < C; ++c) num[c] = 0.f;
+    for (int s = s0; s < s1; s += 32) {
+      const int n = min(32, s1 - s);
+      int r = r0;
+      float alpha = 0.f;
+      if (s == s0) {
+        if (lane < n) alpha = __fmul_rn(expf(m0 - m_f), l0);
+      } else if (lane < n) {
+        r = a.seg_rows[s + lane];
+        alpha = __fmul_rn(expf(a.m_parts[(size_t)r * a.h_q + h] - m_f),
+                          a.l_parts[(size_t)r * a.h_q + h]);
+      }
+      for (int k0 = 0; k0 < n; k0 += kInFlight) {
+        if (s != s0 || k0 != 0) issue_rows(r, k0, n);
+#pragma unroll
+        for (int k = 0; k < kInFlight; ++k) {
+          const float w = __shfl_sync(kFullMask, alpha, (k0 + k) & 31);
+          if (k0 + k < n) {
+            l_f = __fadd_rn(l_f, w);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              num[c] = __fadd_rn(num[c], __fmul_rn(ov[k][c], w));
+            }
           }
         }
       }
     }
-  }
 
-  const size_t row = (size_t)b * a.h_q + h;
-  if (!a.tail) {
-    // the segment alone, as ops.combine_partials_stats leaves it
-    const float d_f = fmaxf(l_f, 1e-30f);
-    float o[C];
+    const size_t row = (size_t)b * a.h_q + h;
+    if (!a.tail) {
+      // the segment alone, as ops.combine_partials_stats leaves it
+      const float d_f = fmaxf(l_f, 1e-30f);
+      float o[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(num[c], d_f);
-    store_out<C, QT>(a, row, lane, o);
-    if (lane == 0 && a.out_m != nullptr) {
-      a.out_m[row] = m_f;
-      a.out_l[row] = l_f;
+      for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(num[c], d_f);
+      store_out<C, QT>(a, row, lane, o);
+      if (lane == 0 && a.out_m != nullptr) {
+        a.out_m[row] = m_f;
+        a.out_l[row] = l_f;
+      }
+      continue;
     }
-    return;
-  }
 
-  // 3. the tail page's partial, once its rows have landed
-  cp_async_wait<0>();
-  __syncthreads();
-  float st[2] = {kMask, kMask};  // scores of tokens lane and 32 + lane
+    // 3. the tail page's partial, tc tokens at a time.  Where the page is
+    // staged whole (tc = page) there is one pass, and its arithmetic is
+    // the plain softmax: m_t the max, p = exp(s - m_t), l_t the sum of p.
+    // Past that, each pass re-stages its tokens (every warp has finished
+    // with the last ones at the barrier) and folds them in online: the
+    // earlier sums are scaled by exp(m_old - m_new).  j0, j1, tc and the
+    // head count are the block's, so every warp meets every barrier.
+    float m_t = kMask, l_t = 0.f, u[C];
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    if (ch * 32 < a.page) {
-      float part[32];
+    for (int c = 0; c < C; ++c) u[c] = 0.f;
+    for (int c0 = 0; kWide ? c0 < a.page : c0 == 0; c0 += a.tc) {
+      const int cj0 = max(j0, c0), cj1 = min(j1, c0 + a.tc - 1);
+      if (cj0 > cj1) continue;             // no visible token here
+      if (kWide && a.tc < a.page && (it > 0 || c0 > 0)) {
+        __syncthreads();
+        stage_tail<D, KT>(a, ks, vs, b, g, cj0, cj1, c0);
+        cp_async_commit();
+      }
+      if (!kWide || a.tc < a.page || it == 0) {
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      float st[kRounds];  // scores of tokens c0 + 32 ch + lane
 #pragma unroll
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = ch * 32 + jj;
-        part[jj] = 0.f;
-        if (j >= j0 && j <= j1) {
-          float kv[C];
-          load_cols<C>(ks + j * D + lane * C, kv);
+      for (int ch = 0; ch < kRounds; ++ch) st[ch] = kMask;
 #pragma unroll
-          for (int c = 0; c < C; ++c) part[jj] = fmaf(qv[c], kv[c], part[jj]);
+      for (int ch = 0; ch < kRounds; ++ch) {
+        if (c0 + ch * 32 <= cj1 && c0 + ch * 32 + 31 >= cj0) {
+          float part[32];
+#pragma unroll
+          for (int jj = 0; jj < 32; ++jj) {
+            const int j = c0 + ch * 32 + jj;
+            part[jj] = 0.f;
+            if (j >= cj0 && j <= cj1) {
+              float kv[C];
+              load_cols<C>(ks + (j - c0) * D + lane * C, kv);
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                part[jj] = fmaf(qv[c], kv[c], part[jj]);
+              }
+            }
+          }
+          reduce_rounds<32, 16>(part, lane);
+          const int j = c0 + ch * 32 + lane;
+          if (j >= cj0 && j <= cj1) st[ch] = __fmul_rn(part[0], a.scale);
         }
       }
-      reduce_rounds<32, 16>(part, lane);
-      const int j = ch * 32 + lane;
-      if (j >= j0 && j <= j1) st[ch] = __fmul_rn(part[0], a.scale);
+      float sm = st[0];
+#pragma unroll
+      for (int ch = 1; ch < kRounds; ++ch) sm = fmaxf(sm, st[ch]);
+      const float m_new = fmaxf(m_t, warp_max(sm));
+      float p[kRounds], ps = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < kRounds; ++ch) {
+        const int j = c0 + ch * 32 + lane;
+        p[ch] = (j >= cj0 && j <= cj1) ? expf(st[ch] - m_new) : 0.f;
+        ps += p[ch];
+      }
+      if constexpr (kWide) {  // fold the earlier passes in: one pass alone
+        const float alpha = expf(m_t - m_new);  // leaves them at 0
+        l_t = l_t * alpha + warp_sum(ps);
+#pragma unroll
+        for (int c = 0; c < C; ++c) u[c] *= alpha;
+      } else {
+        l_t = warp_sum(ps);
+      }
+#pragma unroll
+      for (int ch = 0; ch < kRounds; ++ch) {
+        const int jlo = max(cj0 - c0 - ch * 32, 0);
+        const int jhi = min(cj1 - c0 - ch * 32, 31);
+        for (int jj = jlo; jj <= jhi; ++jj) {
+          const float pj = __shfl_sync(kFullMask, p[ch], jj);
+          float vv[C];
+          load_cols<C>(vs + (ch * 32 + jj) * D + lane * C, vv);
+#pragma unroll
+          for (int c = 0; c < C; ++c) u[c] = fmaf(pj, vv[c], u[c]);
+        }
+      }
+      m_t = m_new;
     }
-  }
-  const float m_t = warp_max(fmaxf(st[0], st[1]));
-  float p[2];
-#pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    const int j = ch * 32 + lane;
-    p[ch] = (j >= j0 && j <= j1) ? expf(st[ch] - m_t) : 0.f;
-  }
-  const float l_t = warp_sum(p[0] + p[1]);
-  float u[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) u[c] = 0.f;
-#pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    const int jlo = max(j0 - ch * 32, 0), jhi = min(j1 - ch * 32, 31);
-    for (int jj = jlo; jj <= jhi; ++jj) {
-      const float pj = __shfl_sync(kFullMask, p[ch], jj);
-      float vv[C];
-      load_cols<C>(vs + (ch * 32 + jj) * D + lane * C, vv);
-#pragma unroll
-      for (int c = 0; c < C; ++c) u[c] = fmaf(pj, vv[c], u[c]);
-    }
-  }
 
-  // 4. POR of the segment's and the tail's partials, written in q's type
-  const float m = fmaxf(m_f, m_t);
-  const float a1 = __fmul_rn(expf(m_f - m), l_f);
-  const float a2 = __fmul_rn(expf(m_t - m), l_t);
-  const float l = __fadd_rn(a1, a2);
-  const float d_f = fmaxf(l_f, 1e-30f), d_t = fmaxf(l_t, 1e-30f);
-  const float d = fmaxf(l, 1e-30f);
-  float o[C];
+    // 4. POR of the segment's and the tail's partials, written in q's type
+    const float m = fmaxf(m_f, m_t);
+    const float a1 = __fmul_rn(expf(m_f - m), l_f);
+    const float a2 = __fmul_rn(expf(m_t - m), l_t);
+    const float l = __fadd_rn(a1, a2);
+    const float d_f = fmaxf(l_f, 1e-30f), d_t = fmaxf(l_t, 1e-30f);
+    const float d = fmaxf(l, 1e-30f);
+    float o[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float o_f = __fdiv_rn(num[c], d_f);
-    const float o_t = __fdiv_rn(u[c], d_t);
-    o[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o_f, a1), __fmul_rn(o_t, a2)), d);
-  }
-  store_out<C, QT>(a, row, lane, o);
-  if (lane == 0 && a.out_m != nullptr) {
-    a.out_m[row] = m;
-    a.out_l[row] = l;
+    for (int c = 0; c < C; ++c) {
+      const float o_f = __fdiv_rn(num[c], d_f);
+      const float o_t = __fdiv_rn(u[c], d_t);
+      o[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o_f, a1), __fmul_rn(o_t, a2)), d);
+    }
+    store_out<C, QT>(a, row, lane, o);
+    if (lane == 0 && a.out_m != nullptr) {
+      a.out_m[row] = m;
+      a.out_l[row] = l;
+    }
   }
 }
 
-template <int D, typename QT, typename KT>
-cudaError_t launch_epilogue(const EpiArgs& a, int B, int group,
-                            cudaStream_t stream) {
+template <int D, typename QT, typename KT, bool kWide>
+cudaError_t launch_epilogue_as(const EpiArgs& a, int B, int warps,
+                               cudaStream_t stream) {
   static size_t allowed = 48 << 10;  // raised once past the default cap
-  const size_t smem = a.tail ? 2 * (size_t)a.page * D * sizeof(KT) : 0;
+  const size_t smem = a.tail ? 2 * (size_t)a.tc * D * sizeof(KT) : 0;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        epilogue_kernel<D, QT, KT>,
+        epilogue_kernel<D, QT, KT, kWide>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  epilogue_kernel<D, QT, KT>
-      <<<dim3(a.n_kv, B), group * 32, smem, stream>>>(a);
+  epilogue_kernel<D, QT, KT, kWide>
+      <<<dim3(a.n_kv, B), warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int D, typename QT, typename KT>
+cudaError_t launch_epilogue(const EpiArgs& a, int B, int warps,
+                            cudaStream_t stream) {
+  const bool wide = a.h_q / a.n_kv != warps || a.tc != a.page ||
+                    a.page > 64;
+  return wide ? launch_epilogue_as<D, QT, KT, true>(a, B, warps, stream)
+              : launch_epilogue_as<D, QT, KT, false>(a, B, warps, stream);
+}
+
 template <int D>
-cudaError_t epilogue_for_types(const EpiArgs& a, int B, int group,
+cudaError_t epilogue_for_types(const EpiArgs& a, int B, int warps,
                                int q_bf16, int kv_bf16, cudaStream_t s) {
   using BF = __nv_bfloat16;
   if (q_bf16) {
-    return kv_bf16 ? launch_epilogue<D, BF, BF>(a, B, group, s)
-                   : launch_epilogue<D, BF, float>(a, B, group, s);
+    return kv_bf16 ? launch_epilogue<D, BF, BF>(a, B, warps, s)
+                   : launch_epilogue<D, BF, float>(a, B, warps, s);
   }
-  return kv_bf16 ? launch_epilogue<D, float, BF>(a, B, group, s)
-                 : launch_epilogue<D, float, float>(a, B, group, s);
+  return kv_bf16 ? launch_epilogue<D, float, BF>(a, B, warps, s)
+                 : launch_epilogue<D, float, float>(a, B, warps, s);
 }
 
 // ------------------------------------------------------------------------
@@ -552,6 +642,7 @@ cudaError_t epilogue_for_types(const EpiArgs& a, int B, int group,
 // ------------------------------------------------------------------------
 
 constexpr int kMergeWarps = 8;  // query heads (warps) a block
+constexpr int kMergeLeaf = 16;  // shards whose rounds run in registers
 
 struct MergeArgs {
   const float* o;              // (D, M, B, h, hd)
@@ -563,7 +654,7 @@ struct MergeArgs {
   void* out;                   // (M, B, h, hd) float32 or bf16
   float* out_m;                // (M, B, h) or null
   float* out_l;                // (M, B, h) or null
-  int M, B, h, Bm;
+  int D, M, B, h, Bm;
 };
 
 // codec_por's arithmetic on one lane's columns: (o1, m1, l1) is the local
@@ -586,12 +677,13 @@ __device__ __forceinline__ void por_merge(float (&o1)[C], float& m1,
   l1 = ll;
 }
 
-// Rounds SHIFT, 2 SHIFT, .. D/2 of the butterfly, on the shards whose
-// values shard 0's result still needs (the multiples of SHIFT).
+// Rounds SHIFT, 2 SHIFT, .. ND/2 of the butterfly over the ND shards
+// base .. base + ND - 1, on the shards whose values the block's first
+// shard still needs (the multiples of SHIFT).
 template <int ND, int C, int SHIFT>
 __device__ __forceinline__ void butterfly(float (&o)[ND][C], float (&m)[ND],
                                           float (&l)[ND], int xall,
-                                          int anchor) {
+                                          int anchor, int base) {
   if constexpr (SHIFT < ND) {
     if (xall >= SHIFT) {
 #pragma unroll
@@ -603,7 +695,7 @@ __device__ __forceinline__ void butterfly(float (&o)[ND][C], float (&m)[ND],
       // a copy round: a select, no arithmetic
 #pragma unroll
       for (int s = 0; s < ND; s += 2 * SHIFT) {
-        if (s / SHIFT != anchor / SHIFT) {
+        if ((base + s) / SHIFT != anchor / SHIFT) {
 #pragma unroll
           for (int c = 0; c < C; ++c) o[s][c] = o[s + SHIFT][c];
           m[s] = m[s + SHIFT];
@@ -611,12 +703,44 @@ __device__ __forceinline__ void butterfly(float (&o)[ND][C], float (&m)[ND],
         }
       }
     }
-    butterfly<ND, C, 2 * SHIFT>(o, m, l, xall, anchor);
+    butterfly<ND, C, 2 * SHIFT>(o, m, l, xall, anchor, base);
   }
 }
 
-// Grid (B, M, ceil(h / kMergeWarps)), one warp per query head.
-template <int ND, int C, typename OT>
+// Loads the ND shards base .. base + ND - 1 of one row and runs their
+// rounds: (res, mr, lr) is the block's result, what shard `base` holds
+// after round ND / 2.
+template <int ND, int C>
+__device__ __forceinline__ void merge_block(const MergeArgs& a, int mi,
+                                            long long g, int hh, int lane,
+                                            int xall, int anchor, int base,
+                                            float (&res)[C], float& mr,
+                                            float& lr) {
+  constexpr int HD = 32 * C;
+  float o[ND][C], m[ND], l[ND];
+#pragma unroll
+  for (int s = 0; s < ND; ++s) {
+    const size_t r = (((size_t)(base + s) * a.M + mi) * a.B + g) * a.h + hh;
+    load_cols<C>(a.o + r * HD + lane * C, o[s]);
+    m[s] = a.m[r];
+    l[s] = a.l[r];
+  }
+  butterfly<ND, C, 1>(o, m, l, xall, anchor, base);
+#pragma unroll
+  for (int c = 0; c < C; ++c) res[c] = o[0][c];
+  mr = m[0];
+  lr = l[0];
+}
+
+// Grid (B, M, ceil(h / kMergeWarps)), one warp per query head.  ND = D up
+// to kMergeLeaf shards; past that (kWide) the D shards run in blocks of
+// ND = kMergeLeaf, each block's rounds in registers, and the blocks'
+// results are combined in the tree's order by a binary counter: after
+// block i, while bit k of i is set, the stacked result of the block pair
+// to its left (shards i * ND - 2^k ND .. ) takes round 2^k ND with it.
+// The stack holds one result a level (log2(D / ND) levels), in local
+// memory.
+template <int ND, int C, typename OT, bool kWide>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     mesh_merge_kernel(const MergeArgs a) {
   constexpr int HD = 32 * C;
@@ -639,32 +763,81 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   const size_t orow = ((size_t)mi * a.B + b) * a.h + h;  // = shard 0's row
   float res[C];
   float mr, lr;
-  if (slot < 0 || ND == 1) {
+  if (slot < 0 || (!kWide && ND == 1)) {
     load_cols<C>(a.o + orow * HD + lane * C, res);
     mr = a.m[orow];
     lr = a.l[orow];
   } else {
     // anchor = the first contributor (0 if none), xall = max over the
-    // contributors of (shard ^ anchor)
-    const bool is_c = lane < ND && a.contrib[lane] > 0;
-    const unsigned cmask = __ballot_sync(kFullMask, is_c);
-    const int anchor = cmask ? __ffs(cmask) - 1 : 0;
-    const int xall = (int)__reduce_max_sync(
-        kFullMask, is_c ? (unsigned)(lane ^ anchor) : 0u);
-    const long long g = a.gather[slot];
-    float o[ND][C], m[ND], l[ND];
-#pragma unroll
-    for (int s = 0; s < ND; ++s) {
-      const size_t r = (((size_t)s * a.M + mi) * a.B + g) * a.h + h;
-      load_cols<C>(a.o + r * HD + lane * C, o[s]);
-      m[s] = a.m[r];
-      l[s] = a.l[r];
+    // contributors of (shard ^ anchor): one ballot up to 16 shards, past
+    // that 32 shards a ballot
+    int anchor = -1, xall = 0;
+    if constexpr (!kWide) {
+      const bool is_c = lane < ND && a.contrib[lane] > 0;
+      const unsigned cm = __ballot_sync(kFullMask, is_c);
+      anchor = cm ? __ffs(cm) - 1 : 0;
+      xall = (int)__reduce_max_sync(
+          kFullMask, is_c ? (unsigned)(lane ^ anchor) : 0u);
+    } else {
+      for (int s0 = 0; s0 < a.D && anchor < 0; s0 += 32) {
+        const unsigned cm = __ballot_sync(
+            kFullMask, s0 + lane < a.D && a.contrib[s0 + lane] > 0);
+        if (cm) anchor = s0 + __ffs(cm) - 1;
+      }
+      if (anchor < 0) anchor = 0;
+      for (int s0 = 0; s0 < a.D; s0 += 32) {
+        const int s = s0 + lane;
+        const bool is_c = s < a.D && a.contrib[s] > 0;
+        xall = max(xall, (int)__reduce_max_sync(
+                             kFullMask, is_c ? (unsigned)(s ^ anchor) : 0u));
+      }
     }
-    butterfly<ND, C, 1>(o, m, l, xall, anchor);
+    const long long g = a.gather[slot];
+    if constexpr (!kWide) {
+      merge_block<ND, C>(a, mi, g, h, lane, xall, anchor, 0, res, mr, lr);
+    } else {
+      constexpr int kLevels = 16;  // D up to ND * 2^15
+      float so[kLevels][C], sm[kLevels], sl[kLevels];
+      int top = 0;
+      for (int i = 0; i < a.D / ND; ++i) {
+        merge_block<ND, C>(a, mi, g, h, lane, xall, anchor, i * ND, res, mr,
+                           lr);
+        int size = ND, lo = i * ND, k = 0;
+        while ((i >> k) & 1) {
+          // the left half, shards lo - size .. lo - 1, is the local operand
+          const int left = lo - size;
+          float lo_o[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) res[c] = o[0][c];
-    mr = m[0];
-    lr = l[0];
+          for (int c = 0; c < C; ++c) lo_o[c] = so[k][c];
+          float lo_m = sm[k], lo_l = sl[k];
+          if (xall >= size) {
+            por_merge<C>(lo_o, lo_m, lo_l, res, mr, lr);
+          } else if (left / size != anchor / size) {
+            // a copy round: the left half takes the right half's result
+#pragma unroll
+            for (int c = 0; c < C; ++c) lo_o[c] = res[c];
+            lo_m = mr;
+            lo_l = lr;
+          }
+#pragma unroll
+          for (int c = 0; c < C; ++c) res[c] = lo_o[c];
+          mr = lo_m;
+          lr = lo_l;
+          lo = left;
+          size *= 2;
+          ++k;
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) so[k][c] = res[c];
+        sm[k] = mr;
+        sl[k] = lr;
+        top = k;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) res[c] = so[top][c];
+      mr = sm[top];
+      lr = sl[top];
+    }
   }
   store_cols<C>(static_cast<OT*>(a.out) + orow * HD + lane * C, res);
   if (lane == 0 && a.out_m != nullptr) {
@@ -673,25 +846,27 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
 }
 
-template <int ND, int C>
+template <int ND, int C, bool kWide>
 cudaError_t launch_merge(const MergeArgs& a, int out_bf16,
                          cudaStream_t stream) {
   const int warps = a.h < kMergeWarps ? a.h : kMergeWarps;
   const dim3 grid(a.B, a.M, (a.h + kMergeWarps - 1) / kMergeWarps);
   if (out_bf16) {
-    mesh_merge_kernel<ND, C, __nv_bfloat16><<<grid, warps * 32, 0, stream>>>(a);
+    mesh_merge_kernel<ND, C, __nv_bfloat16, kWide>
+        <<<grid, warps * 32, 0, stream>>>(a);
   } else {
-    mesh_merge_kernel<ND, C, float><<<grid, warps * 32, 0, stream>>>(a);
+    mesh_merge_kernel<ND, C, float, kWide><<<grid, warps * 32, 0, stream>>>(
+        a);
   }
   return cudaGetLastError();
 }
 
-template <int ND>
+template <int ND, bool kWide = false>
 cudaError_t merge_for_dim(const MergeArgs& a, int hd, int out_bf16,
                           cudaStream_t s) {
-  if (hd == 64) return launch_merge<ND, 2>(a, out_bf16, s);
-  if (hd == 128) return launch_merge<ND, 4>(a, out_bf16, s);
-  return launch_merge<ND, 8>(a, out_bf16, s);
+  if (hd == 64) return launch_merge<ND, 2, kWide>(a, out_bf16, s);
+  if (hd == 128) return launch_merge<ND, 4, kWide>(a, out_bf16, s);
+  return launch_merge<ND, 8, kWide>(a, out_bf16, s);
 }
 
 }  // namespace
@@ -727,9 +902,9 @@ extern "C" int codec_por_epilogue(
     int B, int h_q, int n_kv, int d,
     int page, int window, int tail, float scale, void* stream) {
   const int group = n_kv > 0 ? h_q / n_kv : 0;
-  if (n_kv <= 0 || h_q % n_kv || group < 1 || group > kMaxGroup ||
+  if (n_kv <= 0 || h_q % n_kv || group < 1 ||
       (d != 64 && d != 128 && d != 256) ||
-      (tail && page != 16 && page != 64) || B < 0) {
+      (tail && (page < 1 || page > kMaxPage)) || B < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return static_cast<int>(cudaGetLastError());
@@ -752,18 +927,25 @@ extern "C" int codec_por_epilogue(
   a.out_l = static_cast<float*>(out_l);
   a.h_q = h_q;
   a.n_kv = n_kv;
-  a.page = page;
+  a.page = tail ? page : 1;
+  const size_t kv_size = kv_bf16 ? 2 : 4;
+  a.tc = 2 * (size_t)a.page * d * kv_size <= kTailSmem ? a.page
+                                                         : kTailChunk;
   a.window = window;
   a.tail = tail ? 1 : 0;
   a.scale = scale;
+  // a warp a query head up to kMaxWarps; a wider group shares the
+  // block's warps, each taking group / warps heads in turn
+  int warps = group < kMaxWarps ? group : kMaxWarps;
+  while (group % warps) --warps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (d == 64) {
-    err = epilogue_for_types<64>(a, B, group, q_bf16, kv_bf16, s);
+    err = epilogue_for_types<64>(a, B, warps, q_bf16, kv_bf16, s);
   } else if (d == 128) {
-    err = epilogue_for_types<128>(a, B, group, q_bf16, kv_bf16, s);
+    err = epilogue_for_types<128>(a, B, warps, q_bf16, kv_bf16, s);
   } else {
-    err = epilogue_for_types<256>(a, B, group, q_bf16, kv_bf16, s);
+    err = epilogue_for_types<256>(a, B, warps, q_bf16, kv_bf16, s);
   }
   return static_cast<int>(err);
 }
@@ -778,7 +960,7 @@ extern "C" int codec_mesh_merge(const void* o, const void* m, const void* l,
                                 const void* contrib, void* out, int out_bf16,
                                 void* out_m, void* out_l, int D, int M, int B,
                                 int h, int hd, int Bm, void* stream) {
-  if ((D != 1 && D != 2 && D != 4 && D != 8 && D != 16) ||
+  if (D < 1 || (D & (D - 1)) || D > (kMergeLeaf << 15) ||
       (hd != 64 && hd != 128 && hd != 256) || M < 1 || h < 1 || B < 0 ||
       Bm < 0 || M > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -794,6 +976,7 @@ extern "C" int codec_mesh_merge(const void* o, const void* m, const void* l,
   a.out = out;
   a.out_m = static_cast<float*>(out_m);
   a.out_l = static_cast<float*>(out_l);
+  a.D = D;
   a.M = M;
   a.B = B;
   a.h = h;
@@ -813,8 +996,11 @@ extern "C" int codec_mesh_merge(const void* o, const void* m, const void* l,
     case 8:
       err = merge_for_dim<8>(a, hd, out_bf16, s);
       break;
+    case kMergeLeaf:
+      err = merge_for_dim<kMergeLeaf>(a, hd, out_bf16, s);
+      break;
     default:
-      err = merge_for_dim<16>(a, hd, out_bf16, s);
+      err = merge_for_dim<kMergeLeaf, true>(a, hd, out_bf16, s);
   }
   return static_cast<int>(err);
 }

@@ -27,9 +27,9 @@ from .ref import MASK_VALUE
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# what the kernel takes: head dim 128, query heads per KV head in GROUPS
-HEAD_DIM = 128
-GROUPS = (1, 2, 4, 8)
+# what the kernel takes: these head dims, and any number of query heads
+# per KV head (h_q % n_kv == 0), as the TPU kernel does
+HEAD_DIMS = (64, 128, 256)
 # a split keeps at least this many KV positions
 SPLIT_TILE = 64
 
@@ -119,15 +119,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_lens "
                          f"{tuple(kv_lens.shape)} do not fit")
-    if d != HEAD_DIM or h_q % n_kv or h_q // n_kv not in GROUPS:
-        raise ValueError(f"flash_decode: the kernel takes d={HEAD_DIM} and "
-                         f"h_q/n_kv in {GROUPS}, got d={d} h_q={h_q} "
+    if d not in HEAD_DIMS or n_kv < 1 or h_q % n_kv:
+        raise ValueError(f"flash_decode: the kernel takes d in {HEAD_DIMS} "
+                         f"and h_q a multiple of n_kv, got d={d} h_q={h_q} "
                          f"n_kv={n_kv}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: k and v must be 16-byte aligned "
                          "(vector loads)")
     lib = build.load()
-    S = num_splits(B * n_kv, L,
+    # the query heads one block holds; a wider group takes several blocks
+    # a KV head, and each counts toward filling the card
+    G = lib.codec_flash_decode_chunk(d, h_q // n_kv)
+    chunks = -(-(h_q // n_kv) // G)
+    S = num_splits(B * n_kv * chunks, L,
                    torch.cuda.get_device_properties(dev).multi_processor_count)
     o_part = torch.empty((B, S, h_q, d), dtype=torch.float32, device=dev)
     m_part = torch.empty((B, S, h_q), dtype=torch.float32, device=dev)

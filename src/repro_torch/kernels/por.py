@@ -53,12 +53,34 @@ mesh_merge_launches = 0
 
 por_torch = por_ref
 
-# what the epilogue kernel takes
+# what the epilogue kernel takes: these head dims, any page up to
+# EPILOGUE_MAX_PAGE tokens and any number of query heads per KV head
 EPILOGUE_HEAD_DIMS = (64, 128, 256)
-EPILOGUE_PAGES = (16, 64)
-EPILOGUE_MAX_GROUP = 8
-# what the mesh merge kernel takes: a power-of-two data axis up to 16
-MERGE_MAX_SHARDS = 16
+EPILOGUE_MAX_PAGE = 128
+# what the mesh merge kernel takes: the epilogue's head dims and any
+# power-of-two data axis up to MERGE_MAX_SHARDS (its stack of block
+# results has 16 levels)
+MERGE_MAX_SHARDS = 1 << 19
+
+
+def epilogue_refusal(d: int, page: int) -> Optional[str]:
+    """Why ``codec_por_epilogue`` does not take head dim ``d`` at pages of
+    ``page`` tokens, or None where it does."""
+    if d not in EPILOGUE_HEAD_DIMS or not 1 <= page <= EPILOGUE_MAX_PAGE:
+        return (f"the kernel takes d in {EPILOGUE_HEAD_DIMS} and pages of 1 "
+                f"to {EPILOGUE_MAX_PAGE} tokens, got d={d} page={page}")
+    return None
+
+
+def merge_refusal(D: int, hd: int) -> Optional[str]:
+    """Why ``codec_mesh_merge`` does not take a data axis of ``D`` shards
+    at head dim ``hd``, or None where it does."""
+    if D < 1 or D & (D - 1) or D > MERGE_MAX_SHARDS \
+            or hd not in EPILOGUE_HEAD_DIMS:
+        return (f"the kernel takes a power-of-two shard axis up to "
+                f"{MERGE_MAX_SHARDS} and hd in {EPILOGUE_HEAD_DIMS}, got "
+                f"D={D} hd={hd}")
+    return None
 
 
 def por(o1: torch.Tensor, m1: torch.Tensor, l1: torch.Tensor,
@@ -252,15 +274,12 @@ def por_epilogue(q: torch.Tensor, o_parts: torch.Tensor,
     if tail:
         _, page, n_kv, _ = k_pool.shape
     else:       # only the head grouping matters: one KV head a block
-        page, n_kv = EPILOGUE_PAGES[0], (k_pool.shape[2] if k_pool is not None
-                                         else h_q)
-    if (d not in EPILOGUE_HEAD_DIMS or page not in EPILOGUE_PAGES
-            or h_q % n_kv or not 1 <= h_q // n_kv <= EPILOGUE_MAX_GROUP):
-        raise ValueError(
-            f"por_epilogue: the kernel takes d in {EPILOGUE_HEAD_DIMS}, "
-            f"pages of {EPILOGUE_PAGES} and 1 to {EPILOGUE_MAX_GROUP} query "
-            f"heads per KV head, got d={d} page={page} h_q={h_q} "
-            f"n_kv={n_kv}")
+        page, n_kv = 1, (k_pool.shape[2] if k_pool is not None else h_q)
+    why = epilogue_refusal(d, page)
+    if why is None and (n_kv < 1 or h_q % n_kv):
+        why = f"h_q={h_q} is not a multiple of n_kv={n_kv}"
+    if why is not None:
+        raise ValueError(f"por_epilogue: {why}")
     out_dtype = f32 if o_f32 else q.dtype
     if out is None:
         out = torch.empty_like(q, dtype=out_dtype)
@@ -455,9 +474,7 @@ def _check_merge(o, m, l, merge_gather, merge_scatter, contrib) -> None:
         if tuple(t.shape) != shape:
             raise ValueError(f"mesh_merge: {name} shape {tuple(t.shape)}, "
                              f"expected {shape}")
-    if D & (D - 1) or D > MERGE_MAX_SHARDS:
-        raise ValueError(f"mesh_merge takes a power-of-two shard axis up to "
-                         f"{MERGE_MAX_SHARDS}, got {D}")
+    _check_axis("mesh_merge", D)
 
 
 def mesh_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -501,11 +518,11 @@ def mesh_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"mesh_merge: {name} must be contiguous")
     D, M, B, h, hd = o.shape
-    if hd not in EPILOGUE_HEAD_DIMS or out_dtype not in (f32,
-                                                         torch.bfloat16):
-        raise ValueError(f"mesh_merge: the kernel takes hd in "
-                         f"{EPILOGUE_HEAD_DIMS} and float32 or bfloat16 "
-                         f"output, got hd={hd}, {out_dtype}")
+    why = merge_refusal(D, hd)
+    if why is None and out_dtype not in (f32, torch.bfloat16):
+        why = f"the kernel writes float32 or bfloat16, got {out_dtype}"
+    if why is not None:
+        raise ValueError(f"mesh_merge: {why}")
     if o.data_ptr() % 16:
         raise ValueError("mesh_merge: o must be 16-byte aligned (vector "
                          "loads)")

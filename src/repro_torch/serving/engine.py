@@ -244,9 +244,10 @@ class DecodeEngine:
                              f"archs")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.model = model.to(self.device)
         self.backend = backend
         self._backend = registry_mod.get(backend)
+        self._check_kernel_shapes(page_size, mesh)
+        self.model = model.to(self.device)
         if (cfg.sliding_window and not self._backend.supports_window
                 and any(k.mixer == "attn_local"
                         for k in cfg.layer_pattern)):
@@ -268,16 +269,6 @@ class DecodeEngine:
             if D & (D - 1):
                 raise ValueError(f"data axis must be a power of two "
                                  f"(POR butterfly), got {D}")
-            if D > por_mod.MERGE_MAX_SHARDS:
-                # repro takes any power of two; the step's cross-shard
-                # merge (codec_mesh_merge) takes at most 16 shards, so a
-                # wider axis is refused here, before any request is
-                # admitted, not in the middle of run()
-                raise ValueError(
-                    f"data axis {D} is wider than the "
-                    f"{por_mod.MERGE_MAX_SHARDS} shards codec_mesh_merge "
-                    f"takes (kernels/por.py MERGE_MAX_SHARDS); raising "
-                    f"that limit belongs to ROADMAP A17")
             if Mx > 1 and (cfg.num_heads % Mx or cfg.num_kv_heads % Mx):
                 raise ValueError(
                     f"model axis {Mx} must divide heads "
@@ -501,6 +492,28 @@ class DecodeEngine:
         # distinct fused shape signatures seen (one step state, and on the
         # card one captured graph, each)
         self.bucket_signatures: set = set()
+
+    def _check_kernel_shapes(self, page_size: int, mesh) -> None:
+        """On a CUDA device, refuse here, before any request is admitted,
+        a shape that a kernel of this engine's decode step does not take,
+        naming the kernel: the epilogue (every backend launches it; its
+        head dims are among PAC's and are the merge's) and, on a mesh,
+        the cross-shard merge's data axis.  The same checks run in each
+        kernel's wrapper at its launch."""
+        cfg = self.cfg
+        if self.device.type != "cuda" or not cfg.num_heads or not any(
+                k.mixer in ("attn", "attn_local") for k in cfg.layer_pattern):
+            return
+        refusals = [("codec_por_epilogue",
+                     por_mod.epilogue_refusal(cfg.head_dim, page_size))]
+        if mesh is not None:
+            refusals.append(("codec_mesh_merge", por_mod.merge_refusal(
+                mesh.shape["data"], cfg.head_dim)))
+        for kernel, why in refusals:
+            if why is not None:
+                raise ValueError(
+                    f"{cfg.name} at page size {page_size} on {self.device}: "
+                    f"{kernel} does not take this shape ({why})")
 
     # ------------------------------------------------------------------ #
     # request admission (admit phase) + chunked prefill (prefill phase)

@@ -3,15 +3,22 @@ their plain torch versions, on the card.
 
 PAC is held on the plans that stress its ring and its row chunks: the
 codec and flash plans at full width, lanes with nothing but padding, last
-pages shorter than the page, a window crossing page edges, groups 1, 4
-and 8, pages 16 and 64, head dims 64 to 256, and more rows in a task than
-one block holds.  The kernel reads a pool whose every position no plan
+pages shorter than the page, a window crossing page edges, groups 1, 4,
+5, 7, 8, 16 and 32, pages 8, 16, 24, 32, 64 and 128, head dims 64 to 256,
+and more rows in a task than one block holds.  The kernel reads a pool whose every position no plan
 step covers is NaN, and writes into outputs filled with NaN: live slots
 must match the plain version (which reads zeros there), dead slots must
 still hold NaN, and the combined output must stay finite.  The epilogue
 takes the same plans, PAC's raw partials with NaN in every dead slot, and
 each request's last page as its tail (NaN past the request's position),
-writes into an output filled with NaN, and gives the same bits twice.
+writes into an output filled with NaN, and gives the same bits twice:
+every shape it takes is among them (groups up to 32, at d 256 too, where
+8 warps take 4 heads each; pages of 8 and 24, which end in a partial
+32-token round; page 128 at d 256 with f32 KV, staged 64 tokens at a
+time).  ``flash_decode`` is held at d 64, 128 and 256 and groups 1, 4, 5,
+7, 8, 16 and 32 (one head chunk, idle heads in the chunk, several chunks
+a KV head).  The epilogue's refusals: d 96, 32 and 512 and pages past
+128; pages 8 and 32, group 9 and group 32 at page 128 launch.
 
 Needs an NVIDIA GPU and ``nvcc`` (the kernels are built on first use);
 skips elsewhere.  Run on the card with
@@ -73,13 +80,19 @@ def test_cuda_kernels_match_plain_on_card():
 @pytest.mark.parametrize("window", [0, 100])
 def test_flash_decode_matches_plain_on_card(window):
     """On an H100: uneven kv_lens (L, 1, mid-range, 0) with NaN past every
-    kv_len, GQA 4 and 1, q and KV types mixed."""
+    kv_len, q and KV types mixed, at d 128 with groups 4 and 1, and at
+    every head layout the kernel's head chunks reach: d 64 and 256,
+    groups 5 and 7 (heads past the group idle in the chunk), 16 and 32
+    (several chunks a KV head), and d 256 at groups 4, 8 and 32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
     rng = np.random.default_rng(23 + window)
-    L, d = 700, 128
+    L = 700
     lens = torch.tensor([L, 1, 333, 0], dtype=torch.int32, device="cuda")
-    for hq, hkv in ((32, 8), (8, 8)):
+    for hq, hkv, d in ((32, 8, 128), (8, 8, 128), (8, 8, 64), (32, 4, 64),
+                       (40, 8, 128), (56, 8, 128), (32, 2, 128),
+                       (32, 1, 128), (4, 1, 256), (8, 1, 256),
+                       (40, 8, 256), (32, 1, 256)):
         q = torch.from_numpy(rng.standard_normal((4, hq, d)).astype(
             np.float32)).cuda()
         k, v = (torch.from_numpy(rng.standard_normal((4, L, hkv, d)).astype(
@@ -130,11 +143,16 @@ def _nan_outputs(pa, h_q, d):
 
 
 def _forest_plan(case):
-    page = 64 if case == "page64" else 16
+    page = {"page64": 64, "page8": 8, "page24": 24, "page32": 32,
+            "page128": 128, "page128-d256": 128, "g32-page32": 32}.get(case,
+                                                                      16)
     hq, hkv, d = {"g1": (8, 8, 128), "g8": (32, 4, 128), "d64": (8, 8, 64),
                   "d256": (8, 1, 256), "gemma3-global": (4, 1, 256),
                   "gemma3-local": (4, 1, 256),
-                  "g5": (40, 8, 128)}.get(case, (32, 8, 128))
+                  "g5": (40, 8, 128), "g7": (56, 8, 128),
+                  "g16": (32, 2, 128), "g32": (32, 1, 128),
+                  "g32-page32": (32, 1, 256),
+                  "page128-d256": (8, 1, 256)}.get(case, (32, 8, 128))
     forest = {
         "padding-lanes": lambda: tree.two_level(2, 40, 9, block_size=page),
         "window24": lambda: tree.two_level(4, 100, 30, block_size=page),
@@ -146,6 +164,9 @@ def _forest_plan(case):
         "rows-over-chunks": lambda: tree.two_level(24, 100, 20,
                                                    block_size=page),
         "page64": lambda: tree.two_level(8, 300, 70, block_size=page),
+        "page128": lambda: tree.two_level(8, 600, 150, block_size=page),
+        "page128-d256": lambda: tree.two_level(8, 600, 150,
+                                               block_size=page),
         "kary": lambda: tree.full_kary(3, 3, 40, block_size=page),
     }.get(case, lambda: tree.two_level(8, 200, 37, block_size=page))()
     plan_mod.assign_dense_pages(forest)
@@ -162,7 +183,13 @@ PAC_CASES = ("codec", "flash", "padding-lanes", "window24", "g1", "g8",
              "page64", "rows-over-chunks", "d64", "d256", "kary",
              # gemma3-1b (4 query heads over 1 KV head, d 256, global and
              # 512-token window) and llama4-scout (40 over 8: group 5)
-             "gemma3-global", "gemma3-local", "g5")
+             "gemma3-global", "gemma3-local", "g5",
+             # and the epilogue's wider shapes: llava-next's
+             # group 7, fig13's groups 16 and 32 (also at d 256, page 32),
+             # pages of 8, 24 (partial 32-token rounds), 32 and 128 (f32 KV
+             # at d 256 staged 64 tokens at a time)
+             "g7", "g16", "g32", "g32-page32", "page8", "page24", "page32",
+             "page128", "page128-d256")
 PAC_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
 
@@ -316,8 +343,9 @@ def test_por_epilogue_plans_on_card(case):
 
 @pytest.mark.cuda
 def test_por_epilogue_refuses_shapes_it_does_not_take():
-    """On an H100: head dims, pages and groups outside the kernel's set
-    raise before any launch, as do wrong types."""
+    """On an H100: head dims and pages outside the kernel's set raise
+    before any launch, as do wrong types; other pages up to 128 and
+    other groups launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
 
@@ -335,8 +363,14 @@ def test_por_epilogue_refuses_shapes_it_does_not_take():
     por_mod.por_epilogue(*args())
     torch.cuda.synchronize()
     assert por_mod.epilogue_launches == lo + 1
-    for kw in ({"d": 96}, {"d": 32}, {"d": 512}, {"page": 32},
-               {"hq": 18, "hkv": 2}):
+    # taken: any page up to 128 and any group
+    for kw in ({"page": 32}, {"page": 8}, {"hq": 18, "hkv": 2},
+               {"hq": 32, "hkv": 1, "page": 128}):
+        por_mod.por_epilogue(*args(**kw))
+    torch.cuda.synchronize()
+    assert por_mod.epilogue_launches == lo + 5
+    lo += 4
+    for kw in ({"d": 96}, {"d": 32}, {"d": 512}, {"page": 256}):
         with pytest.raises(ValueError, match="the kernel takes"):
             por_mod.por_epilogue(*args(**kw))
     a = list(args())
@@ -412,6 +446,30 @@ def test_fused_streams_equal_eager_on_card(backend):
         eng.release(rid)
     eng.pool.allocator.check()
     assert eng.pool.num_free == eng.pool.num_pages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 24, 32, 128])
+def test_engine_serves_any_page_on_card(page):
+    """On an H100 (ROADMAP C7): the engine serves through fused
+    ``codec-cuda`` at pages other than 16 and 64, and its
+    streams equal ``codec-torch``'s (plain PAC) and the eager engine's.
+    Before, ``DecodeEngine(page_size=32, backend="codec-cuda")`` admitted
+    and prefilled, then raised at the first decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _fused_model()
+    streams = {}
+    for backend, fused in (("codec-cuda", True), ("codec-torch", True),
+                           ("codec-cuda", False)):
+        eng = DecodeEngine(model.cfg, model, page_size=page,
+                           num_pages=4096 // page, max_q=8, backend=backend,
+                           fused=fused, device="cuda")
+        streams[(backend, fused)] = _crossing(eng)
+        assert eng.stats["nonfinite_rows"] == 0
+    assert len(set(map(str, streams.values()))) == 1, streams
 
 
 @pytest.mark.cuda

@@ -125,6 +125,26 @@ def test_engine_validation(shared):
         eng.run(40)
 
 
+def test_engine_refuses_kernel_shapes_at_construction(shared):
+    """On a CUDA device a shape a decode kernel does not take is refused
+    by the constructor, naming the kernel and its limit, before the model
+    moves (so here, without a card, too): never at the first decode
+    step.  The CPU's plain paths take any shape."""
+    import dataclasses
+    cfg, _, model = shared
+    wide = dataclasses.replace(cfg, head_dim=96)
+    for c, kw, kernel, limit in (
+            (cfg, {}, "codec_por_epilogue", "d in (64, 128, 256)"),
+            (wide, {"backend": "flash"}, "codec_por_epilogue", "d=96"),
+            (dataclasses.replace(cfg, head_dim=64), {"page_size": 256},
+             "codec_por_epilogue", "pages of 1 to 128 tokens")):
+        with pytest.raises(ValueError, match=kernel) as err:
+            DecodeEngine(c, model, device="cuda", **{**KW, **kw})
+        assert limit in str(err.value)
+    assert next(model.parameters()).device.type == "cpu"
+    DecodeEngine(cfg, model, device="cpu", **KW)
+
+
 def test_pool_page_bytes_use_torch_element_size():
     for dt, size in ((torch.float32, 4), (torch.bfloat16, 2)):
         pool = PagedKVPool(3, 10, 16, 2, 8, dtype=dt, device="cpu")

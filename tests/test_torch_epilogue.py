@@ -50,7 +50,8 @@ def _forest(case, page):
     return f
 
 
-def engine_state(forest, window=0, flash=False, lanes=2, max_q=8):
+def engine_state(forest, window=0, flash=False, lanes=2, max_q=8, hq=HQ,
+                 hkv=HKV):
     """The plan and tail arrays the engine would build for this forest:
     each leaf cut to its full pages, its last (partial) page the tail."""
     ps = forest.block_size
@@ -66,20 +67,20 @@ def engine_state(forest, window=0, flash=False, lanes=2, max_q=8):
                       forest.context_len(r) - 1)
     make = plan_mod.flash_plan if flash else plan_mod.build_plan
     plan = plan_mod.pad_plan(make(
-        forest, cost_model.CostModel(HQ, HKV, D, page_size=ps), lanes,
+        forest, cost_model.CostModel(hq, hkv, D, page_size=ps), lanes,
         max_q, 2 * ps, req_rows={r: i for i, r in enumerate(rows)},
         window=window, truncate=truncate))
     return plan, pages, tail
 
 
-def _inputs(case, page, seed=0):
+def _inputs(case, page, seed=0, hq=HQ, hkv=HKV):
     forest = _forest(case, page)
     window = 24 if case == "window24" else 0
-    plan, pages, tail = engine_state(forest, window)
+    plan, pages, tail = engine_state(forest, window, hq=hq, hkv=hkv)
     rng = np.random.default_rng(seed + page)
-    k, v = (rng.standard_normal((pages, page, HKV, D)).astype(np.float32)
+    k, v = (rng.standard_normal((pages, page, hkv, D)).astype(np.float32)
             for _ in range(2))
-    q = rng.standard_normal((plan.num_queries, HQ, D)).astype(np.float32)
+    q = rng.standard_normal((plan.num_queries, hq, D)).astype(np.float32)
     return plan, window, q, k, v, tail
 
 
@@ -107,11 +108,8 @@ def _repro_epilogue(q, o, m, l, plan, k, v, tail, window, jdt):
 CASES = ("two-level", "fully-shared", "tail-only", "zero-task", "window24")
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("page", [16, 64])
-@pytest.mark.parametrize("case", CASES)
-def test_epilogue_matches_repro(case, page, bf16):
-    plan, window, q, k, v, tail = _inputs(case, page)
+def _check_epilogue(case, page, bf16, hq=HQ, hkv=HKV):
+    plan, window, q, k, v, tail = _inputs(case, page, hq=hq, hkv=hkv)
     if case == "zero-task":
         assert plan.num_tasks == 0
     if case == "tail-only":
@@ -126,9 +124,9 @@ def test_epilogue_matches_repro(case, page, bf16):
     dead = _dead(plan)
     o[dead], m[dead], l[dead] = np.nan, np.nan, np.nan
     P = o.shape[0] * o.shape[1]
-    parts = ops.Parts(torch.from_numpy(o).reshape(P, HQ, D),
-                      torch.from_numpy(m).reshape(P, HQ),
-                      torch.from_numpy(l).reshape(P, HQ),
+    parts = ops.Parts(torch.from_numpy(o).reshape(P, hq, D),
+                      torch.from_numpy(m).reshape(P, hq),
+                      torch.from_numpy(l).reshape(P, hq),
                       pa.seg_offsets, pa.seg_rows)
     got = por_mod.por_epilogue(qt, *parts, kt, vt,
                                *map(torch.from_numpy, tail), window=window,
@@ -142,6 +140,25 @@ def test_epilogue_matches_repro(case, page, bf16):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, np.asarray(w, np.float32), rtol=tol,
                                    atol=tol)
+
+
+# pages the CUDA kernel takes beyond 16 and 64: partial 32-token rounds (8,
+# 24), one whole round (32), and 128 (f32 KV at d 256 staged 64 tokens at
+# a time on the card)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("page", [16, 64, 8, 24, 32, 128])
+@pytest.mark.parametrize("case", CASES)
+def test_epilogue_matches_repro(case, page, bf16):
+    _check_epilogue(case, page, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("case", ["two-level", "window24"])
+def test_epilogue_group_32_matches_repro(case, page, bf16):
+    """32 query heads over one KV head (fig13's MQA end): the kernel's
+    warps take four heads each in turn."""
+    _check_epilogue(case, page, bf16, hq=32, hkv=1)
 
 
 @pytest.mark.parametrize("case", ["two-level", "tail-only", "kary",

@@ -47,17 +47,33 @@ def _repro(q, k, v, lens, dtype=jnp.float32, **kw):
     return np.asarray(out, np.float32)
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+# (h_q, n_kv, d): the small GQA and MHA shapes, then the configs' and the
+# figures' head layouts: d 64 MHA, groups 5 and 7 (llama4-scout's 40/8,
+# llava-next-34b's 56/8), 16 and 32 (fig13's GQA sweep at 32 query heads
+# over 2 and 1 KV heads) and d 256 at groups 8 and 4 (gemma-2b,
+# gemma3-1b)
+HEAD_LAYOUTS = [pytest.param(4, 4, D, id="4-4"),
+                pytest.param(8, 2, D, id="8-2"),
+                pytest.param(8, 8, 64, id="8-8-64"),
+                pytest.param(10, 2, 128, id="10-2-128"),
+                pytest.param(14, 2, 128, id="14-2-128"),
+                pytest.param(32, 2, 64, id="32-2-64"),
+                pytest.param(32, 1, 128, id="32-1-128"),
+                pytest.param(8, 1, 256, id="8-1-256"),
+                pytest.param(4, 1, 256, id="4-1-256")]
+
+
+@pytest.mark.parametrize("hq,hkv,d", HEAD_LAYOUTS)
 @pytest.mark.parametrize("chunk", [64, 256])
-def test_flash_decode_matches_pallas(hq, hkv, chunk):
+def test_flash_decode_matches_pallas(hq, hkv, d, chunk):
     """Uneven kv_lens [L, 77, 1] with NaN written past every kv_len."""
-    q, k, v, lens = _inputs(hq, hkv, seed=hq + chunk, nan_pad=True)
+    q, k, v, lens = _inputs(hq, hkv, seed=hq + chunk, nan_pad=True, d=d)
     got = _port(q, k, v, lens, chunk=chunk)
     want = _repro(q, k, v, lens, chunk=chunk)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # the same rows on clean padding: positions past kv_len do not matter
-    clean = _inputs(hq, hkv, seed=hq + chunk)
+    clean = _inputs(hq, hkv, seed=hq + chunk, d=d)
     np.testing.assert_allclose(_port(*clean, chunk=chunk), got, rtol=1e-6,
                                atol=1e-6)
 
@@ -78,6 +94,16 @@ def test_flash_decode_window_matches_pallas(nan_pad):
 
 def test_flash_decode_bf16_matches_pallas():
     q, k, v, lens = _inputs(8, 2, seed=5, nan_pad=True)
+    got = _port(q, k, v, lens, dtype=torch.bfloat16)
+    want = _repro(q, k, v, lens, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(10, 2, 128), (32, 1, 128),
+                                      (4, 1, 256)])
+def test_flash_decode_bf16_head_layouts_match_pallas(hq, hkv, d):
+    """bf16 at group 5, group 32 and gemma3-1b's d 256."""
+    q, k, v, lens = _inputs(hq, hkv, seed=6 + hq, nan_pad=True, d=d)
     got = _port(q, k, v, lens, dtype=torch.bfloat16)
     want = _repro(q, k, v, lens, dtype=jnp.bfloat16)
     np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)

@@ -2,7 +2,8 @@
 and float32 output against the plain version, the cross-shard POR merge
 on ``codec_por`` against its CPU twin, the layer's merge kernel
 ``codec_mesh_merge`` against its plain version and against the stacked
-butterfly on ``codec_por``, and mesh engines against the single-device
+butterfly on ``codec_por`` (D = 2, 4, 8, 32 and 64: past 16 shards in
+blocks of 16), and mesh engines against the single-device
 fused engine.
 
 Needs an NVIDIA GPU and ``nvcc`` (the kernels are built on first use);
@@ -145,10 +146,26 @@ def test_por_subgroup_merge_on_card(D):
 
 def _merge_patterns(D, rng):
     """Every contributor pattern for D <= 4; for D = 8 each lone
-    contributor, every shard, aligned blocks and a few drawn at random."""
+    contributor, every shard, aligned blocks and a few drawn at random;
+    past 16 shards (blocks of 16 combined in the tree's order) lone
+    contributors in the first, a middle and the last block, the first and
+    last aligned blocks of 2, 16 and D / 2 shards, every shard, a pair
+    across the middle and a few drawn at random."""
     if D <= 4:
         return [m for m in itertools.product([False, True], repeat=D)
                 if any(m)]
+    if D > 16:
+        pats = [tuple(s == i for s in range(D))
+                for i in (0, 1, D // 2 + 3, D - 1)]
+        pats += [tuple(s // k == j for s in range(D))
+                 for k in (2, 16, D // 2) for j in (0, D // k - 1)]
+        pats += [(True,) * D,
+                 tuple(s in (D // 2 - 1, D // 2) for s in range(D))]
+        while len(pats) < 20:
+            m = tuple(bool(x) for x in rng.integers(0, 2, D))
+            if any(m):
+                pats.append(m)
+        return pats
     pats = [tuple(s == i for s in range(D)) for i in range(D)]
     pats += [tuple(s // k == j for s in range(D))
              for k in (2, 4) for j in range(D // k)]
@@ -162,7 +179,7 @@ def _merge_patterns(D, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("D", [2, 4, 8, 32, 64])
 def test_mesh_merge_on_card(D, hd):
     """On an H100: ``codec_mesh_merge`` over M = 1, 2 model shards, 12
     heads (two head blocks), bf16 and f32 output, 1, 2, 3 and 7 merged

@@ -1,7 +1,7 @@
 """The dry run's SPMD half: a cell's step partitioned with DTensor over a
 fake world (``launch.mesh.device_mesh``), its collectives priced by
 ``repro``'s ring rule, and the counters reading rank 0's local program;
-and the mesh engine's shard limit (ROADMAP C2).
+and the mesh engine at 16 and 32 data shards (ROADMAP C2, repaired).
 
 Pricing: each collective the port records is rendered as one HLO line
 with its replica group and fed to ``repro.launch.hlo_stats``'
@@ -97,7 +97,7 @@ def whole(kind, cfg=DENSE1):
 
 
 # --------------------------------------------------------------------- #
-# C2: the engine refuses a data axis its merge kernel cannot take
+# C2 (repaired): the mesh serves a data axis wider than 16
 # --------------------------------------------------------------------- #
 C2_CFG = smoke_config("qwen2.5-14b")
 C2_DOC = [3 + (7 * i) % 240 for i in range(320)]     # 40 pages of 8
@@ -116,21 +116,27 @@ def c2_streams(mesh):
     return [list(eng.requests[r].generated) for r in rids]
 
 
-def test_c2_wide_data_axis_refused_at_construction():
-    model = build_model(C2_CFG, seed=0, device="cpu", dtype=torch.float32)
-    with pytest.raises(ValueError, match="codec_mesh_merge") as err:
-        DecodeEngine(C2_CFG, model, page_size=8, num_pages=512,
-                     backend="codec-cuda", fused=True,
-                     mesh=decode_mesh(32, 1, device="cpu"),
-                     seq_split_pages=1, device="cpu")
-    assert str(por_mod.MERGE_MAX_SHARDS) in str(err.value)
-    assert "A17" in str(err.value)
-
-
 def test_c2_sixteen_shards_serve_the_single_shard_streams():
     one = c2_streams(None)
     assert all(len(s) == 4 for s in one)
     assert c2_streams(decode_mesh(16, 1, device="cpu")) == one
+
+
+def test_c2_thirty_two_shards_serve_the_single_shard_streams(monkeypatch):
+    """C2 repaired: a data axis wider than 16 serves (repro takes any
+    power of two), and the document's 40 pages span all 32 shards, so
+    each layer's merge runs over 32 contributors."""
+    calls = []
+    merge = por_mod.mesh_merge
+
+    def counted(o, *a, **k):
+        calls.append(int(a[4].sum()))       # contributing shards
+        return merge(o, *a, **k)
+    monkeypatch.setattr(por_mod, "mesh_merge", counted)
+    got = c2_streams(decode_mesh(32, 1, device="cpu"))
+    monkeypatch.undo()
+    assert got == c2_streams(None)
+    assert calls and max(calls) == 32
 
 
 # --------------------------------------------------------------------- #

@@ -352,9 +352,26 @@ def test_naive_divide_and_tree_helpers_match_repro():
 # --------------------------------------------------------------------- #
 # the cross-shard merge against repro's, under shard_map
 # --------------------------------------------------------------------- #
+# the contributor patterns of a 32-shard axis (every pattern of 2 and 4):
+# lone contributors, aligned blocks, the whole axis, pairs across block
+# edges of every size, and three seeded subsets
+_rng32 = np.random.default_rng(32)
+MASKS_32 = ([[s] for s in (0, 5, 31)]
+            + [list(range(a, b)) for a, b in ((0, 2), (4, 8), (16, 32),
+                                              (0, 32))]
+            + [[3, 4], [1, 30], [7, 8, 9], [15, 16]]
+            + [sorted(_rng32.choice(32, n, replace=False).tolist())
+               for n in (3, 11, 29)])
+SHARD_AXES = (2, 4, 32)
+
+
+def _n_patterns(D):
+    return len(MASKS_32) if D == 32 else 2 ** D - 1
+
+
 POR_MERGE = textwrap.dedent("""\
     import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=32"
     import itertools
     import numpy as np
     import jax
@@ -366,7 +383,8 @@ POR_MERGE = textwrap.dedent("""\
 
     rng = np.random.default_rng(0)
     out = {}
-    for D in (2, 4):
+    MASKS_32 = %r
+    for D in %r:
         mesh = Mesh(np.asarray(jax.devices()[:D]), ("data",))
         spec = (P("data"),) * 3
 
@@ -381,8 +399,11 @@ POR_MERGE = textwrap.dedent("""\
                                   out_specs=spec, check_rep=False))
         f_full = jax.jit(shard_map(full, mesh=mesh, in_specs=spec,
                                    out_specs=spec, check_rep=False))
-        for i, mask in enumerate(itertools.product([False, True],
-                                                   repeat=D)):
+        if D == 32:
+            masks = [tuple(s in ones for s in range(D)) for ones in MASKS_32]
+        else:
+            masks = list(itertools.product([False, True], repeat=D))
+        for i, mask in enumerate(masks):
             if not any(mask):
                 continue
             o = rng.standard_normal((D, 5, 2, 16)).astype(np.float32)
@@ -402,7 +423,7 @@ POR_MERGE = textwrap.dedent("""\
                     out[f"{key}_{name}_{part}"] = np.asarray(x)
     np.savez(sys.argv[1], **out)
     print("POR_MERGE_OK")
-""")
+""") % (MASKS_32, SHARD_AXES)
 
 
 @pytest.fixture(scope="module")
@@ -418,12 +439,12 @@ def repro_merges(tmp_path_factory):
     return dict(np.load(path))
 
 
-@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("D", SHARD_AXES)
 def test_por_merges_match_repro(D, repro_merges):
     z = repro_merges
     keys = sorted({k.rsplit("_", 1)[0] for k in z
                    if k.startswith(f"{D}_") and k.endswith("_c")})
-    assert len(keys) == 2 ** D - 1
+    assert len(keys) == _n_patterns(D)
     for key in keys:
         o, m, l, c = (z[f"{key}_{x}"] for x in "omlc")
         args = [torch.from_numpy(x) for x in (o, m, l)]
@@ -469,15 +490,15 @@ def _layer(z, key, B=7, M=2, seed=0):
     return [torch.from_numpy(x) for x in (O, Mx, Lx, gather, scatter, c)]
 
 
-@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("D", SHARD_AXES)
 def test_mesh_merge_matches_repro(D, repro_merges):
-    """Every contributor pattern: the merged rows are ``repro``'s shard-0
-    rows (1e-6, ``m`` and a lone contributor bitwise), the others shard
-    0's own, cast to f32 and bf16."""
+    """Every contributor pattern (at 32 shards, ``MASKS_32``): the merged
+    rows are ``repro``'s shard-0 rows (1e-6, ``m`` and a lone contributor
+    bitwise), the others shard 0's own, cast to f32 and bf16."""
     z = repro_merges
     keys = sorted({k.rsplit("_", 1)[0] for k in z
                    if k.startswith(f"{D}_") and k.endswith("_c")})
-    assert len(keys) == 2 ** D - 1
+    assert len(keys) == _n_patterns(D)
     rest = [0, 3]
     for key in keys:
         args = _layer(z, key)
@@ -558,9 +579,9 @@ def test_mesh_merge_guards():
         por_mod.mesh_merge(o, ml, ml, idx, idx, torch.ones(3),
                            torch.float32)
     with pytest.raises(ValueError, match="power-of-two"):
-        por_mod.mesh_merge(*(torch.zeros((32,) + t.shape[1:])
+        por_mod.mesh_merge(*(torch.zeros((12,) + t.shape[1:])
                              for t in (o, ml, ml)), idx, idx,
-                           torch.ones(32), torch.float32)
+                           torch.ones(12), torch.float32)
     with pytest.raises(ValueError, match="merge_scatter shape"):
         por_mod.mesh_merge(o[:2], ml[:2], ml[:2], idx,
                            torch.zeros(2, dtype=torch.int64), torch.ones(2),
