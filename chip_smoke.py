@@ -42,7 +42,9 @@ Phases (any failure raises and the script exits non-zero):
    with ``enable_gqa``, and the memory-efficient backend over K/V
    expanded to the query heads outside the timed region; the faster is
    the library time), and PAC once more over the codec plan rebuilt at
-   32 lanes;
+   32 lanes; then ``flash_decode`` over the same rows in bf16 KV (its
+   tensor-core path) beside its plain version and SDPA's bf16 call with
+   ``enable_gqa``;
 5. serve the same workload again through the ``flash`` backend (36
    layers), with the same launch counts, and print its TPOT beside
    ``codec-cuda``'s;
@@ -246,24 +248,28 @@ Phases (any failure raises and the script exits non-zero):
    all-reduces on the network, train only), records in
    ``chiprun_out/dryrun_torch``;
 17. the three kernels over every shape their TPU kernels take: (a)
-   ``flash_decode`` against its plain version at d 64, 128 and 256 x
-   groups 1, 4, 5, 7, 8, 16 and 32 (8 KV heads up to group 8, else 32
-   query heads; phase 4's row lengths, NaN past each), f32 and bf16,
-   bf16 within one bf16 step, the bf16 ones timed beside the plain
-   version and SDPA; the epilogue
+   ``flash_decode`` against its plain version at d 64, 128, 256, 16 and
+   96 x groups 1, 4, 5, 7, 8, 16 and 32 (8 KV heads up to group 8, else
+   32 query heads; phase 4's row lengths, NaN past each), f32 and bf16,
+   with and without a window of 512, bf16 within ``TOL`` and one bf16
+   step, the bf16 ones without a window timed beside the plain version
+   and SDPA; the epilogue
    on PAC's partials of an engine-shaped plan (8 questions over a
    2048-token document) at pages 8, 24, 32 and 128 x groups 1, 4, 8 and
-   32, in codec mode and in mesh mode (owner flags, float32 ``o``), and
-   at gemma3-1b's layout on page 128 with f32 KV (staged 64 tokens at a
-   time) and group 32 at d 256, f32 and bf16, timed beside the plain
-   version; ``codec_mesh_merge`` at 32 and 64 shards under five
-   contributor patterns, bitwise the stacked butterfly on ``codec_por``;
+   32, in codec mode and in mesh mode (owner flags, float32 ``o``), at
+   gemma3-1b's layout on page 128 with f32 KV (staged 64 tokens at a
+   time), group 32 at d 256, and ROADMAP C8's shapes (pages 256 and
+   1024, the smoke config's d 16, d 48 and 96), f32 and bf16, timed
+   beside the plain version; ``codec_mesh_merge`` at 32 and 64 shards
+   under five contributor patterns, bitwise the stacked butterfly on
+   ``codec_por``;
    (b) fused ``codec-cuda`` serves beside ``codec-torch`` at every
    epilogue shape the ``kernels`` line lists, equal streams: phase 6's
-   4-layer f32 model at pages 32, 8 and 128, the same with one KV head
-   (group 32) at page 32 on one device and on ``decode_mesh(2, 1)``,
-   gemma3-1b's layout (12c's 6 layers, f32) at page 128; each row's
-   launches are its serve's; (c) ROADMAP C2's
+   4-layer f32 model at pages 32, 8, 128 and 256, the same with one KV
+   head (group 32) at page 32 on one device and on ``decode_mesh(2, 1)``,
+   gemma3-1b's layout (12c's 6 layers, f32) at page 128, the qwen3-4b
+   smoke config (d 16) at page 16; each row's launches are its serve's;
+   (c) ROADMAP C2's
    reproduction (the qwen2.5-14b smoke model, head dim 64) at
    ``decode_mesh(32, 1)`` and ``(64, 1)``: the single-device streams;
 18. print the ``kernels`` JSON line and the closing device line.
@@ -293,8 +299,8 @@ HBM_BW = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # f32: the kernel and the plain version sum the same products in different
 # orders (and index_add_ on CUDA in a run-dependent order): ~1 ulp per add.
-# bf16 KV: PAC's tensor cores see q and P as bf16 hi + lo terms (max |err|
-# ~4e-4 measured at these shapes), flash_decode stays on f32 FFMA
+# bf16 KV: PAC's and flash_decode's tensor cores see an f32 q and P as
+# bf16 hi + lo terms (max |err| ~4e-4 measured at these shapes)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 POR_TOL = 1e-6
 # the epilogue against its plain version on the same partials: f32 output
@@ -1048,6 +1054,22 @@ def phase_compare(engine, timer):
     eff_err = max_err([sdpa_eff()[:, :, 0]], [o_c])
     eff_backend = sdpa_backend(sdpa_eff)
 
+    # the same rows over bf16 KV: flash_decode's tensor-core path beside
+    # its plain version and SDPA's bf16 kernel (enable_gqa)
+    kd_bf, vd_bf = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+    o_bf = fd.flash_decode(q_bf, kd_bf, vd_bf, kv_lens)
+    o_bf_plain = fd.flash_decode_torch(q_bf, kd_bf, vd_bf, kv_lens)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o_bf).all()), "flash_decode bf16 KV"
+    bf_err = assert_close("flash_decode bf16 KV vs plain", [o_bf],
+                          [o_bf_plain], TOL[torch.bfloat16])
+    bf_ulps = bf16_ulps(o_bf, o_bf_plain)
+    k_sb, v_sb = kd_bf.transpose(1, 2), vd_bf.transpose(1, 2)
+
+    def sdpa_bf16():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_bf[:, :, None], k_sb, v_sb, attn_mask=mask, enable_gqa=True)
+
     esize = k_pool.element_size()
     io_c = forest.codec_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
     io_f = forest.flash_io_bytes(cfg.num_kv_heads, cfg.head_dim, esize)
@@ -1076,13 +1098,19 @@ def phase_compare(engine, timer):
                 q_bf[pa_f.q_gather.long()], pa_f.q_pos, k_pool, v_pool,
                 pa_f.task_pages, pa_f.task_kvlen, pa_f.task_pos)),
             ("fd_plain", lambda: fd.flash_decode_torch(q_bf, kd, vd,
-                                                       kv_lens))):
+                                                       kv_lens)),
+            ("fd_bf16", lambda: fd.flash_decode(q_bf, kd_bf, vd_bf,
+                                                kv_lens)),
+            ("fd_bf16_plain", lambda: fd.flash_decode_torch(
+                q_bf, kd_bf, vd_bf, kv_lens)),
+            ("sdpa_bf16", sdpa_bf16)):
         t[key] = timer(fn)
         med[key] = timer.median
     b_c, by_c = pac_bound(plan_c, pa_c, q_bf, k_pool)
     b_f, by_f = pac_bound(plan_f, pa_f, q_bf, k_pool)
     b_32, by_32 = pac_bound(plan_32, pa_32, q_bf, k_pool)
     b_fd, by_fd = fd_bound(q_bf, kd, kv_lens)
+    b_fdb, by_fdb = fd_bound(q_bf, kd_bf, kv_lens)
     for key, name, plan, b, by in (
             ("pac_codec", "codec plan", plan_c, b_c, by_c),
             ("pac_32", "codec, 32 lanes", plan_32, b_32, by_32),
@@ -1109,6 +1137,13 @@ def phase_compare(engine, timer):
         f"{med['fd'] / med['pac_codec']:.2f}x); KV bytes {io_f / io_c:.2f}x")
     log(f"  flash_decode {b_fd / t['fd']:.1%} of its bound; "
         f"flash_decode / flash-plan PAC {t['fd'] / t['pac_flash']:.2f}x")
+    log(f"  flash_decode over bf16 KV {t['fd_bf16']:.4f} ms/launch, mean of "
+        f"20 (median {med['fd_bf16']:.4f}; bound {b_fdb:.4f} by {by_fdb}, "
+        f"{b_fdb / t['fd_bf16']:.1%} of it; plain {t['fd_bf16_plain']:.4f}; "
+        f"SDPA bf16 enable_gqa ({sdpa_backend(sdpa_bf16)}) "
+        f"{t['sdpa_bf16']:.4f}, median {med['sdpa_bf16']:.4f}); vs plain "
+        f"within {bf_ulps} bf16 step(s), max|err| {bf_err:.3e} (tol "
+        f"{TOL[torch.bfloat16]:g})")
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:91",
@@ -3464,7 +3499,7 @@ def mesh_merge_kernel(tag, engine, timer, launches):
         f"butterfly on codec_por; {launches['mesh_merge']} launches in the "
         f"run")
     return {"name": f"mesh_merge ({tag})", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/por.cu",
+            "source": "src/repro_torch/kernels/csrc/mesh_merge.cu",
             "replaces": "src/repro/kernels/por.py:44 (in "
                         "por_subgroup_merge, src/repro/kernels/por.py:121)",
             "launches": launches["mesh_merge"], "max_abs_err": err,
@@ -5149,11 +5184,13 @@ def phase_dryrun_all():
 # phase 17: the three kernels over every shape their TPU kernels take
 # --------------------------------------------------------------------- #
 # flash_decode: phase 4's row lengths (8 rows up to 4192 positions, NaN
-# past each), every head dim the kernel takes x the groups of fig13's
-# sweep and the real head layouts
+# past each), the configs' head dims and the smoke configs' 16 and 96 (the
+# next instance's columns past d masked) x the groups of fig13's sweep and
+# the real head layouts, each also under a window
 P17_FD_LENS = (4192, 1, 2007, 3000, 4100, 777, 4192, 64)
-P17_FD_DIMS = (64, 128, 256)
+P17_FD_DIMS = (64, 128, 256, 16, 96)
 P17_GROUPS = (1, 4, 5, 7, 8, 16, 32)
+P17_FD_WINDOW = 512
 # gemma3-1b's layout beside the sweep, and the (h_q, n_kv, d) shapes that
 # get a row of the kernels JSON line
 P17_FD_EXTRA = ((4, 1, 256),)
@@ -5162,16 +5199,24 @@ P17_FD_ROWS = {(4, 1, 256): "gemma3-1b", (40, 8, 128): "llama4-scout",
                (32, 1, 128): "fig13", (8, 8, 64): "MHA"}
 # the epilogue: pages x groups at d 128 in codec and mesh mode, then
 # gemma3-1b's layout at page 128 with f32 KV (staged 64 tokens at a time)
-# and group 32 at d 256
+# and group 32 at d 256; C8's shapes: pages 256 and 1024 (the tail in
+# passes of 128 tokens), the smoke config's 4 over 2 heads at d 16, and d
+# 48 and 96; (page, h_q, n_kv, d, the timed type)
 P17_PAGES = (8, 24, 32, 128)
 P17_EPI_GROUPS = (1, 4, 8, 32)
 P17_EPI_EXTRA = ((128, 4, 1, 256, torch.float32),
-                 (32, 32, 1, 256, torch.bfloat16))
+                 (32, 32, 1, 256, torch.bfloat16),
+                 (256, 32, 8, 128, torch.float32),
+                 (1024, 32, 8, 128, torch.bfloat16),
+                 (16, 4, 2, 16, torch.float32),
+                 (32, 24, 8, 48, torch.bfloat16),
+                 (32, 32, 4, 96, torch.bfloat16))
 P17_MERGE_D = (32, 64)
 # 17b's fused codec-cuda serves: (model, page, data shards or 0)
 P17_SERVES = (("qwen3-4b", 32, 0), ("qwen3-4b", 8, 0), ("qwen3-4b", 128, 0),
+              ("qwen3-4b", 256, 0),
               ("qwen3-4b 32 over 1", 32, 0), ("qwen3-4b 32 over 1", 32, 2),
-              ("gemma3-1b", 128, 0))
+              ("gemma3-1b", 128, 0), ("qwen3-4b smoke", 16, 0))
 P17_DOC = 2048
 P17_REPS = 5
 C2_DOC = [3 + (7 * i) % 240 for i in range(320)]     # 40 pages of 8
@@ -5186,9 +5231,10 @@ def p17_heads(group):
 
 def p17_flash_decode(timer):
     """17a: ``flash_decode`` against its plain version at every (d,
-    group) and gemma3-1b's layout, f32 and bf16 q and KV; bf16 timed
-    beside the plain version and SDPA over the same rows (``enable_gqa``,
-    K and V zero where NaN).  Returns {(h_q, n_kv, d): row}."""
+    group) and gemma3-1b's layout, f32 and bf16 q and KV, with and without
+    a window; bf16 without one timed beside the plain version and SDPA
+    over the same rows (``enable_gqa``, K and V zero where NaN).  Returns
+    {(h_q, n_kv, d): row}."""
     from repro_torch.kernels import flash_decode as fd
     gen = torch.Generator(device="cuda").manual_seed(17)
     lens = torch.tensor(P17_FD_LENS, dtype=torch.int32, device="cuda")
@@ -5208,22 +5254,30 @@ def p17_flash_decode(timer):
             for b, n in enumerate(P17_FD_LENS):
                 k[b, n:] = float("nan")
                 v[b, n:] = float("nan")
-            n0 = fd.launches
-            got = fd.flash_decode(q, k, v, lens)
-            launches = fd.launches - n0
-            want = fd.flash_decode_torch(q, k, v, lens)
-            torch.cuda.synchronize()
-            tag = f"17a flash_decode d={d} group={group} {dtype}"
-            assert bool(torch.isfinite(got).all()), tag
+            for window in (P17_FD_WINDOW, 0):
+                n0 = fd.launches
+                got = fd.flash_decode(q, k, v, lens, window=window)
+                launches = fd.launches - n0
+                want = fd.flash_decode_torch(q, k, v, lens, window=window)
+                torch.cuda.synchronize()
+                tag = (f"17a flash_decode d={d} group={group} window="
+                       f"{window} {dtype}")
+                assert bool(torch.isfinite(got).all()), tag
+                if dtype == torch.float32:
+                    err = assert_close(tag, [got], [want], EPI_TOL)
+                    log(f"  {tag}: {h_q} over {n_kv} heads, max|err| "
+                        f"{err:.3e} (tol {EPI_TOL:g})")
+                    continue
+                # both sum in f32 and round once to bf16
+                err = assert_close(tag, [got], [want], TOL[dtype])
+                ulps = bf16_ulps(got, want)
+                assert ulps <= EPI_ULPS, (tag, ulps)
+                if window:
+                    log(f"  {tag}: {h_q} over {n_kv} heads, within {ulps} "
+                        f"bf16 step(s), max|err| {err:.3e} (tol "
+                        f"{TOL[dtype]:g})")
             if dtype == torch.float32:
-                err = assert_close(tag, [got], [want], EPI_TOL)
-                log(f"  {tag}: {h_q} over {n_kv} heads, max|err| "
-                    f"{err:.3e} (tol {EPI_TOL:g})")
                 continue
-            # both sum in f32 and round once to bf16
-            ulps = bf16_ulps(got, want)
-            assert ulps <= EPI_ULPS, (tag, ulps)
-            err = max_err([got], [want])
             kz, vz = (torch.nan_to_num(x, nan=0.0).transpose(1, 2)
                       for x in (k, v))
             qs = q[:, :, None]
@@ -5383,14 +5437,17 @@ def phase_pages_f32():
     """17b: fused ``codec-cuda`` serves at the new shapes, each beside
     ``codec-torch`` (plain PAC, the same epilogue kernel) on one device;
     the streams must be equal.  Phase 6's 4-layer f32 qwen3-4b at pages of
-    32, 8 and 128; the same with one KV head (32 over 1: group 32) at page
-    32, on one device and on a ``decode_mesh(2, 1)`` (the epilogue's mesh
-    mode); gemma3-1b's layout (4 over 1, d 256; 12c's 6 layers, f32 KV
-    staged 64 tokens at a time) at page 128.  8 questions over a
+    32, 8, 128 and 256 (C8: the tail in two passes of 128 tokens); the same
+    with one KV head (32 over 1: group 32) at page 32, on one device and on
+    a ``decode_mesh(2, 1)`` (the epilogue's mesh mode); gemma3-1b's layout
+    (4 over 1, d 256; 12c's 6 layers, f32 KV staged 64 tokens at a time) at
+    page 128; the qwen3-4b smoke config (C8: d 16, 4 over 2 heads, 2
+    layers, which the engine refused on the card before) at page 16.  8
+    questions over a
     2048-token document, 32 greedy tokens each.  Returns the launch counts
     of each ``codec-cuda`` serve, read just after it with every count
     reset just before, by (model, page, data shards)."""
-    from repro_torch.configs import PAPER_ARCH, get_config
+    from repro_torch.configs import PAPER_ARCH, get_config, smoke_config
     from repro_torch.distributed import decode_mesh
     from repro_torch.launch.serve import doc_prompts, serve
     from repro_torch.models.transformer import build_model
@@ -5400,7 +5457,8 @@ def phase_pages_f32():
               "qwen3-4b 32 over 1": dataclasses.replace(qwen,
                                                         num_kv_heads=1),
               "gemma3-1b": dataclasses.replace(get_config("gemma3-1b"),
-                                               num_layers=P12C_GEMMA_LAYERS)}
+                                               num_layers=P12C_GEMMA_LAYERS),
+              "qwen3-4b smoke": smoke_config(PAPER_ARCH)}
     out = {}
     for name, cfg in models.items():
         model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
@@ -5546,14 +5604,20 @@ def phase_shapes(timer):
              ("qwen3-4b 32 over 1", 32, 2)),
             ((128, 4, 256, False), "page 128, gemma3-1b's 4 over 1 heads, "
              "d 256, f32 KV staged 64 tokens at a time",
-             ("gemma3-1b", 128, 0))):
+             ("gemma3-1b", 128, 0)),
+            ((256, 4, 128, False), "page 256, 32 over 8 heads, d 128, the "
+             "tail in two 128-token passes", ("qwen3-4b", 256, 0)),
+            ((16, 2, 16, False), "the smoke config's 4 over 2 heads, d 16 "
+             "in the 256-column instance, page 16",
+             ("qwen3-4b smoke", 16, 0))):
         kernels.append(entry(f"por_epilogue ({name})", por_src, epi_src,
                              epi[key], launches=pages[serve_key][
                                  "por_epilogue"]))
     for D in P17_MERGE_D:
         kernels.append(entry(
             f"mesh_merge (D = {D}, 8 rows x 32 heads, d 128, bf16 out)",
-            por_src, "src/repro/kernels/por.py:44 (in por_subgroup_merge, "
+            "src/repro_torch/kernels/csrc/mesh_merge.cu",
+            "src/repro/kernels/por.py:44 (in por_subgroup_merge, "
             "src/repro/kernels/por.py:121)", merge_rows[D],
             launches=merges[D]["mesh_merge"]))
     return kernels

@@ -467,7 +467,7 @@ class RankKVPool(ShardedKVPool):
         self.k[layer].index_put_((rows, offsets), self._own_heads(k_new))
         self.v[layer].index_put_((rows, offsets), self._own_heads(v_new))
 
-    def _gather_rows(self, rows: torch.Tensor, axis: str,
+    def _gather_rows(self, rows: torch.Tensor, axis: str, kind: str,
                      layer: Optional[int] = None) -> torch.Tensor:
         """K and V of the global page rows ``rows`` from the ranks that
         hold them, gathered over ``axis``: ``(2, layers, n, page, heads,
@@ -475,7 +475,8 @@ class RankKVPool(ShardedKVPool):
         block (``"data"``) or every head (``"world"``).  Each row's head
         block is written by the one rank that holds it and is zero
         elsewhere, so the sum over the group leaves every element its
-        holder's bits."""
+        holder's bits.  The gather is guarded (``ProcessMesh.guard``,
+        ``kind``): a rank that gathers alone raises with the others."""
         h = self.k.shape[3]
         src = ((self.k, self.v) if layer is None
                else (self.k[layer:layer + 1], self.v[layer:layer + 1]))
@@ -488,13 +489,14 @@ class RankKVPool(ShardedKVPool):
         loc = self._local(rows)
         for i, t in enumerate(src):
             buf[i, ..., h0:h0 + h, :] = torch.where(own, t[:, loc], 0)
+        self.mesh.guard(kind, buf.nbytes)
         return self.mesh.slot_gather(buf, axis)
 
     def copy_pages(self, dst: List[int], src: List[int]) -> None:
         """Copy whole pages, every layer (replica promotion): each source
         row comes from the rank of its data shard over the data group;
         each rank keeps the destinations that are its own."""
-        kv = self._gather_rows(self._index(src), "data")
+        kv = self._gather_rows(self._index(src), "data", "copy_pages")
         loc = self._local(self._index(dst))
         self.k[:, loc] = kv[0]
         self.v[:, loc] = kv[1]
@@ -504,7 +506,8 @@ class RankKVPool(ShardedKVPool):
         """Dense (length, n_kv, hd) copy of a page run (prefill reuse),
         assembled over the whole mesh: pages from their data shards, head
         blocks from their model shards."""
-        kv = self._gather_rows(self._index(pages), "world", layer)
+        kv = self._gather_rows(self._index(pages), "world",
+                               "gather_context", layer)
         shape = (len(pages) * self.page_size,) + self.kv_shape
         return (kv[0, 0].reshape(shape)[:length],
                 kv[1, 0].reshape(shape)[:length])

@@ -32,13 +32,22 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 # slot gathers issued (the fused step counts those recorded into a graph)
 collectives = 0
+
+# what an ``agree`` compares, as a code in the top bits of its 63-bit
+# value: ranks that meet in two different agrees (one guarding a host
+# collective that the others do not issue) learn each other's kind
+AGREE_KINDS = ("the host state", "the plan epoch", "the step's metrics",
+               "the saved arrays", "gather_context", "copy_pages",
+               "host_max", "host_broadcast")
+_KIND_SHIFT = 57
 
 
 class MeshDivergenceError(RuntimeError):
@@ -112,6 +121,9 @@ class ProcessMesh:
     rank: int
     backend: str
     groups: Dict[str, object]      # "data" / "model" / "world" -> group
+    # the guarded host collectives issued so far (``guard``)
+    _guards: Iterator[int] = dataclasses.field(
+        default_factory=itertools.count, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -150,6 +162,7 @@ class ProcessMesh:
         """Element-wise max of a host vector over every rank (float64)."""
         t = torch.tensor(list(values), dtype=torch.float64,
                          device=self.device)
+        self.guard("host_max", t.nbytes)
         if t.numel():
             torch.distributed.all_reduce(
                 t, op=torch.distributed.ReduceOp.MAX,
@@ -164,6 +177,7 @@ class ProcessMesh:
         bits arrive exactly."""
         t = torch.zeros(len(values), dtype=torch.float64,
                         device=self.device)
+        self.guard("host_broadcast", t.nbytes)
         if self.rank == src:
             t.copy_(torch.tensor(list(values), dtype=torch.float64))
         if t.numel():
@@ -190,19 +204,44 @@ class ProcessMesh:
         return _build(data, self.model, self.device,
                       list(range(data * self.model)))
 
-    def agree(self, value: int, what: str) -> None:
+    def agree(self, value: int, what: str,
+              kind: Optional[str] = None) -> None:
         """Raise ``MeshDivergenceError`` on every rank unless every rank
-        passed the same ``value`` (a digest, cut to 63 bits; one
-        max-reduce of ``(-x, x)`` gives the min and the max)."""
-        x = int(value) & ((1 << 63) - 1)
+        passed the same ``value`` (a digest) for the same ``kind`` (one of
+        ``AGREE_KINDS``, by default ``what``; any other counts as the
+        first).  The kind's index rides in the top 6 bits above 57 bits
+        of the digest, and one max-reduce of ``(-x, x)`` gives the least
+        and the greatest value: where ranks meet in agrees of two kinds,
+        the message names both."""
+        kind = kind or what
+        code = AGREE_KINDS.index(kind) if kind in AGREE_KINDS else 0
+        x = (code << _KIND_SHIFT) | (int(value) & ((1 << _KIND_SHIFT) - 1))
         t = torch.tensor([-x, x], dtype=torch.int64, device=self.device)
         torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
                                      group=self.groups["world"])
         lo, hi = -int(t[0]), int(t[1])
         if lo != hi:
+            kinds = [AGREE_KINDS[v >> _KIND_SHIFT] for v in (lo, hi)]
+            met = (f"; the ranks meet in two collectives, {kinds[0]} and "
+                   f"{kinds[1]}" if kinds[0] != kinds[1] else "")
             raise MeshDivergenceError(
                 f"rank {self.rank}: the ranks disagree on {what} "
-                f"(digests {lo} .. {hi}; this rank's {x})")
+                f"(digests {lo} .. {hi}; this rank's {x}{met})")
+
+    def guard(self, kind: str, nbytes: int) -> None:
+        """``agree`` on a digest of the mesh's count of guarded host
+        collectives, ``kind`` and ``nbytes``, before a host collective
+        whose occurrence depends on the host's decisions: a prefill's
+        context gather, a replica promotion's page gather, ``host_max``,
+        ``host_broadcast``.  A rank that issues one that the others do
+        not meets their next agree (this guard, or a plan epoch's: 16
+        bytes each) and every rank raises ``MeshDivergenceError`` naming
+        the two, where the collectives themselves, of other sizes, would
+        wait for the group's timeout.  The step's slot gathers, a fixed
+        number a step, are not guarded."""
+        seq, nbytes = next(self._guards), int(nbytes)
+        self.agree(digest(seq, kind, nbytes),
+                   f"host collective {seq} ({kind}, {nbytes} bytes)", kind)
 
 
 def digest(*parts) -> int:

@@ -26,10 +26,15 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pac.cu", "por.cu", "flash_decode.cu")
+SOURCES = ("pac.cu", "por.cu", "mesh_merge.cu", "flash_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the head dims the attention kernels take (``codec::head_dim_taken`` in
+# csrc/hopper.cuh): multiples of 16 from 16 to 256, the columns past d
+# masked in a wider instance where a kernel needs one
+HEAD_DIMS = tuple(range(16, 257, 16))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -123,11 +128,11 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.codec_por_epilogue.restype = I
     lib.codec_mesh_merge.argtypes = [P] * 7 + [I] + [P] * 2 + [I] * 6 + [P]
     lib.codec_mesh_merge.restype = I
-    lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 7
+    lib.codec_flash_decode.argtypes = ([P, I, P, P, I] + [P] * 5 + [I] * 8
                                        + [F, P])
     lib.codec_flash_decode.restype = I
-    lib.codec_flash_decode_chunk.argtypes = [I, I]
-    lib.codec_flash_decode_chunk.restype = I
+    lib.codec_flash_decode_chunks.argtypes = [I, I, I, I]
+    lib.codec_flash_decode_chunks.restype = I
     return lib
 
 

@@ -1,6 +1,7 @@
-// PTX wrappers shared by the hand-written kernels (sm_80 and later; built
-// for sm_90a): asynchronous global->shared copies, ldmatrix, the bf16
-// mma.sync tensor-core product and the warp's transposing butterfly sum.
+// PTX wrappers and helpers shared by the hand-written kernels (sm_80 and
+// later; built for sm_90a): asynchronous global->shared copies, ldmatrix,
+// the bf16 mma.sync tensor-core product, the warp's transposing butterfly
+// sum, and vector loads and stores of a lane's columns.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +11,14 @@
 namespace codec {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// The head dims the attention kernels take: multiples of 16 from 16 to
+// 256.  A kernel runs d in an instance of more columns where it must, the
+// columns past d masked: a lane's or a fragment's columns lie all below d
+// or all past it.
+__host__ __device__ constexpr bool head_dim_taken(int d) {
+  return d >= 16 && d <= 256 && d % 16 == 0;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -115,6 +124,100 @@ __device__ __forceinline__ void reduce_rounds(float (&v)[M], int ln) {
     } else {
       v[0] += __shfl_xor_sync(kFullMask, v[0], O);
       reduce_rounds<1, O / 2>(v, ln);
+    }
+  }
+}
+
+// Two bf16 (the low half first) as floats.
+__device__ __forceinline__ float2 bf16x2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// C contiguous elements (16-byte aligned for C >= 4 at f32, 2C-byte
+// aligned at bf16) as floats, in vector loads.
+template <int C>
+__device__ __forceinline__ void load_cols(const float* p, float (&x)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < C; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      x[i] = v.x;
+      x[i + 1] = v.y;
+      x[i + 2] = v.z;
+      x[i + 3] = v.w;
+    }
+  } else if constexpr (C == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
+                                          float (&x)[C]) {
+  if constexpr (C == 1) {
+    x[0] = __bfloat162float(*p);
+  } else {
+    uint32_t u[C / 2];
+    if constexpr (C == 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      u[0] = v.x;
+      u[1] = v.y;
+      u[2] = v.z;
+      u[3] = v.w;
+    } else if constexpr (C == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      u[0] = v.x;
+      u[1] = v.y;
+    } else {
+      u[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) {
+      const float2 f = bf16x2(u[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// The same C elements written back (bf16 rounded to nearest even).
+template <int C>
+__device__ __forceinline__ void store_cols(float* p, const float (&x)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < C; i += 4) {
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+    }
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p,
+                                           const float (&x)[C]) {
+  if constexpr (C == 1) {
+    *p = __float2bfloat16(x[0]);
+  } else {
+    uint32_t u[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+      u[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (C == 8) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+    } else if constexpr (C == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(p) = u[0];
     }
   }
 }

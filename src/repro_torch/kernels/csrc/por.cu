@@ -60,11 +60,13 @@
 //      - the block first issues cp.async copies of the tail page's visible
 //        K and V rows for its KV head into shared memory, straight from the
 //        pool page (no gather copy), then does the first head's segment
-//        while they fly.  K and V are staged whole where both fit in 128 KB
-//        (every page up to 128 tokens but f32 KV at d = 256 past 64
-//        tokens); there they go 64 tokens at a time, re-staged for each of
-//        a warp's heads, and the tail's softmax is carried online across
-//        the passes (the sums scaled by exp(m_old - m_new));
+//        while they fly.  K and V are staged whole where the page is at
+//        most 128 tokens and both fit in 128 KB (every such page but f32
+//        KV at d = 256 past 64 tokens); past that they go in passes of 128
+//        tokens (64 for f32 KV at d = 256), re-staged for each of a warp's
+//        heads, and the tail's softmax is carried online across the passes
+//        (the sums scaled by exp(m_old - m_new)), so a page of any length
+//        runs;
 //      - a warp reads up to 32 rows' m and l in one load and takes the
 //        segment max with shuffles; the o rows of up to 64/(d/32) partials
 //        are all issued before the weighted sum consumes them, the first
@@ -76,9 +78,13 @@
 //        page that is not a multiple of 32 leaves the last round's lanes
 //        past it at the mask); p is broadcast back by shuffle for the V
 //        sum.
-//    It takes d = 64, 128 and 256, any number of query heads per KV head,
-//    any page from 1 to 128 tokens, f32 or bf16 q and f32 or bf16 KV, and
-//    refuses anything else.
+//    It takes every head dim d with d % 16 == 0 and 16 <= d <= 256 (64,
+//    128 and 256 in instances of their own, any other in the 256-column
+//    one: a lane whose columns lie past d holds q = 0, and reads and
+//    writes nothing there),
+//    any number of query heads per KV head, any page from 1 to 2^20 - 1
+//    tokens (PAC's bound), f32 or bf16 q and f32 or bf16 KV, and refuses
+//    anything else.
 //
 //    The mesh's two options (the sharded step runs the epilogue once per
 //    shard and then merges the shards' partials across the data axis):
@@ -101,57 +107,9 @@
 //    would divide o_f * l_f by l_f again and change the last bits.  A query
 //    with an empty segment (a padded row) comes out 0 with m = -1e30, l = 0.
 //
-// 3. codec_mesh_merge is the mesh's cross-shard merge for one layer, in one
-//    launch.  It replaces the Pallas TPU kernel
-//    src/repro/kernels/por.py::por in its role inside por_subgroup_merge
-//    (src/repro/kernels/por.py:121, called by the JAX package's sharded
-//    step, src/repro/distributed/step_fn.py:175-183), together with what
-//    surrounds it there: the row gather, the packing, the ppermute of each
-//    round, the scatter back and the cast.  Inputs are the D data shards'
-//    stats-mode epilogue outputs, o (D, M, B, h, hd) and m, l (D, M, B, h)
-//    float32, as the epilogues wrote them; merge_gather / merge_scatter
-//    (Bm,) int64 (gather padded with 0, scatter with B) and contrib (D,)
-//    int64 0/1 flags.  It writes shard 0's view, (M, B, h, hd) in the
-//    model's type:
-//      - a row b that no scatter slot names is o[0, :, b] cast;
-//      - the row b = merge_scatter[j] is shard 0's result of the subgroup
-//        butterfly over the D shards' partials of row merge_gather[j]:
-//        anchor = the first contributor, xall = max over contributors of
-//        (shard ^ anchor); round `shift` (1, 2, .., D/2) merges when
-//        xall >= shift, else copies (shard s keeps its own value when
-//        s / shift == anchor / shift, else takes shard s ^ shift's).  Shard
-//        0's final value needs, before round `shift`, the shards that are
-//        multiples of `shift`, so the kernel runs the D - 1 merges of that
-//        tree in round order, each one POR of codec_por's arithmetic above
-//        (expf, __fmul_rn, __fadd_rn, __fdiv_rn, the lower shard's side as
-//        the local operand): its rows are bitwise those of the stacked
-//        butterfly on codec_por, and a lone contributor's partials pass
-//        through copy rounds as selects, verbatim.
-//    A padded slot's scatter index is B, which names no row: nothing is
-//    written for it.  Optional out_m / out_l (M, B, h) take shard 0's m
-//    and l the same way.
 //
-//    What bounds it: at the serve's 2x1 mesh (32 heads, hd 128, 8 rows, all
-//    merged, bf16 output) it reads ~0.53 MB of partials and writes 64 KB:
-//    ~0.2 us at 3.35 TB/s, with a few FLOPs a byte.  Its launch bounds it.
-//    The composition it replaces took ~39 small kernels a layer (stack,
-//    gathers, pack, the XOR exchange copy, slice copies, codec_por, the
-//    selects, the scatter, the cast), each a launch and a round trip
-//    through HBM; here the D shards' rows are loaded once into registers,
-//    straight from where the epilogues wrote them, and the output is
-//    written once.  Grid (B, M, head blocks of up to 8 warps), one warp per
-//    query head, a lane holding hd/32 contiguous columns of each shard's
-//    row; every warp finds its row's slot by scanning merge_scatter with a
-//    ballot and reads contrib itself, on the device (no host sync, so it
-//    runs inside a CUDA graph).  Up to 16 shards every round runs on
-//    registers (o[D][hd/32] a lane: 184 registers at D = 16, hd 256).  A
-//    wider axis runs in blocks of 16 shards, each block's four rounds in
-//    registers as above, and the blocks' results are combined in the
-//    tree's order as they come (a binary counter over the blocks, one
-//    stacked result a level in local memory): each merge and each copy is
-//    the one the butterfly makes, on the same operands, so the rows stay
-//    bitwise those of the stacked route.  It takes any power-of-two D up
-//    to 2^19 and hd = 64, 128, 256, and writes float32 or bf16.
+//    The mesh's cross-shard merge, codec_mesh_merge, lives in
+//    mesh_merge.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -197,15 +155,19 @@ using codec::cp_async16;
 using codec::cp_async_commit;
 using codec::cp_async_wait;
 using codec::kFullMask;
+using codec::load_cols;
 using codec::reduce_rounds;
+using codec::store_cols;
 
 constexpr float kMask = -1e30f;  // the plain versions' MASK_VALUE
 constexpr int kMaxWarps = 8;     // warps a block (query heads at a time)
-// shared memory for the tail page: K and V staged whole up to this, else
-// kTailChunk tokens at a time
+// shared memory for the tail page: a pass stages up to kTailPass tokens
+// of K and V (a page up to that whole), or kTailChunk where kTailPass
+// tokens of both would pass kTailSmem
 constexpr size_t kTailSmem = 128 << 10;
+constexpr int kTailPass = 128;
 constexpr int kTailChunk = 64;
-constexpr int kMaxPage = 128;
+constexpr int kMaxPage = 1 << 20;  // PAC's bound too (20 bits of kvlen)
 
 struct EpiArgs {
   const void* q;                // (B, h_q, d), f32 or bf16
@@ -223,109 +185,24 @@ struct EpiArgs {
   void* out;                    // (B, h_q, d) in q's type, or float32
   float* out_m;                 // (B, h_q) or null
   float* out_l;                 // (B, h_q) or null
-  int h_q, n_kv, page, window;
-  int tc;    // tail tokens staged at once: the page, or kTailChunk
+  int h_q, n_kv, d, page, window;
+  int tc;    // tail tokens staged a pass: the page, kTailPass or kTailChunk
   int tail;  // 0: segment and cast only (no tail page, no POR)
   int out_f32;  // 1: out is float32 whatever q's type
   float scale;
 };
 
-__device__ __forceinline__ float2 bf16x2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// C contiguous elements (16-byte aligned for C >= 4 at f32, 2C-byte
-// aligned at bf16) as floats, in vector loads.
-template <int C>
-__device__ __forceinline__ void load_cols(const float* p, float (&x)[C]) {
-  if constexpr (C % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < C; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + i);
-      x[i] = v.x;
-      x[i + 1] = v.y;
-      x[i + 2] = v.z;
-      x[i + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < C; i += 2) {
-      const float2 v = *reinterpret_cast<const float2*>(p + i);
-      x[i] = v.x;
-      x[i + 1] = v.y;
-    }
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
-                                          float (&x)[C]) {
-  uint32_t u[C / 2];
-  if constexpr (C == 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    u[0] = v.x;
-    u[1] = v.y;
-    u[2] = v.z;
-    u[3] = v.w;
-  } else if constexpr (C == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    u[0] = v.x;
-    u[1] = v.y;
-  } else {
-    u[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-#pragma unroll
-  for (int i = 0; i < C / 2; ++i) {
-    const float2 f = bf16x2(u[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void store_cols(float* p, const float (&x)[C]) {
-  if constexpr (C % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < C; i += 4) {
-      *reinterpret_cast<float4*>(p + i) =
-          make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < C; i += 2) {
-      *reinterpret_cast<float2*>(p + i) = make_float2(x[i], x[i + 1]);
-    }
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void store_cols(__nv_bfloat16* p,
-                                           const float (&x)[C]) {
-  uint32_t u[C / 2];
-#pragma unroll
-  for (int i = 0; i < C / 2; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    u[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  if constexpr (C == 8) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
-  } else if constexpr (C == 4) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
-  } else {
-    *reinterpret_cast<uint32_t*>(p) = u[0];
-  }
-}
-
-// o of one query head: columns lane*C.. of row `row`, in q's type or
-// float32
+// o of one query head: columns lane*C.. of row `row` (rows of dd
+// elements), in q's type or float32; nothing for a lane past d
 template <int C, typename QT>
 __device__ __forceinline__ void store_out(const EpiArgs& a, size_t row,
-                                          int lane, const float (&o)[C]) {
-  constexpr int D = 32 * C;
+                                          int dd, int lane, bool live,
+                                          const float (&o)[C]) {
+  if (!live) return;
   if (a.out_f32) {
-    store_cols<C>(static_cast<float*>(a.out) + row * D + lane * C, o);
+    store_cols<C>(static_cast<float*>(a.out) + row * dd + lane * C, o);
   } else {
-    store_cols<C>(static_cast<QT*>(a.out) + row * D + lane * C, o);
+    store_cols<C>(static_cast<QT*>(a.out) + row * dd + lane * C, o);
   }
 }
 
@@ -349,22 +226,23 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Stages tokens s0..s1 (inclusive) of the tail page's rows for KV head g
-// into shared memory, token j at row j - c0: every thread of the block
+// into shared memory, token j at row j - c0 (rows of D elements, of which
+// the first dd, the head dim, are copied): every thread of the block
 // issues its share of 16-byte cp.async copies, straight from the pool.
 template <int D, typename KT>
-__device__ __forceinline__ void stage_tail(const EpiArgs& a, KT* ks, KT* vs,
-                                           int b, int g, int s0, int s1,
-                                           int c0) {
-  constexpr int kPieces = D * (int)sizeof(KT) / 16;  // 16-byte row pieces
+__device__ __forceinline__ void stage_tail(const EpiArgs& a, int dd, KT* ks,
+                                           KT* vs, int b, int g, int s0,
+                                           int s1, int c0) {
   constexpr int kPieceElems = 16 / (int)sizeof(KT);
-  const size_t row = (size_t)a.n_kv * D;
-  const size_t first = ((size_t)a.tail_pages[b] * a.page * a.n_kv + g) * D;
+  const int pieces = dd / kPieceElems;  // 16-byte pieces of a row
+  const size_t row = (size_t)a.n_kv * dd;
+  const size_t first = ((size_t)a.tail_pages[b] * a.page * a.n_kv + g) * dd;
   const KT* kp = static_cast<const KT*>(a.k_pool) + first;
   const KT* vp = static_cast<const KT*>(a.v_pool) + first;
-  const int n = (s1 - s0 + 1) * kPieces;
+  const int n = (s1 - s0 + 1) * pieces;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j = s0 + i / kPieces;
-    const int c = (i % kPieces) * kPieceElems;
+    const int j = s0 + i / pieces;
+    const int c = (i % pieces) * kPieceElems;
     cp_async16(ks + (j - c0) * D + c, kp + j * row + c, 16);
     cp_async16(vs + (j - c0) * D + c, vp + j * row + c, 16);
   }
@@ -376,12 +254,17 @@ __device__ __forceinline__ void stage_tail(const EpiArgs& a, KT* ks, KT* vs,
 // kWide is false where a warp takes one head and the page (up to 64
 // tokens) is staged whole: then the head loop and the tail's stage loop
 // run once, known at compile time, and the tail takes two 32-token rounds.
-template <int D, typename QT, typename KT, bool kWide>
+// D is the head dim d (kExact) or, for any d other than 64, 128 and 256,
+// 256: a lane holds D / 32 columns, and a lane whose columns lie past d
+// (d % 16 == 0, so none straddles it) holds q = 0, reads nothing and
+// writes nothing.  kExact keeps the row stride a constant and every lane
+// live.
+template <int D, typename QT, typename KT, bool kWide, bool kExact>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     epilogue_kernel(const EpiArgs a) {
   constexpr int C = D / 32;                // columns of a lane
-  constexpr int kInFlight = 64 / C;        // partial rows loaded at once
-  constexpr int kRounds = kWide ? kMaxPage / 32 : 2;  // of the tail, a pass
+  constexpr int kInFlight = C == 1 ? 32 : 64 / C;  // partial rows at once
+  constexpr int kRounds = kWide ? kTailPass / 32 : 2;  // of the tail, a pass
   extern __shared__ __align__(16) unsigned char smem[];
   KT* ks = reinterpret_cast<KT*>(smem);
   KT* vs = ks + a.tc * D;
@@ -390,6 +273,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int group = a.h_q / a.n_kv;
+  const int dd = kExact ? D : a.d;   // the rows' stride, the head dim
+  const bool live = kExact || lane * C < dd;  // columns below d
 
   // 1. the tail page (tail mode, on the shard that holds it): visible
   // tokens j0..j1.  Its first tc tokens (the whole page where K and V fit
@@ -404,7 +289,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const long long lo = a.window > 0 ? qp - a.window + 1 - base : 0;
     j1 = (int)(hi < a.page - 1 ? hi : a.page - 1);
     j0 = (int)(lo > 0 ? lo : 0);
-    stage_tail<D, KT>(a, ks, vs, b, g, j0, min(j1, a.tc - 1), 0);
+    stage_tail<D, KT>(a, dd, ks, vs, b, g, j0, min(j1, a.tc - 1), 0);
   }
   if (a.tail) cp_async_commit();
 
@@ -414,9 +299,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float qv[C];
     {
       const QT* qr = static_cast<const QT*>(a.q) +
-                     ((size_t)b * a.h_q + h) * D + lane * C;
+                     ((size_t)b * a.h_q + h) * dd + lane * C;
 #pragma unroll
-      for (int c = 0; c < C; ++c) qv[c] = to_f32(qr[c]);
+      for (int c = 0; c < C; ++c) qv[c] = live ? to_f32(qr[c]) : 0.f;
     }
 
     // 2. the segment of query b: max, then the weighted sums row by row.
@@ -436,8 +321,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
       for (int k = 0; k < kInFlight; ++k) {
         const int rk = __shfl_sync(kFullMask, r, (k0 + k) & 31);
-        if (k0 + k < n) {
-          load_cols<C>(a.o_parts + ((size_t)rk * a.h_q + h) * D + lane * C,
+        if (k0 + k < n && live) {
+          load_cols<C>(a.o_parts + ((size_t)rk * a.h_q + h) * dd + lane * C,
                        ov[k]);
         }
       }
@@ -488,7 +373,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       float o[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(num[c], d_f);
-      store_out<C, QT>(a, row, lane, o);
+      store_out<C, QT>(a, row, dd, lane, live, o);
       if (lane == 0 && a.out_m != nullptr) {
         a.out_m[row] = m_f;
         a.out_l[row] = l_f;
@@ -511,7 +396,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       if (cj0 > cj1) continue;             // no visible token here
       if (kWide && a.tc < a.page && (it > 0 || c0 > 0)) {
         __syncthreads();
-        stage_tail<D, KT>(a, ks, vs, b, g, cj0, cj1, c0);
+        stage_tail<D, KT>(a, dd, ks, vs, b, g, cj0, cj1, c0);
         cp_async_commit();
       }
       if (!kWide || a.tc < a.page || it == 0) {
@@ -529,7 +414,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           for (int jj = 0; jj < 32; ++jj) {
             const int j = c0 + ch * 32 + jj;
             part[jj] = 0.f;
-            if (j >= cj0 && j <= cj1) {
+            if (live && j >= cj0 && j <= cj1) {
               float kv[C];
               load_cols<C>(ks + (j - c0) * D + lane * C, kv);
 #pragma unroll
@@ -568,10 +453,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         const int jhi = min(cj1 - c0 - ch * 32, 31);
         for (int jj = jlo; jj <= jhi; ++jj) {
           const float pj = __shfl_sync(kFullMask, p[ch], jj);
-          float vv[C];
-          load_cols<C>(vs + (ch * 32 + jj) * D + lane * C, vv);
+          if (live) {
+            float vv[C];
+            load_cols<C>(vs + (ch * 32 + jj) * D + lane * C, vv);
 #pragma unroll
-          for (int c = 0; c < C; ++c) u[c] = fmaf(pj, vv[c], u[c]);
+            for (int c = 0; c < C; ++c) u[c] = fmaf(pj, vv[c], u[c]);
+          }
         }
       }
       m_t = m_new;
@@ -591,7 +478,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       const float o_t = __fdiv_rn(u[c], d_t);
       o[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o_f, a1), __fmul_rn(o_t, a2)), d);
     }
-    store_out<C, QT>(a, row, lane, o);
+    store_out<C, QT>(a, row, dd, lane, live, o);
     if (lane == 0 && a.out_m != nullptr) {
       a.out_m[row] = m;
       a.out_l[row] = l;
@@ -599,30 +486,39 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
-template <int D, typename QT, typename KT, bool kWide>
+template <int D, typename QT, typename KT, bool kWide, bool kExact>
 cudaError_t launch_epilogue_as(const EpiArgs& a, int B, int warps,
                                cudaStream_t stream) {
   static size_t allowed = 48 << 10;  // raised once past the default cap
   const size_t smem = a.tail ? 2 * (size_t)a.tc * D * sizeof(KT) : 0;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        epilogue_kernel<D, QT, KT, kWide>,
+        epilogue_kernel<D, QT, KT, kWide, kExact>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  epilogue_kernel<D, QT, KT, kWide>
+  epilogue_kernel<D, QT, KT, kWide, kExact>
       <<<dim3(a.n_kv, B), warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// d 64, 128 and 256 run in their own instances; any other d in the
+// general (wide) 256-column one, the lanes past d masked.
 template <int D, typename QT, typename KT>
 cudaError_t launch_epilogue(const EpiArgs& a, int B, int warps,
                             cudaStream_t stream) {
+  if constexpr (D == 256) {
+    if (a.d != D) {
+      return launch_epilogue_as<D, QT, KT, true, false>(a, B, warps,
+                                                        stream);
+    }
+  }
   const bool wide = a.h_q / a.n_kv != warps || a.tc != a.page ||
                     a.page > 64;
-  return wide ? launch_epilogue_as<D, QT, KT, true>(a, B, warps, stream)
-              : launch_epilogue_as<D, QT, KT, false>(a, B, warps, stream);
+  return wide ? launch_epilogue_as<D, QT, KT, true, true>(a, B, warps, stream)
+              : launch_epilogue_as<D, QT, KT, false, true>(a, B, warps,
+                                                           stream);
 }
 
 template <int D>
@@ -635,238 +531,6 @@ cudaError_t epilogue_for_types(const EpiArgs& a, int B, int warps,
   }
   return kv_bf16 ? launch_epilogue<D, float, BF>(a, B, warps, s)
                  : launch_epilogue<D, float, float>(a, B, warps, s);
-}
-
-// ------------------------------------------------------------------------
-// The mesh's cross-shard merge
-// ------------------------------------------------------------------------
-
-constexpr int kMergeWarps = 8;  // query heads (warps) a block
-constexpr int kMergeLeaf = 16;  // shards whose rounds run in registers
-
-struct MergeArgs {
-  const float* o;              // (D, M, B, h, hd)
-  const float* m;              // (D, M, B, h)
-  const float* l;              // (D, M, B, h)
-  const long long* gather;     // (Bm,) rows merged (padding 0)
-  const long long* scatter;    // (Bm,) where they go (padding B)
-  const long long* contrib;    // (D,) 1 for shards with partials
-  void* out;                   // (M, B, h, hd) float32 or bf16
-  float* out_m;                // (M, B, h) or null
-  float* out_l;                // (M, B, h) or null
-  int D, M, B, h, Bm;
-};
-
-// codec_por's arithmetic on one lane's columns: (o1, m1, l1) is the local
-// operand and takes the result
-template <int C>
-__device__ __forceinline__ void por_merge(float (&o1)[C], float& m1,
-                                          float& l1, const float (&o2)[C],
-                                          float m2, float l2) {
-  const float mx = fmaxf(m1, m2);
-  const float a1 = __fmul_rn(expf(m1 - mx), l1);
-  const float a2 = __fmul_rn(expf(m2 - mx), l2);
-  const float ll = __fadd_rn(a1, a2);
-  const float den = fmaxf(ll, 1e-30f);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    o1[c] = __fdiv_rn(__fadd_rn(__fmul_rn(o1[c], a1), __fmul_rn(o2[c], a2)),
-                      den);
-  }
-  m1 = mx;
-  l1 = ll;
-}
-
-// Rounds SHIFT, 2 SHIFT, .. ND/2 of the butterfly over the ND shards
-// base .. base + ND - 1, on the shards whose values the block's first
-// shard still needs (the multiples of SHIFT).
-template <int ND, int C, int SHIFT>
-__device__ __forceinline__ void butterfly(float (&o)[ND][C], float (&m)[ND],
-                                          float (&l)[ND], int xall,
-                                          int anchor, int base) {
-  if constexpr (SHIFT < ND) {
-    if (xall >= SHIFT) {
-#pragma unroll
-      for (int s = 0; s < ND; s += 2 * SHIFT) {
-        por_merge<C>(o[s], m[s], l[s], o[s + SHIFT], m[s + SHIFT],
-                     l[s + SHIFT]);
-      }
-    } else {
-      // a copy round: a select, no arithmetic
-#pragma unroll
-      for (int s = 0; s < ND; s += 2 * SHIFT) {
-        if ((base + s) / SHIFT != anchor / SHIFT) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) o[s][c] = o[s + SHIFT][c];
-          m[s] = m[s + SHIFT];
-          l[s] = l[s + SHIFT];
-        }
-      }
-    }
-    butterfly<ND, C, 2 * SHIFT>(o, m, l, xall, anchor, base);
-  }
-}
-
-// Loads the ND shards base .. base + ND - 1 of one row and runs their
-// rounds: (res, mr, lr) is the block's result, what shard `base` holds
-// after round ND / 2.
-template <int ND, int C>
-__device__ __forceinline__ void merge_block(const MergeArgs& a, int mi,
-                                            long long g, int hh, int lane,
-                                            int xall, int anchor, int base,
-                                            float (&res)[C], float& mr,
-                                            float& lr) {
-  constexpr int HD = 32 * C;
-  float o[ND][C], m[ND], l[ND];
-#pragma unroll
-  for (int s = 0; s < ND; ++s) {
-    const size_t r = (((size_t)(base + s) * a.M + mi) * a.B + g) * a.h + hh;
-    load_cols<C>(a.o + r * HD + lane * C, o[s]);
-    m[s] = a.m[r];
-    l[s] = a.l[r];
-  }
-  butterfly<ND, C, 1>(o, m, l, xall, anchor, base);
-#pragma unroll
-  for (int c = 0; c < C; ++c) res[c] = o[0][c];
-  mr = m[0];
-  lr = l[0];
-}
-
-// Grid (B, M, ceil(h / kMergeWarps)), one warp per query head.  ND = D up
-// to kMergeLeaf shards; past that (kWide) the D shards run in blocks of
-// ND = kMergeLeaf, each block's rounds in registers, and the blocks'
-// results are combined in the tree's order by a binary counter: after
-// block i, while bit k of i is set, the stacked result of the block pair
-// to its left (shards i * ND - 2^k ND .. ) takes round 2^k ND with it.
-// The stack holds one result a level (log2(D / ND) levels), in local
-// memory.
-template <int ND, int C, typename OT, bool kWide>
-__global__ void __launch_bounds__(kMergeWarps * 32)
-    mesh_merge_kernel(const MergeArgs a) {
-  constexpr int HD = 32 * C;
-  const int b = blockIdx.x, mi = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int h = blockIdx.z * kMergeWarps + (threadIdx.x >> 5);
-  if (h >= a.h) return;  // whole warps only
-
-  // the merge slot that scatters to row b, if any (padding scatters to B)
-  int slot = -1;
-  for (int j0 = 0; j0 < a.Bm; j0 += 32) {
-    const int j = j0 + lane;
-    const unsigned hit =
-        __ballot_sync(kFullMask, j < a.Bm && a.scatter[j] == b);
-    if (hit) {
-      slot = j0 + __ffs(hit) - 1;
-      break;
-    }
-  }
-  const size_t orow = ((size_t)mi * a.B + b) * a.h + h;  // = shard 0's row
-  float res[C];
-  float mr, lr;
-  if (slot < 0 || (!kWide && ND == 1)) {
-    load_cols<C>(a.o + orow * HD + lane * C, res);
-    mr = a.m[orow];
-    lr = a.l[orow];
-  } else {
-    // anchor = the first contributor (0 if none), xall = max over the
-    // contributors of (shard ^ anchor): one ballot up to 16 shards, past
-    // that 32 shards a ballot
-    int anchor = -1, xall = 0;
-    if constexpr (!kWide) {
-      const bool is_c = lane < ND && a.contrib[lane] > 0;
-      const unsigned cm = __ballot_sync(kFullMask, is_c);
-      anchor = cm ? __ffs(cm) - 1 : 0;
-      xall = (int)__reduce_max_sync(
-          kFullMask, is_c ? (unsigned)(lane ^ anchor) : 0u);
-    } else {
-      for (int s0 = 0; s0 < a.D && anchor < 0; s0 += 32) {
-        const unsigned cm = __ballot_sync(
-            kFullMask, s0 + lane < a.D && a.contrib[s0 + lane] > 0);
-        if (cm) anchor = s0 + __ffs(cm) - 1;
-      }
-      if (anchor < 0) anchor = 0;
-      for (int s0 = 0; s0 < a.D; s0 += 32) {
-        const int s = s0 + lane;
-        const bool is_c = s < a.D && a.contrib[s] > 0;
-        xall = max(xall, (int)__reduce_max_sync(
-                             kFullMask, is_c ? (unsigned)(s ^ anchor) : 0u));
-      }
-    }
-    const long long g = a.gather[slot];
-    if constexpr (!kWide) {
-      merge_block<ND, C>(a, mi, g, h, lane, xall, anchor, 0, res, mr, lr);
-    } else {
-      constexpr int kLevels = 16;  // D up to ND * 2^15
-      float so[kLevels][C], sm[kLevels], sl[kLevels];
-      int top = 0;
-      for (int i = 0; i < a.D / ND; ++i) {
-        merge_block<ND, C>(a, mi, g, h, lane, xall, anchor, i * ND, res, mr,
-                           lr);
-        int size = ND, lo = i * ND, k = 0;
-        while ((i >> k) & 1) {
-          // the left half, shards lo - size .. lo - 1, is the local operand
-          const int left = lo - size;
-          float lo_o[C];
-#pragma unroll
-          for (int c = 0; c < C; ++c) lo_o[c] = so[k][c];
-          float lo_m = sm[k], lo_l = sl[k];
-          if (xall >= size) {
-            por_merge<C>(lo_o, lo_m, lo_l, res, mr, lr);
-          } else if (left / size != anchor / size) {
-            // a copy round: the left half takes the right half's result
-#pragma unroll
-            for (int c = 0; c < C; ++c) lo_o[c] = res[c];
-            lo_m = mr;
-            lo_l = lr;
-          }
-#pragma unroll
-          for (int c = 0; c < C; ++c) res[c] = lo_o[c];
-          mr = lo_m;
-          lr = lo_l;
-          lo = left;
-          size *= 2;
-          ++k;
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) so[k][c] = res[c];
-        sm[k] = mr;
-        sl[k] = lr;
-        top = k;
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) res[c] = so[top][c];
-      mr = sm[top];
-      lr = sl[top];
-    }
-  }
-  store_cols<C>(static_cast<OT*>(a.out) + orow * HD + lane * C, res);
-  if (lane == 0 && a.out_m != nullptr) {
-    a.out_m[orow] = mr;
-    a.out_l[orow] = lr;
-  }
-}
-
-template <int ND, int C, bool kWide>
-cudaError_t launch_merge(const MergeArgs& a, int out_bf16,
-                         cudaStream_t stream) {
-  const int warps = a.h < kMergeWarps ? a.h : kMergeWarps;
-  const dim3 grid(a.B, a.M, (a.h + kMergeWarps - 1) / kMergeWarps);
-  if (out_bf16) {
-    mesh_merge_kernel<ND, C, __nv_bfloat16, kWide>
-        <<<grid, warps * 32, 0, stream>>>(a);
-  } else {
-    mesh_merge_kernel<ND, C, float, kWide><<<grid, warps * 32, 0, stream>>>(
-        a);
-  }
-  return cudaGetLastError();
-}
-
-template <int ND, bool kWide = false>
-cudaError_t merge_for_dim(const MergeArgs& a, int hd, int out_bf16,
-                          cudaStream_t s) {
-  if (hd == 64) return launch_merge<ND, 2, kWide>(a, out_bf16, s);
-  if (hd == 128) return launch_merge<ND, 4, kWide>(a, out_bf16, s);
-  return launch_merge<ND, 8, kWide>(a, out_bf16, s);
 }
 
 }  // namespace
@@ -902,9 +566,8 @@ extern "C" int codec_por_epilogue(
     int B, int h_q, int n_kv, int d,
     int page, int window, int tail, float scale, void* stream) {
   const int group = n_kv > 0 ? h_q / n_kv : 0;
-  if (n_kv <= 0 || h_q % n_kv || group < 1 ||
-      (d != 64 && d != 128 && d != 256) ||
-      (tail && (page < 1 || page > kMaxPage)) || B < 0) {
+  if (n_kv <= 0 || h_q % n_kv || group < 1 || !codec::head_dim_taken(d) ||
+      (tail && (page < 1 || page >= kMaxPage)) || B < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return static_cast<int>(cudaGetLastError());
@@ -927,9 +590,15 @@ extern "C" int codec_por_epilogue(
   a.out_l = static_cast<float*>(out_l);
   a.h_q = h_q;
   a.n_kv = n_kv;
+  a.d = d;
   a.page = tail ? page : 1;
-  const size_t kv_size = kv_bf16 ? 2 : 4;
-  a.tc = 2 * (size_t)a.page * d * kv_size <= kTailSmem ? a.page
+  // the instance: d's own at 64, 128 and 256, else the 256-column one
+  const int D = d == 64 || d == 128 ? d : 256;
+  // a pass stages the whole page where it fits, else kTailPass or
+  // kTailChunk tokens of rows of the instance's D columns
+  const size_t row = 2 * (size_t)D * (kv_bf16 ? 2 : 4);
+  a.tc = a.page <= kTailPass && a.page * row <= kTailSmem ? a.page
+         : kTailPass * row <= kTailSmem                  ? kTailPass
                                                          : kTailChunk;
   a.window = window;
   a.tail = tail ? 1 : 0;
@@ -940,67 +609,12 @@ extern "C" int codec_por_epilogue(
   while (group % warps) --warps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d == 64) {
+  if (D == 64) {
     err = epilogue_for_types<64>(a, B, warps, q_bf16, kv_bf16, s);
-  } else if (d == 128) {
+  } else if (D == 128) {
     err = epilogue_for_types<128>(a, B, warps, q_bf16, kv_bf16, s);
   } else {
     err = epilogue_for_types<256>(a, B, warps, q_bf16, kv_bf16, s);
-  }
-  return static_cast<int>(err);
-}
-
-// The mesh's cross-shard merge of one layer: o (D, M, B, h, hd), m / l
-// (D, M, B, h) float32; gather / scatter (Bm,) and contrib (D,) int64; out
-// (M, B, h, hd) bf16 when out_bf16, else float32; out_m / out_l (M, B, h)
-// float32 or null.  Returns the cudaError_t of the launch (0 = success),
-// cudaErrorInvalidValue for a shape it does not take.
-extern "C" int codec_mesh_merge(const void* o, const void* m, const void* l,
-                                const void* gather, const void* scatter,
-                                const void* contrib, void* out, int out_bf16,
-                                void* out_m, void* out_l, int D, int M, int B,
-                                int h, int hd, int Bm, void* stream) {
-  if (D < 1 || (D & (D - 1)) || D > (kMergeLeaf << 15) ||
-      (hd != 64 && hd != 128 && hd != 256) || M < 1 || h < 1 || B < 0 ||
-      Bm < 0 || M > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (B == 0) return static_cast<int>(cudaGetLastError());
-  MergeArgs a;
-  a.o = static_cast<const float*>(o);
-  a.m = static_cast<const float*>(m);
-  a.l = static_cast<const float*>(l);
-  a.gather = static_cast<const long long*>(gather);
-  a.scatter = static_cast<const long long*>(scatter);
-  a.contrib = static_cast<const long long*>(contrib);
-  a.out = out;
-  a.out_m = static_cast<float*>(out_m);
-  a.out_l = static_cast<float*>(out_l);
-  a.D = D;
-  a.M = M;
-  a.B = B;
-  a.h = h;
-  a.Bm = Bm;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 1:
-      err = merge_for_dim<1>(a, hd, out_bf16, s);
-      break;
-    case 2:
-      err = merge_for_dim<2>(a, hd, out_bf16, s);
-      break;
-    case 4:
-      err = merge_for_dim<4>(a, hd, out_bf16, s);
-      break;
-    case 8:
-      err = merge_for_dim<8>(a, hd, out_bf16, s);
-      break;
-    case kMergeLeaf:
-      err = merge_for_dim<kMergeLeaf>(a, hd, out_bf16, s);
-      break;
-    default:
-      err = merge_for_dim<kMergeLeaf, true>(a, hd, out_bf16, s);
   }
   return static_cast<int>(err);
 }

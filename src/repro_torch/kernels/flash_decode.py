@@ -16,6 +16,7 @@ kernel is the *layout-level* baseline over dense tensors.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -27,11 +28,21 @@ from .ref import MASK_VALUE
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# what the kernel takes: these head dims, and any number of query heads
-# per KV head (h_q % n_kv == 0), as the TPU kernel does
-HEAD_DIMS = (64, 128, 256)
-# a split keeps at least this many KV positions
+# what the kernel takes: the kernels' head dims (d % 16 == 0, 16 <= d <=
+# 256), and any number of query heads per KV head (h_q % n_kv == 0), as
+# the TPU kernel does
+HEAD_DIMS = build.HEAD_DIMS
+# a pass-1 block takes a multiple of this many visible positions (the
+# kernel's tile)
 SPLIT_TILE = 64
+# blocks an SM that the grid holds where every row reaches L
+BLOCKS_PER_SM = 8
+# a block that holds h query heads takes at least ceil(h / HEADS_PER_TILE)
+# tiles, so that its partial (h x d floats, written and read once more by
+# the merge) stays a small share of the K and V it reads, as long as the
+# grid keeps MIN_BLOCKS_PER_SM blocks an SM
+HEADS_PER_TILE = 4
+MIN_BLOCKS_PER_SM = 1
 
 
 def flash_decode_torch(q: torch.Tensor,        # (B, h_q, d)
@@ -69,15 +80,30 @@ def flash_decode_torch(q: torch.Tensor,        # (B, h_q, d)
     return o.reshape(B, h_q, d).to(q.dtype)
 
 
-def num_splits(batch_heads: int, L: int, num_sms: int) -> int:
-    """KV splits per (row, KV head): the smallest power of two that gives
-    at least two blocks per SM, capped so each split keeps at least
-    ``SPLIT_TILE`` positions."""
-    cap = max(1, L // SPLIT_TILE)
-    s = 1
-    while 2 * s <= cap and batch_heads * s < 2 * num_sms:
-        s *= 2
-    return s
+def split_tokens(row_heads: int, span: int, num_sms: int,
+                 heads: int = 1) -> int:
+    """Visible positions T that a pass-1 block takes: the least multiple
+    of ``SPLIT_TILE`` at which rows of ``span`` positions give at most
+    about ``BLOCKS_PER_SM`` blocks an SM over ``row_heads`` (rows x KV
+    heads x head chunks); for a block of ``heads`` query heads at least
+    ceil(heads / HEADS_PER_TILE) tiles, unless that leaves fewer than
+    about ``MIN_BLOCKS_PER_SM`` blocks an SM.  A row of n visible
+    positions takes ceil(n / T) blocks, each with the same work, so a
+    short row costs only its own blocks."""
+    def tokens(per_sm):
+        splits = max(1, -(-per_sm * num_sms // max(row_heads, 1)))
+        return SPLIT_TILE * max(1, -(-span // (SPLIT_TILE * splits)))
+    wide = SPLIT_TILE * -(-heads // HEADS_PER_TILE)
+    return max(tokens(BLOCKS_PER_SM), min(wide, tokens(MIN_BLOCKS_PER_SM)))
+
+
+def kernel_refusal(d: int, h_q: int, n_kv: int) -> Optional[str]:
+    """Why the kernel does not take head dim ``d`` with ``h_q`` query
+    heads over ``n_kv`` KV heads, or None where it does."""
+    if d not in HEAD_DIMS or n_kv < 1 or h_q < n_kv or h_q % n_kv:
+        return (f"the kernel takes d a multiple of 16 from 16 to 256 and h_q "
+                f"a multiple of n_kv, got d={d} h_q={h_q} n_kv={n_kv}")
+    return None
 
 
 def _check(name: str, t: torch.Tensor, dev, dtypes) -> None:
@@ -119,31 +145,34 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_lens "
                          f"{tuple(kv_lens.shape)} do not fit")
-    if d not in HEAD_DIMS or n_kv < 1 or h_q % n_kv:
-        raise ValueError(f"flash_decode: the kernel takes d in {HEAD_DIMS} "
-                         f"and h_q a multiple of n_kv, got d={d} h_q={h_q} "
-                         f"n_kv={n_kv}")
+    why = kernel_refusal(d, h_q, n_kv)
+    if why is not None:
+        raise ValueError(f"flash_decode: {why}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: k and v must be 16-byte aligned "
                          "(vector loads)")
     lib = build.load()
-    # the query heads one block holds; a wider group takes several blocks
-    # a KV head, and each counts toward filling the card
-    G = lib.codec_flash_decode_chunk(d, h_q // n_kv)
-    chunks = -(-(h_q // n_kv) // G)
-    S = num_splits(B * n_kv * chunks, L,
-                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    q_bf16, kv_bf16 = int(q.dtype == torch.bfloat16), \
+        int(k.dtype == torch.bfloat16)
+    # blocks a KV head (a group past what one block holds is cut into
+    # chunks); each counts toward filling the card
+    group = h_q // n_kv
+    chunks = lib.codec_flash_decode_chunks(d, group, kv_bf16, q_bf16)
+    span = min(L, window) if window > 0 else L
+    T = split_tokens(B * n_kv * chunks, span,
+                     torch.cuda.get_device_properties(dev)
+                     .multi_processor_count, -(-group // chunks))
+    S = max(1, -(-span // T))
     o_part = torch.empty((B, S, h_q, d), dtype=torch.float32, device=dev)
     m_part = torch.empty((B, S, h_q), dtype=torch.float32, device=dev)
     l_part = torch.empty((B, S, h_q), dtype=torch.float32, device=dev)
     out = torch.empty((B, h_q, d), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.codec_flash_decode(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-        v.data_ptr(), int(k.dtype == torch.bfloat16), kv_lens.data_ptr(),
-        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        out.data_ptr(), B, L, h_q, n_kv, d, int(window), S,
-        1.0 / math.sqrt(d), stream)
+        q.data_ptr(), q_bf16, k.data_ptr(), v.data_ptr(), kv_bf16,
+        kv_lens.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
+        l_part.data_ptr(), out.data_ptr(), B, L, h_q, n_kv, d, int(window),
+        T, S, 1.0 / math.sqrt(d), stream)
     build.check(err, "codec_flash_decode")
     global launches
     launches += 1

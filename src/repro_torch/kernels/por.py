@@ -29,10 +29,10 @@ the card) over every shard at once.  No serving path calls them.
 ``mesh_merge`` is what the mesh's step runs once a layer: shard 0's view
 of ``por_subgroup_merge`` over the rows that span shards, scattered into
 the layer's output and cast, in one launch of the kernel
-``codec_mesh_merge`` for CUDA tensors and through ``mesh_merge_torch``
-(the same composition as plain torch ops, its rounds on ``por_ref``) for
-CPU tensors.  Its rows are bitwise those of the stacked butterfly on
-``codec_por``.
+``codec_mesh_merge`` (``csrc/mesh_merge.cu``) for CUDA tensors and
+through ``mesh_merge_torch`` (the same composition as plain torch ops, its
+rounds on ``por_ref``) for CPU tensors.  Its rows are bitwise those of
+the stacked butterfly on ``codec_por``.
 """
 
 from __future__ import annotations
@@ -53,11 +53,12 @@ mesh_merge_launches = 0
 
 por_torch = por_ref
 
-# what the epilogue kernel takes: these head dims, any page up to
-# EPILOGUE_MAX_PAGE tokens and any number of query heads per KV head
-EPILOGUE_HEAD_DIMS = (64, 128, 256)
-EPILOGUE_MAX_PAGE = 128
-# what the mesh merge kernel takes: the epilogue's head dims and any
+# what the epilogue kernel takes: the kernels' head dims (d % 16 == 0,
+# 16 <= d <= 256), any page up to EPILOGUE_MAX_PAGE tokens (PAC's bound:
+# a page's token count has 20 bits) and any number of query heads per KV
+# head
+EPILOGUE_MAX_PAGE = (1 << 20) - 1
+# what the mesh merge kernel takes: the same head dims and any
 # power-of-two data axis up to MERGE_MAX_SHARDS (its stack of block
 # results has 16 levels)
 MERGE_MAX_SHARDS = 1 << 19
@@ -66,9 +67,10 @@ MERGE_MAX_SHARDS = 1 << 19
 def epilogue_refusal(d: int, page: int) -> Optional[str]:
     """Why ``codec_por_epilogue`` does not take head dim ``d`` at pages of
     ``page`` tokens, or None where it does."""
-    if d not in EPILOGUE_HEAD_DIMS or not 1 <= page <= EPILOGUE_MAX_PAGE:
-        return (f"the kernel takes d in {EPILOGUE_HEAD_DIMS} and pages of 1 "
-                f"to {EPILOGUE_MAX_PAGE} tokens, got d={d} page={page}")
+    if d not in build.HEAD_DIMS or not 1 <= page <= EPILOGUE_MAX_PAGE:
+        return (f"the kernel takes d a multiple of 16 from 16 to 256 and "
+                f"pages of 1 to {EPILOGUE_MAX_PAGE} tokens, got d={d} "
+                f"page={page}")
     return None
 
 
@@ -76,10 +78,10 @@ def merge_refusal(D: int, hd: int) -> Optional[str]:
     """Why ``codec_mesh_merge`` does not take a data axis of ``D`` shards
     at head dim ``hd``, or None where it does."""
     if D < 1 or D & (D - 1) or D > MERGE_MAX_SHARDS \
-            or hd not in EPILOGUE_HEAD_DIMS:
+            or hd not in build.HEAD_DIMS:
         return (f"the kernel takes a power-of-two shard axis up to "
-                f"{MERGE_MAX_SHARDS} and hd in {EPILOGUE_HEAD_DIMS}, got "
-                f"D={D} hd={hd}")
+                f"{MERGE_MAX_SHARDS} and hd a multiple of 16 from 16 to "
+                f"256, got D={D} hd={hd}")
     return None
 
 

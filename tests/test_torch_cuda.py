@@ -15,10 +15,10 @@ writes into an output filled with NaN, and gives the same bits twice:
 every shape it takes is among them (groups up to 32, at d 256 too, where
 8 warps take 4 heads each; pages of 8 and 24, which end in a partial
 32-token round; page 128 at d 256 with f32 KV, staged 64 tokens at a
-time).  ``flash_decode`` is held at d 64, 128 and 256 and groups 1, 4, 5,
-7, 8, 16 and 32 (one head chunk, idle heads in the chunk, several chunks
-a KV head).  The epilogue's refusals: d 96, 32 and 512 and pages past
-128; pages 8 and 32, group 9 and group 32 at page 128 launch.
+time).  ``flash_decode`` is held at d 16-256 and groups 1 to 128.  The
+epilogue's refusals: d 20, 8, 272 and 512; pages 8 to 1024, group 9,
+group 32 at page 128 and d 16, 32, 48 and 96 launch (C8: pages of 256
+and 1024 and head dims 16, 48 and 96 also over the plans).
 
 Needs an NVIDIA GPU and ``nvcc`` (the kernels are built on first use);
 skips elsewhere.  Run on the card with
@@ -83,7 +83,12 @@ def test_flash_decode_matches_plain_on_card(window):
     kv_len, q and KV types mixed, at d 128 with groups 4 and 1, and at
     every head layout the kernel's head chunks reach: d 64 and 256,
     groups 5 and 7 (heads past the group idle in the chunk), 16 and 32
-    (several chunks a KV head), and d 256 at groups 4, 8 and 32."""
+    (several chunks a KV head), and d 256 at groups 4, 8 and 32.  Since
+    the redesign (tensor cores over the group for bf16 KV, f32 KV on
+    FFMA): also d 16, 48 and 96 (the next instance's columns past d
+    masked), groups 64 (two teams a block over one staged tile) and 128
+    (two blocks a KV head), and 700 positions against 64-token tiles and
+    splits of a multiple of 64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
     rng = np.random.default_rng(23 + window)
@@ -92,7 +97,9 @@ def test_flash_decode_matches_plain_on_card(window):
     for hq, hkv, d in ((32, 8, 128), (8, 8, 128), (8, 8, 64), (32, 4, 64),
                        (40, 8, 128), (56, 8, 128), (32, 2, 128),
                        (32, 1, 128), (4, 1, 256), (8, 1, 256),
-                       (40, 8, 256), (32, 1, 256)):
+                       (40, 8, 256), (32, 1, 256), (16, 4, 16),
+                       (10, 2, 16), (32, 2, 48), (32, 4, 96), (64, 1, 96),
+                       (128, 1, 64), (40, 2, 256)):
         q = torch.from_numpy(rng.standard_normal((4, hq, d)).astype(
             np.float32)).cuda()
         k, v = (torch.from_numpy(rng.standard_normal((4, L, hkv, d)).astype(
@@ -144,9 +151,10 @@ def _nan_outputs(pa, h_q, d):
 
 def _forest_plan(case):
     page = {"page64": 64, "page8": 8, "page24": 24, "page32": 32,
-            "page128": 128, "page128-d256": 128, "g32-page32": 32}.get(case,
-                                                                      16)
+            "page128": 128, "page128-d256": 128, "g32-page32": 32,
+            "page256": 256, "page1024": 1024}.get(case, 16)
     hq, hkv, d = {"g1": (8, 8, 128), "g8": (32, 4, 128), "d64": (8, 8, 64),
+                  "d16": (16, 4, 16), "d48": (24, 8, 48), "d96": (32, 4, 96),
                   "d256": (8, 1, 256), "gemma3-global": (4, 1, 256),
                   "gemma3-local": (4, 1, 256),
                   "g5": (40, 8, 128), "g7": (56, 8, 128),
@@ -167,6 +175,8 @@ def _forest_plan(case):
         "page128": lambda: tree.two_level(8, 600, 150, block_size=page),
         "page128-d256": lambda: tree.two_level(8, 600, 150,
                                                block_size=page),
+        "page256": lambda: tree.two_level(8, 600, 300, block_size=page),
+        "page1024": lambda: tree.two_level(4, 2200, 1100, block_size=page),
         "kary": lambda: tree.full_kary(3, 3, 40, block_size=page),
     }.get(case, lambda: tree.two_level(8, 200, 37, block_size=page))()
     plan_mod.assign_dense_pages(forest)
@@ -189,7 +199,11 @@ PAC_CASES = ("codec", "flash", "padding-lanes", "window24", "g1", "g8",
              # pages of 8, 24 (partial 32-token rounds), 32 and 128 (f32 KV
              # at d 256 staged 64 tokens at a time)
              "g7", "g16", "g32", "g32-page32", "page8", "page24", "page32",
-             "page128", "page128-d256")
+             "page128", "page128-d256",
+             # C8: pages past 128 (the epilogue's tail in passes of 128
+             # tokens) and head dims 16, 48 and 96 (the next instance's
+             # columns past d masked)
+             "page256", "page1024", "d16", "d48", "d96")
 PAC_TYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16))
 
@@ -343,9 +357,9 @@ def test_por_epilogue_plans_on_card(case):
 
 @pytest.mark.cuda
 def test_por_epilogue_refuses_shapes_it_does_not_take():
-    """On an H100: head dims and pages outside the kernel's set raise
-    before any launch, as do wrong types; other pages up to 128 and
-    other groups launch."""
+    """On an H100: head dims outside the kernel's set (multiples of 16
+    from 16 to 256) raise before any launch, as do wrong types; every
+    such head dim, pages past 128 and other groups launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
 
@@ -363,14 +377,17 @@ def test_por_epilogue_refuses_shapes_it_does_not_take():
     por_mod.por_epilogue(*args())
     torch.cuda.synchronize()
     assert por_mod.epilogue_launches == lo + 1
-    # taken: any page up to 128 and any group
-    for kw in ({"page": 32}, {"page": 8}, {"hq": 18, "hkv": 2},
-               {"hq": 32, "hkv": 1, "page": 128}):
+    # taken: any page, any group, every multiple of 16 up to 256
+    taken = ({"page": 32}, {"page": 8}, {"hq": 18, "hkv": 2},
+             {"hq": 32, "hkv": 1, "page": 128}, {"page": 256},
+             {"page": 1024}, {"d": 96}, {"d": 32}, {"d": 16}, {"d": 48},
+             {"d": 256, "page": 512})
+    for kw in taken:
         por_mod.por_epilogue(*args(**kw))
     torch.cuda.synchronize()
-    assert por_mod.epilogue_launches == lo + 5
-    lo += 4
-    for kw in ({"d": 96}, {"d": 32}, {"d": 512}, {"page": 256}):
+    assert por_mod.epilogue_launches == lo + 1 + len(taken)
+    lo += len(taken)
+    for kw in ({"d": 20}, {"d": 8}, {"d": 512}, {"d": 272}):
         with pytest.raises(ValueError, match="the kernel takes"):
             por_mod.por_epilogue(*args(**kw))
     a = list(args())
@@ -449,7 +466,7 @@ def test_fused_streams_equal_eager_on_card(backend):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("page", [8, 24, 32, 128])
+@pytest.mark.parametrize("page", [8, 24, 32, 128, 256])
 def test_engine_serves_any_page_on_card(page):
     """On an H100 (ROADMAP C7): the engine serves through fused
     ``codec-cuda`` at pages other than 16 and 64, and its
@@ -469,6 +486,34 @@ def test_engine_serves_any_page_on_card(page):
                            fused=fused, device="cuda")
         streams[(backend, fused)] = _crossing(eng)
         assert eng.stats["nonfinite_rows"] == 0
+    assert len(set(map(str, streams.values()))) == 1, streams
+
+
+@pytest.mark.cuda
+def test_engine_serves_smoke_config_on_card():
+    """On an H100 (ROADMAP C8): the smoke config's head dim 16, which the
+    engine refused on the card before, serves through fused
+    ``codec-cuda`` (PAC at d 16, the epilogue in its 32-column instance),
+    its streams equal to ``codec-torch``'s (plain PAC) and the eager
+    engine's at f32 weights; every decode step launched the epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("qwen3-4b")
+    assert cfg.head_dim == 16
+    model = build_model(cfg, seed=0, device="cuda", dtype=torch.float32)
+    streams = {}
+    for backend, fused in (("codec-cuda", True), ("codec-torch", True),
+                           ("codec-cuda", False)):
+        lo = por_mod.epilogue_launches
+        eng = DecodeEngine(cfg, model, page_size=16, num_pages=256, max_q=8,
+                           backend=backend, fused=fused, device="cuda")
+        streams[(backend, fused)] = _crossing(eng)
+        assert eng.stats["nonfinite_rows"] == 0
+        assert por_mod.epilogue_launches > lo
     assert len(set(map(str, streams.values()))) == 1, streams
 
 
@@ -888,14 +933,15 @@ def test_pac_and_epilogue_over_verify_plan_on_card(kind):
                                        atol=1e-5)
         for g, w in zip(got[1:], plain[1:]):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-    # the no-tail mode still refuses a head dim it does not take
-    q16 = torch.zeros(4, 4, 16, device="cuda")
+    # the no-tail mode still refuses a head dim it does not take (d 20:
+    # not a multiple of 16)
+    q20 = torch.zeros(4, 4, 20, device="cuda")
     idx = torch.arange(5, dtype=torch.int32, device="cuda")
-    p16 = ops.Parts(torch.zeros(4, 4, 16, device="cuda"),
+    p20 = ops.Parts(torch.zeros(4, 4, 20, device="cuda"),
                     torch.zeros(4, 4, device="cuda"),
                     torch.zeros(4, 4, device="cuda"), idx, idx[:4])
     with pytest.raises(ValueError, match="the kernel takes"):
-        por_mod.por_epilogue(q16, *p16, None, None, None, None, None,
+        por_mod.por_epilogue(q20, *p20, None, None, None, None, None,
                              tail=False)
 
 

@@ -129,19 +129,27 @@ def test_engine_refuses_kernel_shapes_at_construction(shared):
     """On a CUDA device a shape a decode kernel does not take is refused
     by the constructor, naming the kernel and its limit, before the model
     moves (so here, without a card, too): never at the first decode
-    step.  The CPU's plain paths take any shape."""
+    step.  Since C8's repair only a head dim outside the multiples of 16
+    from 16 to 256 is refused: the smoke config's d 16, d 96 and pages of
+    256 pass the check (it returns before the model moves).  The CPU's
+    plain paths take any shape."""
     import dataclasses
+    import types
     cfg, _, model = shared
-    wide = dataclasses.replace(cfg, head_dim=96)
-    for c, kw, kernel, limit in (
-            (cfg, {}, "codec_por_epilogue", "d in (64, 128, 256)"),
-            (wide, {"backend": "flash"}, "codec_por_epilogue", "d=96"),
-            (dataclasses.replace(cfg, head_dim=64), {"page_size": 256},
-             "codec_por_epilogue", "pages of 1 to 128 tokens")):
-        with pytest.raises(ValueError, match=kernel) as err:
+    assert cfg.head_dim == 16
+    for d, kw in ((20, {}), (288, {"backend": "flash"}),
+                  (20, {"page_size": 256})):
+        c = dataclasses.replace(cfg, head_dim=d)
+        with pytest.raises(ValueError, match="codec_por_epilogue") as err:
             DecodeEngine(c, model, device="cuda", **{**KW, **kw})
-        assert limit in str(err.value)
+        assert f"d={d}" in str(err.value)
+        assert "d a multiple of 16 from 16 to 256" in str(err.value)
     assert next(model.parameters()).device.type == "cpu"
+    for d, page in ((16, 16), (96, 16), (64, 256),
+                    (16, 1024)):
+        stub = types.SimpleNamespace(cfg=dataclasses.replace(cfg, head_dim=d),
+                                     device=torch.device("cuda"))
+        DecodeEngine._check_kernel_shapes(stub, page, None)
     DecodeEngine(cfg, model, device="cpu", **KW)
 
 

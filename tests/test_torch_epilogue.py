@@ -225,6 +225,42 @@ def test_identity_parts_reduce_to_themselves():
     assert (got[0][2] == 0).all() and (got[2][2] == 0).all()
 
 
+# C8: pages past 128 tokens, which the kernel runs in passes of 128 (64
+# for f32 KV at d 256) with the tail's softmax carried online
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("page", [256])
+@pytest.mark.parametrize("case", ["two-level", "window24"])
+def test_epilogue_long_pages_match_repro(case, page, bf16):
+    _check_epilogue(case, page, bf16)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96, 144, 256])
+@pytest.mark.parametrize("page", [1, 128, 256, 1024])
+def test_epilogue_and_merge_take_every_head_dim_and_page(d, page):
+    """C8: every multiple of 16 up to 256 (run in the next instance of
+    32-256 columns, the columns past d masked) and any page up to PAC's
+    bound; the merge takes the same head dims."""
+    assert por_mod.epilogue_refusal(d, page) is None
+    assert por_mod.merge_refusal(2, d) is None
+    assert por_mod.merge_refusal(64, d) is None
+
+
+@pytest.mark.parametrize("d,page", [(20, 16), (8, 16), (0, 16), (272, 16),
+                                    (288, 16), (64, 0),
+                                    (64, por_mod.EPILOGUE_MAX_PAGE + 1)])
+def test_epilogue_refuses_shapes_it_does_not_take(d, page):
+    why = por_mod.epilogue_refusal(d, page)
+    assert why is not None and f"got d={d} page={page}" in why
+    assert "d a multiple of 16 from 16 to 256" in why
+
+
+@pytest.mark.parametrize("D,hd", [(2, 20), (2, 288), (2, 8), (3, 64),
+                                  (0, 64)])
+def test_merge_refuses_shapes_it_does_not_take(D, hd):
+    why = por_mod.merge_refusal(D, hd)
+    assert why is not None and f"got D={D} hd={hd}" in why
+
+
 def test_epilogue_refuses_what_it_cannot_take():
     """No silent fallback: a device without a kernel raises, and so do
     shapes that do not fit together, on every device."""

@@ -134,13 +134,82 @@ def test_decode_attention_ref_matches_repro(hq, hkv, window):
 
 
 def test_num_splits_fills_the_card_and_keeps_a_tile():
-    # 8 rows x 8 KV heads over 4192 positions on 132 SMs: 8 splits
-    assert fd.num_splits(64, 4192, 132) == 8
-    assert fd.num_splits(256, 4192, 132) == 2
-    assert fd.num_splits(512, 4192, 132) == 1
-    # capped so every split keeps SPLIT_TILE positions
-    assert fd.num_splits(1, 200, 132) == 2
-    assert fd.num_splits(1, 10, 132) == 1
+    """A block's positions T (``split_tokens``): a multiple of the tile,
+    at which rows at L give about BLOCKS_PER_SM blocks an SM."""
+    # 8 rows x 8 KV heads over 4192 positions on 132 SMs: 17 splits of 256
+    assert fd.split_tokens(64, 4192, 132) == 256
+    assert -(-4192 // fd.split_tokens(64, 4192, 132)) == 17
+    assert fd.split_tokens(256, 4192, 132) == 896
+    assert fd.split_tokens(8 * 4, 4192, 132) == 128
+    # a KV head of 8 rows (fig13's 32 over 1) takes the tile
+    assert fd.split_tokens(8, 4192, 132) == fd.SPLIT_TILE
+    # one row, a short span: one tile at least
+    assert fd.split_tokens(1, 200, 132) == fd.SPLIT_TILE
+    assert fd.split_tokens(1, 10, 132) == fd.SPLIT_TILE
+    assert fd.split_tokens(1, 0, 132) == fd.SPLIT_TILE
+    # a block of 32 query heads takes 8 tiles while the grid keeps a block
+    # an SM (16 rows x 1 KV head), only 4 over 8 rows
+    assert fd.split_tokens(16, 4192, 132, heads=32) == 8 * fd.SPLIT_TILE
+    assert fd.split_tokens(64, 4192, 132, heads=32) == 8 * fd.SPLIT_TILE
+    assert fd.split_tokens(8, 4192, 132, heads=32) == 4 * fd.SPLIT_TILE
+    assert fd.split_tokens(8, 4192, 132, heads=4) == fd.SPLIT_TILE
+    assert fd.split_tokens(64, 4192, 132, heads=5) == 256
+    for rh, span in ((1, 1), (3, 700), (64, 4192), (4096, 100000)):
+        T = fd.split_tokens(rh, span, 132)
+        assert T % fd.SPLIT_TILE == 0 and T >= fd.SPLIT_TILE
+        assert rh * -(-span // T) <= fd.BLOCKS_PER_SM * 132 + rh
+
+
+# groups 5, 16, 32 and 64 and head dims 16, 48 and 96 (padded to the
+# kernel's 32, 64 and 128 instances), as the redesigned kernel takes them,
+# three of them under a window of 24
+NEW_LAYOUTS = [pytest.param(10, 2, 16, 24, id="g5-d16-w24"),
+               pytest.param(32, 2, 48, 0, id="g16-d48"),
+               pytest.param(32, 1, 96, 24, id="g32-d96-w24"),
+               pytest.param(64, 1, 16, 0, id="g64-d16"),
+               pytest.param(128, 2, 48, 24, id="g64-d48-w24")]
+
+
+@pytest.mark.parametrize("hq,hkv,d,window", NEW_LAYOUTS)
+def test_flash_decode_groups_and_head_dims_match_pallas(hq, hkv, d, window):
+    """f32 and bf16, NaN past every kv_len (and before the window), rows
+    at L, mid-range and 1."""
+    q, k, v, lens = _inputs(hq, hkv, seed=hq + d + window, nan_pad=True,
+                            d=d, lens=[L, 41, 1])
+    if window:
+        for b, n in enumerate(lens):
+            k[b, :max(0, n - window)] = np.nan
+            v[b, :max(0, n - window)] = np.nan
+    got = _port(q, k, v, lens, window=window)
+    want = _repro(q, np.nan_to_num(k), np.nan_to_num(v), lens, chunk=64,
+                  window=window)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    got = _port(q, k, v, lens, dtype=torch.bfloat16, window=window)
+    want = _repro(q, np.nan_to_num(k), np.nan_to_num(v), lens,
+                  dtype=jnp.bfloat16, chunk=64, window=window)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96, 144, 256])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (10, 2), (64, 1), (96, 1)])
+def test_flash_decode_takes_every_head_dim_and_group(hq, hkv, d):
+    """What the wrapper of the CUDA kernel lets through (its checks run
+    before any launch, on a CUDA tensor): every multiple of 16 up to 256
+    and any whole group."""
+    assert fd.kernel_refusal(d, hq, hkv) is None
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(20, 8, 2), (8, 8, 2), (272, 8, 2),
+                                      (288, 8, 2), (0, 8, 2), (64, 6, 4),
+                                      (64, 2, 4), (64, 8, 0)])
+def test_flash_decode_refuses_shapes_it_does_not_take(d, hq, hkv):
+    """A head dim outside the kernels' set, or a group that is not whole,
+    is refused, naming the limit."""
+    assert fd.HEAD_DIMS == tuple(range(16, 257, 16))
+    why = fd.kernel_refusal(d, hq, hkv)
+    assert why is not None and "d a multiple of 16 from 16 to 256" in why
 
 
 def test_flash_decode_refuses_devices_without_kernel():

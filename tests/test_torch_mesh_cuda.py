@@ -178,7 +178,7 @@ def _merge_patterns(D, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256, 16, 48, 96])
 @pytest.mark.parametrize("D", [2, 4, 8, 32, 64])
 def test_mesh_merge_on_card(D, hd):
     """On an H100: ``codec_mesh_merge`` over M = 1, 2 model shards, 12
@@ -188,7 +188,9 @@ def test_mesh_merge_on_card(D, hd):
     1e-6 with ``m`` bitwise; bitwise equal to shard 0's rows of the
     stacked butterfly on ``codec_por``; a lone contributor's partials
     verbatim; rows not merged are shard 0's, cast; bf16 is the f32
-    result cast; two launches give the same bits."""
+    result cast; two launches give the same bits.  hd 16, 48 and 96 (C8)
+    run in the next instance, the lanes past hd reading and writing
+    nothing."""
     _need_card()
     from repro_torch.distributed.step_fn import sharded_step_base
     rng = np.random.default_rng(100 * D + hd)

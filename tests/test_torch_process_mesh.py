@@ -39,6 +39,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import jax
@@ -302,6 +303,7 @@ def _diverge(npz, tmp_path, what):
     for name, msg in got:
         assert name == "MeshDivergenceError", msg
         assert "plan epoch" in msg
+    return got
 
 
 def test_divergent_rank_raises_on_every_rank(npz, tmp_path):
@@ -312,6 +314,18 @@ def test_divergent_fault_plan_raises_on_every_rank(npz, tmp_path):
     """Rank 1's plan holds a stall that rank 0's lacks: only the faults
     fired differ, and the plan epoch's digest holds them."""
     _diverge(npz, tmp_path, "faults")
+
+
+def test_lone_context_gather_raises_on_every_rank(npz, tmp_path):
+    """C6: rank 1 alone gathers a prefill's context (its late request
+    reuses the document, rank 0's shares nothing).  The gather's guard
+    meets rank 0's plan-epoch agree: both ranks raise, naming the two
+    collectives, in seconds rather than at the group's timeout."""
+    t0 = time.perf_counter()
+    got = _diverge(npz, tmp_path, "gather")
+    assert time.perf_counter() - t0 < SPAWN_TIMEOUT / 4
+    for _, msg in got:
+        assert "two collectives, the plan epoch and gather_context" in msg
 
 
 @pytest.fixture(scope="module")

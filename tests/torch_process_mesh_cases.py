@@ -363,9 +363,12 @@ def rank_refusals(mesh, npz: str):
 
 def rank_diverge(mesh, npz: str, what: str = "request"):
     """A 2x1 spawn whose rank 1 is fed another late request (``what ==
-    "request"``) or a stall that rank 0's plan lacks (``"faults"``: only
-    the injectors' counts differ): every rank must raise
-    ``MeshDivergenceError`` (returned here by name)."""
+    "request"``), a stall that rank 0's plan lacks (``"faults"``: only
+    the injectors' counts differ) or a late request that reuses the
+    document where rank 0's shares nothing (``"gather"``: rank 1 alone
+    gathers the context in its prefill, a host collective that rank 0
+    does not issue): every rank must raise ``MeshDivergenceError``
+    (returned here by name)."""
     torch.set_num_threads(1)
     model = load_model(npz)
     plan = None
@@ -375,8 +378,11 @@ def rank_diverge(mesh, npz: str, what: str = "request"):
                        backend="codec-cuda", max_q=8, fused=True,
                        mesh=mesh, seq_split_pages=2, device="cpu",
                        faults=plan)
-    late = LATE if mesh.rank == 0 or what != "request" \
-        else LATE[:-1] + [252]
+    late = LATE
+    if mesh.rank == 1 and what == "request":
+        late = LATE[:-1] + [252]
+    elif mesh.rank == 0 and what == "gather":
+        late = [200 + i for i in range(len(LATE))]
     try:
         for p in PROMPTS:
             eng.add_request(p, max_new=6)

@@ -18,11 +18,19 @@ median beside it), on inputs made from fixed seeds:
 * ``flash_decode`` over 8 rows of 4192 positions, bf16 q: phase 4's
   shape (32 query heads over 8 KV heads, d 128) over f32 and bf16 KV,
   then groups 5 and 8 at d 128, group 32, gemma3-1b's 4 over 1 at d 256,
-  8 over 1 at d 256 and 8 over 8 at d 64, over bf16 KV;
+  8 over 1 at d 256 and 8 over 8 at d 64, over bf16 KV; then every head
+  layout of ``chip_smoke.py``'s 17a rows over its uneven rows (4192 down
+  to 1 positions, ``P17_FD_LENS``), bf16; beside each, its byte bound and
+  the SDPA call over the same rows (``sdpa ...``: bf16 with
+  ``enable_gqa``; over f32 KV the memory-efficient backend with K and V
+  expanded to the query heads outside the timed call, as phase 4 does),
+  which every checkout times alike;
 * the epilogue on PAC's raw partials of an engine-shaped plan (8
   requests over a 4096-token document, each with its own 64), bf16 q
   over an f32 pool, 32 over 8 heads at d 128: pages of 16 and 64, and
   mesh mode (tail-owner flags, float32 ``o``) at a 2x2 shard's 16 over 4;
+  then the head dims and pages C8 opened (d 16 and 96 at page 16, pages
+  256 and 1024 at d 128), which an older checkout refuses;
 * ``codec_mesh_merge`` at 2x1 (8 rows x 32 heads), 2x2 (16 heads a model
   shard) and 16x1, d 128, bf16 out, every shard contributing.
 
@@ -43,52 +51,94 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 FD_LEN, FD_ROWS = 4192, 8
-# (name, h_q, n_kv, d, KV dtype name)
-FD_CASES = (("fd phase 4 f32 KV", 32, 8, 128, "float32"),
-            ("fd phase 4 bf16 KV", 32, 8, 128, "bfloat16"),
-            ("fd group 5", 40, 8, 128, "bfloat16"),
-            ("fd group 8", 64, 8, 128, "bfloat16"),
-            ("fd group 32", 32, 1, 128, "bfloat16"),
-            ("fd d 256 group 4", 4, 1, 256, "bfloat16"),
-            ("fd d 256 group 8", 8, 1, 256, "bfloat16"),
-            ("fd d 64 group 1", 8, 8, 64, "bfloat16"))
-# (name, page, h_q, n_kv, mesh mode)
+# (name, h_q, n_kv, d, KV dtype name, rows of P17_FD_LENS positions
+# rather than FD_LEN each)
+FD_CASES = (("fd phase 4 f32 KV", 32, 8, 128, "float32", False),
+            ("fd phase 4 bf16 KV", 32, 8, 128, "bfloat16", False),
+            ("fd group 5", 40, 8, 128, "bfloat16", False),
+            ("fd group 8", 64, 8, 128, "bfloat16", False),
+            ("fd group 32", 32, 1, 128, "bfloat16", False),
+            ("fd d 256 group 4", 4, 1, 256, "bfloat16", False),
+            ("fd d 256 group 8", 8, 1, 256, "bfloat16", False),
+            ("fd d 64 group 1", 8, 8, 64, "bfloat16", False),
+            ("fd 17a llama4-scout", 40, 8, 128, "bfloat16", True),
+            ("fd 17a llava-next-34b", 56, 8, 128, "bfloat16", True),
+            ("fd 17a fig13 32/2", 32, 2, 128, "bfloat16", True),
+            ("fd 17a fig13 32/1", 32, 1, 128, "bfloat16", True),
+            ("fd 17a MHA d 64", 8, 8, 64, "bfloat16", True),
+            ("fd 17a gemma3-1b", 4, 1, 256, "bfloat16", True))
+# (name, page, h_q, n_kv, mesh mode[, d])
 EPI_CASES = (("epilogue page 16", 16, 32, 8, False),
              ("epilogue page 64", 64, 32, 8, False),
-             ("epilogue page 16 mesh", 16, 16, 4, True))
+             ("epilogue page 16 mesh", 16, 16, 4, True),
+             ("epilogue d 16", 16, 16, 4, False, 16),
+             ("epilogue d 96", 16, 32, 4, False, 96),
+             ("epilogue page 256", 256, 32, 8, False),
+             ("epilogue page 1024", 1024, 32, 8, False))
 # (name, D, M, heads a model shard)
 MERGE_CASES = (("merge 2x1", 2, 1, 32), ("merge 2x2", 2, 2, 16),
                ("merge 16x1", 16, 1, 32))
 
 
+def sdpa_case(torch, q, k, v, lens):
+    """The SDPA call over flash_decode's rows (NaN-free: positions past
+    each row's length are masked): bf16 KV with ``enable_gqa``, f32 KV on
+    the memory-efficient backend over K and V expanded beforehand."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    L = k.shape[1]
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    qs = q.to(k.dtype)[:, :, None]
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    if k.dtype == torch.bfloat16:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    group = q.shape[1] // k.shape[2]
+    ke, ve = (x.repeat_interleave(group, dim=1) for x in (ks, vs))
+
+    def eff():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ke, ve, attn_mask=mask)
+    return eff
+
+
 def cases(torch):
-    """{name: a function of no arguments giving the case's outputs}."""
+    """{name: a function of no arguments giving the case's outputs} and
+    {name: (bound ms, what bounds it)} of the flash_decode cases."""
     import chip_smoke as cs
     from repro_torch.core import cost_model, plan as plan_mod, tree
     from repro_torch.kernels import (flash_decode as fd, ops, pac as pac_mod,
                                      por as por_mod)
-    out = {}
+    out, bounds = {}, {}
     gen = torch.Generator(device="cuda").manual_seed(30)
-    lens = torch.full((FD_ROWS,), FD_LEN, dtype=torch.int32, device="cuda")
-    for name, h_q, n_kv, d, kv in FD_CASES:
-        q = torch.randn(FD_ROWS, h_q, d, generator=gen,
+    for name, h_q, n_kv, d, kv, ragged in FD_CASES:
+        lens = torch.tensor(cs.P17_FD_LENS if ragged else
+                            (FD_LEN,) * FD_ROWS, dtype=torch.int32,
+                            device="cuda")
+        L = int(lens.max())
+        q = torch.randn(lens.numel(), h_q, d, generator=gen,
                         device="cuda").bfloat16()
-        k, v = (torch.randn(FD_ROWS, FD_LEN, n_kv, d, generator=gen,
+        k, v = (torch.randn(lens.numel(), L, n_kv, d, generator=gen,
                             device="cuda").to(getattr(torch, kv))
                 for _ in range(2))
-        out[name] = (lambda q=q, k=k, v=v: fd.flash_decode(q, k, v, lens))
-    for name, page, h_q, n_kv, mesh in EPI_CASES:
+        out[name] = (lambda q=q, k=k, v=v, lens=lens:
+                     fd.flash_decode(q, k, v, lens))
+        out["sdpa" + name[2:]] = sdpa_case(torch, q, k, v, lens)
+        bounds[name] = cs.fd_bound(q, k, lens)
+    for name, page, h_q, n_kv, mesh, *dim in EPI_CASES:
+        d = dim[0] if dim else 128
         forest = tree.two_level(8, 4096, 64, block_size=page)
         pages = plan_mod.assign_dense_pages(forest)
-        cm = cost_model.CostModel(h_q, n_kv, 128, page_size=page)
+        cm = cost_model.CostModel(h_q, n_kv, d, page_size=page)
         plan, tails = cs.engine_state(forest, cm, cs.LANES, cs.MAX_Q, 4096)
         pa = ops.plan_arrays(plan, "cuda")
         B = plan.num_queries
-        k, v = (torch.randn(pages, page, n_kv, 128, generator=gen,
+        k, v = (torch.randn(pages, page, n_kv, d, generator=gen,
                             device="cuda") for _ in range(2))
-        q = torch.randn(B, h_q, 128, generator=gen, device="cuda").bfloat16()
+        q = torch.randn(B, h_q, d, generator=gen, device="cuda").bfloat16()
         o, m, l = pac_mod.pac(q, pa, k, v)
-        parts = ops.Parts(o.reshape(-1, h_q, 128), m.reshape(-1, h_q),
+        parts = ops.Parts(o.reshape(-1, h_q, d), m.reshape(-1, h_q),
                           l.reshape(-1, h_q), pa.seg_offsets, pa.seg_rows)
         kw = {}
         if mesh:
@@ -106,7 +156,7 @@ def cases(torch):
         ct = torch.ones(D, dtype=torch.int64, device="cuda")
         out[name] = (lambda o=o, m=m, l=l, idx=idx, ct=ct: por_mod.mesh_merge(
             o, m, l, idx, idx, ct, torch.bfloat16, stats=True))
-    return out
+    return out, bounds
 
 
 def run(root: Path, save: Path) -> None:
@@ -119,7 +169,9 @@ def run(root: Path, save: Path) -> None:
     build.load()
     timer = cs.Timer()
     times, outs = {}, {}
-    for name, fn in cases(torch).items():
+    fns, bounds = cases(torch)
+    times["bounds"] = bounds
+    for name, fn in fns.items():
         try:
             got = fn()
         except ValueError as e:
@@ -183,8 +235,16 @@ def main(argv) -> int:
             times[roots[i]].append(json.loads(res.stdout.splitlines()[-1]))
             outs.setdefault(roots[i], torch.load(save))
     first = outs[roots[0]]
-    report = {"card": cs.nvidia_smi(), "roots": argv, "cases": {}}
+    bounds = times[roots[0]][0].pop("bounds")
+    for r in roots:
+        for t in times[r]:
+            t.pop("bounds", None)
+    report = {"card": cs.nvidia_smi(), "roots": argv, "bounds": bounds,
+              "cases": {}}
     for name in times[roots[0]][0]:
+        if name in bounds:
+            print(f"{name:24s} bound {bounds[name][0]:.4f} ms by "
+                  f"{bounds[name][1]}")
         row = {}
         for r, arg in zip(roots, argv):
             got = [t[name] for t in times[r]]
